@@ -7,23 +7,28 @@ Needs one CUDA card; run from the root of a checkout. Phases, one or more
 lines each, flushed as they go:
 
 1. ``build``: the nvcc build of ``patch_toon_tpu_torch/csrc/*.cu`` (seconds,
-   and each kernel's registers and spills as ptxas reports them).
-2. ``instance_norm``: kernel B1 against its plain PyTorch version at the five
-   main-path shapes of a 512-tile generator call, fp32 and bf16, each
-   activation. Tolerance: fp32 |d| <= 1e-5 + 1e-5 |ref|; bf16 one bf16 ulp
-   of the value (2^-7 relative) + 1e-5. Kernel, plain and library
-   (``F.instance_norm`` + activation) times by CUDA events, and the bound.
+   and each kernel's registers, shared memory and spills as ptxas reports
+   them).
+2. ``instance_norm``: both variants of kernel B1 (cluster and streaming)
+   against its plain PyTorch version at the five main-path shapes of a
+   512-tile generator call, fp32 and bf16, each activation. Tolerance: fp32
+   |d| <= 1e-5 + 1e-5 |ref|; bf16 one bf16 ulp of the value (2^-7
+   relative) + 1e-5. The two variants timed in turns by CUDA events
+   (streaming, cluster, cluster, streaming), the plain version and the
+   library call (``F.instance_norm`` + activation), the bound and the
+   share of it; per-call totals over the 19 sites.
 3. ``blend``: kernel B2 against its plain version on the real tile layout of
    three 512x910 frames (510 tiles in a bucket of 512). Bitwise equal.
+   Timed three times over.
 4. ``main_path``: ``StyleTransferInference.stylize_group`` at the full width
    of config/model/default.yaml (6 input channels, 7 residual blocks) with
    the weights of docs/quality_2000/torch_train.ckpt, precision bf16 and 32,
    on 512x910 frames made from a numpy seed, full masks, grouped by the
    engine's own rule (3 frames a group). Launch counters are zeroed
-   just before and read just after: B1 must run 19 times per generator call
-   and B2 once per group. Then a small masked frame through the card at
-   precision 32 must agree within 1 uint8 count with the same engine on the
-   CPU (plain versions).
+   just before and read just after: B1's cluster variant must run 19 times
+   per generator call, its streaming variant never, and B2 once per group.
+   Then a small masked frame through the card at precision 32 must agree
+   within 1 uint8 count with the same engine on the CPU (plain versions).
 
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
@@ -103,13 +108,19 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         nvcc_seconds=f"{_build.last_build_seconds:.1f}",
         library=_build.library_path().name)
+    entry = "?"
     for line in _build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say("build", ptxas=line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            say("build", entry=entry, ptxas=line.split(":", 1)[-1].strip())
+    if lib.ptt_instance_norm_slice_bytes() != instance_norm.CTA_BYTES:
+        raise AssertionError("csrc/instance_norm.cu and ops/instance_norm.py "
+                             "disagree on a CTA's slice budget")
 
 
 def _library_in(x: torch.Tensor, act):
@@ -136,48 +147,81 @@ def _in_check(got, want, dtype) -> float:
 
 
 def phase_instance_norm(dev) -> dict:
-    """Kernel vs plain at every (shape, activation) of the main path; the
-    per-call numbers sum the 19 sites of one 512-tile generator call."""
+    """Both variants against the plain version at every (shape, activation,
+    dtype) of the main path, then timed in turns in this one process
+    (streaming, cluster, cluster, streaming); the per-call numbers sum the
+    19 sites of one 512-tile generator call."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    per = {}  # (dtype, shape, act) -> (err, ms, plain_ms, lib_ms)
+    variants = {"cluster": instance_norm.instance_norm_act_cluster,
+                "streaming": instance_norm.instance_norm_act_streaming}
+    per = {}  # (dtype, shape, act) -> dict of errors and times
     for dtype in (torch.bfloat16, torch.float32):
         for shape in sorted({s for s, _ in SITES}):
             x = (torch.randn((B,) + shape, device=dev, generator=gen) * 2.0
                  + 0.5).to(dtype)
+            p = instance_norm.plan_for(x)
+            if p.variant != "cluster":
+                raise AssertionError(f"{shape} {dtype}: plan {p}")
+            bound = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
             for act in (None, "relu", "leaky_relu"):
-                err = _in_check(instance_norm.instance_norm_act(x, act),
-                                instance_norm.instance_norm_act_plain(x, act),
-                                dtype)
-                ms = time_ms(lambda: instance_norm.instance_norm_act(x, act),
-                             10)
-                plain = time_ms(
+                want = instance_norm.instance_norm_act_plain(x, act)
+                r = {f"err_{v}": _in_check(fn(x, act), want, dtype)
+                     for v, fn in variants.items()}
+                del want
+                ms = {v: [] for v in variants}
+                for v in ("streaming", "cluster", "cluster", "streaming"):
+                    ms[v].append(time_ms(lambda: variants[v](x, act), 10))
+                r.update({f"ms_{v}": sum(t) / len(t) for v, t in ms.items()})
+                r["plain_ms"] = time_ms(
                     lambda: instance_norm.instance_norm_act_plain(x, act), 3)
-                lib = time_ms(lambda: _library_in(x, act), 3)
-                per[(dtype, shape, act)] = (err, ms, plain, lib)
+                r["library_ms"] = time_ms(lambda: _library_in(x, act), 3)
+                per[(dtype, shape, act)] = r
                 say("instance_norm", dtype=str(dtype).split(".")[1],
-                    shape=f"{B}x{shape[0]}x{shape[1]}x{shape[2]}",
-                    act=act, max_abs_err=f"{err:.3g}", ms=f"{ms:.4f}",
-                    plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
-                    bound_ms=f"{2 * x.nbytes / HBM_BYTES_PER_S * 1e3:.4f}")
+                    shape=f"{B}x{shape[0]}x{shape[1]}x{shape[2]}", act=act,
+                    k=p.k, G=p.group, cta_kb=f"{p.cta_bytes / 1024:.1f}",
+                    cluster_ms=f"{r['ms_cluster']:.4f}",
+                    cluster_runs="/".join(f"{t:.4f}" for t in ms["cluster"]),
+                    streaming_ms=f"{r['ms_streaming']:.4f}",
+                    streaming_runs="/".join(
+                        f"{t:.4f}" for t in ms["streaming"]),
+                    bound_ms=f"{bound:.4f}",
+                    cluster_share_of_bound=f"{bound / r['ms_cluster']:.3f}",
+                    streaming_share_of_bound=
+                    f"{bound / r['ms_streaming']:.3f}",
+                    plain_ms=f"{r['plain_ms']:.4f}",
+                    library_ms=f"{r['library_ms']:.4f}",
+                    max_abs_err_cluster=f"{r['err_cluster']:.3g}",
+                    max_abs_err_streaming=f"{r['err_streaming']:.3g}")
             del x
-    rec = {}
+    rec = {"variants": {v: {} for v in variants}}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
         item = 2 if dtype == torch.bfloat16 else 4
         elems = sum(B * s[0] * s[1] * s[2] for s, _ in SITES)
         bytes_ms = 2 * elems * item / HBM_BYTES_PER_S * 1e3
         ops_ms = 8 * elems / FP32_FLOPS * 1e3  # sub, mul, 2 sums, act...
         rows = [per[(dtype, s, a)] for s, a in SITES]
+        keys = [k for k in per if k[0] == dtype]
+        for v in variants:
+            rec["variants"][v][f"ms{tag}"] = sum(r[f"ms_{v}"] for r in rows)
+            rec["variants"][v][f"max_abs_err{tag}"] = max(
+                per[k][f"err_{v}"] for k in keys)
         rec.update({
-            f"max_abs_err{tag}": max(per[k][0] for k in per if k[0] == dtype),
-            f"ms{tag}": sum(r[1] for r in rows),
-            f"plain_ms{tag}": sum(r[2] for r in rows),
-            f"library_ms{tag}": sum(r[3] for r in rows),
+            f"max_abs_err{tag}": rec["variants"]["cluster"][
+                f"max_abs_err{tag}"],
+            f"ms{tag}": rec["variants"]["cluster"][f"ms{tag}"],
+            f"plain_ms{tag}": sum(r["plain_ms"] for r in rows),
+            f"library_ms{tag}": sum(r["library_ms"] for r in rows),
             f"bound_ms{tag}": max(bytes_ms, ops_ms),
             f"bound_by{tag}": "bytes" if bytes_ms >= ops_ms else "operations",
         })
-    say("instance_norm", per_call_bf16_ms=f"{rec['ms']:.4f}",
-        bound_ms=f"{rec['bound_ms']:.4f}", per_call_fp32_ms=
-        f"{rec['ms_fp32']:.4f}", bound_fp32_ms=f"{rec['bound_ms_fp32']:.4f}")
+        say("instance_norm", per_call=str(dtype).split(".")[1],
+            cluster_ms=f"{rec['ms' + tag]:.4f}",
+            streaming_ms=f"{rec['variants']['streaming']['ms' + tag]:.4f}",
+            bound_ms=f"{rec['bound_ms' + tag]:.4f}",
+            cluster_share_of_bound=
+            f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
+            plain_ms=f"{rec['plain_ms' + tag]:.4f}",
+            library_ms=f"{rec['library_ms' + tag]:.4f}")
     return rec
 
 
@@ -209,9 +253,6 @@ def phase_blend(dev) -> dict:
         d = (got[0] - want[0]).abs().max()
         raise AssertionError(f"blend_tiles differs from its plain version "
                              f"(max |d| {float(d)}); it must be bitwise")
-    ms = time_ms(lambda: blend.blend_tiles(*args), 20)
-    plain = time_ms(lambda: blend.blend_tiles_plain(
-        gen, wts, plan.positions, ch, cw), 2)
     # library yardstick: one index_add_ of the weighted contributions
     pos = plan.positions.long()[:n]
     r = torch.arange(PS, device=dev)
@@ -220,16 +261,27 @@ def phase_blend(dev) -> dict:
     contrib = torch.cat([gen[:n] * wts[:n, ..., None], wts[:n, ..., None]],
                         dim=-1).reshape(-1, 4)
     acc = torch.zeros((ch * cw, 4), device=dev)
-    lib = time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 20)
     bytes_ = n * PS * PS * 4 * 4 + ch * cw * 4 * 4 + plan.positions.numel() \
         * 4 + plan.offsets.numel() * 4 + int(plan.offsets[-1]) * 4
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
     ops_ms = n * PS * PS * 7 / FP32_FLOPS * 1e3
+    bound = max(bytes_ms, ops_ms)
+    plain = time_ms(lambda: blend.blend_tiles_plain(
+        gen, wts, plan.positions, ch, cw), 2)
+    runs, libs = [], []
+    for _ in range(3):  # three timings settle the share of bound
+        runs.append(time_ms(lambda: blend.blend_tiles(*args), 20))
+        libs.append(time_ms(
+            lambda: acc.zero_().index_add_(0, flat, contrib), 20))
+    ms, lib = sum(runs) / 3, sum(libs) / 3
     say("blend", tiles=n, bucket=len(fboxes), canvas=f"{ch}x{cw}",
-        bitwise_equal=True, ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
-        library_ms=f"{lib:.4f}", bound_ms=f"{max(bytes_ms, ops_ms):.4f}")
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": max(bytes_ms, ops_ms),
+        bitwise_equal=True, ms=f"{ms:.4f}",
+        runs_ms="/".join(f"{t:.4f}" for t in runs),
+        share_of_bound="/".join(f"{bound / t:.3f}" for t in runs),
+        plain_ms=f"{plain:.4f}", library_ms=f"{lib:.4f}",
+        bound_ms=f"{bound:.4f}")
+    return {"max_abs_err": 0.0, "ms": ms, "ms_runs": runs, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
@@ -254,7 +306,8 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
     masks = [mask] * fpd
     n_tiles = _tile_layout(fpd)[2]
     outs = {}
-    instance_norm.instance_norm_act.launches = 0
+    instance_norm.instance_norm_act_cluster.launches = 0
+    instance_norm.instance_norm_act_streaming.launches = 0
     blend.blend_tiles.launches = 0
     for prec, eng in engines.items():
         times = []
@@ -271,14 +324,17 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
             first_group_ms=f"{1e3 * times[0]:.2f}",
             eq_frames_per_s=f"{len(frames) * len(timed) / sum(timed):.2f}",
             card=f"'{card}'")
-    n_in = instance_norm.instance_norm_act.launches
+    n_in = instance_norm.instance_norm_act_cluster.launches
+    n_st = instance_norm.instance_norm_act_streaming.launches
     n_bl = blend.blend_tiles.launches
     calls = groups * len(engines)
-    say("main_path", instance_norm_launches=n_in, blend_launches=n_bl,
+    say("main_path", instance_norm_cluster_launches=n_in,
+        instance_norm_streaming_launches=n_st, blend_launches=n_bl,
         generator_calls=calls)
-    if n_in != 19 * calls or n_bl != calls:
-        raise AssertionError(f"launch counts {n_in}, {n_bl}: expected "
-                             f"{19 * calls} and {calls}")
+    if n_in != 19 * calls or n_st != 0 or n_bl != calls:
+        raise AssertionError(f"launch counts {n_in}, {n_st}, {n_bl}: "
+                             f"expected {19 * calls} (all 19 sites of each "
+                             f"call in the cluster variant), 0 and {calls}")
     for prec, out in outs.items():
         if out.shape != (fpd, H, W, 3) or out.dtype != np.uint8 \
                 or out.std() < 1.0:
@@ -302,7 +358,8 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
     if dm.max() > 1:
         raise AssertionError(f"card vs CPU at precision 32: {dm.max()} "
                              "counts apart (limit 1)")
-    return {"instance_norm_act": n_in, "blend_tiles": n_bl}
+    return {"instance_norm_act": n_in, "instance_norm_act_streaming": n_st,
+            "blend_tiles": n_bl}
 
 
 def main() -> int:
@@ -321,11 +378,15 @@ def main() -> int:
     rec_in = phase_instance_norm(dev)
     rec_bl = phase_blend(dev)
     launches = phase_main_path(dev, card)
+    rec_in["variants"]["cluster"]["launches"] = launches["instance_norm_act"]
+    rec_in["variants"]["streaming"]["launches"] = launches[
+        "instance_norm_act_streaming"]
     kernels = [
         dict(name="instance_norm_act", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
              launches=launches["instance_norm_act"], dtype="bf16",
+             variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
         dict(name="blend_tiles", route="cuda",
              source="patch_toon_tpu_torch/csrc/blend.cu",

@@ -35,9 +35,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point: a pointer or the stream must be c_void_p,
 # or ctypes passes it as a 32-bit int and cuts it
 SIGNATURES = {
-    # x, y, n, hw, c, dtype (0 f32, 1 bf16), act (0 none, 1 relu,
-    # 2 leaky_relu), slope, eps, device, stream
-    "ptt_instance_norm_act": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # x, y, n, hw, c, group, k, dtype (0 f32, 1 bf16), act (0 none,
+    # 1 relu, 2 leaky_relu), slope, eps, device, stream
+    "ptt_instance_norm_act_cluster": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                      _F, _F, _I, _P],
+    # x, y, n, hw, c, dtype, act, slope, eps, device, stream
+    "ptt_instance_norm_act_streaming": [_P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                        _I, _P],
+    # the cluster variant's shared-memory budget a CTA, in bytes
+    "ptt_instance_norm_slice_bytes": [],
     # gen, weights, positions, offsets, ids, canvas, wcanvas, n_tiles, ps,
     # canvas_h, canvas_w, block, device, stream
     "ptt_blend_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -46,7 +52,8 @@ SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build in this process took (0.0 when it was reused) and
-# what nvcc printed (registers, shared memory and spills of each kernel)
+# what nvcc printed (registers, shared memory and spills of each kernel),
+# kept beside the library so that a reused build reports it too
 last_build_seconds: Optional[float] = None
 last_build_log: str = ""
 
@@ -79,8 +86,10 @@ def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists."""
     global last_build_seconds, last_build_log
     out = library_path()
+    log = out.with_suffix(".log")
     if out.exists():
         last_build_seconds = 0.0
+        last_build_log = log.read_text() if log.exists() else ""
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp.so")
@@ -94,6 +103,7 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
                 f"{proc.stderr}{proc.stdout}")
+        log.write_text(proc.stderr + proc.stdout)
         os.replace(tmp, out)
     finally:
         if tmp.exists():

@@ -1,31 +1,56 @@
-// Fused InstanceNorm + activation over NHWC, fp32 statistics.
+// Fused InstanceNorm + activation over NHWC, fp32 statistics (kernel B1).
 //
 // Replaces patch_toon_tpu/ops/pallas_norm.py::instance_norm_act (its Pallas
 // body _kernel). For each (sample, channel): mean over H*W, then the biased
 // variance as the mean of squared deviations (two passes, not
 // E[x^2]-E[x]^2), then y = (x - mean) / sqrt(var + eps), LeakyReLU, ReLU or
-// nothing, and a cast back to the input type. fp32 and bf16 in and out.
+// nothing, and one cast back to the input type. fp32 and bf16 in and out.
 //
 // Bound: bytes. The work is a few operations per element, far below the
 // card's operations-per-byte balance, so the least time is one read and one
-// write of the tensor at the memory rate. The TPU kernel kept a whole sample
-// in VMEM and read it once. A Hopper block cannot hold a sample (80*80*32
-// fp32 is 800 KB against 227 KB of shared memory), so this first design
-// reads the input three times (mean, variance, normalize); the second and
-// third reads hit L2 only in part. It trades up to 2x of the bound for a
-// simple, exact two-pass algorithm.
+// write of the tensor at the memory rate. The TPU kernel kept a whole
+// sample in VMEM and read it once; a Hopper SM cannot hold one (80*80*32
+// fp32 is 800 KB against 227 KB of shared memory). Two variants:
 //
-// Layout: one block per (sample, group of 32 channels). The 32 lanes of a
-// warp take 32 neighbouring channels of one pixel, so each warp load is one
-// contiguous run of 32 elements; the 16 warps take every 16th pixel. Partial
-// sums meet in shared memory; warp 0 finishes them.
-#include <cuda_runtime.h>
+// Cluster variant (the main path). The unit of work is one (sample, group
+// of G channels). A thread-block cluster of k CTAs (k in 1, 2, 4, 8) takes
+// one unit; CTA r holds pixels [r*P, r*P + P) of it, P = ceil(H*W / k),
+// in dynamic shared memory, loaded once with 16-byte cp.async copies and
+// at most kSliceBytes (110 KB) a CTA, so that two CTAs share an SM and one
+// CTA's loads overlap another's stores. Each pass reads shared memory
+// only: per-channel partial sums are reduced in the block, published in
+// shared memory, and every CTA of the cluster adds the k partials of its
+// peers through distributed shared memory in rank order 0..k-1, so all k
+// CTAs get a bitwise identical mean, then likewise the sum of squared
+// deviations. The third pass normalizes from shared memory and writes with
+// 16-byte stores. Each element is read from and written to HBM once. A
+// CTA leaves only after its peers have read its partial sums (the split
+// cluster barrier at the end).
+//
+// Streaming variant, for what the cluster variant does not take (a unit
+// larger than 8 CTAs' slices, such as a 540x960x128 full-frame plane; C
+// times the item size not a multiple of 16 bytes; a pointer not 16-byte
+// aligned): one block per (sample, 32 channels) reads the input three
+// times (mean, variance, normalize); the 32 lanes of a warp take 32
+// neighbouring channels of one pixel, the 16 warps every 16th pixel.
+//
+// ops/instance_norm.py::plan picks the variant, G and k; the entry points
+// check what they are given again and return an error code, never fall
+// back.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <mutex>
+#include <set>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kLanes = 32;  // channels per block
-constexpr int kWarps = 16;  // pixel strides per block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -39,6 +64,292 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float v) {
   return __float2bfloat16_rn(v);
 }
+
+template <int kAct>
+__device__ __forceinline__ float activate(float v, float slope) {
+  if (kAct == 1) return v >= 0.f ? v : 0.f;
+  if (kAct == 2) return v >= 0.f ? v : v * slope;
+  return v;
+}
+
+// ---------------------------------------------------------------- cluster
+
+constexpr int kThreads = 256;
+constexpr int kWarpsC = kThreads / 32;
+constexpr int kMaxGroup = 32;
+constexpr int kSliceBytes = 110 * 1024;  // ops/instance_norm.py CTA_BYTES
+
+// A 16-byte vector: 4 fp32 or 8 bf16 values.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int n = 4;
+  __device__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int n = 8;
+  __device__ static float2 two(uint32_t w) {
+    __nv_bfloat162 b;
+    memcpy(&b, &w, 4);
+    return __bfloat1622float2(b);
+  }
+  __device__ static uint32_t word(float a, float b) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+    uint32_t w;
+    memcpy(&w, &h, 4);
+    return w;
+  }
+  __device__ static void unpack(const uint4& u, float* f) {
+    float2 t = two(u.x); f[0] = t.x; f[1] = t.y;
+    t = two(u.y); f[2] = t.x; f[3] = t.y;
+    t = two(u.z); f[4] = t.x; f[5] = t.y;
+    t = two(u.w); f[6] = t.x; f[7] = t.y;
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(word(f[0], f[1]), word(f[2], f[3]), word(f[4], f[5]),
+                      word(f[6], f[7]));
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// The cluster barrier in two halves: arrive when this CTA is done reading
+// its peers' shared memory, wait before it exits.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Per-channel sums of the block: thread t holds the kVec channels
+// v*kVec.. of vector slot v = t % vpp; lanes with the same slot meet by
+// shuffles, warps in warp_part, and threads < group write out[channel].
+template <int kVec>
+__device__ __forceinline__ void block_channel_sum(
+    float (&acc)[kVec], int vpp, int group, float (*warp_part)[kMaxGroup],
+    float* out) {
+  for (int off = 16; off >= vpp; off >>= 1) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < vpp) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) warp_part[warp][lane * kVec + e] = acc[e];
+  }
+  __syncthreads();
+  if (threadIdx.x < group) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsC; ++w) t += warp_part[w][threadIdx.x];
+    out[threadIdx.x] = t;
+  }
+}
+
+// Sum of a partial over the cluster's CTAs in rank order.
+__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
+                                             float* part, int k) {
+  float t = 0.f;
+  for (int r = 0; r < k; ++r)
+    t += cluster.map_shared_rank(part, r)[threadIdx.x];
+  return t;
+}
+
+template <typename T, int kAct>
+__global__ void __launch_bounds__(kThreads, 2)
+instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                 int hw, int c, int group, int ppc,
+                                 float slope, float eps) {
+  constexpr int kVec = Vec<T>::n;
+  extern __shared__ __align__(16) unsigned char slice_raw[];
+  uint4* slice = reinterpret_cast<uint4*>(slice_raw);
+  __shared__ float warp_part[kWarpsC][kMaxGroup];
+  __shared__ float part[2][kMaxGroup];  // this CTA's sums, read by peers
+  __shared__ float stat[2][kMaxGroup];  // mean, rstd
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int unit = blockIdx.x / k;
+  const int groups = c / group;
+  const int n = unit / groups, g = unit - n * groups;
+  const int p0 = rank * ppc;
+  const int np = max(0, min(ppc, hw - p0));
+  const int vpp = group / kVec;  // 16-byte vectors a pixel, divides 32
+  const int vshift = __ffs(vpp) - 1;
+  const int nvec = np * vpp;
+  const size_t off0 = (static_cast<size_t>(n) * hw + p0) * c +
+                      static_cast<size_t>(g) * group;
+  const T* xs = x + off0;
+  T* ys = y + off0;
+
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    const int p = i >> vshift, v = i & (vpp - 1);
+    cp_async16(slice + i, xs + static_cast<size_t>(p) * c + v * kVec);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const int v = threadIdx.x & (vpp - 1);  // the same slot for every i
+  float acc[kVec], f[kVec], mean[kVec], rstd[kVec];
+
+  // pass 1: mean
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    Vec<T>::unpack(slice[i], f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] += f[e];
+  }
+  block_channel_sum<kVec>(acc, vpp, group, warp_part, part[0]);
+  cluster.sync();
+  if (threadIdx.x < group)
+    stat[0][threadIdx.x] =
+        cluster_sum(cluster, part[0], k) / static_cast<float>(hw);
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) mean[e] = stat[0][v * kVec + e];
+
+  // pass 2: biased variance from squared deviations
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    Vec<T>::unpack(slice[i], f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float d = f[e] - mean[e];
+      acc[e] += d * d;
+    }
+  }
+  block_channel_sum<kVec>(acc, vpp, group, warp_part, part[1]);
+  cluster.sync();
+  if (threadIdx.x < group) {
+    const float var =
+        cluster_sum(cluster, part[1], k) / static_cast<float>(hw);
+    stat[1][threadIdx.x] = 1.0f / sqrtf(var + eps);
+  }
+  cluster_arrive();  // no more reads of the peers' shared memory
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) rstd[e] = stat[1][v * kVec + e];
+
+  // pass 3: normalize, activate, one rounding, 16-byte stores
+  for (int i = threadIdx.x; i < nvec; i += kThreads) {
+    Vec<T>::unpack(slice[i], f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      f[e] = activate<kAct>((f[e] - mean[e]) * rstd[e], slope);
+    const int p = i >> vshift;
+    *reinterpret_cast<uint4*>(ys + static_cast<size_t>(p) * c + v * kVec) =
+        Vec<T>::pack(f);
+  }
+  cluster_wait();  // the peers have read this CTA's partial sums
+}
+
+template <typename T, int kAct>
+cudaError_t launch_cluster_act(const void* x, void* y, int n, int hw, int c,
+                               int group, int k, int dtype, float slope,
+                               float eps, int device, cudaStream_t stream) {
+  auto* kernel = instance_norm_act_cluster_kernel<T, kAct>;
+  const int ppc = (hw + k - 1) / k;
+  const size_t smem = static_cast<size_t>(ppc) * group * sizeof(T);
+  if (smem > static_cast<size_t>(kSliceBytes)) return cudaErrorInvalidValue;
+  const long long grid = static_cast<long long>(n) * (c / group) * k;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  // once per (device, instantiation): allow the whole slice budget; once
+  // per (device, instantiation, k, bytes): at least one cluster must fit
+  static std::mutex mu;
+  static std::set<std::tuple<int, int, int>> ready;
+  static std::map<std::tuple<int, int, int, int, size_t>, int> fits;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready.count({device, dtype, kAct})) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSliceBytes);
+      if (err != cudaSuccess) return err;
+      ready.insert({device, dtype, kAct});
+    }
+    const auto key = std::make_tuple(device, dtype, kAct, k, smem);
+    auto it = fits.find(key);
+    if (it == fits.end()) {
+      int clusters = 0;
+      cudaError_t err = cudaOccupancyMaxActiveClusters(
+          &clusters, reinterpret_cast<const void*>(kernel), &cfg);
+      if (err != cudaSuccess) return err;
+      it = fits.emplace(key, clusters).first;
+    }
+    if (it->second == 0) return cudaErrorLaunchOutOfResources;
+  }
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel,
+                                       static_cast<const T*>(x),
+                                       static_cast<T*>(y), hw, c, group, ppc,
+                                       slope, eps);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_cluster(const void* x, void* y, int n, int hw, int c,
+                           int group, int k, int dtype, int act, float slope,
+                           float eps, int device, cudaStream_t stream) {
+  constexpr int kVec = Vec<T>::n;
+  if (group <= 0 || group > kMaxGroup || group % kVec != 0 ||
+      c % group != 0)
+    return cudaErrorInvalidValue;
+  const int vpp = group / kVec;
+  if ((vpp & (vpp - 1)) != 0) return cudaErrorInvalidValue;
+  if (k != 1 && k != 2 && k != 4 && k != 8) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
+    return cudaErrorMisalignedAddress;
+  switch (act) {
+    case 0:
+      return launch_cluster_act<T, 0>(x, y, n, hw, c, group, k, dtype, slope,
+                                      eps, device, stream);
+    case 1:
+      return launch_cluster_act<T, 1>(x, y, n, hw, c, group, k, dtype, slope,
+                                      eps, device, stream);
+    case 2:
+      return launch_cluster_act<T, 2>(x, y, n, hw, c, group, k, dtype, slope,
+                                      eps, device, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// -------------------------------------------------------------- streaming
+
+constexpr int kLanes = 32;  // channels per block
+constexpr int kWarps = 16;  // pixel strides per block
 
 // Sum of the kWarps partials of each lane; every thread gets its lane's sum.
 __device__ __forceinline__ float block_lane_sum(float v,
@@ -58,8 +369,9 @@ __device__ __forceinline__ float block_lane_sum(float v,
 
 template <typename T, int kAct>
 __global__ void __launch_bounds__(kLanes * kWarps)
-instance_norm_act_kernel(const T* __restrict__ x, T* __restrict__ y, int hw,
-                         int c, float slope, float eps) {
+instance_norm_act_streaming_kernel(const T* __restrict__ x,
+                                   T* __restrict__ y, int hw, int c,
+                                   float slope, float eps) {
   __shared__ float red[kWarps][kLanes];
   __shared__ float sum_s[kLanes];
   __shared__ float sq_s[kLanes];
@@ -92,31 +404,29 @@ instance_norm_act_kernel(const T* __restrict__ x, T* __restrict__ y, int hw,
 #pragma unroll 4
   for (int p = threadIdx.y; p < hw; p += kWarps) {
     const size_t o = static_cast<size_t>(p) * c;
-    float v = (to_f32(xs[o]) - mean) * rstd;
-    if (kAct == 1) v = v >= 0.f ? v : 0.f;
-    if (kAct == 2) v = v >= 0.f ? v : v * slope;
-    ys[o] = from_f32<T>(v);
+    ys[o] = from_f32<T>(activate<kAct>((to_f32(xs[o]) - mean) * rstd, slope));
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* y, int n, int hw, int c, int act,
-                   float slope, float eps, cudaStream_t stream) {
+cudaError_t launch_streaming(const void* x, void* y, int n, int hw, int c,
+                             int act, float slope, float eps,
+                             cudaStream_t stream) {
   const dim3 grid(n, (c + kLanes - 1) / kLanes);
   const dim3 block(kLanes, kWarps);
   const T* xi = static_cast<const T*>(x);
   T* yo = static_cast<T*>(y);
   switch (act) {
     case 0:
-      instance_norm_act_kernel<T, 0><<<grid, block, 0, stream>>>(
+      instance_norm_act_streaming_kernel<T, 0><<<grid, block, 0, stream>>>(
           xi, yo, hw, c, slope, eps);
       break;
     case 1:
-      instance_norm_act_kernel<T, 1><<<grid, block, 0, stream>>>(
+      instance_norm_act_streaming_kernel<T, 1><<<grid, block, 0, stream>>>(
           xi, yo, hw, c, slope, eps);
       break;
     case 2:
-      instance_norm_act_kernel<T, 2><<<grid, block, 0, stream>>>(
+      instance_norm_act_streaming_kernel<T, 2><<<grid, block, 0, stream>>>(
           xi, yo, hw, c, slope, eps);
       break;
     default:
@@ -128,15 +438,40 @@ cudaError_t launch(const void* x, void* y, int n, int hw, int c, int act,
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16. act: 0 none, 1 relu, 2 leaky_relu.
-extern "C" int ptt_instance_norm_act(const void* x, void* y, int n, int hw,
-                                     int c, int dtype, int act, float slope,
-                                     float eps, int device, void* stream) {
+extern "C" int ptt_instance_norm_act_cluster(const void* x, void* y, int n,
+                                             int hw, int c, int group, int k,
+                                             int dtype, int act, float slope,
+                                             float eps, int device,
+                                             void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, hw, c, act, slope, eps, s);
+  if (dtype == 0)
+    return launch_cluster<float>(x, y, n, hw, c, group, k, dtype, act, slope,
+                                 eps, device, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, n, hw, c, act, slope, eps, s);
+    return launch_cluster<__nv_bfloat16>(x, y, n, hw, c, group, k, dtype, act,
+                                         slope, eps, device, s);
   return cudaErrorInvalidValue;
 }
+
+extern "C" int ptt_instance_norm_act_streaming(const void* x, void* y, int n,
+                                               int hw, int c, int dtype,
+                                               int act, float slope,
+                                               float eps, int device,
+                                               void* stream) {
+  if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_streaming<float>(x, y, n, hw, c, act, slope, eps, s);
+  if (dtype == 1)
+    return launch_streaming<__nv_bfloat16>(x, y, n, hw, c, act, slope, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// The cluster variant's shared-memory budget a CTA, for the wrapper to
+// check its own copy against.
+extern "C" int ptt_instance_norm_slice_bytes() { return kSliceBytes; }

@@ -13,8 +13,10 @@ checkpoint must match the configured guide channels; masks are binarized
 (> 128), then eroded with the 7x7 full-support rule; a missing mask
 directory whose name ends in ``ignore`` means full-frame stylization.
 
-Precision ``32`` runs fp32 with TF32 off in cuDNN and matmuls (the JAX
-contract is HIGHEST precision, patch_toon_tpu/models/layers.py:100-119).
+Precision ``32`` runs fp32 with TF32 off in cuDNN and matmuls and the
+fp32 matmul precision at "highest" (the JAX contract is HIGHEST precision,
+patch_toon_tpu/models/layers.py:91-93 for the upsample's products and
+:100-119 for the convs).
 ``bf16`` (the default) runs the convs in bf16 while InstanceNorm statistics
 and the smoother BatchNorm stay fp32, as in JAX.
 
@@ -106,6 +108,7 @@ class StyleTransferInference:
         if self.dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
         self.patch_size = int(cfg["data"]["patch_size"])
         self.logger = logging.getLogger("patch_toon_tpu_torch.infer")
 

@@ -1,10 +1,20 @@
 """Fused InstanceNorm + activation over NHWC (kernel B1).
 
 Replaces ``patch_toon_tpu/ops/pallas_norm.py::instance_norm_act``. On a CUDA
-tensor :func:`instance_norm_act` launches ``csrc/instance_norm.cu`` (which
-says what bounds it and how it is laid out); on a CPU tensor it runs
-:func:`instance_norm_act_plain`. A CUDA tensor that the kernel does not take
-raises: nothing falls back.
+tensor :func:`instance_norm_act` launches one of the two variants of
+``csrc/instance_norm.cu`` (its head note says what bounds them and how they
+are laid out), as :func:`plan` picks from the shape, type and alignment:
+
+- the cluster variant (:func:`instance_norm_act_cluster`): one (sample,
+  group of G channels) a thread-block cluster of k CTAs, each element read
+  from HBM once;
+- the streaming variant (:func:`instance_norm_act_streaming`): three reads,
+  for what the cluster variant does not take.
+
+This is the counterpart of the Pallas wrapper's ``fits_vmem`` shape
+dispatch, between two hand-written kernels. On a CPU tensor every wrapper
+runs :func:`instance_norm_act_plain`. A CUDA tensor that a kernel does not
+take raises: nothing falls back.
 
 Numerics follow ``patch_toon_tpu/models/layers.py::instance_norm``: fp32
 mean and biased variance per (sample, channel) over H x W, eps 1e-5, then
@@ -14,7 +24,7 @@ kernel does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,6 +32,47 @@ from patch_toon_tpu_torch import _build
 
 ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+GROUPS = (32, 16, 8, 4)       # channels a unit, the largest that fits first
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable cluster sizes
+# a CTA's slice of its unit in shared memory, so that two CTAs share an SM
+# (csrc/instance_norm.cu kSliceBytes)
+CTA_BYTES = 110 * 1024
+_MAX_GRID = 2 ** 31 - 1
+
+
+class Plan(NamedTuple):
+    """What runs an (N, H, W, C) tensor: the variant and, for the cluster
+    variant, G (channels a unit), k (CTAs a cluster) and a CTA's bytes."""
+    variant: str  # "cluster" or "streaming"
+    group: int = 0
+    k: int = 0
+    cta_bytes: int = 0
+
+
+def plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+         aligned: bool) -> Plan:
+    """The cluster variant, with the largest G of ``GROUPS`` that divides C
+    in whole 16-byte vectors and the least k of ``CLUSTER_SIZES`` that keeps
+    a CTA's slice within ``CTA_BYTES``; else the streaming variant: C times
+    the item size not a multiple of 16 bytes, a data pointer not 16-byte
+    aligned (``aligned`` False), or a unit larger than 8 CTAs' slices."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"instance_norm_act: dtype {dtype} not supported "
+                        "(float32 or bfloat16)")
+    item = dtype.itemsize
+    if aligned and (c * item) % 16 == 0:
+        group = next(g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0)
+        for k in CLUSTER_SIZES:
+            cta_bytes = -(-h * w // k) * group * item
+            if cta_bytes <= CTA_BYTES and n * (c // group) * k <= _MAX_GRID:
+                return Plan("cluster", group, k, cta_bytes)
+    return Plan("streaming")
+
+
+def plan_for(x: torch.Tensor) -> Plan:
+    """:func:`plan` for an (N, H, W, C) tensor and its data pointer."""
+    n, h, w, c = x.shape
+    return plan(n, h, w, c, x.dtype, x.data_ptr() % 16 == 0)
 
 
 def _activate(y: torch.Tensor, act: Optional[str], slope: float):
@@ -45,18 +96,13 @@ def instance_norm_act_plain(x: torch.Tensor, act: Optional[str] = None,
     return _activate(y, act, slope).to(x.dtype)
 
 
-def instance_norm_act(x: torch.Tensor, act: Optional[str] = None,
-                      slope: float = 0.2, eps: float = 1e-5) -> torch.Tensor:
-    """InstanceNorm(+activation) of an (N, H, W, C) tensor.
-
-    CUDA: one launch of the fused kernel (counted in
-    ``instance_norm_act.launches``); needs fp32 or bf16 and NHWC-contiguous
-    memory. CPU: the plain version.
-    """
+def _cuda_input(x: torch.Tensor, act: Optional[str]) -> bool:
+    """True for a CUDA tensor that a kernel may take, False for a CPU
+    tensor; raises for anything else."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
-        return instance_norm_act_plain(x, act, slope, eps)
+        return False
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_act: unsupported device {x.device}")
     if x.dim() != 4:
@@ -67,17 +113,66 @@ def instance_norm_act(x: torch.Tensor, act: Optional[str] = None,
                         "(float32 or bfloat16)")
     if not x.is_contiguous():
         raise ValueError("instance_norm_act wants NHWC-contiguous memory")
-    n, h, w, c = x.shape
+    return True
+
+
+def instance_norm_act(x: torch.Tensor, act: Optional[str] = None,
+                      slope: float = 0.2, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm(+activation) of an (N, H, W, C) tensor.
+
+    CUDA: one launch of the variant that :func:`plan` picks; needs fp32 or
+    bf16 and NHWC-contiguous memory. CPU: the plain version.
+    """
+    if not _cuda_input(x, act):
+        return instance_norm_act_plain(x, act, slope, eps)
+    if x.numel() and plan_for(x).variant == "cluster":
+        return instance_norm_act_cluster(x, act, slope, eps)
+    return instance_norm_act_streaming(x, act, slope, eps)
+
+
+def instance_norm_act_cluster(x: torch.Tensor, act: Optional[str] = None,
+                              slope: float = 0.2,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """The cluster variant (counted in ``.launches``); raises for a CUDA
+    tensor that :func:`plan` gives to the streaming variant."""
+    if not _cuda_input(x, act):
+        return instance_norm_act_plain(x, act, slope, eps)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    lib = _build.library()
-    rc = lib.ptt_instance_norm_act(
-        x.data_ptr(), y.data_ptr(), n, h * w, c, _DTYPES[x.dtype], ACTS[act],
-        slope, eps, x.device.index, _build.stream_of(x))
-    _build.check(rc, "instance_norm_act")
-    instance_norm_act.launches += 1
+    p = plan_for(x)
+    if p.variant != "cluster":
+        raise ValueError(f"instance_norm_act_cluster does not take "
+                         f"{tuple(x.shape)} {x.dtype} at data_ptr % 16 = "
+                         f"{x.data_ptr() % 16} (the streaming variant does)")
+    n, h, w, c = x.shape
+    rc = _build.library().ptt_instance_norm_act_cluster(
+        x.data_ptr(), y.data_ptr(), n, h * w, c, p.group, p.k,
+        _DTYPES[x.dtype], ACTS[act], slope, eps, x.device.index,
+        _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_cluster")
+    instance_norm_act_cluster.launches += 1
     return y
 
 
-instance_norm_act.launches = 0
+def instance_norm_act_streaming(x: torch.Tensor, act: Optional[str] = None,
+                                slope: float = 0.2,
+                                eps: float = 1e-5) -> torch.Tensor:
+    """The streaming variant (counted in ``.launches``); takes any
+    NHWC-contiguous fp32 or bf16 tensor."""
+    if not _cuda_input(x, act):
+        return instance_norm_act_plain(x, act, slope, eps)
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    n, h, w, c = x.shape
+    rc = _build.library().ptt_instance_norm_act_streaming(
+        x.data_ptr(), y.data_ptr(), n, h * w, c, _DTYPES[x.dtype], ACTS[act],
+        slope, eps, x.device.index, _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_streaming")
+    instance_norm_act_streaming.launches += 1
+    return y
+
+
+instance_norm_act_cluster.launches = 0
+instance_norm_act_streaming.launches = 0

@@ -105,6 +105,50 @@ def test_upsample_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(3, 20, 20, 256), (2, 40, 40, 192)])
+def test_upsample_matches_jax_bitwise_at_bf16(shape):
+    """At bf16 both packages interpolate with bf16 matrices (weights such
+    as 1/3 rounded) and accumulate each two-term sum in fp32 with one
+    rounding to bf16, so the results are bit for bit equal. With fp32
+    weights, as F.interpolate has, about 46 % of the elements differ."""
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        shape).astype(np.float32)).bfloat16()
+    want = upsample2x_bilinear_align_corners(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    got = upsample2x(x.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last))
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(
+        got.permute(0, 2, 3, 1).float().numpy(),
+        np.asarray(want.astype(jnp.float32)))
+
+
+def test_generator_matches_jax_bf16():
+    """The whole generator at bf16, port against JAX with the same weights.
+    bf16 keeps about 3 significant digits: convolutions accumulated in other
+    orders, and the port's activation applied before the rounding to bf16
+    where the JAX plain path rounds first, leave up to 0.0056 on these tanh
+    outputs (5.2e-4 mean); the bound is 0.02 (about 5 bf16 ulps at 1)."""
+    kw = dict(SMALL)
+    _, g_vars = _jax_vars(6, seed=1, **kw)
+    gen = JaxGeneratorJ(input_channels=6, dtype=jnp.bfloat16, **kw)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (3, 24, 40, 6)).astype(np.float32)).bfloat16()
+    want = np.asarray(jax.jit(lambda v, a: gen.apply(v, a, train=False))(
+        g_vars, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    ).astype(jnp.float32))
+    model = _port(g_vars, 6, **kw)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.to(torch.bfloat16)  # as the engine does; BN stays fp32
+    with torch.no_grad():
+        got = model(x)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 24, 40, 3)
+    d = np.abs(got.float().numpy() - want)
+    assert d.max() < 0.02 and d.mean() < 2e-3, (d.max(), d.mean())
+
+
 def test_state_from_jax_copies_and_matches_reference_mapping():
     _, g_vars = _jax_vars(3, seed=3, **SMALL)
     params = jax.tree_util.tree_map(np.array, g_vars["params"])

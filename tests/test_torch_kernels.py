@@ -34,8 +34,15 @@ from patch_toon_tpu.ops.pallas_norm import instance_norm_act as jax_in_act
 
 from patch_toon_tpu_torch.ops import blend as tblend
 from patch_toon_tpu_torch.ops.instance_norm import (
+    CLUSTER_SIZES,
+    CTA_BYTES,
+    GROUPS,
+    Plan,
     instance_norm_act,
+    instance_norm_act_cluster,
     instance_norm_act_plain,
+    instance_norm_act_streaming,
+    plan,
 )
 
 ACTS = [None, "relu", "leaky_relu"]
@@ -91,12 +98,83 @@ def test_instance_norm_plain_matches_jax(act, dtype):
 def test_instance_norm_wrapper_uses_plain_on_cpu():
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (2, 5, 7, 3)).astype(np.float32))
-    before = instance_norm_act.launches
-    got = instance_norm_act(x, "leaky_relu")
-    assert instance_norm_act.launches == before  # no launch on the CPU
-    assert torch.equal(got, instance_norm_act_plain(x, "leaky_relu"))
-    with pytest.raises(ValueError):
-        instance_norm_act(x, "gelu")
+    want = instance_norm_act_plain(x, "leaky_relu")
+    counters = (instance_norm_act_cluster, instance_norm_act_streaming)
+    before = [f.launches for f in counters]
+    for wrapper in (instance_norm_act, *counters):
+        assert torch.equal(wrapper(x, "leaky_relu"), want)
+        with pytest.raises(ValueError):
+            wrapper(x, "gelu")
+    assert [f.launches for f in counters] == before  # no launch on the CPU
+
+
+# the 19 InstanceNorm sites of one generator call at the shipped widths
+# (filters 32/64/128/128/128, 7 residual blocks) on 80x80 tiles
+MAIN_PATH_SITES = ([(80, 80, 32), (40, 40, 64), (20, 20, 128)]
+                   + [(20, 20, 128)] * 14 + [(40, 40, 128), (80, 80, 128)])
+# k per distinct site shape: the least cluster whose CTAs each hold at most
+# CTA_BYTES of a 32-channel unit
+MAIN_PATH_K = {
+    torch.bfloat16: {(80, 80, 32): 4, (40, 40, 64): 1, (20, 20, 128): 1,
+                     (40, 40, 128): 1, (80, 80, 128): 4},
+    torch.float32: {(80, 80, 32): 8, (40, 40, 64): 2, (20, 20, 128): 1,
+                    (40, 40, 128): 2, (80, 80, 128): 8},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_takes_every_main_path_site_to_the_cluster(dtype):
+    assert len(MAIN_PATH_SITES) == 19
+    for h, w, c in MAIN_PATH_SITES:
+        p = plan(512, h, w, c, dtype, aligned=True)
+        assert p.variant == "cluster", (h, w, c)
+        assert p.group == 32
+        assert p.k == MAIN_PATH_K[dtype][(h, w, c)], (h, w, c, p)
+        assert p.cta_bytes == -(-h * w // p.k) * 32 * dtype.itemsize
+        assert p.cta_bytes <= CTA_BYTES
+        if p.k > 1:  # the least k: half as many CTAs would not fit
+            assert -(-h * w // (p.k // 2)) * 32 * dtype.itemsize > CTA_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_gives_the_streaming_variant_what_clusters_cannot_take(
+        dtype):
+    # a full-frame plane (A8): 540x960 pixels of a 32-channel unit need more
+    # than 8 CTAs' slices
+    assert plan(1, 540, 960, 128, dtype, True).variant == "streaming"
+    # a pointer that is not 16-byte aligned
+    assert plan(2, 20, 20, 128, dtype, False).variant == "streaming"
+    # C = 12: 24 bytes a pixel in bf16, not whole 16-byte vectors; in fp32
+    # 48 bytes, taken in units of G = 4 channels
+    p = plan(2, 20, 20, 12, dtype, True)
+    if dtype == torch.bfloat16:
+        assert p.variant == "streaming"
+    else:
+        assert p == Plan("cluster", 4, 1, 400 * 16)
+    assert plan(2, 20, 20, 7, dtype, True).variant == "streaming"
+    with pytest.raises(TypeError):
+        plan(2, 20, 20, 32, torch.float16, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_stays_within_its_limits(dtype):
+    """k is a portable cluster size of at most 8, a CTA's slice stays within
+    the budget, G is the largest that takes C in whole 16-byte vectors, and
+    the streaming variant gets a shape only where no such cluster fits."""
+    item = dtype.itemsize
+    for c in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
+        whole = [g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0]
+        for h, w in ((1, 1), (7, 9), (79, 81), (80, 80), (160, 160),
+                     (300, 300)):
+            p = plan(3, h, w, c, dtype, True)
+            if p.variant == "cluster":
+                assert p.k in CLUSTER_SIZES and p.k <= 8
+                assert 0 < p.cta_bytes <= CTA_BYTES
+                assert p.group == max(whole)
+            else:
+                assert p == Plan("streaming")
+                assert not whole or \
+                    -(-h * w // 8) * max(whole) * item > CTA_BYTES
 
 
 def _blend_case(seed, B=14, ps=16, H=70, W=90):
@@ -246,11 +324,15 @@ def test_build_moves_the_finished_library_into_place(tmp_path, monkeypatch):
     from patch_toon_tpu_torch import _build
 
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    # a stand-in compiler: writes its -o argument
+    # a stand-in compiler: reports like ptxas -v and writes its -o argument
     monkeypatch.setenv("CUDA_HOME", str(_fake_nvcc(
-        tmp_path, 'while [ "$1" != "-o" ]; do shift; done\n'
+        tmp_path, 'echo "ptxas info : Used 40 registers" >&2\n'
+                  'while [ "$1" != "-o" ]; do shift; done\n'
                   'echo lib > "$2"\n')))
     out = _build.build()
     assert out == _build.library_path() and out.read_text() == "lib\n"
-    assert [p.name for p in (tmp_path / "build").iterdir()] == [out.name]
+    # the library and, beside it, what the compiler printed
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == sorted(
+        [out.name, out.with_suffix(".log").name])
     assert _build.build() == out and _build.last_build_seconds == 0.0
+    assert "Used 40 registers" in _build.last_build_log  # reused, reported

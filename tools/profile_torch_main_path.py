@@ -12,8 +12,9 @@ it prints:
 - ms per group by host clock, with ``torch.backends.cudnn.benchmark`` off
   (as the engine ships) and on, in that order in one process;
 - a ``torch.profiler`` trace of steady groups: device time by kernel (top
-  15), by category (convolution, InstanceNorm kernel B1, blend kernel B2,
-  copies, the rest), and the device's busy share of the wall time.
+  15), by category (convolution, the upsample's matrix products, the
+  InstanceNorm kernel B1, the blend kernel B2, copies, the rest; by kernel
+  name, see ``_category``), and the device's busy share of the wall time.
 
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
@@ -44,18 +45,25 @@ H, W = 512, 910
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "instance_norm_act_kernel" in n:
+    if "instance_norm_act_" in n and "_kernel" in n:  # both variants
         return "B1 instance_norm"
     if "blend_tiles_kernel" in n:
         return "B2 blend"
-    if any(k in n for k in ("conv", "cudnn", "gemm", "xmma", "sm90",
-                            "implicit", "winograd", "cutlass", "nchw",
-                            "nhwc")):
-        return "convolution"
-    if "memcpy" in n or "memset" in n:
-        return "copies"
     if "upsample" in n or "interp" in n:
         return "upsample"
+    if "bn_fw" in n:
+        return "smoother batch norm"
+    # cuDNN's FFT convolutions: transforms, complex products and sums
+    if "fft" in n or "complex" in n or "cf32" in n:
+        return "convolution"
+    if any(k in n for k in ("conv", "cudnn", "fprop", "implicit", "winograd",
+                            "nchw", "nhwc")):
+        return "convolution"
+    # the port's only matrix products outside cuDNN are the upsample's
+    if "nvjet" in n or "gemm" in n:
+        return "upsample (matrix products)"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
     if "index" in n or "gather" in n:
         return "gather"
     return "other elementwise/reduction"
