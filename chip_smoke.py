@@ -20,7 +20,9 @@ lines each, flushed as they go:
 3. ``blend``: kernel B2 against its plain version on the real tile layout of
    three 512x910 frames (510 tiles in a bucket of 512). Bitwise equal.
    Timed three times over.
-4. ``main_path``: ``StyleTransferInference.stylize_group`` at the full width
+4. ``signed_unit``: the card's uint8 -> [-1, 1] normalization against the
+   host's IEEE fp32 values, all 256, bitwise (fault C4).
+5. ``main_path``: ``StyleTransferInference.stylize_group`` at the full width
    of config/model/default.yaml (6 input channels, 7 residual blocks) with
    the weights of docs/quality_2000/torch_train.ckpt, precision bf16 and 32,
    on 512x910 frames made from a numpy seed, full masks, grouped by the
@@ -29,6 +31,34 @@ lines each, flushed as they go:
    per generator call, its streaming variant never, and B2 once per group.
    Then a small masked frame through the card at precision 32 must agree
    within 1 uint8 count with the same engine on the CPU (plain versions).
+6. ``instance_norm_backward``: B1's backward kernel against its plain
+   version at every InstanceNorm site of a training step (batch 80, the
+   generator's 19 sites and the discriminator's 2 at its 3 calls), fp32
+   and bf16, with the forward pass's statistics checked too. Tolerance:
+   fp32 |d| <= 2e-5 + 2e-5 |ref|; bf16 one bf16 ulp + 1e-5. Timed against
+   the bound (one read of x and dy, one write of dx), the plain version
+   and the library call (autograd through ``F.instance_norm`` + activation,
+   forward and backward, beside the kernels' forward-with-statistics plus
+   backward); per-step totals over the 25 sites.
+7. ``train``: the GAN step of ``patch_toon_tpu_torch/train`` at the full
+   width of the shipped configuration (config/model, training and data
+   defaults: batch 80 of 80x80 patches, 6 input channels, D 12 filters, VGG
+   layers [0, 3, 5]) on synthetic keyframes from numpy seed 0, at precision
+   32 and bf16: 2 warm-up steps and 10 timed ones (ms/step, patches/s), the
+   counters zeroed just before the timed steps: 25 forward (cluster) and 25
+   backward B1 launches a step, no streaming launch. Two identical 3-step
+   runs from one seed must be bitwise equal in every parameter and
+   statistic. One precision-32 step on the card against the CPU port at
+   the CPU tests' small widths, held as tests/test_torch_train.py holds
+   the port to JAX: losses within 1e-5 (D) and 1e-4 (G), BatchNorm mean
+   1e-5 and variance 1e-3, each network's first-step gradient within 1e-2
+   in relative L2 norm, under 1 % of the elements with gradients of
+   opposite sign or under 1e-7, and the parameters within 1.5e-4 (kernels)
+   and 9e-4 (others) elsewhere (``_step_parity`` says why); then the
+   same at full width, batch 2. Last, the trained checkpoint (reference
+   .ckpt layout) loads into
+   ``StyleTransferInference`` on the card and stylizes a masked keyframe,
+   within 1 count of the CPU engine on the same file.
 
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
@@ -50,7 +80,12 @@ import torch
 import torch.nn.functional as F
 
 from patch_toon_tpu_torch import _build
-from patch_toon_tpu_torch.config.defaults import inference_config
+from patch_toon_tpu_torch.config.defaults import (
+    inference_config,
+    training_config,
+)
+from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
+from patch_toon_tpu_torch.infer.common import SIGNED_UNIT, _to_signed_unit
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference
 from patch_toon_tpu_torch.infer.programs import make_tile_plan
 from patch_toon_tpu_torch.infer.tiling import (
@@ -60,6 +95,12 @@ from patch_toon_tpu_torch.infer.tiling import (
 )
 from patch_toon_tpu_torch.ops import blend, instance_norm
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
+from patch_toon_tpu_torch.train.checkpoints import CheckpointManager
+from patch_toon_tpu_torch.train.model import (
+    StyleTransferModel,
+    training_backends,
+)
+from patch_toon_tpu_torch.train.step import make_train_step
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "docs" / "quality_2000" / "torch_train.ckpt"
@@ -77,6 +118,14 @@ SITES = ([((80, 80, 32), "leaky_relu"), ((40, 40, 64), "leaky_relu"),
           ((20, 20, 128), "leaky_relu")]
          + [((20, 20, 128), "relu"), ((20, 20, 128), None)] * 7
          + [((40, 40, 128), "relu"), ((80, 80, 128), "relu")])
+BT = 80  # patches per training step (config/training/default.yaml)
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+# the InstanceNorm sites of one training step, forward and backward alike:
+# the generator's 19, then the discriminator's 2 (20x20x24, 19x19x48 at 12
+# filters) in each of its 3 calls (real and fake in the D phase, fake in
+# the G phase)
+TRAIN_SITES = SITES + [((20, 20, 24), "leaky_relu"),
+                       ((19, 19, 48), "leaky_relu")] * 3
 
 
 def say(phase: str, **kv) -> None:
@@ -362,6 +411,343 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
             "blend_tiles": n_bl}
 
 
+def phase_signed_unit(dev) -> None:
+    """C4: all 256 bytes through the card's normalization, bitwise against
+    the host's IEEE values; the division it replaced, for the record."""
+    a = torch.arange(256, dtype=torch.uint8, device=dev)
+    got = _to_signed_unit(a).cpu().numpy()
+    old = (a.float() / 255.0 * 2.0 - 1.0).cpu().numpy()
+    differ = int((got.view(np.int32) != SIGNED_UNIT.view(np.int32)).sum())
+    say("signed_unit", differing_values=differ,
+        division_on_card_differing_values=int(
+            (old.view(np.int32) != SIGNED_UNIT.view(np.int32)).sum()))
+    if differ:
+        raise AssertionError(f"_to_signed_unit on the card differs from the "
+                             f"host's fp32 values at {differ} of 256 bytes")
+
+
+def _bwd_check(got, want, dtype) -> float:
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if dtype == torch.float32:
+        tol = 2e-5 + 2e-5 * w.abs()
+    else:
+        tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5
+    bad = int((d > tol).sum())
+    if bad:
+        raise AssertionError(f"instance_norm_act_backward: {bad} values "
+                             f"beyond tolerance, max |d| {float(d.max())}")
+    return float(d.max())
+
+
+def _library_in_fwd_bwd(x: torch.Tensor, dy: torch.Tensor, act):
+    """Autograd through F.instance_norm + activation on the NCHW view of
+    the NHWC memory (channels_last): forward and backward."""
+    xl = x.detach().permute(0, 3, 1, 2).requires_grad_(True)
+    y = _library_in(xl.permute(0, 2, 3, 1), act)
+    return torch.autograd.grad(y, xl, dy.permute(0, 3, 1, 2))[0]
+
+
+def phase_instance_norm_backward(dev) -> dict:
+    """The backward kernel at every (shape, activation, dtype) of a
+    training step's InstanceNorm sites, against its plain version, then
+    timed beside the bound, the plain version and the library call; the
+    per-step numbers sum the 25 sites."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    per = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, act in sorted(set(TRAIN_SITES), key=str):
+            x = (torch.randn((BT,) + shape, device=dev, generator=gen) * 2.0
+                 + 0.5).to(dtype)
+            dy = torch.randn((BT,) + shape, device=dev, generator=gen).to(
+                dtype)
+            y, mean, rstd = instance_norm.instance_norm_act_cluster(
+                x, act, stats=True)
+            _, pmean, prstd = instance_norm._plain_forward(x, act, 0.2, 1e-5)
+            serr = max(float((mean - pmean).abs().max()),
+                       float(((rstd - prstd) / prstd).abs().max()))
+            if serr > 1e-5:
+                raise AssertionError(f"{shape} {dtype}: statistics {serr}")
+            got = instance_norm.instance_norm_act_backward(x, dy, mean, rstd,
+                                                           act)
+            want = instance_norm.instance_norm_act_backward_plain(
+                x, dy, mean, rstd, act)
+            err = _bwd_check(got, want, dtype)
+            if not torch.equal(got, instance_norm.instance_norm_act_backward(
+                    x, dy, mean, rstd, act)):
+                raise AssertionError("the backward kernel is not repeatable")
+            del y, want, got
+            bound = 3 * x.nbytes / HBM_BYTES_PER_S * 1e3
+            r = {"err": err, "bound_ms": bound,
+                 "ms": time_ms(lambda: instance_norm.instance_norm_act_backward(
+                     x, dy, mean, rstd, act), 10),
+                 "fwd_stats_ms": time_ms(
+                     lambda: instance_norm.instance_norm_act_cluster(
+                         x, act, stats=True), 10),
+                 "plain_ms": time_ms(
+                     lambda: instance_norm.instance_norm_act_backward_plain(
+                         x, dy, mean, rstd, act), 3),
+                 "library_ms": time_ms(
+                     lambda: _library_in_fwd_bwd(x, dy, act), 3)}
+            per[(dtype, shape, act)] = r
+            say("instance_norm_backward", dtype=str(dtype).split(".")[1],
+                shape=f"{BT}x{shape[0]}x{shape[1]}x{shape[2]}", act=act,
+                ms=f"{r['ms']:.4f}", bound_ms=f"{bound:.4f}",
+                share_of_bound=f"{bound / r['ms']:.3f}",
+                fwd_stats_ms=f"{r['fwd_stats_ms']:.4f}",
+                plain_ms=f"{r['plain_ms']:.4f}",
+                library_fwd_bwd_ms=f"{r['library_ms']:.4f}",
+                max_abs_err=f"{err:.3g}", stats_err=f"{serr:.3g}")
+            del x, dy, mean, rstd
+    rec = {}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        item = dtype.itemsize
+        elems = sum(BT * s[0] * s[1] * s[2] for s, _ in TRAIN_SITES)
+        bytes_ms = 3 * elems * item / HBM_BYTES_PER_S * 1e3
+        ops_ms = 12 * elems / FP32_FLOPS * 1e3  # two passes of ~6 each
+        rows = [per[(dtype, s, a)] for s, a in TRAIN_SITES]
+        rec.update({
+            f"max_abs_err{tag}": max(r["err"] for k, r in per.items()
+                                     if k[0] == dtype),
+            f"ms{tag}": sum(r["ms"] for r in rows),
+            f"fwd_stats_ms{tag}": sum(r["fwd_stats_ms"] for r in rows),
+            f"plain_ms{tag}": sum(r["plain_ms"] for r in rows),
+            f"library_ms{tag}": sum(r["library_ms"] for r in rows),
+            f"bound_ms{tag}": max(bytes_ms, ops_ms),
+            f"bound_by{tag}": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        say("instance_norm_backward", per_step=str(dtype).split(".")[1],
+            sites=len(TRAIN_SITES), ms=f"{rec['ms' + tag]:.4f}",
+            bound_ms=f"{rec['bound_ms' + tag]:.4f}",
+            share_of_bound=f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
+            fwd_stats_plus_bwd_ms=
+            f"{rec['fwd_stats_ms' + tag] + rec['ms' + tag]:.4f}",
+            plain_ms=f"{rec['plain_ms' + tag]:.4f}",
+            library_fwd_bwd_ms=f"{rec['library_ms' + tag]:.4f}")
+    return rec
+
+
+def _keyframes(n: int = 4, h: int = 270, w: int = 480):
+    """Synthetic keyframes from numpy seed 0, at the size of the sample
+    scene (tools/make_sample_scene.py): uint8 blocks of random colour (RGB
+    and a 3-band guide), and as the dataset takes them, fp32 in [-1, 1],
+    a posterized target and elliptical masks."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames, pres, posts, masks, guides = [], [], [], [], []
+    for _ in range(n):
+        u8 = np.repeat(np.repeat(rng.integers(
+            0, 256, (h // 8 + 1, w // 8 + 1, 6), dtype=np.uint8), 8, 0),
+            8, 1)[:h, :w]
+        frames.append(u8)
+        frame = SIGNED_UNIT[u8]
+        pres.append(frame[..., :3])
+        guides.append(frame[..., 3:])
+        posts.append(np.round(frame[..., :3] * 2) / 2 * 0.9)
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        masks.append((((yy - cy) / (0.3 * h)) ** 2 + ((xx - cx) / (0.3 * w))
+                      ** 2 <= 1).astype(np.float32))
+    return frames, pres, posts, masks, guides
+
+
+def _train_model(precision: str, small: bool = False, batch: int = BT):
+    over = {"training": {"precision": precision, "batch_size": batch}}
+    if small:  # the CPU tests' widths (tests/test_torch_train.py)
+        over["model"] = training_config()["model"]
+        over["model"]["generator"]["args"].update(
+            filters=[8, 16, 32, 32, 32, 16], resnet_blocks=2)
+        over["model"]["discriminator"]["args"]["num_filters"] = 8
+    cfg = training_config(**over)
+    return StyleTransferModel(cfg.model.generator, cfg.model.discriminator,
+                              cfg.training, cfg.optimizer, cfg.data,
+                              cfg.model.perception_loss, cfg.parallel)
+
+
+def _net_tensors(state):
+    out = {}
+    for tag, net in (("G", state.generator), ("D", state.discriminator)):
+        for k, v in net.state_dict().items():
+            out[f"{tag}.{k}"] = v.detach().float().cpu()
+    return out
+
+
+def _run_steps(model, data, dev, n: int, seed: int = 0):
+    """n steps from a fresh state: parameters and draws from ``seed``."""
+    state = model.init_state(seed, dev)
+    step = make_train_step(model)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(n):
+        step(state, data.sample_batch(gen, BT), gen)
+    return state
+
+
+def _counts():
+    return (instance_norm.instance_norm_act_cluster.launches,
+            instance_norm.instance_norm_act_streaming.launches,
+            instance_norm.instance_norm_act_backward.launches)
+
+
+def _step_parity(dev, small: bool, batch: int) -> dict:
+    """One precision-32 step from the same parameters and batch on the card
+    and on the CPU. -> the largest differences. Activations agree within
+    1e-6, but an activation input within roundoff of 0 takes the other
+    branch on one device, which moves the gradients upstream by about 1e-3
+    relative; Adam's first step, lr * g / (|g| + 1e-8), is a sign, so a
+    gradient smaller than that lands 2 * lr away, and one near 1e-8 moves
+    the step's size. Hence: each network's first-step gradient (Adam's
+    mu / 0.1) in relative L2 norm, the share of elements whose two
+    gradients differ in sign or lie under 1e-7 (10 eps), and the parameters
+    elsewhere."""
+    model = _train_model("32", small=small, batch=batch)
+    ps = 32 if small else PS
+    rng = np.random.default_rng(1)
+    batch_np = {"pre": rng.standard_normal((batch, ps, ps, 3)),
+                "channels": rng.standard_normal((batch, ps, ps, 3)),
+                "post": rng.random((batch, ps, ps, 3)) * 2 - 1}
+    with training_backends(torch.float32):
+        cpu, card = model.init_state(0, "cpu"), model.init_state(0, dev)
+        card.generator.load_state_dict(cpu.generator.state_dict())
+        card.discriminator.load_state_dict(cpu.discriminator.state_dict())
+        mets = []
+        for st, where in ((cpu, torch.device("cpu")), (card, dev)):
+            b = {k: torch.from_numpy(v.astype(np.float32)).to(where)
+                 for k, v in batch_np.items()}
+            mets.append({k: float(v) for k, v in make_train_step(model)(
+                st, b, torch.Generator(device=where).manual_seed(0)).items()})
+    worst = {"kernel": 0.0, "other": 0.0}
+    grad_l2, beyond, excluded, total = 0.0, 0, 0, 0
+    for opt, copt in ((cpu.g_opt, card.g_opt), (cpu.d_opt, card.d_opt)):
+        mus = [m.flatten() for m in opt.mu]
+        cmus = [m.cpu().flatten() for m in copt.mu]
+        grad_l2 = max(grad_l2, float((torch.cat(cmus) - torch.cat(mus)).norm()
+                                     / torch.cat(mus).norm()))
+        for p, cp, mu, cmu in zip(opt.params, copt.params, mus, cmus):
+            same = (torch.sign(mu) == torch.sign(cmu)) & (
+                torch.minimum(mu.abs(), cmu.abs()) >= 0.1 * 1e-7)
+            d = (cp.detach().cpu() - p.detach()).abs().flatten()
+            kind = "kernel" if p.dim() == 4 else "other"
+            tol = 1.5e-4 if kind == "kernel" else 9e-4
+            d = d[same]
+            if d.numel():
+                worst[kind] = max(worst[kind], float(d.max()))
+            beyond += int((d > tol).sum())
+            excluded += int((~same).sum())
+            total += same.numel()
+    bn, cbn = cpu.generator.smoothers[2], card.generator.smoothers[2]
+    bn_d = (float((cbn.running_mean.cpu() - bn.running_mean).abs().max()),
+            float((cbn.running_var.cpu() - bn.running_var).abs().max()))
+    return {"loss_d": {k: abs(mets[0][k] - mets[1][k]) for k in mets[0]},
+            "grad_l2": grad_l2, "worst": worst, "beyond": beyond,
+            "excluded": excluded, "total": total, "bn_d": bn_d}
+
+
+def phase_train(dev, card: str) -> dict:
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=dev)
+    say("train", keyframes=data.num_images, size="270x480",
+        patch_centers=len(data), batch=BT)
+    rec, launches = {}, {"forward": 0, "backward": 0}
+    trained = None
+    for prec in ("32", "bf16"):
+        model = _train_model(prec)
+        with training_backends(model.dtype):
+            state = _run_steps(model, data, dev, TRAIN_WARMUP)
+            step = make_train_step(model)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.synchronize()
+            instance_norm.instance_norm_act_cluster.launches = 0
+            instance_norm.instance_norm_act_streaming.launches = 0
+            instance_norm.instance_norm_act_backward.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                metrics = step(state, data.sample_batch(gen, BT), gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            fwd, st, bwd = _counts()
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{prec}: non-finite losses {vals}")
+        if fwd != 25 * TRAIN_STEPS or st != 0 or bwd != 25 * TRAIN_STEPS:
+            raise AssertionError(
+                f"{prec}: B1 launches {fwd} forward, {st} streaming, {bwd} "
+                f"backward in {TRAIN_STEPS} steps; expected 25 forward "
+                f"(cluster) and 25 backward a step")
+        launches["forward"] += fwd
+        launches["backward"] += bwd
+        ms = 1e3 * dt / TRAIN_STEPS
+        rec[prec] = {"ms_per_step": ms, "patches_per_s": BT / ms * 1e3}
+        say("train", precision=prec, steps=TRAIN_STEPS,
+            warmup_steps=TRAIN_WARMUP, ms_per_step=f"{ms:.2f}",
+            patches_per_s=f"{BT / ms * 1e3:.1f}",
+            forward_launches_per_step=fwd // TRAIN_STEPS,
+            backward_launches_per_step=bwd // TRAIN_STEPS,
+            peak_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
+            g_total_loss=f"{vals['g_total_loss']:.4f}",
+            d_total_loss=f"{vals['d_total_loss']:.4f}", card=f"'{card}'")
+        if prec == "32":
+            trained = (model, state)
+
+    for prec in ("32", "bf16"):  # determinism: two runs, bitwise
+        model = _train_model(prec)
+        with training_backends(model.dtype):
+            runs = [_net_tensors(_run_steps(model, data, dev, 3, seed=5))
+                    for _ in range(2)]
+        differ = [k for k in runs[0] if not torch.equal(runs[0][k],
+                                                        runs[1][k])]
+        say("train", precision=prec, determinism_steps=3,
+            tensors=len(runs[0]), differing_tensors=len(differ))
+        if differ:
+            raise AssertionError(f"{prec}: two identical runs differ in "
+                                 f"{differ[:5]}")
+
+    for small, batch in ((True, 4), (False, 2)):
+        r = _step_parity(dev, small, batch)
+        say("train", card_vs_cpu="small widths" if small else "full width",
+            batch=batch, **{f"loss_d_{k}": f"{v:.3g}"
+                            for k, v in r["loss_d"].items()},
+            max_grad_rel_l2=f"{r['grad_l2']:.3g}",
+            max_param_d_kernel=f"{r['worst']['kernel']:.3g}",
+            max_param_d_other=f"{r['worst']['other']:.3g}",
+            params_beyond_tolerance=r["beyond"],
+            opposite_or_tiny_gradients=r["excluded"], params=r["total"],
+            bn_mean_d=f"{r['bn_d'][0]:.3g}", bn_var_d=f"{r['bn_d'][1]:.3g}")
+        bad_loss = [k for k, v in r["loss_d"].items()
+                    if v > (1e-5 if k.startswith("d_") else 1e-4)]
+        if bad_loss:
+            raise AssertionError(f"card vs CPU losses: {bad_loss}")
+        if (r["beyond"] or r["grad_l2"] > 1e-2
+                or r["excluded"] > 1e-2 * r["total"]
+                or r["bn_d"][0] > 1e-5 or r["bn_d"][1] > 1e-3):
+            raise AssertionError(f"card vs CPU step (small={small}): {r}")
+
+    # the trained checkpoint serves on the card
+    model, state = trained
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager(tmp).save(state, 0, float(metrics["g_total_loss"]))
+        path = str(Path(tmp) / "last.ckpt")
+        cfg = dict(paths={"checkpoint": path}, inference={"precision": "32"})
+        frame = frames[0][None]
+        mask = erode_full_support_np(masks[0])
+        got = StyleTransferInference(inference_config(**cfg)).stylize_group(
+            frame, [mask])
+        want = StyleTransferInference(inference_config(**cfg),
+                                      device="cpu").stylize_group(frame, [mask])
+    d = np.abs(got.astype(int) - want.astype(int))
+    inside = mask > 0
+    changed = float((got[0][inside] != frame[0, ..., :3][inside]).mean())
+    say("train", served_checkpoint="last.ckpt", frame="270x480",
+        mask_pixels=int(inside.sum()), changed_share_in_mask=f"{changed:.3f}",
+        card_vs_cpu_max_abs=int(d.max()), differing_pixels=int((d > 0).sum()))
+    if got.shape != (1, 270, 480, 3) or d.max() > 1 or changed < 0.5:
+        raise AssertionError(f"serving the trained checkpoint: shape "
+                             f"{got.shape}, card vs CPU {d.max()}, changed "
+                             f"{changed}")
+    return {"rec": rec, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -377,7 +763,10 @@ def main() -> int:
     phase_build()
     rec_in = phase_instance_norm(dev)
     rec_bl = phase_blend(dev)
+    phase_signed_unit(dev)
     launches = phase_main_path(dev, card)
+    rec_bw = phase_instance_norm_backward(dev)
+    train = phase_train(dev, card)
     rec_in["variants"]["cluster"]["launches"] = launches["instance_norm_act"]
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"]
@@ -385,9 +774,19 @@ def main() -> int:
         dict(name="instance_norm_act", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
-             launches=launches["instance_norm_act"], dtype="bf16",
-             variant="cluster",
+             launches=launches["instance_norm_act"]
+             + train["launches"]["forward"],
+             launches_by_path={"serve": launches["instance_norm_act"],
+                               "train": train["launches"]["forward"]},
+             dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
+        dict(name="instance_norm_act_backward", route="cuda",
+             source="patch_toon_tpu_torch/csrc/instance_norm_bwd.cu",
+             replaces="patch_toon_tpu/ops/pallas_norm.py:52",
+             note="backward pass of B1; the Pallas kernel has none (JAX "
+                  "differentiates patch_toon_tpu/models/layers.py:29-40)",
+             launches=train["launches"]["backward"], dtype="bf16",
+             per="the 25 sites of one training step at batch 80", **rec_bw),
         dict(name="blend_tiles", route="cuda",
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",
@@ -395,7 +794,7 @@ def main() -> int:
              per="one group of 3 512x910 frames", **rec_bl),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "train": train["rec"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,13 +35,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point: a pointer or the stream must be c_void_p,
 # or ctypes passes it as a 32-bit int and cuts it
 SIGNATURES = {
-    # x, y, n, hw, c, group, k, dtype (0 f32, 1 bf16), act (0 none,
-    # 1 relu, 2 leaky_relu), slope, eps, device, stream
-    "ptt_instance_norm_act_cluster": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                      _F, _F, _I, _P],
-    # x, y, n, hw, c, dtype, act, slope, eps, device, stream
-    "ptt_instance_norm_act_streaming": [_P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                        _I, _P],
+    # x, y, mean, rstd (null, or (n, c) fp32 for the backward pass), n, hw,
+    # c, group, k, dtype (0 f32, 1 bf16), act (0 none, 1 relu,
+    # 2 leaky_relu), slope, eps, device, stream
+    "ptt_instance_norm_act_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _I, _F, _F, _I, _P],
+    # x, y, mean, rstd, n, hw, c, dtype, act, slope, eps, device, stream
+    "ptt_instance_norm_act_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                        _F, _F, _I, _P],
+    # x, dy, mean, rstd, dx, n, hw, c, dtype, act, slope, device, stream
+    "ptt_instance_norm_act_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _F, _I, _P],
     # the cluster variant's shared-memory budget a CTA, in bytes
     "ptt_instance_norm_slice_bytes": [],
     # gen, weights, positions, offsets, ids, canvas, wcanvas, n_tiles, ps,

@@ -69,6 +69,15 @@ def load_yaml(path: Union[str, Path]) -> ConfigNode:
     return _wrap(data or {})
 
 
+def save(cfg: ConfigNode, path: Union[str, Path]) -> None:
+    """Write the resolved config as YAML (the run directory's snapshot)."""
+    import yaml
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(to_container(cfg), f, sort_keys=False)
+
+
 def merge(base: ConfigNode, other: ConfigNode) -> ConfigNode:
     """Deep-merge ``other`` into a copy of ``base`` (other wins)."""
     out = copy.deepcopy(base)

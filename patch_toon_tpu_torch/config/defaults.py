@@ -1,9 +1,12 @@
-"""The composed defaults of ``config/inference.yaml`` as a plain dict.
+"""The composed defaults of ``config/inference.yaml`` and
+``config/config.yaml`` as plain dicts.
 
 What ``compose(<repo>/config, "inference")`` gives with no overrides, kept
 as Python so that a machine without PyYAML (the GPU machine that runs
-``chip_smoke.py``) can build the engine. ``tests/test_torch_tiling.py``
-holds it equal to what :func:`compose` gives for the YAML files.
+``chip_smoke.py``) can build the engine, and what ``compose(<repo>/config,
+"config")`` gives (less the timestamped ``run`` directory), so that it can
+train. ``tests/test_torch_tiling.py`` and ``tests/test_torch_train.py``
+hold them equal to what :func:`compose` gives for the YAML files.
 """
 
 from __future__ import annotations
@@ -159,6 +162,34 @@ INFERENCE: Dict[str, Any] = {
         'augmentation_factor': 1,
     },
 }
+
+
+# config/data/default.yaml: the training scene; the other groups of
+# config/config.yaml are those of INFERENCE
+TRAINING_DATA: Dict[str, Any] = {
+    'dir_pre': 'test_dataset/PlatinumChan_x0.5_train/input',
+    'dir_post': 'test_dataset/PlatinumChan_x0.5_train/output',
+    'dir_mask': 'test_dataset/PlatinumChan_x0.5_train/mask',
+    'patch_size': 80,
+    'additional_channels': {
+        'point_vector': {
+            'path': 'test_dataset/PlatinumChan_x0.5_train/tracking',
+            'depth': 3,
+        },
+    },
+    'augmentation_factor': 1,
+}
+
+
+def training_config(**sections: Dict[str, Any]) -> ConfigNode:
+    """The composed ``config/config.yaml`` (without ``run``) with each given
+    section's keys replaced, e.g. ``training_config(training={...})``."""
+    cfg = {k: copy.deepcopy(INFERENCE[k])
+           for k in ("model", "optimizer", "training", "parallel")}
+    cfg["data"] = copy.deepcopy(TRAINING_DATA)
+    for name, values in sections.items():
+        cfg.setdefault(name, {}).update(copy.deepcopy(values))
+    return _wrap(cfg)
 
 
 def inference_config(**sections: Dict[str, Any]) -> ConfigNode:

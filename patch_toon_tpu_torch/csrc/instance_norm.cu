@@ -34,6 +34,10 @@
 // times (mean, variance, normalize); the 32 lanes of a warp take 32
 // neighbouring channels of one pixel, the 16 warps every 16th pixel.
 //
+// Under autograd both variants also write the per-(sample, channel) fp32
+// mean and rstd that the backward kernel (instance_norm_bwd.cu) reads; the
+// cluster variant writes them from rank 0 of each cluster.
+//
 // ops/instance_norm.py::plan picks the variant, G and k; the entry points
 // check what they are given again and return an error code, never fall
 // back.
@@ -173,8 +177,9 @@ __device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
 template <typename T, int kAct>
 __global__ void __launch_bounds__(kThreads, 2)
 instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                 int hw, int c, int group, int ppc,
-                                 float slope, float eps) {
+                                 float* __restrict__ mean_out,
+                                 float* __restrict__ rstd_out, int hw, int c,
+                                 int group, int ppc, float slope, float eps) {
   constexpr int kVec = Vec<T>::n;
   extern __shared__ __align__(16) unsigned char slice_raw[];
   uint4* slice = reinterpret_cast<uint4*>(slice_raw);
@@ -242,7 +247,14 @@ instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
   if (threadIdx.x < group) {
     const float var =
         cluster_sum(cluster, part[1], k) / static_cast<float>(hw);
-    stat[1][threadIdx.x] = 1.0f / sqrtf(var + eps);
+    const float r = 1.0f / sqrtf(var + eps);
+    stat[1][threadIdx.x] = r;
+    if (mean_out != nullptr && rank == 0) {  // for the backward pass
+      const size_t o = static_cast<size_t>(n) * c +
+                       static_cast<size_t>(g) * group + threadIdx.x;
+      mean_out[o] = stat[0][threadIdx.x];
+      rstd_out[o] = r;
+    }
   }
   cluster_arrive();  // no more reads of the peers' shared memory
   __syncthreads();
@@ -263,9 +275,10 @@ instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 template <typename T, int kAct>
-cudaError_t launch_cluster_act(const void* x, void* y, int n, int hw, int c,
-                               int group, int k, int dtype, float slope,
-                               float eps, int device, cudaStream_t stream) {
+cudaError_t launch_cluster_act(const void* x, void* y, float* mean,
+                               float* rstd, int n, int hw, int c, int group,
+                               int k, int dtype, float slope, float eps,
+                               int device, cudaStream_t stream) {
   auto* kernel = instance_norm_act_cluster_kernel<T, kAct>;
   const int ppc = (hw + k - 1) / k;
   const size_t smem = static_cast<size_t>(ppc) * group * sizeof(T);
@@ -312,16 +325,17 @@ cudaError_t launch_cluster_act(const void* x, void* y, int n, int hw, int c,
   }
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel,
                                        static_cast<const T*>(x),
-                                       static_cast<T*>(y), hw, c, group, ppc,
-                                       slope, eps);
+                                       static_cast<T*>(y), mean, rstd, hw, c,
+                                       group, ppc, slope, eps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_cluster(const void* x, void* y, int n, int hw, int c,
-                           int group, int k, int dtype, int act, float slope,
-                           float eps, int device, cudaStream_t stream) {
+cudaError_t launch_cluster(const void* x, void* y, float* mean, float* rstd,
+                           int n, int hw, int c, int group, int k, int dtype,
+                           int act, float slope, float eps, int device,
+                           cudaStream_t stream) {
   constexpr int kVec = Vec<T>::n;
   if (group <= 0 || group > kMaxGroup || group % kVec != 0 ||
       c % group != 0)
@@ -333,14 +347,14 @@ cudaError_t launch_cluster(const void* x, void* y, int n, int hw, int c,
     return cudaErrorMisalignedAddress;
   switch (act) {
     case 0:
-      return launch_cluster_act<T, 0>(x, y, n, hw, c, group, k, dtype, slope,
-                                      eps, device, stream);
+      return launch_cluster_act<T, 0>(x, y, mean, rstd, n, hw, c, group, k,
+                                      dtype, slope, eps, device, stream);
     case 1:
-      return launch_cluster_act<T, 1>(x, y, n, hw, c, group, k, dtype, slope,
-                                      eps, device, stream);
+      return launch_cluster_act<T, 1>(x, y, mean, rstd, n, hw, c, group, k,
+                                      dtype, slope, eps, device, stream);
     case 2:
-      return launch_cluster_act<T, 2>(x, y, n, hw, c, group, k, dtype, slope,
-                                      eps, device, stream);
+      return launch_cluster_act<T, 2>(x, y, mean, rstd, n, hw, c, group, k,
+                                      dtype, slope, eps, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -370,7 +384,9 @@ __device__ __forceinline__ float block_lane_sum(float v,
 template <typename T, int kAct>
 __global__ void __launch_bounds__(kLanes * kWarps)
 instance_norm_act_streaming_kernel(const T* __restrict__ x,
-                                   T* __restrict__ y, int hw, int c,
+                                   T* __restrict__ y,
+                                   float* __restrict__ mean_out,
+                                   float* __restrict__ rstd_out, int hw, int c,
                                    float slope, float eps) {
   __shared__ float red[kWarps][kLanes];
   __shared__ float sum_s[kLanes];
@@ -399,6 +415,11 @@ instance_norm_act_streaming_kernel(const T* __restrict__ x,
   }
   const float var = block_lane_sum(q, red, sq_s) / static_cast<float>(hw);
   const float rstd = 1.0f / sqrtf(var + eps);
+  if (mean_out != nullptr && active && threadIdx.y == 0) {
+    const size_t o = static_cast<size_t>(blockIdx.x) * c + ch;
+    mean_out[o] = mean;
+    rstd_out[o] = rstd;
+  }
 
   if (!active) return;
 #pragma unroll 4
@@ -409,9 +430,9 @@ instance_norm_act_streaming_kernel(const T* __restrict__ x,
 }
 
 template <typename T>
-cudaError_t launch_streaming(const void* x, void* y, int n, int hw, int c,
-                             int act, float slope, float eps,
-                             cudaStream_t stream) {
+cudaError_t launch_streaming(const void* x, void* y, float* mean, float* rstd,
+                             int n, int hw, int c, int act, float slope,
+                             float eps, cudaStream_t stream) {
   const dim3 grid(n, (c + kLanes - 1) / kLanes);
   const dim3 block(kLanes, kWarps);
   const T* xi = static_cast<const T*>(x);
@@ -419,15 +440,15 @@ cudaError_t launch_streaming(const void* x, void* y, int n, int hw, int c,
   switch (act) {
     case 0:
       instance_norm_act_streaming_kernel<T, 0><<<grid, block, 0, stream>>>(
-          xi, yo, hw, c, slope, eps);
+          xi, yo, mean, rstd, hw, c, slope, eps);
       break;
     case 1:
       instance_norm_act_streaming_kernel<T, 1><<<grid, block, 0, stream>>>(
-          xi, yo, hw, c, slope, eps);
+          xi, yo, mean, rstd, hw, c, slope, eps);
       break;
     case 2:
       instance_norm_act_streaming_kernel<T, 2><<<grid, block, 0, stream>>>(
-          xi, yo, hw, c, slope, eps);
+          xi, yo, mean, rstd, hw, c, slope, eps);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -437,38 +458,45 @@ cudaError_t launch_streaming(const void* x, void* y, int n, int hw, int c,
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16. act: 0 none, 1 relu, 2 leaky_relu.
-extern "C" int ptt_instance_norm_act_cluster(const void* x, void* y, int n,
+// dtype: 0 fp32, 1 bf16. act: 0 none, 1 relu, 2 leaky_relu. mean and rstd
+// are (n, c) fp32 outputs for the backward pass, or both null.
+extern "C" int ptt_instance_norm_act_cluster(const void* x, void* y,
+                                             float* mean, float* rstd, int n,
                                              int hw, int c, int group, int k,
                                              int dtype, int act, float slope,
                                              float eps, int device,
                                              void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
+  if ((mean == nullptr) != (rstd == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_cluster<float>(x, y, n, hw, c, group, k, dtype, act, slope,
-                                 eps, device, s);
+    return launch_cluster<float>(x, y, mean, rstd, n, hw, c, group, k, dtype,
+                                 act, slope, eps, device, s);
   if (dtype == 1)
-    return launch_cluster<__nv_bfloat16>(x, y, n, hw, c, group, k, dtype, act,
-                                         slope, eps, device, s);
+    return launch_cluster<__nv_bfloat16>(x, y, mean, rstd, n, hw, c, group, k,
+                                         dtype, act, slope, eps, device, s);
   return cudaErrorInvalidValue;
 }
 
-extern "C" int ptt_instance_norm_act_streaming(const void* x, void* y, int n,
+extern "C" int ptt_instance_norm_act_streaming(const void* x, void* y,
+                                               float* mean, float* rstd, int n,
                                                int hw, int c, int dtype,
                                                int act, float slope,
                                                float eps, int device,
                                                void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
+  if ((mean == nullptr) != (rstd == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_streaming<float>(x, y, n, hw, c, act, slope, eps, s);
+    return launch_streaming<float>(x, y, mean, rstd, n, hw, c, act, slope, eps,
+                                   s);
   if (dtype == 1)
-    return launch_streaming<__nv_bfloat16>(x, y, n, hw, c, act, slope, eps, s);
+    return launch_streaming<__nv_bfloat16>(x, y, mean, rstd, n, hw, c, act,
+                                           slope, eps, s);
   return cudaErrorInvalidValue;
 }
 

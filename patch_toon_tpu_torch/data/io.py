@@ -44,6 +44,18 @@ def decode_rgb_uint8(path: Union[str, Path]) -> np.ndarray:
         return np.asarray(img.convert("RGB"))
 
 
+def load_image_rgb(path: Union[str, Path]) -> np.ndarray:
+    """(H, W, 3) float32 RGB in [-1, 1]: byte / 255 * 2 - 1 in fp32, the
+    reference transform (dataset.py:34-44)."""
+    return decode_rgb_uint8(path).astype(np.float32) / 255.0 * 2.0 - 1.0
+
+
+def load_image_channels(path: Union[str, Path], depth: int) -> np.ndarray:
+    """A guide-channel image as float32 in [-1, 1], the first ``depth``
+    bands of its RGB conversion (reference dataset.py:191)."""
+    return load_image_rgb(path)[..., :depth]
+
+
 def image_bands(path: Union[str, Path]) -> int:
     """Number of bands an image file holds (L = 1, RGB = 3, RGBA = 4)."""
     from PIL import Image

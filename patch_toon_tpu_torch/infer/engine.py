@@ -11,7 +11,9 @@ A file that fails is named and skipped (reference generator.py:700-705).
 Semantics kept from the JAX engine: the channel count sniffed from the
 checkpoint must match the configured guide channels; masks are binarized
 (> 128), then eroded with the 7x7 full-support rule; a missing mask
-directory whose name ends in ``ignore`` means full-frame stylization.
+directory whose name ends in ``ignore`` means full-frame stylization; a
+fractional mask given to :meth:`stylize_group` is uploaded as fp32 and
+composites in part (JAX ``_mask_up``).
 
 Precision ``32`` runs fp32 with TF32 off in cuDNN and matmuls and the
 fp32 matmul precision at "highest" (the JAX contract is HIGHEST precision,
@@ -20,9 +22,13 @@ patch_toon_tpu/models/layers.py:91-93 for the upsample's products and
 ``bf16`` (the default) runs the convs in bf16 while InstanceNorm statistics
 and the smoother BatchNorm stay fp32, as in JAX.
 
-Not in this slice: the host/device pipeline and async writer, fullframe,
-temporal, multi-stream and watch modes, crop_upload/crop_readback, packed
-mask upload, int8, several devices and ``debug_mode``.
+Not ported yet, and refused by name (``NotImplementedError``): modes other
+than tiled, precision ``32_fast``, ``quantize=int8``, ``file_shard``,
+``devices`` other than 1, ``debug_mode``, ``temporal.enabled`` and
+``watch.enabled``. The transport knobs (``crop_readback``, ``crop_upload``,
+``upload``, ``mask_upload``, ``readback_streams``, ``xla_options``) change
+no output in the JAX package and are no-ops here. Also not ported: the
+host/device pipeline and the async writer.
 """
 
 from __future__ import annotations
@@ -91,15 +97,43 @@ def _resolve_dtype(precision: Any) -> torch.dtype:
     raise ValueError(f"inference.precision={precision!r}: expected 32 or bf16")
 
 
+def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
+    """Raise NotImplementedError naming each inference knob that asks for
+    what this port does not do yet (the JAX engine acts on all of them)."""
+    mode = str(inf.get("mode", "tiled"))
+    if mode != "tiled":
+        raise NotImplementedError(
+            f"inference.mode={mode!r} is not ported yet (tiled only)")
+    q = str(inf.get("quantize", "off")).lower()
+    if q in ("int8", "w8a8"):
+        raise NotImplementedError(f"inference.quantize={q!r} is not ported "
+                                  "yet")
+    if q not in ("off", "false", "0", "no", "none"):
+        raise ValueError(f"inference.quantize={q!r}: expected int8/w8a8 or "
+                         "off/false/0/no/none")
+    if inf.get("file_shard") not in (None, ""):
+        raise NotImplementedError(
+            f"inference.file_shard={inf.get('file_shard')!r} is not ported "
+            "yet (one process writes every frame)")
+    if int(inf.get("devices", 1) or 1) != 1:
+        raise NotImplementedError(
+            f"inference.devices={inf.get('devices')!r} is not ported yet "
+            "(one device)")
+    if bool(inf.get("debug_mode", False)):
+        raise NotImplementedError(
+            "inference.debug_mode=true is not ported yet")
+    for knob in ("temporal", "watch"):
+        if bool((inf.get(knob) or {}).get("enabled", False)):
+            raise NotImplementedError(
+                f"inference.{knob}.enabled=true is not ported yet")
+
+
 class StyleTransferInference:
     def __init__(self, cfg: Any, device: Optional[str] = None):
         self.cfg = cfg
         inf = cfg.get("inference", {}) or {}
+        check_unported_inference_knobs(inf)
         self.device = _resolve_device(device, inf)
-        mode = str(inf.get("mode", "tiled"))
-        if mode != "tiled":
-            raise NotImplementedError(
-                f"inference.mode={mode!r} is not ported yet (tiled only)")
         self.overlap_percent = float(inf.get("overlap_percent", 30.0))
         self.max_tile_batch = int(inf.get("tile_batch", 512))
         self.frames_per_dispatch = inf.get("frames_per_dispatch", "auto")
@@ -177,7 +211,8 @@ class StyleTransferInference:
         """Stylize F frames of one shape in one generator batch.
 
         frames_u8 (F, H, W, C) uint8 (RGB then guide channels); eroded
-        masks (H, W) {0, 1} or None for full-frame stylization.
+        masks (H, W) in [0, 1] or None for full-frame stylization; {0, 1}
+        masks upload as uint8, any other as fp32, which composites in part.
         -> (F, H, W, 3) uint8."""
         frames_u8 = np.asarray(frames_u8)
         f, h, w, c = frames_u8.shape
@@ -188,7 +223,12 @@ class StyleTransferInference:
             group_boxes = [self.boxes_for(m, (h, w)) for m in eroded_masks]
         plan, weights = self._pack(group_boxes, h, w)
         masks = np.stack([m if m is not None else np.ones((h, w), np.float32)
-                          for m in eroded_masks]).astype(np.uint8)[..., None]
+                          for m in eroded_masks])[..., None]
+        binary = masks.astype(np.uint8)
+        if (binary == masks).all():
+            masks = binary  # lossless, 4x fewer bytes to upload
+        else:
+            masks = masks.astype(np.float32)
         fn = make_multiframe_fn(self.model, self.patch_size, f, h, w,
                                 self.dtype)
         u8, _ = fn(torch.from_numpy(frames_u8).to(self.device), plan,

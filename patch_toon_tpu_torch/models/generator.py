@@ -13,7 +13,11 @@ affine, ReLU, the upsample) hold their index as ``nn.Identity`` or
 ``nn.ReLU``; ``forward`` calls the layers by index.
 
 The public interface is NHWC like the JAX module: ``forward`` takes
-(N, H, W, C) in [-1, 1] and returns (N, H, W, 3).
+(N, H, W, C) in [-1, 1] and returns (N, H, W, 3), in the input's type (the
+convs cast their fp32 weights to it). ``train()`` mode is the JAX module's
+``train=True``: the smoother BatchNorm normalizes with fp32 batch
+statistics and advances its running statistics once
+(``layers.batch_norm_train_fp32``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from torch import nn
 
 from patch_toon_tpu_torch.models.layers import (
     batch_norm_eval_fp32,
+    batch_norm_train_fp32,
     conv,
     norm_act,
     upsample2x,
@@ -96,7 +101,9 @@ class GeneratorJ(nn.Module):
         out = F.relu(self.conv11[0](torch.cat([out, conv0, x], dim=1)))
         if self.smoothers is not None:
             out = F.relu(self.smoothers[0](out))
-            out = batch_norm_eval_fp32(out, self.smoothers[2])
+            bn = self.smoothers[2]
+            out = batch_norm_train_fp32(out, bn) if self.training \
+                else batch_norm_eval_fp32(out, bn)
             out = F.relu(self.smoothers[3](out))
         out = self.output[0](out)
         if self.tanh:

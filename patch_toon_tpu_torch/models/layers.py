@@ -1,9 +1,11 @@
-"""GeneratorJ's building blocks in PyTorch.
+"""The networks' building blocks in PyTorch.
 
 Counterpart of ``patch_toon_tpu/models/layers.py``. Activations run as NCHW
 tensors in ``channels_last`` memory, which is NHWC in memory: convolutions
 go to cuDNN in that layout and the InstanceNorm kernel reads it without a
-copy. Conv weights are torch's OIHW (reference ``nn.Conv2d``).
+copy. Conv weights are torch's OIHW (reference ``nn.Conv2d``), kept in fp32
+for training and cast to the activation's type in each forward, as flax
+casts fp32 parameters to a module's compute dtype.
 """
 
 from __future__ import annotations
@@ -16,26 +18,43 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from patch_toon_tpu_torch.ops.instance_norm import instance_norm_act
+from patch_toon_tpu_torch.ops.instance_norm import instance_norm_act_autograd
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in its input's type: the weight and bias are
+    cast to it (a no-op when they already have it; differentiable, so fp32
+    parameters receive fp32 gradients from a bf16 forward)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, w, b)
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-         bias: bool = True) -> nn.Conv2d:
+         bias: bool = True) -> Conv2d:
     """Torch-compatible conv: explicit zero padding, N(0, 0.02) weights and
     zero bias as at reference generator.py:149-154."""
-    layer = nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                      bias=bias)
+    layer = Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
     nn.init.normal_(layer.weight, 0.0, 0.02)
     if bias:
         nn.init.zeros_(layer.bias)
     return layer
 
 
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``jnp.where(x >= 0, x, x * slope)``: gradient 1 at exactly 0, as in
+    JAX (``F.leaky_relu`` passes ``slope`` there)."""
+    return torch.where(x >= 0, x, x * slope)
+
+
 def norm_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     """InstanceNorm + activation of an NCHW tensor through the NHWC kernel
-    entry point (a free view for channels_last memory)."""
+    entry point (a free view for channels_last memory); differentiable
+    through the backward kernel when autograd records."""
     nhwc = y.permute(0, 2, 3, 1).contiguous()
-    return instance_norm_act(nhwc, act).permute(0, 3, 1, 2)
+    return instance_norm_act_autograd(nhwc, act).permute(0, 3, 1, 2)
 
 
 @functools.lru_cache(maxsize=64)
@@ -89,4 +108,27 @@ def batch_norm_eval_fp32(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     y = F.batch_norm(x.float(), bn.running_mean.float(),
                      bn.running_var.float(), bn.weight.float(),
                      bn.bias.float(), False, 0.0, bn.eps)
+    return y.to(x.dtype)
+
+
+def batch_norm_train_fp32(x: torch.Tensor, bn: nn.BatchNorm2d,
+                          momentum: float = 0.9) -> torch.Tensor:
+    """Train-mode BatchNorm as flax computes it (``nn.BatchNorm`` with
+    ``use_fast_variance``): fp32 batch mean and BIASED variance
+    ``max(0, E[x^2] - E[x]^2)`` over N, H, W, ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias``, and the running statistics advanced in place
+    as ``momentum * running + (1 - momentum) * batch`` with that biased
+    variance (torch's own BatchNorm uses the unbiased one there)."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3))
+                          - torch.square(mean), 0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var
+                             + (1 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (x32 - mean[None, :, None, None]) * mul[None, :, None, None] \
+        + bn.bias.float()[None, :, None, None]
     return y.to(x.dtype)

@@ -13,8 +13,15 @@ are laid out), as :func:`plan` picks from the shape, type and alignment:
 
 This is the counterpart of the Pallas wrapper's ``fits_vmem`` shape
 dispatch, between two hand-written kernels. On a CPU tensor every wrapper
-runs :func:`instance_norm_act_plain`. A CUDA tensor that a kernel does not
-take raises: nothing falls back.
+runs its plain version. A CUDA tensor that a kernel does not take raises:
+nothing falls back.
+
+Under autograd, :class:`InstanceNormAct` runs the same forward variants,
+which then also write the fp32 mean and rstd, and its backward pass is the
+hand-written kernel of ``csrc/instance_norm_bwd.cu``
+(:func:`instance_norm_act_backward`, counted in its ``.launches``). The
+JAX package has no such kernel: its Pallas kernel serves inference only
+and JAX training differentiates the plain ops.
 
 Numerics follow ``patch_toon_tpu/models/layers.py::instance_norm``: fp32
 mean and biased variance per (sample, channel) over H x W, eps 1e-5, then
@@ -83,17 +90,47 @@ def _activate(y: torch.Tensor, act: Optional[str], slope: float):
     return y
 
 
-def instance_norm_act_plain(x: torch.Tensor, act: Optional[str] = None,
-                            slope: float = 0.2,
-                            eps: float = 1e-5) -> torch.Tensor:
-    """Plain PyTorch version: two-pass fp32 statistics over dims 1, 2."""
+def _plain_forward(x: torch.Tensor, act: Optional[str], slope: float,
+                   eps: float):
+    """-> (y, mean, rstd): two-pass fp32 statistics over dims 1, 2; mean
+    and rstd (N, C) fp32."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     x32 = x.float()
     mean = x32.mean(dim=(1, 2), keepdim=True)
     var = torch.square(x32 - mean).mean(dim=(1, 2), keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return _activate(y, act, slope).to(x.dtype)
+    rstd = torch.rsqrt(var + eps)
+    y = _activate((x32 - mean) * rstd, act, slope).to(x.dtype)
+    return y, mean[:, 0, 0], rstd[:, 0, 0]
+
+
+def instance_norm_act_plain(x: torch.Tensor, act: Optional[str] = None,
+                            slope: float = 0.2,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version: two-pass fp32 statistics over dims 1, 2."""
+    return _plain_forward(x, act, slope, eps)[0]
+
+
+def instance_norm_act_backward_plain(x: torch.Tensor, dy: torch.Tensor,
+                                     mean: torch.Tensor, rstd: torch.Tensor,
+                                     act: Optional[str] = None,
+                                     slope: float = 0.2) -> torch.Tensor:
+    """Plain version of the backward kernel: with x^ = (x - mean) * rstd
+    and g = dy * act'(x^), dx = rstd * (g - mean(g) - x^ * mean(g * x^))
+    over H x W in fp32, in x's type. The derivative at exactly 0 follows
+    JAX: LeakyReLU (``jnp.where(x >= 0, ...)``) passes 1, ReLU 0."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    m, r = mean[:, None, None, :], rstd[:, None, None, :]
+    xh = (x.float() - m) * r
+    g = dy.float()
+    if act == "leaky_relu":
+        g = torch.where(xh >= 0, g, g * slope)
+    elif act == "relu":
+        g = torch.where(xh > 0, g, torch.zeros_like(g))
+    mg = g.mean(dim=(1, 2), keepdim=True)
+    mgx = (g * xh).mean(dim=(1, 2), keepdim=True)
+    return (r * (g - mg - xh * mgx)).to(x.dtype)
 
 
 def _cuda_input(x: torch.Tensor, act: Optional[str]) -> bool:
@@ -130,16 +167,29 @@ def instance_norm_act(x: torch.Tensor, act: Optional[str] = None,
     return instance_norm_act_streaming(x, act, slope, eps)
 
 
+def _stats_out(x: torch.Tensor, stats: bool):
+    """(mean, rstd) (N, C) fp32 outputs and their pointers, or none."""
+    if not stats:
+        return None, 0, 0
+    n, c = x.shape[0], x.shape[3]
+    mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    return (mean, rstd), mean.data_ptr(), rstd.data_ptr()
+
+
 def instance_norm_act_cluster(x: torch.Tensor, act: Optional[str] = None,
-                              slope: float = 0.2,
-                              eps: float = 1e-5) -> torch.Tensor:
+                              slope: float = 0.2, eps: float = 1e-5,
+                              stats: bool = False):
     """The cluster variant (counted in ``.launches``); raises for a CUDA
-    tensor that :func:`plan` gives to the streaming variant."""
+    tensor that :func:`plan` gives to the streaming variant. With
+    ``stats`` -> (y, mean, rstd), else y."""
     if not _cuda_input(x, act):
-        return instance_norm_act_plain(x, act, slope, eps)
+        out = _plain_forward(x, act, slope, eps)
+        return out if stats else out[0]
     y = torch.empty_like(x)
+    st, mp, rp = _stats_out(x, stats)
     if x.numel() == 0:
-        return y
+        return (y, *st) if stats else y
     p = plan_for(x)
     if p.variant != "cluster":
         raise ValueError(f"instance_norm_act_cluster does not take "
@@ -147,32 +197,107 @@ def instance_norm_act_cluster(x: torch.Tensor, act: Optional[str] = None,
                          f"{x.data_ptr() % 16} (the streaming variant does)")
     n, h, w, c = x.shape
     rc = _build.library().ptt_instance_norm_act_cluster(
-        x.data_ptr(), y.data_ptr(), n, h * w, c, p.group, p.k,
+        x.data_ptr(), y.data_ptr(), mp, rp, n, h * w, c, p.group, p.k,
         _DTYPES[x.dtype], ACTS[act], slope, eps, x.device.index,
         _build.stream_of(x))
     _build.check(rc, "instance_norm_act_cluster")
     instance_norm_act_cluster.launches += 1
-    return y
+    return (y, *st) if stats else y
 
 
 def instance_norm_act_streaming(x: torch.Tensor, act: Optional[str] = None,
-                                slope: float = 0.2,
-                                eps: float = 1e-5) -> torch.Tensor:
+                                slope: float = 0.2, eps: float = 1e-5,
+                                stats: bool = False):
     """The streaming variant (counted in ``.launches``); takes any
-    NHWC-contiguous fp32 or bf16 tensor."""
+    NHWC-contiguous fp32 or bf16 tensor. With ``stats`` -> (y, mean,
+    rstd), else y."""
     if not _cuda_input(x, act):
-        return instance_norm_act_plain(x, act, slope, eps)
+        out = _plain_forward(x, act, slope, eps)
+        return out if stats else out[0]
     y = torch.empty_like(x)
+    st, mp, rp = _stats_out(x, stats)
     if x.numel() == 0:
-        return y
+        return (y, *st) if stats else y
     n, h, w, c = x.shape
     rc = _build.library().ptt_instance_norm_act_streaming(
-        x.data_ptr(), y.data_ptr(), n, h * w, c, _DTYPES[x.dtype], ACTS[act],
-        slope, eps, x.device.index, _build.stream_of(x))
+        x.data_ptr(), y.data_ptr(), mp, rp, n, h * w, c, _DTYPES[x.dtype],
+        ACTS[act], slope, eps, x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_streaming")
     instance_norm_act_streaming.launches += 1
-    return y
+    return (y, *st) if stats else y
+
+
+def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor,
+                               mean: torch.Tensor, rstd: torch.Tensor,
+                               act: Optional[str] = None,
+                               slope: float = 0.2) -> torch.Tensor:
+    """dx of InstanceNorm(+activation) from the forward pass's input, the
+    output gradient and the (N, C) fp32 statistics. CUDA: one launch of
+    ``csrc/instance_norm_bwd.cu`` (counted in ``.launches``); dx in x's
+    type, NHWC-contiguous. CPU: the plain version."""
+    if not _cuda_input(x, act):
+        return instance_norm_act_backward_plain(x, dy, mean, rstd, act, slope)
+    n, h, w, c = x.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"instance_norm_act_backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} must match x {tuple(x.shape)} "
+                         f"{x.dtype}, NHWC-contiguous on {x.device}")
+    for t in (mean, rstd):
+        if t.shape != (n, c) or t.dtype != torch.float32 \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError("instance_norm_act_backward: mean and rstd must "
+                             f"be contiguous ({n}, {c}) float32 on {x.device}")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    rc = _build.library().ptt_instance_norm_act_backward(
+        x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        dx.data_ptr(), n, h * w, c, _DTYPES[x.dtype], ACTS[act], slope,
+        x.device.index, _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_backward")
+    instance_norm_act_backward.launches += 1
+    return dx
 
 
 instance_norm_act_cluster.launches = 0
 instance_norm_act_streaming.launches = 0
+instance_norm_act_backward.launches = 0
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """B1 under autograd. Forward: the variant :func:`plan` picks, writing
+    the fp32 mean and rstd as well (CPU: the plain version). Backward:
+    :func:`instance_norm_act_backward` (CPU: its plain version)."""
+
+    @staticmethod
+    def forward(ctx, x, act, slope, eps):
+        if not _cuda_input(x, act):
+            y, mean, rstd = _plain_forward(x, act, slope, eps)
+        elif x.numel() and plan_for(x).variant == "cluster":
+            y, mean, rstd = instance_norm_act_cluster(x, act, slope, eps, True)
+        else:
+            y, mean, rstd = instance_norm_act_streaming(x, act, slope, eps,
+                                                        True)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.act, ctx.slope = act, slope
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, rstd = ctx.saved_tensors
+        dx = instance_norm_act_backward(x, dy.to(x.dtype).contiguous(), mean,
+                                        rstd, ctx.act, ctx.slope)
+        return dx, None, None, None
+
+
+def instance_norm_act_autograd(x: torch.Tensor, act: Optional[str] = None,
+                               slope: float = 0.2,
+                               eps: float = 1e-5) -> torch.Tensor:
+    """:func:`instance_norm_act`, differentiable: through
+    :class:`InstanceNormAct` when autograd records (grad mode on and x
+    requires grad), else the inference launch that writes no
+    statistics."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return InstanceNormAct.apply(x, act, slope, eps)
+    return instance_norm_act(x, act, slope, eps)

@@ -1,10 +1,10 @@
-"""Generator weights: from the JAX tree, and from torch checkpoint files.
+"""Network weights: from the JAX trees, and from torch checkpoint files.
 
-``generator_state_from_jax`` is the port's own copy of the name mapping in
-``patch_toon_tpu/utils/torch_compat.py:150-200`` (flax HWIO kernels ->
-torch OIHW weights). It copies every array: ``np.asarray`` of a tensor
-aliases its storage, and converted weights must never share memory with
-their source.
+``generator_state_from_jax``, ``discriminator_state_from_jax`` and
+``vgg_state_from_jax`` are the port's own copies of the name mappings in
+``patch_toon_tpu/utils/torch_compat.py`` (flax HWIO kernels -> torch OIHW
+weights). They copy every array: ``np.asarray`` of a tensor aliases its
+storage, and converted weights must never share memory with their source.
 
 ``load_generator_state`` reads the two torch layouts that exist: the
 reference Lightning ``.ckpt`` (``state_dict`` with a ``generator.`` prefix)
@@ -59,6 +59,29 @@ def generator_state_from_jax(params: Mapping[str, Any],
         out["smoothers.2.num_batches_tracked"] = torch.tensor(0)
         _conv(out, "smoothers.3", params["smoother_conv2"])
     _conv(out, "output.0", params["output"])
+    return out
+
+
+def discriminator_state_from_jax(params: Mapping[str, Any],
+                                 n_layers: int = 3
+                                 ) -> Dict[str, torch.Tensor]:
+    """flax DiscriminatorN_IN params as numpy -> torch state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _conv(out, "initial.0", params["initial"]["conv"])
+    for i in range(n_layers - 1):
+        _conv(out, f"intermediate.{i}.0", params[f"intermediate_{i}"]["conv"])
+    _conv(out, "pre_output.0", params["pre_output"]["conv"])
+    _conv(out, "output.0", params["output"])
+    return out
+
+
+def vgg_state_from_jax(params: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """flax PerceptualVGG19 params (``features_<i>``) as numpy -> the
+    ``features.<i>.weight/bias`` state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        _conv(out, f"features.{int(name.split('_')[1])}", p)
     return out
 
 

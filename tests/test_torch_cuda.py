@@ -217,3 +217,144 @@ def test_blend_kernel_on_the_engine_layout(cuda):
                              plan.ids, *args[3:])
     want = tblend.blend_tiles_plain(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------------- B1 under autograd
+
+# (H, W, C) of every InstanceNorm site of a training step at the default
+# widths: the generator's five shapes and the discriminator's two
+TRAIN_SHAPES = MAIN_PATH_SHAPES + [(20, 20, 24), (19, 19, 48)]
+
+
+def _stats(x):
+    x32 = x.float()
+    mean = x32.mean(dim=(1, 2))
+    var = torch.square(x32 - mean[:, None, None]).mean(dim=(1, 2))
+    return mean.contiguous(), torch.rsqrt(var + 1e-5).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hwc", TRAIN_SHAPES)
+def test_instance_norm_backward_kernel_matches_plain(cuda, act, dtype, hwc):
+    """The backward kernel against its plain version on the same x, dy and
+    statistics: fp32 within 2e-5 absolute and relative (sums in other
+    orders); bf16 within one bf16 ulp of the value (one rounding of an
+    fp32 result that may differ in the last bits)."""
+    from patch_toon_tpu_torch.ops.instance_norm import (
+        instance_norm_act_backward, instance_norm_act_backward_plain)
+
+    x = _randn((3,) + hwc, dtype, cuda, seed=6)
+    dy = _randn((3,) + hwc, dtype, cuda, seed=7)
+    mean, rstd = _stats(x)
+    before = instance_norm_act_backward.launches
+    got = instance_norm_act_backward(x, dy, mean, rstd, act)
+    torch.cuda.synchronize()
+    assert instance_norm_act_backward.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous()
+    want = instance_norm_act_backward_plain(x, dy, mean, rstd, act)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_bf16_close(got.float().cpu().numpy(),
+                           want.float().cpu().numpy())
+    again = instance_norm_act_backward(x, dy, mean, rstd, act)
+    assert torch.equal(got, again)  # a fixed order: bitwise repeatable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 20, 20, 24), (2, 540, 960, 32)])
+def test_instance_norm_forward_writes_the_statistics(cuda, dtype, shape):
+    """Both forward variants (the second shape goes to the streaming one)
+    give the plain version's mean and rstd with ``stats=True``: within
+    1e-5 relative, 5e-5 for rstd of the 518,400-pixel plane, whose
+    streaming sums add 32,400 values a thread in sequence."""
+    rtol = 5e-5 if shape[1] * shape[2] > 100_000 else 1e-5
+    x = _randn(shape, dtype, cuda, seed=8)
+    want_mean, want_rstd = _stats(x)
+    for variant, fn in VARIANTS.items():
+        if variant == "cluster" and plan_for(x).variant != "cluster":
+            continue
+        y, mean, rstd = fn(x, "relu", stats=True)
+        torch.cuda.synchronize()
+        _assert_in_close(y, instance_norm_act_plain(x, "relu"), dtype)
+        torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(rstd, want_rstd, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_instance_norm_function_launches_both_kernels(cuda):
+    from patch_toon_tpu_torch.ops.instance_norm import (
+        InstanceNormAct, instance_norm_act_backward,
+        instance_norm_act_backward_plain)
+
+    x = _randn((4, 20, 20, 128), torch.float32, cuda, seed=9)
+    dy = _randn(x.shape, torch.float32, cuda, seed=10)
+    xg = x.clone().requires_grad_(True)
+    f0 = instance_norm_act_cluster.launches
+    b0 = instance_norm_act_backward.launches
+    y = InstanceNormAct.apply(xg, "leaky_relu", 0.2, 1e-5)
+    (dx,) = torch.autograd.grad(y, xg, dy)
+    torch.cuda.synchronize()
+    assert instance_norm_act_cluster.launches == f0 + 1
+    assert instance_norm_act_backward.launches == b0 + 1
+    mean, rstd = _stats(x)
+    torch.testing.assert_close(dx, instance_norm_act_backward_plain(
+        x, dy, mean, rstd, "leaky_relu"), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_generator_backward_on_cuda_matches_the_cpu(cuda):
+    """C3: a backward pass through GeneratorJ on the card gives every conv
+    a gradient, equal to the CPU port's within 5e-2 in relative L2 norm.
+    fp32 with TF32 off: activations agree within 1e-6, but an activation
+    input within roundoff of 0 takes the other branch on one device, which
+    moves dx at that element by rstd * dy and every conv gradient upstream
+    (measured on the card for this net: up to 2.0e-2 of a tensor's largest
+    gradient, against 1e-6 downstream of the flip). A dropped gradient
+    (fault C3) is 1.0."""
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+    from patch_toon_tpu_torch.ops.instance_norm import (
+        instance_norm_act_backward)
+
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        cpu = GeneratorJ(input_channels=6, filters=(8, 16, 32, 32, 32, 16),
+                         use_bias=True, resnet_blocks=2).train()
+        with torch.no_grad():
+            for p in cpu.parameters():
+                p.add_(torch.randn_like(p) * 0.05)
+        card = GeneratorJ(input_channels=6, filters=(8, 16, 32, 32, 32, 16),
+                          use_bias=True, resnet_blocks=2).train()
+        card.load_state_dict(cpu.state_dict())
+        card = card.to(cuda, memory_format=torch.channels_last)
+        g = torch.Generator().manual_seed(1)
+        x = torch.rand((4, 32, 32, 6), generator=g) * 2 - 1
+        w = torch.randn((4, 32, 32, 3), generator=g)
+        b0 = instance_norm_act_backward.launches
+        grads = {}
+        for tag, net, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+            out = net(x.to(dev))
+            grads[tag] = dict(zip(
+                [n for n, _ in net.named_parameters()],
+                torch.autograd.grad((out * w.to(dev)).sum(),
+                                    list(net.parameters()))))
+        torch.cuda.synchronize()
+        # stem, 2 downsamples, 2 blocks x 2, 2 upsamples: 9 sites
+        assert instance_norm_act_backward.launches == b0 + 9
+        for name, want in grads["cpu"].items():
+            got = grads["card"][name].cpu()
+            if name.endswith(".weight") and want.dim() == 4:
+                assert got.abs().max() > 0, name  # the gradient flows
+            if want.dim() == 4:  # conv weights; biases that feed IN get ~0
+                err = float((got - want).norm() / want.norm())
+                assert err <= 5e-2, (name, err)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -119,11 +119,86 @@ def test_engine_refusals(scene, tmp_path):
         _engine(scene, tmp_path, "inference.precision=32_fast")
     with pytest.raises(NotImplementedError):
         _engine(scene, tmp_path, "inference.mode=fullframe")
+    # knobs the JAX engine acts on and the port does not yet: each is named
+    for override, knob in [
+            ("inference.quantize=int8", "quantize"),
+            ("inference.file_shard=0/2", "file_shard"),
+            ("inference.devices=2", "devices"),
+            ("inference.devices=-1", "devices"),
+            ("inference.debug_mode=true", "debug_mode"),
+            ("inference.temporal.enabled=true", "temporal.enabled"),
+            ("inference.watch.enabled=true", "watch.enabled")]:
+        with pytest.raises(NotImplementedError, match=knob):
+            _engine(scene, tmp_path, override)
+    with pytest.raises(ValueError, match="quantize"):
+        _engine(scene, tmp_path, "inference.quantize=int4")
+    # the transport knobs change no output in the JAX package: no-ops here
+    _engine(scene, tmp_path, "inference.crop_readback=off",
+            "inference.upload=f32", "inference.mask_upload=u8")
     with pytest.raises(ValueError, match="Channel count mismatch"):
         _engine(scene, tmp_path, "paths.additional_channels=null")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _engine(scene, tmp_path, "inference.use_gpu=true")
+
+
+def test_fractional_mask_composites_in_part_as_jax(scene, tmp_path):
+    """A mask that is not {0, 1} reaches the program as fp32 (the engine
+    casts only binary masks to uint8) and composites in part, as the JAX
+    program does with the same mask."""
+    import jax.numpy as jnp
+
+    from patch_toon_tpu.infer.engine import make_multiframe_fn
+    from patch_toon_tpu.infer.tiling import bucket_size, pack_boxes_multi
+    from patch_toon_tpu.models import GeneratorJ as JaxGeneratorJ
+    from patch_toon_tpu.utils.torch_compat import generator_params_from_torch
+
+    eng = _engine(scene, tmp_path)
+    frames = np.stack([eng.load_frame(p) for p in sorted(
+        (scene / "scene" / "input").glob("*.png"))[:2]])
+    mask = np.zeros((48, 72), np.float32)
+    mask[4:40, 6:60] = 1.0
+    mask[10:30, 20:50] = 0.5  # a partial composite
+    masks = [mask, mask * 0.25]
+    boxes = [eng.boxes_for(m, (48, 72)) for m in masks]
+    got = eng.stylize_group(frames, masks, boxes)
+
+    sd = torch.load(scene / "gen.ckpt", weights_only=True)["state_dict"]
+    params, stats = generator_params_from_torch(
+        {k: v.numpy() for k, v in sd.items()}, resnet_blocks=1,
+        prefix="generator.")
+    gen = JaxGeneratorJ(input_channels=6, filters=(4, 8, 8, 8, 8, 4),
+                        use_bias=True, resnet_blocks=1)
+    total = sum(map(len, boxes))
+    fboxes, weights, _ = pack_boxes_multi(boxes, 16, bucket_size(total))
+    fn = make_multiframe_fn(gen, 16, bucket_size(total), 2, 48, 72, 6,
+                            jnp.float32)
+    want, _ = fn({"params": params, "batch_stats": stats},
+                 jnp.asarray(frames), jnp.asarray(fboxes),
+                 jnp.asarray(weights), jnp.asarray(np.stack(masks)[..., None]))
+    d = np.abs(got.astype(int) - np.asarray(want).astype(int))
+    assert d.max() <= 1
+    floored = eng.stylize_group(frames, [np.floor(m) for m in masks], boxes)
+    assert (floored != got).any()  # the old uint8 cast floored 0.5 to 0
+
+
+def test_to_signed_unit_is_the_ieee_table():
+    """uint8 -> [-1, 1] gathers the 256 host values of / 255 * 2 - 1 in
+    IEEE fp32 (the card checks its own copy bitwise in chip_smoke.py)."""
+    from patch_toon_tpu_torch.infer.common import SIGNED_UNIT, _to_signed_unit
+
+    a = np.arange(256, dtype=np.uint8)
+    want = a.astype(np.float32) / np.float32(255.0) * np.float32(2.0) \
+        - np.float32(1.0)
+    assert SIGNED_UNIT.dtype == np.float32
+    np.testing.assert_array_equal(SIGNED_UNIT.view(np.int32),
+                                  want.view(np.int32))
+    got = _to_signed_unit(torch.from_numpy(a).reshape(2, 8, 16, 1))
+    assert got.dtype == torch.float32 and got.shape == (2, 8, 16, 1)
+    np.testing.assert_array_equal(got.numpy().reshape(-1).view(np.int32),
+                                  want.view(np.int32))
+    f = torch.rand(3, 4)
+    assert _to_signed_unit(f) is f
 
 
 def test_port_imports_no_jax_pil_yaml_or_tqdm():
