@@ -40,23 +40,26 @@ lines each, flushed as they go:
    and the library call (autograd through ``F.instance_norm`` + activation,
    forward and backward, beside the kernels' forward-with-statistics plus
    backward); per-step totals over the 25 sites.
-7. ``train``: the GAN step of ``patch_toon_tpu_torch/train`` at the full
-   width of the shipped configuration (config/model, training and data
-   defaults: batch 80 of 80x80 patches, 6 input channels, D 12 filters, VGG
-   layers [0, 3, 5]) on synthetic keyframes from numpy seed 0, at precision
-   32 and bf16: 2 warm-up steps and 10 timed ones (ms/step, patches/s), the
-   counters zeroed just before the timed steps: 25 forward (cluster) and 25
-   backward B1 launches a step, no streaming launch. Two identical 3-step
-   runs from one seed must be bitwise equal in every parameter and
-   statistic. One precision-32 step on the card against the CPU port at
-   the CPU tests' small widths, held as tests/test_torch_train.py holds
-   the port to JAX: losses within 1e-5 (D) and 1e-4 (G), BatchNorm mean
-   1e-5 and variance 1e-3, each network's first-step gradient within 1e-2
-   in relative L2 norm, under 1 % of the elements with gradients of
-   opposite sign or under 1e-7, and the parameters within 1.5e-4 (kernels)
-   and 9e-4 (others) elsewhere (``_step_parity`` says why); then the
-   same at full width, batch 2. Last, the trained checkpoint (reference
-   .ckpt layout) loads into
+7. ``train``: training through ``train/loop.py::fit`` (the entry point
+   under ``train_torch.py``) at the full width of the shipped configuration
+   (config/model, training and data defaults: batch 80 of 80x80 patches, 6
+   input channels, D 12 filters, VGG layers [0, 3, 5]) on synthetic
+   keyframes from numpy seed 0, at precision 32 and bf16: ``fit`` runs 12
+   steps and its step callback times steps 3 to 12 (ms/step, patches/s),
+   with the counters zeroed just before them: 25 forward (cluster) and 25
+   backward B1 launches a step, no streaming launch. Two 3-step runs of
+   ``fit`` from one seed must be bitwise equal in every parameter and
+   statistic. Then one step on the card against the CPU port from the
+   same parameters and batch, at the CPU tests' small widths (batch 4) and
+   at full width (batch 2), through ``train/parity.py``: at precision 32
+   each device against the fp64 step that takes that device's branch at
+   every ReLU, LeakyReLU and InstanceNorm + activation (within 5e-5 in
+   relative L2, the parameters within 1.5e-4 and 9e-4), the branch flips
+   between the devices counted, losses within 1e-5 (D) and 1e-4 (G),
+   BatchNorm 1e-5 and 1e-3; at bf16 each network's gradient on the card
+   no further from the CPU's fp32 step than 1.25 times the CPU's bf16 step
+   is, losses within 1e-2. Last, the checkpoint ``fit`` wrote at the end
+   of the precision-32 run (reference .ckpt layout) loads into
    ``StyleTransferInference`` on the card and stylizes a masked keyframe,
    within 1 count of the CPU engine on the same file.
 
@@ -72,6 +75,7 @@ import json
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,12 +99,12 @@ from patch_toon_tpu_torch.infer.tiling import (
 )
 from patch_toon_tpu_torch.ops import blend, instance_norm
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
-from patch_toon_tpu_torch.train.checkpoints import CheckpointManager
-from patch_toon_tpu_torch.train.model import (
-    StyleTransferModel,
-    training_backends,
+from patch_toon_tpu_torch.train.loop import fit
+from patch_toon_tpu_torch.train.model import StyleTransferModel
+from patch_toon_tpu_torch.train.parity import (
+    assert_device_step_parity,
+    device_step_parity,
 )
-from patch_toon_tpu_torch.train.step import make_train_step
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "docs" / "quality_2000" / "torch_train.ckpt"
@@ -550,8 +554,10 @@ def _keyframes(n: int = 4, h: int = 270, w: int = 480):
     return frames, pres, posts, masks, guides
 
 
-def _train_model(precision: str, small: bool = False, batch: int = BT):
-    over = {"training": {"precision": precision, "batch_size": batch}}
+def _train_model(precision: str, small: bool = False, batch: int = BT,
+                 max_steps: int = 0):
+    over = {"training": {"precision": precision, "batch_size": batch,
+                         "max_steps": max_steps}}
     if small:  # the CPU tests' widths (tests/test_torch_train.py)
         over["model"] = training_config()["model"]
         over["model"]["generator"]["args"].update(
@@ -571,16 +577,6 @@ def _net_tensors(state):
     return out
 
 
-def _run_steps(model, data, dev, n: int, seed: int = 0):
-    """n steps from a fresh state: parameters and draws from ``seed``."""
-    state = model.init_state(seed, dev)
-    step = make_train_step(model)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for _ in range(n):
-        step(state, data.sample_batch(gen, BT), gen)
-    return state
-
-
 def _counts():
     return (instance_norm.instance_norm_act_cluster.launches,
             instance_norm.instance_norm_act_streaming.launches,
@@ -588,87 +584,64 @@ def _counts():
 
 
 def _step_parity(dev, small: bool, batch: int) -> dict:
-    """One precision-32 step from the same parameters and batch on the card
-    and on the CPU. -> the largest differences. Activations agree within
-    1e-6, but an activation input within roundoff of 0 takes the other
-    branch on one device, which moves the gradients upstream by about 1e-3
-    relative; Adam's first step, lr * g / (|g| + 1e-8), is a sign, so a
-    gradient smaller than that lands 2 * lr away, and one near 1e-8 moves
-    the step's size. Hence: each network's first-step gradient (Adam's
-    mu / 0.1) in relative L2 norm, the share of elements whose two
-    gradients differ in sign or lie under 1e-7 (10 eps), and the parameters
-    elsewhere."""
-    model = _train_model("32", small=small, batch=batch)
+    """One step from the same parameters and batch on the card and on the
+    CPU (``train/parity.py::device_step_parity``)."""
     ps = 32 if small else PS
     rng = np.random.default_rng(1)
     batch_np = {"pre": rng.standard_normal((batch, ps, ps, 3)),
                 "channels": rng.standard_normal((batch, ps, ps, 3)),
                 "post": rng.random((batch, ps, ps, 3)) * 2 - 1}
-    with training_backends(torch.float32):
-        cpu, card = model.init_state(0, "cpu"), model.init_state(0, dev)
-        card.generator.load_state_dict(cpu.generator.state_dict())
-        card.discriminator.load_state_dict(cpu.discriminator.state_dict())
-        mets = []
-        for st, where in ((cpu, torch.device("cpu")), (card, dev)):
-            b = {k: torch.from_numpy(v.astype(np.float32)).to(where)
-                 for k, v in batch_np.items()}
-            mets.append({k: float(v) for k, v in make_train_step(model)(
-                st, b, torch.Generator(device=where).manual_seed(0)).items()})
-    worst = {"kernel": 0.0, "other": 0.0}
-    grad_l2, beyond, excluded, total = 0.0, 0, 0, 0
-    for opt, copt in ((cpu.g_opt, card.g_opt), (cpu.d_opt, card.d_opt)):
-        mus = [m.flatten() for m in opt.mu]
-        cmus = [m.cpu().flatten() for m in copt.mu]
-        grad_l2 = max(grad_l2, float((torch.cat(cmus) - torch.cat(mus)).norm()
-                                     / torch.cat(mus).norm()))
-        for p, cp, mu, cmu in zip(opt.params, copt.params, mus, cmus):
-            same = (torch.sign(mu) == torch.sign(cmu)) & (
-                torch.minimum(mu.abs(), cmu.abs()) >= 0.1 * 1e-7)
-            d = (cp.detach().cpu() - p.detach()).abs().flatten()
-            kind = "kernel" if p.dim() == 4 else "other"
-            tol = 1.5e-4 if kind == "kernel" else 9e-4
-            d = d[same]
-            if d.numel():
-                worst[kind] = max(worst[kind], float(d.max()))
-            beyond += int((d > tol).sum())
-            excluded += int((~same).sum())
-            total += same.numel()
-    bn, cbn = cpu.generator.smoothers[2], card.generator.smoothers[2]
-    bn_d = (float((cbn.running_mean.cpu() - bn.running_mean).abs().max()),
-            float((cbn.running_var.cpu() - bn.running_var).abs().max()))
-    return {"loss_d": {k: abs(mets[0][k] - mets[1][k]) for k in mets[0]},
-            "grad_l2": grad_l2, "worst": worst, "beyond": beyond,
-            "excluded": excluded, "total": total, "bn_d": bn_d}
+    return device_step_parity(_train_model("32", small, batch),
+                              _train_model("bf16", small, batch), batch_np,
+                              dev)
 
 
-def phase_train(dev, card: str) -> dict:
+class _Window:
+    """A step callback for ``fit``: zeroes the launch counters just after
+    step ``start`` (and its logging), reads them and the host clock just
+    after step ``stop``, and keeps the last step's metrics."""
+
+    def __init__(self, start: int, stop: int):
+        self.start, self.stop = start, stop
+        self.t0 = self.seconds = self.counts = self.metrics = None
+
+    def __call__(self, step: int, metrics) -> None:
+        self.metrics = metrics
+        if step == self.start:
+            torch.cuda.synchronize()
+            instance_norm.instance_norm_act_cluster.launches = 0
+            instance_norm.instance_norm_act_streaming.launches = 0
+            instance_norm.instance_norm_act_backward.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            self.t0 = time.perf_counter()
+        elif step == self.stop:
+            torch.cuda.synchronize()
+            self.seconds = time.perf_counter() - self.t0
+            self.counts = _counts()
+
+
+def phase_train(dev, card: str, tmp: Path) -> dict:
+    """Training through ``train/loop.py::fit``, the entry point under
+    ``train_torch.py``: the timed runs, the determinism runs and the
+    checkpoint served at the end are all ``fit``'s."""
     frames, pres, posts, masks, guides = _keyframes()
     data = StyleTransferDataset(pres, posts, masks, guides, [3],
                                 patch_size=PS, device=dev)
     say("train", keyframes=data.num_images, size="270x480",
         patch_centers=len(data), batch=BT)
     rec, launches = {}, {"forward": 0, "backward": 0}
-    trained = None
     for prec in ("32", "bf16"):
-        model = _train_model(prec)
-        with training_backends(model.dtype):
-            state = _run_steps(model, data, dev, TRAIN_WARMUP)
-            step = make_train_step(model)
-            gen = torch.Generator(device=dev).manual_seed(1)
-            torch.cuda.synchronize()
-            instance_norm.instance_norm_act_cluster.launches = 0
-            instance_norm.instance_norm_act_streaming.launches = 0
-            instance_norm.instance_norm_act_backward.launches = 0
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            for _ in range(TRAIN_STEPS):
-                metrics = step(state, data.sample_batch(gen, BT), gen)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            fwd, st, bwd = _counts()
-        vals = {k: float(v) for k, v in metrics.items()}
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"{prec}: non-finite losses {vals}")
+        model = _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS)
+        win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+        state = fit(model, data, str(tmp / f"run_{prec}"), seed=0,
+                    on_step=win)
+        fwd, st, bwd = win.counts
+        vals = {k: float(v) for k, v in win.metrics.items()}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in _net_tensors(state).values())
+        if not finite or not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{prec}: non-finite losses or parameters "
+                                 f"{vals}")
         if fwd != 25 * TRAIN_STEPS or st != 0 or bwd != 25 * TRAIN_STEPS:
             raise AssertionError(
                 f"{prec}: B1 launches {fwd} forward, {st} streaming, {bwd} "
@@ -676,9 +649,9 @@ def phase_train(dev, card: str) -> dict:
                 f"(cluster) and 25 backward a step")
         launches["forward"] += fwd
         launches["backward"] += bwd
-        ms = 1e3 * dt / TRAIN_STEPS
+        ms = 1e3 * win.seconds / TRAIN_STEPS
         rec[prec] = {"ms_per_step": ms, "patches_per_s": BT / ms * 1e3}
-        say("train", precision=prec, steps=TRAIN_STEPS,
+        say("train", entry="fit", precision=prec, steps=TRAIN_STEPS,
             warmup_steps=TRAIN_WARMUP, ms_per_step=f"{ms:.2f}",
             patches_per_s=f"{BT / ms * 1e3:.1f}",
             forward_launches_per_step=fwd // TRAIN_STEPS,
@@ -686,17 +659,16 @@ def phase_train(dev, card: str) -> dict:
             peak_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
             g_total_loss=f"{vals['g_total_loss']:.4f}",
             d_total_loss=f"{vals['d_total_loss']:.4f}", card=f"'{card}'")
-        if prec == "32":
-            trained = (model, state)
+        del state
 
-    for prec in ("32", "bf16"):  # determinism: two runs, bitwise
-        model = _train_model(prec)
-        with training_backends(model.dtype):
-            runs = [_net_tensors(_run_steps(model, data, dev, 3, seed=5))
-                    for _ in range(2)]
+    for prec in ("32", "bf16"):  # determinism: two runs of fit, bitwise
+        model = _train_model(prec, max_steps=3)
+        runs = [_net_tensors(fit(model, data, str(tmp / f"det_{prec}_{i}"),
+                                 seed=5, progress=False))
+                for i in range(2)]
         differ = [k for k in runs[0] if not torch.equal(runs[0][k],
                                                         runs[1][k])]
-        say("train", precision=prec, determinism_steps=3,
+        say("train", entry="fit", precision=prec, determinism_steps=3,
             tensors=len(runs[0]), differing_tensors=len(differ))
         if differ:
             raise AssertionError(f"{prec}: two identical runs differ in "
@@ -704,42 +676,44 @@ def phase_train(dev, card: str) -> dict:
 
     for small, batch in ((True, 4), (False, 2)):
         r = _step_parity(dev, small, batch)
+        own, cc = r["to_own_reference"], r["card_vs_cpu"]
         say("train", card_vs_cpu="small widths" if small else "full width",
             batch=batch, **{f"loss_d_{k}": f"{v:.3g}"
                             for k, v in r["loss_d"].items()},
-            max_grad_rel_l2=f"{r['grad_l2']:.3g}",
-            max_param_d_kernel=f"{r['worst']['kernel']:.3g}",
-            max_param_d_other=f"{r['worst']['other']:.3g}",
-            params_beyond_tolerance=r["beyond"],
-            opposite_or_tiny_gradients=r["excluded"], params=r["total"],
+            card_to_own_fp64_grad_rel_l2=f"{own['card']['grad_rel_l2']:.3g}",
+            card_to_own_fp64_kernel_rel_l2=
+            f"{own['card']['kernel_rel_l2']:.3g}",
+            card_to_own_fp64_max_param_d=f"{own['card']['worst_kernel']:.3g}",
+            cpu_to_own_fp64_grad_rel_l2=f"{own['cpu']['grad_rel_l2']:.3g}",
+            card_vs_cpu_grad_rel_l2=f"{cc['grad_rel_l2']:.3g}",
+            card_vs_cpu_params_beyond_tolerance=cc["beyond"],
+            kinks=r["kinks"], branch_flips=sum(r["flips"].values()),
+            flips_by_site=json.dumps(r["flips"]).replace(" ", ""),
             bn_mean_d=f"{r['bn_d'][0]:.3g}", bn_var_d=f"{r['bn_d'][1]:.3g}")
-        bad_loss = [k for k, v in r["loss_d"].items()
-                    if v > (1e-5 if k.startswith("d_") else 1e-4)]
-        if bad_loss:
-            raise AssertionError(f"card vs CPU losses: {bad_loss}")
-        if (r["beyond"] or r["grad_l2"] > 1e-2
-                or r["excluded"] > 1e-2 * r["total"]
-                or r["bn_d"][0] > 1e-5 or r["bn_d"][1] > 1e-3):
-            raise AssertionError(f"card vs CPU step (small={small}): {r}")
+        say("train", card_vs_cpu_bf16="small widths" if small else
+            "full width", batch=batch,
+            **{f"{net}_grad_rel_l2_to_cpu_fp32": "card {:.3g} cpu {:.3g}".format(
+                v["card"], v["cpu"]).replace(" ", "_")
+               for net, v in r["bf16"].items()},
+            **{f"loss_d_{k}": f"{v:.3g}" for k, v in r["bf16_loss_d"].items()})
+        assert_device_step_parity(r)
 
-    # the trained checkpoint serves on the card
-    model, state = trained
-    import tempfile
-    with tempfile.TemporaryDirectory() as tmp:
-        CheckpointManager(tmp).save(state, 0, float(metrics["g_total_loss"]))
-        path = str(Path(tmp) / "last.ckpt")
-        cfg = dict(paths={"checkpoint": path}, inference={"precision": "32"})
-        frame = frames[0][None]
-        mask = erode_full_support_np(masks[0])
-        got = StyleTransferInference(inference_config(**cfg)).stylize_group(
-            frame, [mask])
-        want = StyleTransferInference(inference_config(**cfg),
-                                      device="cpu").stylize_group(frame, [mask])
+    # the checkpoint fit wrote at the end of the precision-32 run serves on
+    # the card
+    path = tmp / "run_32" / "checkpoints" / "last.ckpt"
+    cfg = dict(paths={"checkpoint": str(path)}, inference={"precision": "32"})
+    frame = frames[0][None]
+    mask = erode_full_support_np(masks[0])
+    got = StyleTransferInference(inference_config(**cfg)).stylize_group(
+        frame, [mask])
+    want = StyleTransferInference(inference_config(**cfg),
+                                  device="cpu").stylize_group(frame, [mask])
     d = np.abs(got.astype(int) - want.astype(int))
     inside = mask > 0
     changed = float((got[0][inside] != frame[0, ..., :3][inside]).mean())
-    say("train", served_checkpoint="last.ckpt", frame="270x480",
-        mask_pixels=int(inside.sum()), changed_share_in_mask=f"{changed:.3f}",
+    say("train", served_checkpoint="run_32/checkpoints/last.ckpt",
+        frame="270x480", mask_pixels=int(inside.sum()),
+        changed_share_in_mask=f"{changed:.3f}",
         card_vs_cpu_max_abs=int(d.max()), differing_pixels=int((d > 0).sum()))
     if got.shape != (1, 270, 480, 3) or d.max() > 1 or changed < 0.5:
         raise AssertionError(f"serving the trained checkpoint: shape "
@@ -766,7 +740,8 @@ def main() -> int:
     phase_signed_unit(dev)
     launches = phase_main_path(dev, card)
     rec_bw = phase_instance_norm_backward(dev)
-    train = phase_train(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_train(dev, card, Path(tmp))
     rec_in["variants"]["cluster"]["launches"] = launches["instance_norm_act"]
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"]

@@ -14,6 +14,17 @@ from typing import List, Union
 
 import numpy as np
 
+# byte / 255 * 2 - 1 for the 256 byte values in IEEE fp32, computed by
+# numpy on the host: the JAX package's host arithmetic (its dataset,
+# reference dataset.py:34-44 and :191). The port gathers from this table
+# wherever a byte becomes [-1, 1], training data and serving alike, so every
+# device gives these values. (The JAX inference program, jitted by XLA,
+# multiplies by the reciprocal instead and differs from them by 1 ulp at
+# 205 of the 256 bytes on the CPU; PyTorch's CUDA division by a scalar
+# does the same at 111.)
+SIGNED_UNIT = np.arange(256, dtype=np.float32) / np.float32(255.0) \
+    * np.float32(2.0) - np.float32(1.0)
+
 # multi-extension resolver order of reference dataset.py:102
 _EXTENSIONS = [".png", ".jpg", ".jpeg", ".PNG", ".JPG", ".JPEG"]
 
@@ -45,9 +56,9 @@ def decode_rgb_uint8(path: Union[str, Path]) -> np.ndarray:
 
 
 def load_image_rgb(path: Union[str, Path]) -> np.ndarray:
-    """(H, W, 3) float32 RGB in [-1, 1]: byte / 255 * 2 - 1 in fp32, the
-    reference transform (dataset.py:34-44)."""
-    return decode_rgb_uint8(path).astype(np.float32) / 255.0 * 2.0 - 1.0
+    """(H, W, 3) float32 RGB in [-1, 1]: the decoded bytes through
+    :data:`SIGNED_UNIT`, the reference transform (dataset.py:34-44)."""
+    return SIGNED_UNIT[decode_rgb_uint8(path)]
 
 
 def load_image_channels(path: Union[str, Path], depth: int) -> np.ndarray:

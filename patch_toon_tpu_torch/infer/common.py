@@ -10,16 +10,10 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict, List
 
-import numpy as np
 import torch
 
-from patch_toon_tpu_torch.data.io import list_images
+from patch_toon_tpu_torch.data.io import SIGNED_UNIT, list_images
 
-# the 256 values of byte / 255 * 2 - 1 in IEEE fp32 (numpy on the host), the
-# JAX package's arithmetic; PyTorch's CUDA division by a scalar multiplies
-# by its reciprocal, which differs from / 255 at 126 of the 256 bytes
-SIGNED_UNIT = np.arange(256, dtype=np.float32) / np.float32(255.0) \
-    * np.float32(2.0) - np.float32(1.0)
 _TABLES: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -33,7 +27,10 @@ def _signed_unit_table(device: torch.device) -> torch.Tensor:
 def _to_signed_unit(frame: torch.Tensor) -> torch.Tensor:
     """uint8 [0, 255] -> fp32 [-1, 1] as /255*2-1 (reference dataset.py:191),
     gathered from :data:`SIGNED_UNIT` so every device gives the host's
-    IEEE values; float input passes through."""
+    IEEE values: serving follows the JAX package's host arithmetic (its
+    dataset's), not its jitted inference program, which is 1 ulp off at
+    205 bytes (a uint8 output moves by at most 1 count); float input passes
+    through."""
     if frame.dtype == torch.uint8:
         return _signed_unit_table(frame.device)[frame.to(torch.int32)]
     return frame

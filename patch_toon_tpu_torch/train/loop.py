@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -32,9 +32,13 @@ from patch_toon_tpu_torch.train.step import make_train_step
 
 def fit(model, dataset, run_dir: str, seed: int = 0,
         max_epochs: Optional[int] = None, resume_from: Optional[str] = None,
-        progress: bool = True, device: Any = None) -> GANTrainState:
+        progress: bool = True, device: Any = None,
+        on_step: Optional[Callable[[int, Dict[str, torch.Tensor]], None]]
+        = None) -> GANTrainState:
     """Train ``model`` on ``dataset`` (on ``dataset.device`` unless
-    ``device`` is given); -> the final state."""
+    ``device`` is given); -> the final state. ``on_step(global_step,
+    metrics)`` is called after each step and its logging, with the step's
+    metrics still on the device (a caller may time a window of steps)."""
     tc = model.training_config
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -97,6 +101,8 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                         vals = torch.stack([metrics[k] for k in names]).tolist()
                         logger.log_scalars({**dict(zip(names, vals)),
                                             "lr-Adam": lr}, global_step)
+                    if on_step is not None:
+                        on_step(global_step, metrics)
                 s, m, last = torch.stack(
                     [loss_sum, loss_min, metrics["g_total_loss"]]).tolist()
                 mean_loss = s / n_steps

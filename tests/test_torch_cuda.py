@@ -308,16 +308,20 @@ def test_instance_norm_function_launches_both_kernels(cuda):
 @pytest.mark.cuda
 def test_generator_backward_on_cuda_matches_the_cpu(cuda):
     """C3: a backward pass through GeneratorJ on the card gives every conv
-    a gradient, equal to the CPU port's within 5e-2 in relative L2 norm.
-    fp32 with TF32 off: activations agree within 1e-6, but an activation
-    input within roundoff of 0 takes the other branch on one device, which
-    moves dx at that element by rstd * dy and every conv gradient upstream
-    (measured on the card for this net: up to 2.0e-2 of a tensor's largest
-    gradient, against 1e-6 downstream of the flip). A dropped gradient
-    (fault C3) is 1.0."""
+    a gradient, and each conv's gradient equals, within 5e-5 in relative L2
+    norm, the fp64 gradient of the same function with the card's own
+    branch at every activation (``train/parity.py::Kinks``), as the CPU
+    port's equals its own; where no activation input took the other branch
+    on the two devices, the card equals the CPU within 5e-5 as well. fp32,
+    TF32 off. A dropped gradient (fault C3) is 1.0; one flipped element
+    among the 131,072 of the last InstanceNorm site moved every conv
+    gradient upstream of it by 3.3e-3 in a card run of these inputs."""
+    import copy
+
     from patch_toon_tpu_torch.models.generator import GeneratorJ
     from patch_toon_tpu_torch.ops.instance_norm import (
         instance_norm_act_backward)
+    from patch_toon_tpu_torch.train.parity import Kinks
 
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
@@ -330,31 +334,64 @@ def test_generator_backward_on_cuda_matches_the_cpu(cuda):
         with torch.no_grad():
             for p in cpu.parameters():
                 p.add_(torch.randn_like(p) * 0.05)
-        card = GeneratorJ(input_channels=6, filters=(8, 16, 32, 32, 32, 16),
-                          use_bias=True, resnet_blocks=2).train()
-        card.load_state_dict(cpu.state_dict())
-        card = card.to(cuda, memory_format=torch.channels_last)
+        card = copy.deepcopy(cpu).to(cuda, memory_format=torch.channels_last)
         g = torch.Generator().manual_seed(1)
         x = torch.rand((4, 32, 32, 6), generator=g) * 2 - 1
         w = torch.randn((4, 32, 32, 3), generator=g)
+
+        def grads(net, dev, kinks, dtype=torch.float32):
+            with kinks:
+                out = net(x.to(dev, dtype))
+                return dict(zip(
+                    [n for n, _ in net.named_parameters()],
+                    (t.double().cpu() for t in torch.autograd.grad(
+                        (out * w.to(dev, dtype)).sum(),
+                        list(net.parameters())))))
+
         b0 = instance_norm_act_backward.launches
-        grads = {}
-        for tag, net, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
-            out = net(x.to(dev))
-            grads[tag] = dict(zip(
-                [n for n, _ in net.named_parameters()],
-                torch.autograd.grad((out * w.to(dev)).sum(),
-                                    list(net.parameters()))))
+        kinks = {"cpu": Kinks(), "card": Kinks()}
+        got = {"cpu": grads(cpu, "cpu", kinks["cpu"]),
+               "card": grads(card, cuda, kinks["card"])}
         torch.cuda.synchronize()
         # stem, 2 downsamples, 2 blocks x 2, 2 upsamples: 9 sites
         assert instance_norm_act_backward.launches == b0 + 9
-        for name, want in grads["cpu"].items():
-            got = grads["card"][name].cpu()
-            if name.endswith(".weight") and want.dim() == 4:
-                assert got.abs().max() > 0, name  # the gradient flows
-            if want.dim() == 4:  # conv weights; biases that feed IN get ~0
-                err = float((got - want).norm() / want.norm())
-                assert err <= 5e-2, (name, err)
+        ref = {tag: grads(copy.deepcopy(cpu).double(), "cpu",
+                          Kinks(replay=k.masks), torch.float64)
+               for tag, k in kinks.items()}
+        flips = sum(int((a != b).sum()) for a, b in
+                    zip(kinks["cpu"].masks, kinks["card"].masks))
+        for name, want in got["cpu"].items():
+            if want.dim() != 4:  # conv weights; biases that feed IN get ~0
+                continue
+            assert got["card"][name].abs().max() > 0, name  # it flows
+            for tag in ("cpu", "card"):
+                err = float((got[tag][name] - ref[tag][name]).norm()
+                            / ref[tag][name].norm())
+                assert err <= 5e-5, (tag, name, err)
+            if not flips:
+                err = float((got["card"][name] - want).norm() / want.norm())
+                assert err <= 5e-5, (name, err)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+def test_training_step_on_cuda_against_the_cpu(cuda):
+    """One training step at the CPU tests' small widths, batch 4, on the
+    card and on the CPU from the same parameters and batch, at precision 32
+    (each device against the fp64 step that takes its own branches) and
+    bf16 (each device against the CPU's fp32 step), with the limits of
+    ``train/parity.py::assert_device_step_parity``."""
+    from chip_smoke import _train_model
+    from patch_toon_tpu_torch.train.parity import (
+        assert_device_step_parity, device_step_parity)
+
+    rng = np.random.default_rng(1)
+    batch = {"pre": rng.standard_normal((4, 32, 32, 3)),
+             "channels": rng.standard_normal((4, 32, 32, 3)),
+             "post": rng.random((4, 32, 32, 3)) * 2 - 1}
+    r = device_step_parity(_train_model("32", True, 4),
+                           _train_model("bf16", True, 4), batch, cuda)
+    assert r["kinks"] == 25
+    assert_device_step_parity(r)

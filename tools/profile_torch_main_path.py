@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the port's tiled main path spends its time on a CUDA card.
+"""Where the port's tiled main path, or its training, spends its time on a
+CUDA card.
 
     python3 tools/profile_torch_main_path.py [--groups 6] [--out FILE]
+    python3 tools/profile_torch_main_path.py --train [--steps 10] [--out FILE]
 
 Builds ``patch_toon_tpu_torch``'s engine at full width (the weights of
 docs/quality_2000/torch_train.ckpt, 6 input channels) for precision bf16 and
@@ -15,6 +17,16 @@ it prints:
   15), by category (convolution, the upsample's matrix products, the
   InstanceNorm kernel B1, the blend kernel B2, copies, the rest; by kernel
   name, see ``_category``), and the device's busy share of the wall time.
+
+With ``--train`` it trains instead, through ``train/loop.py::fit`` at the
+full width of the shipped configuration (batch 80 of 80x80 patches, 6 input
+channels; ``chip_smoke.py``'s synthetic keyframes from numpy seed 0), at
+precision bf16 and 32, and reads windows of ``fit``'s steps through its
+step callback: ms per step by host clock over ``--steps`` steps after 3
+warm-up ones; the two ``Adam.step`` calls' ms per step, each between two
+synchronisations, over the next ``--steps``; then a trace of 3 steps:
+device time per step by category (B1's forward and backward apart),
+kernel launches per step, the top 15 kernels and the busy share.
 
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
@@ -38,6 +50,7 @@ sys.path.insert(0, str(ROOT))
 from patch_toon_tpu_torch.config.defaults import inference_config  # noqa
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference  # noqa
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np  # noqa
+from patch_toon_tpu_torch.train import optim  # noqa: E402
 
 CKPT = ROOT / "docs" / "quality_2000" / "torch_train.ckpt"
 H, W = 512, 910
@@ -69,6 +82,116 @@ def _category(name: str) -> str:
     return "other elementwise/reduction"
 
 
+def _train_category(name: str) -> str:
+    if "instance_norm_act_bwd_kernel" in name.lower():
+        return "B1 backward"
+    c = _category(name)
+    if c == "B1 instance_norm":
+        return "B1 forward"
+    if c == "upsample (matrix products)":
+        return "matrix products"
+    return c
+
+
+def _device_split(prof, steady: int, category) -> tuple:
+    """-> (device ms, launches, ms by category, top 15 kernels), each per
+    step or group, from a finished trace."""
+    by_kernel, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host ops: their kernels are listed on their own
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us
+            launches += ev.count
+    cats = {}
+    for k, us in by_kernel.items():
+        c = category(k)
+        cats[c] = cats.get(c, 0.0) + us / 1e3 / steady
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+    return (sum(by_kernel.values()) / 1e3 / steady, launches / steady, cats,
+            [[k[:90], us / 1e3 / steady] for k, us in top])
+
+
+class _TrainWindows:
+    """``fit``'s step callback: a timed window, an optimizer window and a
+    traced window of steps, one after the other."""
+
+    def __init__(self, warmup: int, steps: int, steady: int):
+        self.marks = [warmup, warmup + steps, warmup + 2 * steps,
+                      warmup + 2 * steps + steady]
+        self.steps, self.steady = steps, steady
+        self.opt_ms, self.prof = [], None
+        self.plain_step = optim.Adam.step
+
+    def _timed(self, opt, grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.plain_step(opt, grads)
+        torch.cuda.synchronize()
+        self.opt_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def __call__(self, step: int, metrics) -> None:
+        if step not in self.marks:
+            return
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        i = self.marks.index(step)
+        if i == 1:
+            self.ms = 1e3 * (now - self.t0) / self.steps
+            optim.Adam.step = lambda opt, grads: self._timed(opt, grads)
+        elif i == 2:
+            optim.Adam.step = self.plain_step
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
+        elif i == 3:
+            self.prof.stop()
+            self.wall_ms = 1e3 * (now - self.t0)
+        self.t0 = time.perf_counter()
+
+
+def _train_records(steps: int, card: str) -> list:
+    import tempfile
+
+    from chip_smoke import BT, PS, _keyframes, _train_model
+    from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
+    from patch_toon_tpu_torch.train.loop import fit
+
+    dev = torch.device("cuda", 0)
+    _, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=dev)
+    records = []
+    for prec in ("bf16", "32"):
+        steady = 3
+        win = _TrainWindows(3, steps, steady)
+        model = _train_model(prec, max_steps=win.marks[-1])
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                fit(model, data, tmp, seed=0, progress=False, on_step=win)
+        finally:
+            optim.Adam.step = win.plain_step
+        device_ms, launches, cats, top = _device_split(win.prof, steady,
+                                                       _train_category)
+        records.append({
+            "precision": prec, "card": card, "entry": "fit", "batch": BT,
+            "patch": PS, "ms_per_step": win.ms,
+            "patches_per_s": BT / win.ms * 1e3,
+            "optimizer_ms_per_step": sum(win.opt_ms) / steps,
+            "profiled_steps": steady, "device_ms_per_step": device_ms,
+            "wall_ms_per_step_profiled": win.wall_ms / steady,
+            "device_busy_share": device_ms * steady / win.wall_ms,
+            "kernel_launches_per_step": launches,
+            "device_ms_per_step_by_category": cats,
+            "top_kernels_ms_per_step": top})
+        print(json.dumps(records[-1]), flush=True)
+        torch.cuda.empty_cache()
+    return records
+
+
 def _groups_ms(eng, frames, masks, n):
     times = []
     for _ in range(n):
@@ -79,18 +202,7 @@ def _groups_ms(eng, frames, masks, n):
     return times
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--groups", type=int, default=6)
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+def _serve_records(groups: int, card: str) -> list:
     mask = erode_full_support_np(np.ones((H, W), np.float32))
     rng = np.random.default_rng(0)
     base = rng.integers(0, 256, (3, -(-H // 10), -(-W // 10), 6),
@@ -102,7 +214,7 @@ def main() -> int:
         torch.backends.cudnn.benchmark = False
         eng = StyleTransferInference(inference_config(
             paths={"checkpoint": str(CKPT)}, inference={"precision": prec}))
-        off = _groups_ms(eng, frames, masks, args.groups)[1:]
+        off = _groups_ms(eng, frames, masks, groups)[1:]
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -111,22 +223,9 @@ def main() -> int:
             steady = 3
             _groups_ms(eng, frames, masks, steady)
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        by_kernel = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue  # host ops: their kernels are listed on their own
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us
-        device_ms = sum(by_kernel.values()) / 1e3
-        cats = {}
-        for k, us in by_kernel.items():
-            c = _category(k)
-            cats[c] = cats.get(c, 0.0) + us / 1e3 / steady
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
+        device_ms, _, cats, top = _device_split(prof, steady, _category)
         torch.backends.cudnn.benchmark = True
-        on = _groups_ms(eng, frames, masks, args.groups)[1:]
+        on = _groups_ms(eng, frames, masks, groups)[1:]
         torch.backends.cudnn.benchmark = False
         rec = {
             "precision": prec, "card": card, "frames_per_group": 3,
@@ -134,17 +233,36 @@ def main() -> int:
             "ms_per_group_benchmark_off": float(np.mean(off)),
             "ms_per_group_benchmark_on": float(np.mean(on)),
             "profiled_groups": steady,
-            "device_ms_per_group": device_ms / steady,
+            "device_ms_per_group": device_ms,
             "wall_ms_per_group_profiled": wall_ms / steady,
-            "device_busy_share": device_ms / wall_ms,
+            "device_busy_share": device_ms * steady / wall_ms,
             "device_ms_per_group_by_category": cats,
-            "top_kernels_ms_per_group": [
-                [k[:90], us / 1e3 / steady] for k, us in top],
+            "top_kernels_ms_per_group": top,
         }
         records.append(rec)
         print(json.dumps(rec), flush=True)
         del eng
         torch.cuda.empty_cache()
+    return records
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--groups", type=int, default=6)
+    ap.add_argument("--train", action="store_true",
+                    help="profile training through fit instead")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    records = _train_records(args.steps, card) if args.train \
+        else _serve_records(args.groups, card)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
