@@ -31,31 +31,39 @@ lines each, flushed as they go:
    per generator call, its streaming variant never, and B2 once per group.
    Then a small masked frame through the card at precision 32 must agree
    within 1 uint8 count with the same engine on the CPU (plain versions).
-6. ``instance_norm_backward``: B1's backward kernel against its plain
-   version at every InstanceNorm site of a training step (batch 80, the
-   generator's 19 sites and the discriminator's 2 at its 3 calls), fp32
-   and bf16, with the forward pass's statistics checked too. Tolerance:
-   fp32 |d| <= 2e-5 + 2e-5 |ref|; bf16 one bf16 ulp + 1e-5. Timed against
-   the bound (one read of x and dy, one write of dx), the plain version
-   and the library call (autograd through ``F.instance_norm`` + activation,
-   forward and backward, beside the kernels' forward-with-statistics plus
-   backward); per-step totals over the 25 sites.
+6. ``instance_norm_backward``: both variants of B1's backward kernel
+   (cluster and streaming) against its plain version at every
+   InstanceNorm site of a training step (batch 80, the generator's 19
+   sites and the discriminator's 2 at its 3 calls), fp32 and bf16, each
+   bitwise equal to a second call of itself, with the forward pass's
+   statistics checked too. Tolerance: fp32 |d| <= 2e-5 + 2e-5 |ref|; bf16
+   one bf16 ulp + 1e-5. Timed as device time (CUDA events around calls
+   queued behind a spin kernel, over copies of the inputs that exceed the
+   L2 cache): the two variants in turns (cluster, streaming, streaming,
+   cluster, cluster, streaming; the median of three each), against the
+   bound (one read of x and dy, one write of dx), the plain version and
+   the library (autograd through ``F.instance_norm`` + activation: its
+   backward alone on a kept graph, and forward with backward beside the
+   kernels' forward-with-statistics plus backward); beside them each
+   variant back to back on one copy, the host's dispatch cost included.
+   Per-step totals over the 25 sites, the variant that ``plan_backward``
+   picks (the cluster one) beside its bound.
 7. ``train``: training through ``train/loop.py::fit`` (the entry point
    under ``train_torch.py``) at the full width of the shipped configuration
    (config/model, training and data defaults: batch 80 of 80x80 patches, 6
    input channels, D 12 filters, VGG layers [0, 3, 5]) on synthetic
    keyframes from numpy seed 0, at precision 32 and bf16: ``fit`` runs 12
    steps and its step callback times steps 3 to 12 (ms/step, patches/s),
-   with the counters zeroed just before them: 25 forward (cluster) and 25
-   backward B1 launches a step, no streaming launch. Two 3-step runs of
-   ``fit`` from one seed must be bitwise equal in every parameter and
-   statistic. Then one step on the card against the CPU port from the
-   same parameters and batch, at the CPU tests' small widths (batch 4) and
-   at full width (batch 2), through ``train/parity.py``: at precision 32
-   each device against the fp64 step that takes that device's branch at
-   every ReLU, LeakyReLU and InstanceNorm + activation (within 5e-5 in
-   relative L2, the parameters within 1.5e-4 and 9e-4), the branch flips
-   between the devices counted, losses within 1e-5 (D) and 1e-4 (G),
+   with the counters zeroed just before them: 25 forward and 25 backward
+   B1 launches a step, all in the cluster variants, no streaming launch.
+   Two 3-step runs of ``fit`` from one seed must be bitwise equal in every
+   parameter and statistic. Then one step on the card against the CPU port
+   from the same parameters and batch, at the CPU tests' small widths
+   (batch 4) and at full width (batch 2), through ``train/parity.py``: at
+   precision 32 each device against the fp64 step that takes that device's
+   branch at every ReLU, LeakyReLU and InstanceNorm + activation (within
+   5e-5 in relative L2, the parameters within 1.5e-4 and 9e-4), the branch
+   flips between the devices counted, losses within 1e-5 (D) and 1e-4 (G),
    BatchNorm 1e-5 and 1e-3; at bf16 each network's gradient on the card
    no further from the CPU's fp32 step than 1.25 times the CPU's bf16 step
    is, losses within 1e-2. Last, the checkpoint ``fit`` wrote at the end
@@ -157,6 +165,33 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fns, reps: int) -> float:
+    """Device time of one call, without the host's dispatch cost: ``reps``
+    calls (``fns[i % len(fns)]``, each over its own copy of the inputs)
+    are queued behind a spin kernel, between two CUDA events. If the device
+    reached the first event before the host had queued the last call, the
+    spin is made longer and the run repeated."""
+    for fn in fns:  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    spin = 4_000_000  # cycles, about 2 ms
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for i in range(reps):
+            fns[i % len(fns)]()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        spin *= 4
+    raise AssertionError("the host could not queue the calls ahead of the "
+                         "device")
 
 
 def phase_build() -> None:
@@ -452,11 +487,37 @@ def _library_in_fwd_bwd(x: torch.Tensor, dy: torch.Tensor, act):
     return torch.autograd.grad(y, xl, dy.permute(0, 3, 1, 2))[0]
 
 
+def _library_in_bwd(x: torch.Tensor, dy: torch.Tensor, act):
+    """The library's backward alone: the graph of F.instance_norm +
+    activation is built once and kept, and the returned function runs
+    only ``torch.autograd.grad`` on it."""
+    xl = x.detach().permute(0, 3, 1, 2).requires_grad_(True)
+    y = _library_in(xl.permute(0, 2, 3, 1), act)
+    g = dy.permute(0, 3, 1, 2)
+    return lambda: torch.autograd.grad(y, xl, g, retain_graph=True)[0]
+
+
+BWD_VARIANTS = {"cluster": instance_norm.instance_norm_act_backward_cluster,
+                "streaming":
+                instance_norm.instance_norm_act_backward_streaming}
+
+
+L2_BYTES = 50e6  # H100 SXM data sheet
+
+
 def phase_instance_norm_backward(dev) -> dict:
-    """The backward kernel at every (shape, activation, dtype) of a
-    training step's InstanceNorm sites, against its plain version, then
-    timed beside the bound, the plain version and the library call; the
-    per-step numbers sum the 25 sites."""
+    """Both backward variants at every (shape, activation, dtype) of a
+    training step's InstanceNorm sites, against the plain version and
+    bitwise against a second call of themselves; then timed beside the
+    bound, the plain version and the library's backward alone and forward
+    with backward. Each time is device time by ``queued_ms`` over copies
+    of x and dy that together exceed twice the L2 cache, so every call
+    reads its inputs from HBM as a training step's backward does; the two
+    variants in turns in this one process (cluster, streaming, streaming,
+    cluster, cluster, streaming: the median of three each). Beside them,
+    each variant once by ``time_ms`` on one copy (back to back, the host's
+    dispatch cost included). The per-step numbers sum the 25 sites; the
+    picked variant is the one ``plan_backward`` names."""
     gen = torch.Generator(device=dev).manual_seed(3)
     per = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -465,6 +526,9 @@ def phase_instance_norm_backward(dev) -> dict:
                  + 0.5).to(dtype)
             dy = torch.randn((BT,) + shape, device=dev, generator=gen).to(
                 dtype)
+            p = instance_norm.plan_backward_for(x, dy)
+            if p.variant != "cluster":
+                raise AssertionError(f"{shape} {dtype}: plan {p}")
             y, mean, rstd = instance_norm.instance_norm_act_cluster(
                 x, act, stats=True)
             _, pmean, prstd = instance_norm._plain_forward(x, act, 0.2, 1e-5)
@@ -472,62 +536,115 @@ def phase_instance_norm_backward(dev) -> dict:
                        float(((rstd - prstd) / prstd).abs().max()))
             if serr > 1e-5:
                 raise AssertionError(f"{shape} {dtype}: statistics {serr}")
-            got = instance_norm.instance_norm_act_backward(x, dy, mean, rstd,
-                                                           act)
             want = instance_norm.instance_norm_act_backward_plain(
                 x, dy, mean, rstd, act)
-            err = _bwd_check(got, want, dtype)
-            if not torch.equal(got, instance_norm.instance_norm_act_backward(
-                    x, dy, mean, rstd, act)):
-                raise AssertionError("the backward kernel is not repeatable")
+            r = {}
+            for v, fn in BWD_VARIANTS.items():
+                got = fn(x, dy, mean, rstd, act)
+                r[f"err_{v}"] = _bwd_check(got, want, dtype)
+                if not torch.equal(got, fn(x, dy, mean, rstd, act)):
+                    raise AssertionError(f"the backward {v} variant is not "
+                                         "repeatable")
             del y, want, got
             bound = 3 * x.nbytes / HBM_BYTES_PER_S * 1e3
-            r = {"err": err, "bound_ms": bound,
-                 "ms": time_ms(lambda: instance_norm.instance_norm_act_backward(
-                     x, dy, mean, rstd, act), 10),
-                 "fwd_stats_ms": time_ms(
-                     lambda: instance_norm.instance_norm_act_cluster(
-                         x, act, stats=True), 10),
-                 "plain_ms": time_ms(
-                     lambda: instance_norm.instance_norm_act_backward_plain(
-                         x, dy, mean, rstd, act), 3),
-                 "library_ms": time_ms(
-                     lambda: _library_in_fwd_bwd(x, dy, act), 3)}
+            n_copies = max(1, -(-int(2 * L2_BYTES) // (3 * x.nbytes)))
+            copies = [(x, dy)] + [(x.clone(), dy.clone())
+                                  for _ in range(n_copies - 1)]
+            reps, slow_reps = max(10, 2 * n_copies), max(3, n_copies)
+
+            def calls(make):
+                return [make(xc, dc) for xc, dc in copies]
+
+            ms = {v: [] for v in BWD_VARIANTS}
+            for v in ("cluster", "streaming", "streaming", "cluster",
+                      "cluster", "streaming"):
+                fn = BWD_VARIANTS[v]
+                ms[v].append(queued_ms(calls(
+                    lambda xc, dc: lambda: fn(xc, dc, mean, rstd, act)),
+                    reps))
+            r.update({f"ms_{v}": sorted(t)[1] for v, t in ms.items()})
+            r.update({f"b2b_ms_{v}": time_ms(
+                lambda: fn(x, dy, mean, rstd, act), 10)
+                for v, fn in BWD_VARIANTS.items()})
+            r.update({
+                "bound_ms": bound,
+                "fwd_stats_ms": queued_ms(calls(
+                    lambda xc, dc: lambda: instance_norm.
+                    instance_norm_act_cluster(xc, act, stats=True)), reps),
+                "plain_ms": queued_ms(calls(
+                    lambda xc, dc: lambda: instance_norm.
+                    instance_norm_act_backward_plain(xc, dc, mean, rstd,
+                                                     act)), slow_reps),
+                "library_bwd_ms": queued_ms(calls(
+                    lambda xc, dc: _library_in_bwd(xc, dc, act)), slow_reps),
+                "library_ms": queued_ms(calls(
+                    lambda xc, dc: lambda: _library_in_fwd_bwd(xc, dc, act)),
+                    slow_reps)})
+            del copies
             per[(dtype, shape, act)] = r
+            other = r["ms_streaming"] - r["ms_cluster"]
             say("instance_norm_backward", dtype=str(dtype).split(".")[1],
                 shape=f"{BT}x{shape[0]}x{shape[1]}x{shape[2]}", act=act,
-                ms=f"{r['ms']:.4f}", bound_ms=f"{bound:.4f}",
-                share_of_bound=f"{bound / r['ms']:.3f}",
+                picked=p.variant, G=p.group, k=p.k,
+                cta_kb=f"{p.cta_bytes / 1024:.1f}", input_copies=n_copies,
+                cluster_ms=f"{r['ms_cluster']:.4f}",
+                cluster_runs="/".join(f"{t:.4f}" for t in ms["cluster"]),
+                streaming_ms=f"{r['ms_streaming']:.4f}",
+                streaming_runs="/".join(f"{t:.4f}" for t in ms["streaming"]),
+                bound_ms=f"{bound:.4f}",
+                cluster_share_of_bound=f"{bound / r['ms_cluster']:.3f}",
+                streaming_share_of_bound=f"{bound / r['ms_streaming']:.3f}",
+                picked_ahead_of_other_ms=f"{other:.4f}",
+                back_to_back_cluster_ms=f"{r['b2b_ms_cluster']:.4f}",
+                back_to_back_streaming_ms=f"{r['b2b_ms_streaming']:.4f}",
                 fwd_stats_ms=f"{r['fwd_stats_ms']:.4f}",
                 plain_ms=f"{r['plain_ms']:.4f}",
+                library_bwd_ms=f"{r['library_bwd_ms']:.4f}",
                 library_fwd_bwd_ms=f"{r['library_ms']:.4f}",
-                max_abs_err=f"{err:.3g}", stats_err=f"{serr:.3g}")
+                max_abs_err_cluster=f"{r['err_cluster']:.3g}",
+                max_abs_err_streaming=f"{r['err_streaming']:.3g}",
+                stats_err=f"{serr:.3g}")
             del x, dy, mean, rstd
-    rec = {}
+    rec = {v: {} for v in BWD_VARIANTS}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
         item = dtype.itemsize
         elems = sum(BT * s[0] * s[1] * s[2] for s, _ in TRAIN_SITES)
         bytes_ms = 3 * elems * item / HBM_BYTES_PER_S * 1e3
         ops_ms = 12 * elems / FP32_FLOPS * 1e3  # two passes of ~6 each
         rows = [per[(dtype, s, a)] for s, a in TRAIN_SITES]
-        rec.update({
-            f"max_abs_err{tag}": max(r["err"] for k, r in per.items()
-                                     if k[0] == dtype),
-            f"ms{tag}": sum(r["ms"] for r in rows),
-            f"fwd_stats_ms{tag}": sum(r["fwd_stats_ms"] for r in rows),
+        shared = {
             f"plain_ms{tag}": sum(r["plain_ms"] for r in rows),
-            f"library_ms{tag}": sum(r["library_ms"] for r in rows),
+            f"library_ms{tag}": sum(r["library_bwd_ms"] for r in rows),
+            f"library_fwd_bwd_ms{tag}": sum(r["library_ms"] for r in rows),
+            f"fwd_stats_ms{tag}": sum(r["fwd_stats_ms"] for r in rows),
             f"bound_ms{tag}": max(bytes_ms, ops_ms),
             f"bound_by{tag}": "bytes" if bytes_ms >= ops_ms else "operations",
-        })
+        }
+        for v in BWD_VARIANTS:
+            rec[v].update(shared)
+            rec[v][f"ms{tag}"] = sum(r[f"ms_{v}"] for r in rows)
+            rec[v][f"back_to_back_ms{tag}"] = sum(r[f"b2b_ms_{v}"]
+                                                  for r in rows)
+            rec[v][f"max_abs_err{tag}"] = max(
+                r[f"err_{v}"] for k, r in per.items() if k[0] == dtype)
+        picked, bound = rec["cluster"][f"ms{tag}"], shared[f"bound_ms{tag}"]
+        worst = max(r["ms_cluster"] - r["ms_streaming"] for r in rows)
         say("instance_norm_backward", per_step=str(dtype).split(".")[1],
-            sites=len(TRAIN_SITES), ms=f"{rec['ms' + tag]:.4f}",
-            bound_ms=f"{rec['bound_ms' + tag]:.4f}",
-            share_of_bound=f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
+            sites=len(TRAIN_SITES), picked="cluster",
+            picked_ms=f"{picked:.4f}", bound_ms=f"{bound:.4f}",
+            share_of_bound=f"{bound / picked:.3f}",
+            at_least_half_of_bound=bound / picked >= 0.5,
+            streaming_ms=f"{rec['streaming']['ms' + tag]:.4f}",
+            picked_behind_other_at_worst_site_ms=f"{worst:.4f}",
+            back_to_back_cluster_ms=
+            f"{rec['cluster']['back_to_back_ms' + tag]:.4f}",
+            back_to_back_streaming_ms=
+            f"{rec['streaming']['back_to_back_ms' + tag]:.4f}",
             fwd_stats_plus_bwd_ms=
-            f"{rec['fwd_stats_ms' + tag] + rec['ms' + tag]:.4f}",
-            plain_ms=f"{rec['plain_ms' + tag]:.4f}",
-            library_fwd_bwd_ms=f"{rec['library_ms' + tag]:.4f}")
+            f"{shared['fwd_stats_ms' + tag] + picked:.4f}",
+            plain_ms=f"{shared['plain_ms' + tag]:.4f}",
+            library_bwd_ms=f"{shared['library_ms' + tag]:.4f}",
+            library_fwd_bwd_ms=f"{shared['library_fwd_bwd_ms' + tag]:.4f}")
     return rec
 
 
@@ -580,7 +697,8 @@ def _net_tensors(state):
 def _counts():
     return (instance_norm.instance_norm_act_cluster.launches,
             instance_norm.instance_norm_act_streaming.launches,
-            instance_norm.instance_norm_act_backward.launches)
+            instance_norm.instance_norm_act_backward_cluster.launches,
+            instance_norm.instance_norm_act_backward_streaming.launches)
 
 
 def _step_parity(dev, small: bool, batch: int) -> dict:
@@ -611,7 +729,8 @@ class _Window:
             torch.cuda.synchronize()
             instance_norm.instance_norm_act_cluster.launches = 0
             instance_norm.instance_norm_act_streaming.launches = 0
-            instance_norm.instance_norm_act_backward.launches = 0
+            instance_norm.instance_norm_act_backward_cluster.launches = 0
+            instance_norm.instance_norm_act_backward_streaming.launches = 0
             torch.cuda.reset_peak_memory_stats()
             self.t0 = time.perf_counter()
         elif step == self.stop:
@@ -629,33 +748,38 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
                                 patch_size=PS, device=dev)
     say("train", keyframes=data.num_images, size="270x480",
         patch_centers=len(data), batch=BT)
-    rec, launches = {}, {"forward": 0, "backward": 0}
+    rec = {}
+    launches = {"forward": 0, "backward": 0, "backward_streaming": 0}
     for prec in ("32", "bf16"):
         model = _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS)
         win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
         state = fit(model, data, str(tmp / f"run_{prec}"), seed=0,
                     on_step=win)
-        fwd, st, bwd = win.counts
+        fwd, st, bwd, bst = win.counts
         vals = {k: float(v) for k, v in win.metrics.items()}
         finite = all(bool(torch.isfinite(t).all())
                      for t in _net_tensors(state).values())
         if not finite or not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"{prec}: non-finite losses or parameters "
                                  f"{vals}")
-        if fwd != 25 * TRAIN_STEPS or st != 0 or bwd != 25 * TRAIN_STEPS:
+        if fwd != 25 * TRAIN_STEPS or st != 0 or bwd != 25 * TRAIN_STEPS \
+                or bst != 0:
             raise AssertionError(
                 f"{prec}: B1 launches {fwd} forward, {st} streaming, {bwd} "
-                f"backward in {TRAIN_STEPS} steps; expected 25 forward "
-                f"(cluster) and 25 backward a step")
+                f"backward cluster, {bst} backward streaming in "
+                f"{TRAIN_STEPS} steps; expected 25 forward and 25 backward "
+                f"a step, all in the cluster variants")
         launches["forward"] += fwd
         launches["backward"] += bwd
+        launches["backward_streaming"] += bst
         ms = 1e3 * win.seconds / TRAIN_STEPS
         rec[prec] = {"ms_per_step": ms, "patches_per_s": BT / ms * 1e3}
         say("train", entry="fit", precision=prec, steps=TRAIN_STEPS,
             warmup_steps=TRAIN_WARMUP, ms_per_step=f"{ms:.2f}",
             patches_per_s=f"{BT / ms * 1e3:.1f}",
             forward_launches_per_step=fwd // TRAIN_STEPS,
-            backward_launches_per_step=bwd // TRAIN_STEPS,
+            backward_cluster_launches_per_step=bwd // TRAIN_STEPS,
+            backward_streaming_launches=bst,
             peak_gib=f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}",
             g_total_loss=f"{vals['g_total_loss']:.4f}",
             d_total_loss=f"{vals['d_total_loss']:.4f}", card=f"'{card}'")
@@ -755,13 +879,17 @@ def main() -> int:
                                "train": train["launches"]["forward"]},
              dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
-        dict(name="instance_norm_act_backward", route="cuda",
-             source="patch_toon_tpu_torch/csrc/instance_norm_bwd.cu",
-             replaces="patch_toon_tpu/ops/pallas_norm.py:52",
-             note="backward pass of B1; the Pallas kernel has none (JAX "
-                  "differentiates patch_toon_tpu/models/layers.py:29-40)",
-             launches=train["launches"]["backward"], dtype="bf16",
-             per="the 25 sites of one training step at batch 80", **rec_bw),
+        *[dict(name=f"instance_norm_act_backward_{v}", route="cuda",
+               source="patch_toon_tpu_torch/csrc/instance_norm_bwd.cu",
+               replaces="patch_toon_tpu/ops/pallas_norm.py:52",
+               note="backward pass of B1; the Pallas kernel has none (JAX "
+                    "differentiates patch_toon_tpu/models/layers.py:29-40)",
+               launches=train["launches"][key], dtype="bf16", variant=v,
+               picked_by_plan_backward=v == "cluster",
+               per="the 25 sites of one training step at batch 80",
+               **rec_bw[v])
+          for v, key in (("cluster", "backward"),
+                         ("streaming", "backward_streaming"))],
         dict(name="blend_tiles", route="cuda",
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",

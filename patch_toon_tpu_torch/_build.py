@@ -43,9 +43,13 @@ SIGNATURES = {
     # x, y, mean, rstd, n, hw, c, dtype, act, slope, eps, device, stream
     "ptt_instance_norm_act_streaming": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _F, _F, _I, _P],
+    # x, dy, mean, rstd, dx, n, hw, c, group, k, dtype, act, slope, device,
+    # stream
+    "ptt_instance_norm_act_backward_cluster": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                               _I, _I, _I, _I, _F, _I, _P],
     # x, dy, mean, rstd, dx, n, hw, c, dtype, act, slope, device, stream
-    "ptt_instance_norm_act_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _F, _I, _P],
+    "ptt_instance_norm_act_backward_streaming": [_P, _P, _P, _P, _P, _I, _I,
+                                                 _I, _I, _I, _F, _I, _P],
     # the cluster variant's shared-memory budget a CTA, in bytes
     "ptt_instance_norm_slice_bytes": [],
     # gen, weights, positions, offsets, ids, canvas, wcanvas, n_tiles, ps,

@@ -41,33 +41,11 @@
 // ops/instance_norm.py::plan picks the variant, G and k; the entry points
 // check what they are given again and return an error code, never fall
 // back.
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <cstring>
-#include <map>
-#include <mutex>
-#include <set>
-#include <tuple>
-
-namespace cg = cooperative_groups;
+#include "b1_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
+using namespace b1;
 
 template <int kAct>
 __device__ __forceinline__ float activate(float v, float slope) {
@@ -77,102 +55,6 @@ __device__ __forceinline__ float activate(float v, float slope) {
 }
 
 // ---------------------------------------------------------------- cluster
-
-constexpr int kThreads = 256;
-constexpr int kWarpsC = kThreads / 32;
-constexpr int kMaxGroup = 32;
-constexpr int kSliceBytes = 110 * 1024;  // ops/instance_norm.py CTA_BYTES
-
-// A 16-byte vector: 4 fp32 or 8 bf16 values.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ static void unpack(const uint4& u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  __device__ static uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ static float2 two(uint32_t w) {
-    __nv_bfloat162 b;
-    memcpy(&b, &w, 4);
-    return __bfloat1622float2(b);
-  }
-  __device__ static uint32_t word(float a, float b) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
-    uint32_t w;
-    memcpy(&w, &h, 4);
-    return w;
-  }
-  __device__ static void unpack(const uint4& u, float* f) {
-    float2 t = two(u.x); f[0] = t.x; f[1] = t.y;
-    t = two(u.y); f[2] = t.x; f[3] = t.y;
-    t = two(u.z); f[4] = t.x; f[5] = t.y;
-    t = two(u.w); f[6] = t.x; f[7] = t.y;
-  }
-  __device__ static uint4 pack(const float* f) {
-    return make_uint4(word(f[0], f[1]), word(f[2], f[3]), word(f[4], f[5]),
-                      word(f[6], f[7]));
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// The cluster barrier in two halves: arrive when this CTA is done reading
-// its peers' shared memory, wait before it exits.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Per-channel sums of the block: thread t holds the kVec channels
-// v*kVec.. of vector slot v = t % vpp; lanes with the same slot meet by
-// shuffles, warps in warp_part, and threads < group write out[channel].
-template <int kVec>
-__device__ __forceinline__ void block_channel_sum(
-    float (&acc)[kVec], int vpp, int group, float (*warp_part)[kMaxGroup],
-    float* out) {
-  for (int off = 16; off >= vpp; off >>= 1) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e)
-      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane < vpp) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) warp_part[warp][lane * kVec + e] = acc[e];
-  }
-  __syncthreads();
-  if (threadIdx.x < group) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarpsC; ++w) t += warp_part[w][threadIdx.x];
-    out[threadIdx.x] = t;
-  }
-}
-
-// Sum of a partial over the cluster's CTAs in rank order.
-__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
-                                             float* part, int k) {
-  float t = 0.f;
-  for (int r = 0; r < k; ++r)
-    t += cluster.map_shared_rank(part, r)[threadIdx.x];
-  return t;
-}
 
 template <typename T, int kAct>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -207,9 +89,7 @@ instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
     const int p = i >> vshift, v = i & (vpp - 1);
     cp_async16(slice + i, xs + static_cast<size_t>(p) * c + v * kVec);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
+  cp_async_wait_block();
 
   const int v = threadIdx.x & (vpp - 1);  // the same slot for every i
   float acc[kVec], f[kVec], mean[kVec], rstd[kVec];
@@ -226,7 +106,8 @@ instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
   cluster.sync();
   if (threadIdx.x < group)
     stat[0][threadIdx.x] =
-        cluster_sum(cluster, part[0], k) / static_cast<float>(hw);
+        cluster_sum(cluster, part[0], k, threadIdx.x) /
+        static_cast<float>(hw);
   __syncthreads();
 #pragma unroll
   for (int e = 0; e < kVec; ++e) mean[e] = stat[0][v * kVec + e];
@@ -246,7 +127,8 @@ instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
   cluster.sync();
   if (threadIdx.x < group) {
     const float var =
-        cluster_sum(cluster, part[1], k) / static_cast<float>(hw);
+        cluster_sum(cluster, part[1], k, threadIdx.x) /
+        static_cast<float>(hw);
     const float r = 1.0f / sqrtf(var + eps);
     stat[1][threadIdx.x] = r;
     if (mean_out != nullptr && rank == 0) {  // for the backward pass
@@ -277,64 +159,21 @@ instance_norm_act_cluster_kernel(const T* __restrict__ x, T* __restrict__ y,
 template <typename T, int kAct>
 cudaError_t launch_cluster_act(const void* x, void* y, float* mean,
                                float* rstd, int n, int hw, int c, int group,
-                               int k, int dtype, float slope, float eps,
-                               int device, cudaStream_t stream) {
-  auto* kernel = instance_norm_act_cluster_kernel<T, kAct>;
+                               int k, float slope, float eps, int device,
+                               cudaStream_t stream) {
   const int ppc = (hw + k - 1) / k;
   const size_t smem = static_cast<size_t>(ppc) * group * sizeof(T);
-  if (smem > static_cast<size_t>(kSliceBytes)) return cudaErrorInvalidValue;
   const long long grid = static_cast<long long>(n) * (c / group) * k;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(grid));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = k;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-
-  // once per (device, instantiation): allow the whole slice budget; once
-  // per (device, instantiation, k, bytes): at least one cluster must fit
-  static std::mutex mu;
-  static std::set<std::tuple<int, int, int>> ready;
-  static std::map<std::tuple<int, int, int, int, size_t>, int> fits;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (!ready.count({device, dtype, kAct})) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSliceBytes);
-      if (err != cudaSuccess) return err;
-      ready.insert({device, dtype, kAct});
-    }
-    const auto key = std::make_tuple(device, dtype, kAct, k, smem);
-    auto it = fits.find(key);
-    if (it == fits.end()) {
-      int clusters = 0;
-      cudaError_t err = cudaOccupancyMaxActiveClusters(
-          &clusters, reinterpret_cast<const void*>(kernel), &cfg);
-      if (err != cudaSuccess) return err;
-      it = fits.emplace(key, clusters).first;
-    }
-    if (it->second == 0) return cudaErrorLaunchOutOfResources;
-  }
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel,
-                                       static_cast<const T*>(x),
-                                       static_cast<T*>(y), mean, rstd, hw, c,
-                                       group, ppc, slope, eps);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cluster_kernel(instance_norm_act_cluster_kernel<T, kAct>,
+                               grid, k, smem, device, stream,
+                               static_cast<const T*>(x), static_cast<T*>(y),
+                               mean, rstd, hw, c, group, ppc, slope, eps);
 }
 
 template <typename T>
 cudaError_t launch_cluster(const void* x, void* y, float* mean, float* rstd,
-                           int n, int hw, int c, int group, int k, int dtype,
-                           int act, float slope, float eps, int device,
+                           int n, int hw, int c, int group, int k, int act,
+                           float slope, float eps, int device,
                            cudaStream_t stream) {
   constexpr int kVec = Vec<T>::n;
   if (group <= 0 || group > kMaxGroup || group % kVec != 0 ||
@@ -348,13 +187,13 @@ cudaError_t launch_cluster(const void* x, void* y, float* mean, float* rstd,
   switch (act) {
     case 0:
       return launch_cluster_act<T, 0>(x, y, mean, rstd, n, hw, c, group, k,
-                                      dtype, slope, eps, device, stream);
+                                      slope, eps, device, stream);
     case 1:
       return launch_cluster_act<T, 1>(x, y, mean, rstd, n, hw, c, group, k,
-                                      dtype, slope, eps, device, stream);
+                                      slope, eps, device, stream);
     case 2:
       return launch_cluster_act<T, 2>(x, y, mean, rstd, n, hw, c, group, k,
-                                      dtype, slope, eps, device, stream);
+                                      slope, eps, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -472,11 +311,11 @@ extern "C" int ptt_instance_norm_act_cluster(const void* x, void* y,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_cluster<float>(x, y, mean, rstd, n, hw, c, group, k, dtype,
-                                 act, slope, eps, device, s);
+    return launch_cluster<float>(x, y, mean, rstd, n, hw, c, group, k, act,
+                                 slope, eps, device, s);
   if (dtype == 1)
     return launch_cluster<__nv_bfloat16>(x, y, mean, rstd, n, hw, c, group, k,
-                                         dtype, act, slope, eps, device, s);
+                                         act, slope, eps, device, s);
   return cudaErrorInvalidValue;
 }
 

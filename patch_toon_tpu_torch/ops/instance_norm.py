@@ -17,10 +17,16 @@ runs its plain version. A CUDA tensor that a kernel does not take raises:
 nothing falls back.
 
 Under autograd, :class:`InstanceNormAct` runs the same forward variants,
-which then also write the fp32 mean and rstd, and its backward pass is the
-hand-written kernel of ``csrc/instance_norm_bwd.cu``
-(:func:`instance_norm_act_backward`, counted in its ``.launches``). The
-JAX package has no such kernel: its Pallas kernel serves inference only
+which then also write the fp32 mean and rstd, and its backward pass
+(:func:`instance_norm_act_backward`) launches one of the two variants of
+``csrc/instance_norm_bwd.cu``, as :func:`plan_backward` picks:
+
+- the cluster variant (:func:`instance_norm_act_backward_cluster`): x and
+  dy read from HBM once, dx written once;
+- the streaming variant (:func:`instance_norm_act_backward_streaming`): x
+  and dy read twice, for what the cluster variant does not take.
+
+The JAX package has no such kernel: its Pallas kernel serves inference only
 and JAX training differentiates the plain ops.
 
 Numerics follow ``patch_toon_tpu/models/layers.py::instance_norm``: fp32
@@ -80,6 +86,41 @@ def plan_for(x: torch.Tensor) -> Plan:
     """:func:`plan` for an (N, H, W, C) tensor and its data pointer."""
     n, h, w, c = x.shape
     return plan(n, h, w, c, x.dtype, x.data_ptr() % 16 == 0)
+
+
+def plan_backward(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+                  aligned: bool) -> Plan:
+    """The backward pass's variant. A CTA holds its slice of x and of dy,
+    twice the forward's bytes a pixel: ``ceil(H*W/k) * G * itemsize * 2``
+    within ``CTA_BYTES``. The cluster variant with the largest G of
+    ``GROUPS`` that takes C in whole 16-byte vectors and lets the unit fit
+    8 CTAs, then the least k of ``CLUSTER_SIZES``; so the 80x80 sites of a
+    training step take G = 32 at bf16 and G = 16 at fp32, both k = 8. Else
+    the streaming variant: C times the item size not a multiple of 16
+    bytes, a pointer of x or dy not 16-byte aligned (``aligned`` False), or
+    a unit of even the least G larger than 8 CTAs' slices."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"instance_norm_act_backward: dtype {dtype} not "
+                        "supported (float32 or bfloat16)")
+    item = dtype.itemsize
+    if aligned and (c * item) % 16 == 0:
+        for group in GROUPS:
+            if c % group or (group * item) % 16:
+                continue
+            for k in CLUSTER_SIZES:
+                cta_bytes = -(-h * w // k) * group * item * 2
+                if cta_bytes <= CTA_BYTES and \
+                        n * (c // group) * k <= _MAX_GRID:
+                    return Plan("cluster", group, k, cta_bytes)
+    return Plan("streaming")
+
+
+def plan_backward_for(x: torch.Tensor, dy: torch.Tensor) -> Plan:
+    """:func:`plan_backward` for an (N, H, W, C) x and dy and their data
+    pointers."""
+    n, h, w, c = x.shape
+    return plan_backward(n, h, w, c, x.dtype,
+                         x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
 
 
 def _activate(y: torch.Tensor, act: Optional[str], slope: float):
@@ -227,16 +268,12 @@ def instance_norm_act_streaming(x: torch.Tensor, act: Optional[str] = None,
     return (y, *st) if stats else y
 
 
-def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor,
-                               mean: torch.Tensor, rstd: torch.Tensor,
-                               act: Optional[str] = None,
-                               slope: float = 0.2) -> torch.Tensor:
-    """dx of InstanceNorm(+activation) from the forward pass's input, the
-    output gradient and the (N, C) fp32 statistics. CUDA: one launch of
-    ``csrc/instance_norm_bwd.cu`` (counted in ``.launches``); dx in x's
-    type, NHWC-contiguous. CPU: the plain version."""
+def _backward_input(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
+                    rstd: torch.Tensor, act: Optional[str]) -> bool:
+    """:func:`_cuda_input` for the backward pass, which also checks dy
+    and the statistics of a CUDA x."""
     if not _cuda_input(x, act):
-        return instance_norm_act_backward_plain(x, dy, mean, rstd, act, slope)
+        return False
     n, h, w, c = x.shape
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
             or not dy.is_contiguous():
@@ -248,27 +285,87 @@ def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor,
                 or t.device != x.device or not t.is_contiguous():
             raise ValueError("instance_norm_act_backward: mean and rstd must "
                              f"be contiguous ({n}, {c}) float32 on {x.device}")
+    return True
+
+
+def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor,
+                               mean: torch.Tensor, rstd: torch.Tensor,
+                               act: Optional[str] = None,
+                               slope: float = 0.2) -> torch.Tensor:
+    """dx of InstanceNorm(+activation) from the forward pass's input, the
+    output gradient and the (N, C) fp32 statistics. CUDA: one launch of the
+    variant that :func:`plan_backward` picks; dx in x's type,
+    NHWC-contiguous. CPU: the plain version."""
+    if not _backward_input(x, dy, mean, rstd, act):
+        return instance_norm_act_backward_plain(x, dy, mean, rstd, act, slope)
+    if x.numel() and plan_backward_for(x, dy).variant == "cluster":
+        return instance_norm_act_backward_cluster(x, dy, mean, rstd, act,
+                                                  slope)
+    return instance_norm_act_backward_streaming(x, dy, mean, rstd, act, slope)
+
+
+def instance_norm_act_backward_cluster(x: torch.Tensor, dy: torch.Tensor,
+                                       mean: torch.Tensor, rstd: torch.Tensor,
+                                       act: Optional[str] = None,
+                                       slope: float = 0.2) -> torch.Tensor:
+    """The backward cluster variant (counted in ``.launches``); raises for a
+    CUDA tensor that :func:`plan_backward` gives to the streaming
+    variant."""
+    if not _backward_input(x, dy, mean, rstd, act):
+        return instance_norm_act_backward_plain(x, dy, mean, rstd, act, slope)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
-    rc = _build.library().ptt_instance_norm_act_backward(
+    p = plan_backward_for(x, dy)
+    if p.variant != "cluster":
+        raise ValueError(
+            f"instance_norm_act_backward_cluster does not take "
+            f"{tuple(x.shape)} {x.dtype} at data_ptr % 16 = "
+            f"{x.data_ptr() % 16}, {dy.data_ptr() % 16} (the streaming "
+            "variant does)")
+    n, h, w, c = x.shape
+    rc = _build.library().ptt_instance_norm_act_backward_cluster(
+        x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        dx.data_ptr(), n, h * w, c, p.group, p.k, _DTYPES[x.dtype],
+        ACTS[act], slope, x.device.index, _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_backward_cluster")
+    instance_norm_act_backward_cluster.launches += 1
+    return dx
+
+
+def instance_norm_act_backward_streaming(x: torch.Tensor, dy: torch.Tensor,
+                                         mean: torch.Tensor,
+                                         rstd: torch.Tensor,
+                                         act: Optional[str] = None,
+                                         slope: float = 0.2) -> torch.Tensor:
+    """The backward streaming variant (counted in ``.launches``); takes any
+    NHWC-contiguous fp32 or bf16 x and dy."""
+    if not _backward_input(x, dy, mean, rstd, act):
+        return instance_norm_act_backward_plain(x, dy, mean, rstd, act, slope)
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    n, h, w, c = x.shape
+    rc = _build.library().ptt_instance_norm_act_backward_streaming(
         x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         dx.data_ptr(), n, h * w, c, _DTYPES[x.dtype], ACTS[act], slope,
         x.device.index, _build.stream_of(x))
-    _build.check(rc, "instance_norm_act_backward")
-    instance_norm_act_backward.launches += 1
+    _build.check(rc, "instance_norm_act_backward_streaming")
+    instance_norm_act_backward_streaming.launches += 1
     return dx
 
 
 instance_norm_act_cluster.launches = 0
 instance_norm_act_streaming.launches = 0
-instance_norm_act_backward.launches = 0
+instance_norm_act_backward_cluster.launches = 0
+instance_norm_act_backward_streaming.launches = 0
 
 
 class InstanceNormAct(torch.autograd.Function):
     """B1 under autograd. Forward: the variant :func:`plan` picks, writing
     the fp32 mean and rstd as well (CPU: the plain version). Backward:
-    :func:`instance_norm_act_backward` (CPU: its plain version)."""
+    :func:`instance_norm_act_backward`, the variant :func:`plan_backward`
+    picks (CPU: its plain version)."""
 
     @staticmethod
     def forward(ctx, x, act, slope, eps):

@@ -25,9 +25,14 @@ from patch_toon_tpu_torch import _build  # noqa: E402
 from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
     CTA_BYTES,
     instance_norm_act,
+    instance_norm_act_backward,
+    instance_norm_act_backward_cluster,
+    instance_norm_act_backward_plain,
+    instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
     instance_norm_act_streaming,
+    plan_backward_for,
     plan_for,
 )
 
@@ -233,34 +238,112 @@ def _stats(x):
     return mean.contiguous(), torch.rsqrt(var + 1e-5).contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hwc", TRAIN_SHAPES)
-def test_instance_norm_backward_kernel_matches_plain(cuda, act, dtype, hwc):
-    """The backward kernel against its plain version on the same x, dy and
-    statistics: fp32 within 2e-5 absolute and relative (sums in other
-    orders); bf16 within one bf16 ulp of the value (one rounding of an
-    fp32 result that may differ in the last bits)."""
-    from patch_toon_tpu_torch.ops.instance_norm import (
-        instance_norm_act_backward, instance_norm_act_backward_plain)
+BACKWARD = {"cluster": instance_norm_act_backward_cluster,
+            "streaming": instance_norm_act_backward_streaming}
 
-    x = _randn((3,) + hwc, dtype, cuda, seed=6)
-    dy = _randn((3,) + hwc, dtype, cuda, seed=7)
+
+def _check_backward(x, dy, act, variant):
+    """One launch of the backward ``variant`` (through the dispatching
+    wrapper for None), counted once on the variant that ran, against the
+    plain version on the same x, dy and statistics: fp32 within 2e-5
+    absolute and relative (sums in other orders); bf16 within one bf16 ulp
+    of the value (one rounding of an fp32 result that may differ in the
+    last bits). A second call is bitwise equal (a fixed order, no
+    atomics)."""
     mean, rstd = _stats(x)
-    before = instance_norm_act_backward.launches
-    got = instance_norm_act_backward(x, dy, mean, rstd, act)
+    ran = variant or plan_backward_for(x, dy).variant
+    fn = BACKWARD[variant] if variant else instance_norm_act_backward
+    before = {k: f.launches for k, f in BACKWARD.items()}
+    got = fn(x, dy, mean, rstd, act)
     torch.cuda.synchronize()
-    assert instance_norm_act_backward.launches == before + 1
-    assert got.dtype == dtype and got.is_contiguous()
+    after = {k: f.launches for k, f in BACKWARD.items()}
+    assert after == {k: v + (k == ran) for k, v in before.items()}
+    assert got.dtype == x.dtype and got.is_contiguous()
     want = instance_norm_act_backward_plain(x, dy, mean, rstd, act)
-    if dtype == torch.float32:
+    if x.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:
         _assert_bf16_close(got.float().cpu().numpy(),
                            want.float().cpu().numpy())
-    again = instance_norm_act_backward(x, dy, mean, rstd, act)
-    assert torch.equal(got, again)  # a fixed order: bitwise repeatable
+    assert torch.equal(got, fn(x, dy, mean, rstd, act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["cluster", "streaming"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hwc", TRAIN_SHAPES)
+def test_instance_norm_backward_kernel_matches_plain(cuda, act, dtype, hwc,
+                                                     variant):
+    """Both backward variants at every site shape of a training step; the
+    plan sends each of them to the cluster variant."""
+    x = _randn((3,) + hwc, dtype, cuda, seed=6)
+    dy = _randn((3,) + hwc, dtype, cuda, seed=7)
+    assert plan_backward_for(x, dy).variant == "cluster"
+    _check_backward(x, dy, act, variant)
+
+
+@pytest.mark.cuda
+def test_instance_norm_backward_cluster_sizes_one_to_eight(cuda):
+    """k = 1, 2, 4 and 8 at each dtype, H*W ragged against k (21x23, 29x31,
+    45x45 and 79x81 pixels), through the dispatching wrapper."""
+    shapes = [(1, 3, 5, 128), (2, 21, 23, 64), (2, 29, 31, 32),
+              (2, 45, 45, 64), (1, 79, 81, 32)]
+    for dtype in (torch.float32, torch.bfloat16):
+        ks = set()
+        for i, shape in enumerate(shapes):
+            x = _randn(shape, dtype, cuda, seed=20 + i)
+            dy = _randn(shape, dtype, cuda, seed=40 + i)
+            p = plan_backward_for(x, dy)
+            assert p.variant == "cluster"
+            ks.add(p.k)
+            for act in ACTS:
+                _check_backward(x, dy, act, None)
+        assert ks == {1, 2, 4, 8}, (dtype, ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_backward_streaming_dispatch(cuda, dtype):
+    """What the backward cluster variant does not take (a full-frame plane,
+    a misaligned x or dy, C = 12 at bf16) goes to the streaming variant,
+    and the cluster wrapper refuses it."""
+    full = (1, 540, 960, 128)
+    base = _randn((2 * 20 * 20 * 32 + 1,), dtype, cuda, seed=11)
+    aligned = _randn((2, 20, 20, 32), dtype, cuda, seed=12)
+    misaligned = base[1:].view(2, 20, 20, 32)
+    cases = [(_randn(full, dtype, cuda, seed=13),
+              _randn(full, dtype, cuda, seed=14)),
+             (misaligned, aligned), (aligned, misaligned)]
+    if dtype == torch.bfloat16:
+        odd = (2, 20, 20, 12)
+        cases.append((_randn(odd, dtype, cuda, seed=15),
+                      _randn(odd, dtype, cuda, seed=16)))
+    for x, dy in cases:
+        assert plan_backward_for(x, dy).variant == "streaming", x.shape
+        _check_backward(x, dy, "relu", None)
+        mean, rstd = _stats(x)
+        with pytest.raises(ValueError):
+            instance_norm_act_backward_cluster(x, dy, mean, rstd, "relu")
+
+
+@pytest.mark.cuda
+def test_instance_norm_backward_kernel_refuses_what_it_cannot_take(cuda):
+    x = torch.randn(2, 8, 8, 32, device=cuda)
+    dy = torch.randn_like(x)
+    mean, rstd = _stats(x)
+    for fn in (instance_norm_act_backward, *BACKWARD.values()):
+        with pytest.raises(ValueError):  # dy not contiguous
+            fn(x, dy.transpose(1, 2).contiguous().transpose(1, 2), mean,
+               rstd)
+        with pytest.raises(ValueError):  # dy in another type
+            fn(x, dy.bfloat16(), mean, rstd)
+        with pytest.raises(ValueError):  # statistics of another shape
+            fn(x, dy, mean[:, :16].contiguous(), rstd)
+        with pytest.raises(TypeError):
+            fn(x.half(), dy.half(), mean, rstd)
+        with pytest.raises(ValueError):
+            fn(x, dy, mean, rstd, "gelu")
 
 
 @pytest.mark.cuda
@@ -286,20 +369,19 @@ def test_instance_norm_forward_writes_the_statistics(cuda, dtype, shape):
 
 @pytest.mark.cuda
 def test_instance_norm_function_launches_both_kernels(cuda):
-    from patch_toon_tpu_torch.ops.instance_norm import (
-        InstanceNormAct, instance_norm_act_backward,
-        instance_norm_act_backward_plain)
+    from patch_toon_tpu_torch.ops.instance_norm import InstanceNormAct
 
     x = _randn((4, 20, 20, 128), torch.float32, cuda, seed=9)
     dy = _randn(x.shape, torch.float32, cuda, seed=10)
     xg = x.clone().requires_grad_(True)
     f0 = instance_norm_act_cluster.launches
-    b0 = instance_norm_act_backward.launches
+    b0 = {k: f.launches for k, f in BACKWARD.items()}
     y = InstanceNormAct.apply(xg, "leaky_relu", 0.2, 1e-5)
     (dx,) = torch.autograd.grad(y, xg, dy)
     torch.cuda.synchronize()
     assert instance_norm_act_cluster.launches == f0 + 1
-    assert instance_norm_act_backward.launches == b0 + 1
+    assert {k: f.launches for k, f in BACKWARD.items()} == {
+        "cluster": b0["cluster"] + 1, "streaming": b0["streaming"]}
     mean, rstd = _stats(x)
     torch.testing.assert_close(dx, instance_norm_act_backward_plain(
         x, dy, mean, rstd, "leaky_relu"), rtol=2e-5, atol=2e-5)
@@ -319,8 +401,6 @@ def test_generator_backward_on_cuda_matches_the_cpu(cuda):
     import copy
 
     from patch_toon_tpu_torch.models.generator import GeneratorJ
-    from patch_toon_tpu_torch.ops.instance_norm import (
-        instance_norm_act_backward)
     from patch_toon_tpu_torch.train.parity import Kinks
 
     saved = (torch.backends.cudnn.allow_tf32,
@@ -348,13 +428,15 @@ def test_generator_backward_on_cuda_matches_the_cpu(cuda):
                         (out * w.to(dev, dtype)).sum(),
                         list(net.parameters())))))
 
-        b0 = instance_norm_act_backward.launches
+        b0 = {k: f.launches for k, f in BACKWARD.items()}
         kinks = {"cpu": Kinks(), "card": Kinks()}
         got = {"cpu": grads(cpu, "cpu", kinks["cpu"]),
                "card": grads(card, cuda, kinks["card"])}
         torch.cuda.synchronize()
-        # stem, 2 downsamples, 2 blocks x 2, 2 upsamples: 9 sites
-        assert instance_norm_act_backward.launches == b0 + 9
+        # stem, 2 downsamples, 2 blocks x 2, 2 upsamples: 9 sites, all in
+        # the cluster variant
+        assert {k: f.launches for k, f in BACKWARD.items()} == {
+            "cluster": b0["cluster"] + 9, "streaming": b0["streaming"]}
         ref = {tag: grads(copy.deepcopy(cpu).double(), "cpu",
                           Kinks(replay=k.masks), torch.float64)
                for tag, k in kinks.items()}

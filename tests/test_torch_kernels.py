@@ -39,10 +39,15 @@ from patch_toon_tpu_torch.ops.instance_norm import (
     GROUPS,
     Plan,
     instance_norm_act,
+    instance_norm_act_backward,
+    instance_norm_act_backward_cluster,
+    instance_norm_act_backward_plain,
+    instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
     instance_norm_act_streaming,
     plan,
+    plan_backward,
 )
 
 ACTS = [None, "relu", "leaky_relu"]
@@ -175,6 +180,101 @@ def test_instance_norm_plan_stays_within_its_limits(dtype):
                 assert p == Plan("streaming")
                 assert not whole or \
                     -(-h * w // 8) * max(whole) * item > CTA_BYTES
+
+
+# the 25 InstanceNorm sites of a training step at the default widths: the
+# generator's 19, then the discriminator's two in each of its 3 calls
+TRAIN_SITES = MAIN_PATH_SITES + [(20, 20, 24), (19, 19, 48)] * 3
+# (G, k) of the backward cluster variant per distinct site shape: a CTA
+# holds x and dy, so the 80x80 units at fp32 fit 8 CTAs only at G = 16
+TRAIN_BACKWARD_GK = {
+    torch.bfloat16: {(80, 80, 32): (32, 8), (40, 40, 64): (32, 2),
+                     (20, 20, 128): (32, 1), (40, 40, 128): (32, 2),
+                     (80, 80, 128): (32, 8), (20, 20, 24): (8, 1),
+                     (19, 19, 48): (16, 1)},
+    torch.float32: {(80, 80, 32): (16, 8), (40, 40, 64): (32, 4),
+                    (20, 20, 128): (32, 1), (40, 40, 128): (32, 4),
+                    (80, 80, 128): (16, 8), (20, 20, 24): (8, 1),
+                    (19, 19, 48): (16, 1)},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_backward_takes_every_training_site_to_the_cluster(
+        dtype):
+    item = dtype.itemsize
+    assert len(TRAIN_SITES) == 25
+    for h, w, c in TRAIN_SITES:
+        p = plan_backward(80, h, w, c, dtype, aligned=True)
+        assert p.variant == "cluster", (h, w, c)
+        assert (p.group, p.k) == TRAIN_BACKWARD_GK[dtype][(h, w, c)], p
+        assert p.cta_bytes == -(-h * w // p.k) * p.group * item * 2
+        assert p.cta_bytes <= CTA_BYTES and p.k in CLUSTER_SIZES
+        if p.k > 1:  # the least k: half as many CTAs would not fit
+            assert -(-h * w // (p.k // 2)) * p.group * item * 2 > CTA_BYTES
+        for g in GROUPS:  # the largest G whose unit fits 8 CTAs
+            if g > p.group and c % g == 0 and (g * item) % 16 == 0:
+                assert -(-h * w // 8) * g * item * 2 > CTA_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_backward_gives_the_streaming_variant_what_clusters_cannot_take(
+        dtype):
+    # a full-frame plane (A8): even a unit of the least G needs more than 8
+    # CTAs' slices of x and dy
+    assert plan_backward(1, 540, 960, 128, dtype, True) == Plan("streaming")
+    # a pointer of x or dy that is not 16-byte aligned
+    assert plan_backward(2, 20, 20, 128, dtype, False) == Plan("streaming")
+    # C = 12: 24 bytes a pixel in bf16, not whole 16-byte vectors; in fp32
+    # 48 bytes, taken in units of G = 4 channels
+    p = plan_backward(2, 20, 20, 12, dtype, True)
+    if dtype == torch.bfloat16:
+        assert p == Plan("streaming")
+    else:
+        assert p == Plan("cluster", 4, 1, 400 * 16 * 2)
+    assert plan_backward(2, 20, 20, 7, dtype, True) == Plan("streaming")
+    with pytest.raises(TypeError):
+        plan_backward(2, 20, 20, 32, torch.float16, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_backward_stays_within_its_limits(dtype):
+    """k is a portable cluster size of at most 8, a CTA's slice of x and dy
+    stays within the budget, and the streaming variant gets a shape only
+    where no G that takes C in whole 16-byte vectors fits 8 CTAs."""
+    item = dtype.itemsize
+    for c in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
+        whole = [g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0]
+        for h, w in ((1, 1), (7, 9), (79, 81), (80, 80), (160, 160),
+                     (300, 300)):
+            p = plan_backward(3, h, w, c, dtype, True)
+            if p.variant == "cluster":
+                assert p.k in CLUSTER_SIZES and p.k <= 8
+                assert 0 < p.cta_bytes <= CTA_BYTES
+                assert p.group in whole
+            else:
+                assert p == Plan("streaming")
+                assert not whole or \
+                    -(-h * w // 8) * min(whole) * item * 2 > CTA_BYTES
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_instance_norm_backward_wrappers_use_plain_on_cpu(act):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 7, 16)).astype(
+        np.float32))
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    mean = x.mean(dim=(1, 2))
+    rstd = torch.rsqrt(x.var(dim=(1, 2), unbiased=False) + 1e-5)
+    want = instance_norm_act_backward_plain(x, dy, mean, rstd, act)
+    counters = (instance_norm_act_backward_cluster,
+                instance_norm_act_backward_streaming)
+    before = [f.launches for f in counters]
+    for wrapper in (instance_norm_act_backward, *counters):
+        assert torch.equal(wrapper(x, dy, mean, rstd, act), want)
+        with pytest.raises(ValueError):
+            wrapper(x, dy, mean, rstd, "gelu")
+    assert [f.launches for f in counters] == before  # no launch on the CPU
 
 
 def _blend_case(seed, B=14, ps=16, H=70, W=90):

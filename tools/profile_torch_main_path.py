@@ -25,8 +25,11 @@ precision bf16 and 32, and reads windows of ``fit``'s steps through its
 step callback: ms per step by host clock over ``--steps`` steps after 3
 warm-up ones; the two ``Adam.step`` calls' ms per step, each between two
 synchronisations, over the next ``--steps``; then a trace of 3 steps:
-device time per step by category (B1's forward and backward apart),
-kernel launches per step, the top 15 kernels and the busy share.
+device time per step by category (B1's forward and backward apart, both
+variants of each), kernel launches per step, the top 15 kernels, the busy
+share, and the copies that B1's backward makes of a dy that is not
+NHWC-contiguous (their device time, and each such dy's shape and
+strides).
 
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
@@ -49,6 +52,7 @@ sys.path.insert(0, str(ROOT))
 
 from patch_toon_tpu_torch.config.defaults import inference_config  # noqa
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference  # noqa
+from patch_toon_tpu_torch.ops.instance_norm import InstanceNormAct  # noqa
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np  # noqa
 from patch_toon_tpu_torch.train import optim  # noqa: E402
 
@@ -83,7 +87,8 @@ def _category(name: str) -> str:
 
 
 def _train_category(name: str) -> str:
-    if "instance_norm_act_bwd_kernel" in name.lower():
+    n = name.lower()
+    if "instance_norm_act_bwd_" in n and "_kernel" in n:  # both variants
         return "B1 backward"
     c = _category(name)
     if c == "B1 instance_norm":
@@ -114,6 +119,35 @@ def _device_split(prof, steady: int, category) -> tuple:
             [[k[:90], us / 1e3 / steady] for k, us in top])
 
 
+def _subtree_kernels(ev):
+    yield from ev.kernels
+    for child in ev.cpu_children:
+        yield from _subtree_kernels(child)
+
+
+def _b1_backward_copies(prof, steady: int) -> dict:
+    """The device time, per step, of the kernels that InstanceNormAct's
+    autograd node launches besides B1's backward kernel: the copies that
+    make a channel-sliced (or other-typed) dy NHWC-contiguous. Read from
+    the kernels the profiler links to the node and its child ops."""
+    copy_us, copies, bwd = 0.0, 0, 0
+    for ev in prof.events():
+        if "InstanceNormActBackward" not in ev.name:
+            continue
+        parent = ev.cpu_parent
+        if parent is not None and "InstanceNormActBackward" in parent.name:
+            continue  # inside a node already counted
+        for k in _subtree_kernels(ev):
+            if "instance_norm_act_bwd_" in k.name.lower():
+                bwd += 1
+            else:
+                copy_us += k.duration
+                copies += 1
+    return {"copy_ms_per_step": copy_us / 1e3 / steady,
+            "copy_launches_per_step": copies / steady,
+            "b1_backward_launches_linked_per_step": bwd / steady}
+
+
 class _TrainWindows:
     """``fit``'s step callback: a timed window, an optimizer window and a
     traced window of steps, one after the other."""
@@ -124,6 +158,14 @@ class _TrainWindows:
         self.steps, self.steady = steps, steady
         self.opt_ms, self.prof = [], None
         self.plain_step = optim.Adam.step
+        self.plain_backward = InstanceNormAct.backward
+        self.strided_dy = []  # (shape, stride, dtype) of each dy copied
+
+    def _noted_backward(self, ctx, dy):
+        if not dy.is_contiguous() or dy.dtype != ctx.saved_tensors[0].dtype:
+            self.strided_dy.append((tuple(dy.shape), dy.stride(),
+                                    str(dy.dtype).split(".")[1]))
+        return self.plain_backward(ctx, dy)
 
     def _timed(self, opt, grads):
         torch.cuda.synchronize()
@@ -143,12 +185,15 @@ class _TrainWindows:
             optim.Adam.step = lambda opt, grads: self._timed(opt, grads)
         elif i == 2:
             optim.Adam.step = self.plain_step
+            InstanceNormAct.backward = staticmethod(
+                lambda ctx, dy: self._noted_backward(ctx, dy))
             self.prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA])
             self.prof.start()
         elif i == 3:
             self.prof.stop()
+            InstanceNormAct.backward = self.plain_backward
             self.wall_ms = 1e3 * (now - self.t0)
         self.t0 = time.perf_counter()
 
@@ -174,8 +219,10 @@ def _train_records(steps: int, card: str) -> list:
                 fit(model, data, tmp, seed=0, progress=False, on_step=win)
         finally:
             optim.Adam.step = win.plain_step
+            InstanceNormAct.backward = win.plain_backward
         device_ms, launches, cats, top = _device_split(win.prof, steady,
                                                        _train_category)
+        strided = win.strided_dy[:len(win.strided_dy) // steady]
         records.append({
             "precision": prec, "card": card, "entry": "fit", "batch": BT,
             "patch": PS, "ms_per_step": win.ms,
@@ -186,6 +233,11 @@ def _train_records(steps: int, card: str) -> list:
             "device_busy_share": device_ms * steady / win.wall_ms,
             "kernel_launches_per_step": launches,
             "device_ms_per_step_by_category": cats,
+            "b1_backward_dy_copies": dict(
+                _b1_backward_copies(win.prof, steady),
+                copied_dy_per_step=[
+                    {"shape": sh, "stride": st, "dtype": dt}
+                    for sh, st, dt in strided]),
             "top_kernels_ms_per_step": top})
         print(json.dumps(records[-1]), flush=True)
         torch.cuda.empty_cache()
