@@ -31,7 +31,20 @@ lines each, flushed as they go:
    per generator call, its streaming variant never, and B2 once per group.
    Then a small masked frame through the card at precision 32 must agree
    within 1 uint8 count with the same engine on the CPU (plain versions).
-6. ``instance_norm_backward``: both variants of B1's backward kernel
+6. ``serve_directory``: ``StyleTransferInference.process_directory``, the
+   serving entry point, over 36 PNG frames of 512x910 written by the port's
+   codec (RGB, a 3-band tracking guide, full masks), with PIL made
+   unimportable, at precision bf16 and 32: a set-up run, then a timed run
+   (eq-frames/s, ms per group) with the launch counters zeroed just before
+   and read just after (19 B1 cluster launches a generator call, none
+   streaming, 1 B2 launch a group). Then the in-line loop on one thread
+   (decode, ``stylize_group``, encode) on the same engine, timed, and every
+   output file of the pipeline decoded and held against it: within 1
+   count, the differing pixels printed. Last, an interrupted pass: the
+   loader raises ``KeyboardInterrupt`` at frame 13 with groups in flight,
+   and every frame taken before it must be on disk, and right, or named in
+   the log.
+7. ``instance_norm_backward``: both variants of B1's backward kernel
    (cluster and streaming) against its plain version at every
    InstanceNorm site of a training step (batch 80, the generator's 19
    sites and the discriminator's 2 at its 3 calls), fp32 and bf16, each
@@ -48,7 +61,7 @@ lines each, flushed as they go:
    variant back to back on one copy, the host's dispatch cost included.
    Per-step totals over the 25 sites, the variant that ``plan_backward``
    picks (the cluster one) beside its bound.
-7. ``train``: training through ``train/loop.py::fit`` (the entry point
+8. ``train``: training through ``train/loop.py::fit`` (the entry point
    under ``train_torch.py``) at the full width of the shipped configuration
    (config/model, training and data defaults: batch 80 of 80x80 patches, 6
    input channels, D 12 filters, VGG layers [0, 3, 5]) on synthetic
@@ -80,6 +93,7 @@ to the CPU or to a plain version. A process alarm ends a run that hangs.
 from __future__ import annotations
 
 import json
+import logging
 import signal
 import subprocess
 import sys
@@ -99,7 +113,9 @@ from patch_toon_tpu_torch.config.defaults import (
 from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
 from patch_toon_tpu_torch.infer.common import SIGNED_UNIT, _to_signed_unit
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+from patch_toon_tpu_torch.infer.pipeline import GroupPipeline
 from patch_toon_tpu_torch.infer.programs import make_tile_plan
+from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
 from patch_toon_tpu_torch.infer.tiling import (
     bucket_size,
     pack_boxes_multi,
@@ -130,6 +146,7 @@ SITES = ([((80, 80, 32), "leaky_relu"), ((40, 40, 64), "leaky_relu"),
           ((20, 20, 128), "leaky_relu")]
          + [((20, 20, 128), "relu"), ((20, 20, 128), None)] * 7
          + [((40, 40, 128), "relu"), ((80, 80, 128), "relu")])
+DIR_FRAMES = 36  # PNG frames of the serve_directory phase: 12 groups
 BT = 80  # patches per training step (config/training/default.yaml)
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # the InstanceNorm sites of one training step, forward and backward alike:
@@ -318,6 +335,26 @@ def _full_mask():
     return erode_full_support_np(np.ones((H, W), np.float32))
 
 
+def write_scene(root: Path, n: int, h: int = H, w: int = W,
+                seed: int = 0) -> None:
+    """``n`` synthetic frames as PNG files, written by the port's codec:
+    ``input/`` RGB and ``tracking/`` a 3-band guide (10x10 blocks of random
+    colour from numpy ``seed``, as the main path's frames), ``mask/``
+    full-frame masks (gray 255)."""
+    rng = np.random.default_rng(seed)
+    for sub in ("input", "tracking", "mask"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    full = np.full((h, w), 255, np.uint8)
+    for i in range(n):
+        base = rng.integers(0, 256, (-(-h // 10), -(-w // 10), 6),
+                            dtype=np.uint8)
+        u8 = np.repeat(np.repeat(base, 10, axis=0), 10, axis=1)[:h, :w]
+        name = f"{i:04d}.png"
+        encode_png(root / "input" / name, u8[..., :3], compress_level=1)
+        encode_png(root / "tracking" / name, u8[..., 3:], compress_level=1)
+        encode_png(root / "mask" / name, full, compress_level=1)
+
+
 def _tile_layout(n_frames: int):
     boxes = tile_boxes_from_mask(_full_mask(), PS, 30.0)
     group = [boxes] * n_frames
@@ -448,6 +485,174 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
                              "counts apart (limit 1)")
     return {"instance_norm_act": n_in, "instance_norm_act_streaming": n_st,
             "blend_tiles": n_bl}
+
+
+def _dir_engine(precision: str, scene: Path, out: Path):
+    return StyleTransferInference(inference_config(
+        paths={"checkpoint": str(CKPT), "input_dir": str(scene / "input"),
+               "mask_dir": str(scene / "mask"), "output_dir": str(out),
+               "additional_channels": {"point_vector": {
+                   "path": str(scene / "tracking"), "depth": 3}}},
+        inference={"precision": precision}))
+
+
+def _inline_directory(eng, scene: Path, out: Path, fpd: int) -> float:
+    """The order before the pipeline, on one thread: decode, then
+    ``stylize_group`` group by group, then encode (the port's codec, zlib
+    level 1 as the pipeline's writer). -> seconds."""
+    out.mkdir(parents=True, exist_ok=True)
+    files = sorted((scene / "input").glob("*.png"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, len(files), fpd):
+        chunk = files[i:i + fpd]
+        frames = np.stack([eng.load_frame(p) for p in chunk])
+        masks = [eng.load_eroded_mask(scene / "mask" / p.name,
+                                      frames.shape[1:3]) for p in chunk]
+        for p, img in zip(chunk, eng.stylize_group(frames, masks)):
+            encode_png(out / p.name, img, compress_level=1)
+    return time.perf_counter() - t0
+
+
+def _compare_dirs(got: Path, want: Path, names) -> tuple:
+    """-> (max |d| in counts, differing pixels) over the files ``names``
+    of two output directories, decoded by the port's codec."""
+    worst, differ = 0, 0
+    for name in names:
+        a = decode_png(got / name).astype(int)
+        b = decode_png(want / name).astype(int)
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: {a.shape} against {b.shape}")
+        d = np.abs(a - b)
+        worst, differ = max(worst, int(d.max())), differ + int(
+            (d.max(axis=-1) > 0).sum())
+    return worst, differ
+
+
+class _LogNames(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.text = []
+
+    def emit(self, record):
+        self.text.append(record.getMessage())
+
+
+def phase_serve_directory(dev, card: str, tmp: Path) -> dict:
+    """``process_directory`` over ``DIR_FRAMES`` PNG frames of 512x910 (RGB,
+    a 3-band guide, full masks; ``write_scene``), with PIL made
+    unimportable: the card's path needs no Pillow. For each precision a
+    first run (set-up), then a timed run with the launch counters zeroed
+    just before and read just after; then the in-line loop
+    (``_inline_directory``) on the same engine, and each output file
+    against it (limit 1 count). Last, an interrupted pass: the loader
+    raises ``KeyboardInterrupt`` at frame 13, after four groups are
+    dispatched, and every frame taken before it must be on disk (and
+    right) or named in the log."""
+    saved_pil = {k: sys.modules[k] for k in list(sys.modules)
+                 if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None
+    try:
+        scene = tmp / "scene"
+        write_scene(scene, DIR_FRAMES, H, W)
+        names = sorted(p.name for p in (scene / "input").glob("*.png"))
+        rec, launches, engines = {}, {"instance_norm_act": 0,
+                                      "instance_norm_act_streaming": 0,
+                                      "blend_tiles": 0}, {}
+        for prec in ("bf16", "32"):
+            out = tmp / f"dir_{prec}"
+            eng = engines[prec] = _dir_engine(prec, scene, out)
+            eng.process_directory()  # set-up: cuDNN, the codec, the pools
+            for fn in (instance_norm.instance_norm_act_cluster,
+                       instance_norm.instance_norm_act_streaming,
+                       blend.blend_tiles):
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            n_in = instance_norm.instance_norm_act_cluster.launches
+            n_st = instance_norm.instance_norm_act_streaming.launches
+            n_bl = blend.blend_tiles.launches
+            fpd = eng._group_size(len(eng.boxes_for(_full_mask(), (H, W))))
+            groups = -(-DIR_FRAMES // fpd)
+            if written != DIR_FRAMES or n_in != 19 * groups or n_st != 0 \
+                    or n_bl != groups:
+                raise AssertionError(
+                    f"{prec}: {written} frames written, launches {n_in} "
+                    f"cluster, {n_st} streaming, {n_bl} blend; expected "
+                    f"{DIR_FRAMES}, {19 * groups}, 0, {groups}")
+            launches["instance_norm_act"] += n_in
+            launches["instance_norm_act_streaming"] += n_st
+            launches["blend_tiles"] += n_bl
+            inline_s = _inline_directory(eng, scene, tmp / f"inline_{prec}",
+                                         fpd)
+            worst, differ = _compare_dirs(out, tmp / f"inline_{prec}", names)
+            rec[prec] = {"eq_frames_per_s": DIR_FRAMES / seconds,
+                         "ms_per_group": 1e3 * seconds / groups,
+                         "inline_eq_frames_per_s": DIR_FRAMES / inline_s,
+                         "inline_ms_per_group": 1e3 * inline_s / groups}
+            say("serve_directory", precision=prec, frames=written,
+                groups=groups, frames_per_group=fpd,
+                eq_frames_per_s=f"{DIR_FRAMES / seconds:.2f}",
+                ms_per_group=f"{1e3 * seconds / groups:.2f}",
+                inline_eq_frames_per_s=f"{DIR_FRAMES / inline_s:.2f}",
+                inline_ms_per_group=f"{1e3 * inline_s / groups:.2f}",
+                instance_norm_cluster_launches=n_in,
+                instance_norm_streaming_launches=n_st, blend_launches=n_bl,
+                vs_stylize_group_max_abs=worst, differing_pixels=differ,
+                pinned_upload_buffers=eng.upload_pools.allocated(),
+                card=f"'{card}'")
+            if worst > 1:
+                raise AssertionError(f"{prec}: process_directory is {worst} "
+                                     "counts from stylize_group (limit 1)")
+
+        # the interrupted pass: groups in flight when the loader raises
+        eng, out = engines["bf16"], tmp / "dir_interrupted"
+        eng.cfg["paths"]["output_dir"] = str(out)
+        load, drain_all = eng._load_for_dispatch, GroupPipeline.drain_all
+        in_flight = []
+
+        def interrupting_load(path, mask_dir):
+            if path.name == names[13]:
+                raise KeyboardInterrupt
+            return load(path, mask_dir)
+
+        def noted_drain_all(pipe):
+            in_flight.append(pipe.frames_in_flight())
+            drain_all(pipe)
+
+        log = _LogNames()
+        eng.logger.addHandler(log)
+        eng._load_for_dispatch = interrupting_load
+        GroupPipeline.drain_all = noted_drain_all
+        try:
+            eng.process_directory()
+            raise AssertionError("the interrupt did not reach the caller")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            GroupPipeline.drain_all = drain_all
+            del eng._load_for_dispatch
+            eng.logger.removeHandler(log)
+        on_disk = sorted(p.name for p in out.glob("*.png"))
+        logged = [n for n in names[:13] if any(n in t for t in log.text)]
+        lost = [n for n in names[:13] if n not in on_disk and n not in logged]
+        worst, differ = _compare_dirs(out, tmp / "inline_bf16", on_disk)
+        say("serve_directory", interrupted_at=names[13],
+            frames_in_flight_at_interrupt=in_flight[0],
+            on_disk=len(on_disk), named_in_log=logged, lost=lost,
+            vs_stylize_group_max_abs=worst, differing_pixels=differ)
+        if lost or in_flight[0] == 0 or worst > 1 or len(on_disk) != 12:
+            raise AssertionError(
+                f"interrupted pass: lost {lost}, {in_flight[0]} frames in "
+                f"flight at the interrupt, {len(on_disk)} on disk, max |d| "
+                f"{worst}")
+        return {"rec": rec, "launches": launches}
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved_pil)
 
 
 def phase_signed_unit(dev) -> None:
@@ -863,19 +1068,26 @@ def main() -> int:
     rec_bl = phase_blend(dev)
     phase_signed_unit(dev)
     launches = phase_main_path(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        served = phase_serve_directory(dev, card, Path(tmp))
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
-    rec_in["variants"]["cluster"]["launches"] = launches["instance_norm_act"]
+    rec_in["variants"]["cluster"]["launches"] = launches[
+        "instance_norm_act"] + served["launches"]["instance_norm_act"]
     rec_in["variants"]["streaming"]["launches"] = launches[
+        "instance_norm_act_streaming"] + served["launches"][
         "instance_norm_act_streaming"]
     kernels = [
         dict(name="instance_norm_act", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
              launches=launches["instance_norm_act"]
+             + served["launches"]["instance_norm_act"]
              + train["launches"]["forward"],
              launches_by_path={"serve": launches["instance_norm_act"],
+                               "serve_directory":
+                               served["launches"]["instance_norm_act"],
                                "train": train["launches"]["forward"]},
              dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
@@ -893,11 +1105,16 @@ def main() -> int:
         dict(name="blend_tiles", route="cuda",
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",
-             launches=launches["blend_tiles"],
+             launches=launches["blend_tiles"]
+             + served["launches"]["blend_tiles"],
+             launches_by_path={"serve": launches["blend_tiles"],
+                               "serve_directory":
+                               served["launches"]["blend_tiles"]},
              per="one group of 3 512x910 frames", **rec_bl),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
-    print(json.dumps({"kernels": kernels, "train": train["rec"]}), flush=True)
+    print(json.dumps({"kernels": kernels, "train": train["rec"],
+                      "serve_directory": served["rec"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

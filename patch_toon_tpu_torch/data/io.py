@@ -2,8 +2,12 @@
 
 Counterpart of ``patch_toon_tpu/data/io.py`` with the same value semantics:
 RGB decode as PIL's ``convert("RGB")``, masks as grayscale binarized at
-> 128 (reference dataset.py:157). PIL is imported inside the functions that
-read or write a file, so importing this module needs no PIL.
+> 128 (reference dataset.py:157). PNG goes through the port's own codec
+(``native/frameio.py``), as the JAX package's does through its own
+(``patch_toon_tpu/data/io.py:52-62``, ``:106-108``); the conversions to RGB
+and to L are PIL's, bit for bit. PIL is imported only for a file the codec
+refuses by its format (JPEG, palette, 16-bit, interlaced), so importing
+this module, and reading or writing an 8-bit PNG, needs no PIL.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from pathlib import Path
 from typing import List, Union
 
 import numpy as np
+
+from patch_toon_tpu_torch.native.frameio import decode_png_native, encode_png
 
 # byte / 255 * 2 - 1 for the 256 byte values in IEEE fp32, computed by
 # numpy on the host: the JAX package's host arithmetic (its dataset,
@@ -47,12 +53,46 @@ def find_corresponding_image(base_dir: Union[str, Path],
     return os.path.join(str(base_dir), image_name)
 
 
-def decode_rgb_uint8(path: Union[str, Path]) -> np.ndarray:
-    """(H, W, 3) uint8 RGB; gray replicated, alpha dropped."""
+def to_rgb(arr: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 with C in 1-4 -> (H, W, 3) as PIL's
+    ``convert("RGB")``: gray replicated, LA's L replicated, alpha
+    dropped."""
+    c = arr.shape[-1]
+    if c == 3:
+        return arr
+    if c in (1, 2):
+        return np.repeat(arr[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(arr[..., :3])
+
+
+def to_luma(arr: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 with C in 1-4 -> (H, W) as PIL's ``convert("L")``:
+    gray as it is, LA's L, and from RGB(A) the ITU-R 601-2 luma in PIL's
+    16-bit fixed point, (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
+    if arr.shape[-1] in (1, 2):
+        return arr[..., 0]
+    r, g, b = (arr[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
+        np.uint8)
+
+
+def _codec_or_pil(path: Union[str, Path], codec, pil):
+    """``codec`` of the codec's decode of a PNG it reads; ``pil`` of the
+    PIL image of any other file (the JAX package's per-file rule)."""
+    if str(path).lower().endswith(".png"):
+        arr = decode_png_native(path)
+        if arr is not None:
+            return codec(arr)
     from PIL import Image
 
     with Image.open(str(path)) as img:
-        return np.asarray(img.convert("RGB"))
+        return pil(img)
+
+
+def decode_rgb_uint8(path: Union[str, Path]) -> np.ndarray:
+    """(H, W, 3) uint8 RGB; gray replicated, alpha dropped."""
+    return _codec_or_pil(path, to_rgb,
+                         lambda img: np.asarray(img.convert("RGB")))
 
 
 def load_image_rgb(path: Union[str, Path]) -> np.ndarray:
@@ -68,25 +108,21 @@ def load_image_channels(path: Union[str, Path], depth: int) -> np.ndarray:
 
 
 def image_bands(path: Union[str, Path]) -> int:
-    """Number of bands an image file holds (L = 1, RGB = 3, RGBA = 4)."""
-    from PIL import Image
-
-    with Image.open(str(path)) as img:
-        return len(img.getbands())
+    """Number of bands an image file holds (L = 1, LA = 2, RGB = 3,
+    RGBA = 4): the codec's channel count for a PNG it reads, PIL's bands
+    for any other file."""
+    return _codec_or_pil(path, lambda arr: arr.shape[-1],
+                         lambda img: len(img.getbands()))
 
 
 def load_mask(path: Union[str, Path],
               binarize_threshold: int = 128) -> np.ndarray:
     """(H, W) float32 mask in {0, 1}: grayscale > threshold."""
-    from PIL import Image
-
-    with Image.open(str(path)) as img:
-        arr = np.asarray(img.convert("L"), dtype=np.float32)
-    return (arr > binarize_threshold).astype(np.float32)
+    luma = _codec_or_pil(path, to_luma,
+                         lambda img: np.asarray(img.convert("L")))
+    return (luma.astype(np.float32) > binarize_threshold).astype(np.float32)
 
 
 def save_image_uint8(frame: np.ndarray, path: Union[str, Path]) -> None:
-    from PIL import Image
-
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    Image.fromarray(np.ascontiguousarray(frame)).save(str(path))
+    encode_png(path, frame)

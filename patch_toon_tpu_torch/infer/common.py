@@ -1,4 +1,5 @@
-"""Shared inference helpers: normalization, composite, image listing.
+"""Shared inference helpers: normalization, composite, image listing, and
+the host clock of each serving step.
 
 Counterparts of ``patch_toon_tpu/infer/common.py`` (``_to_signed_unit``
 :21-34, ``_composite_u8`` :66-75, ``_image_files`` :52-64), with the same
@@ -7,6 +8,10 @@ arithmetic in the same order so uint8 outputs agree with the JAX package.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
+import time
 from pathlib import Path
 from typing import Dict, List
 
@@ -53,3 +58,41 @@ def _image_files(directory) -> List[Path]:
         return [Path(directory) / f for f in list_images(directory)]
     except (FileNotFoundError, NotADirectoryError):
         return []
+
+
+class HostSpans:
+    """Host seconds and calls of each named serving step, from any thread.
+
+    ``with spans("host/decode"): ...`` adds the block's host-clock time to
+    its name and opens a ``torch.profiler`` range of that name, so a trace
+    shows the steps of the thread that started the profiler, and these
+    sums cover every thread (the profiler records ranges only on its own).
+    Costs two clock reads and a lock a block."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.seconds: Dict[str, float] = collections.defaultdict(float)
+        self.calls: Dict[str, int] = collections.defaultdict(int)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function(name):
+                yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.seconds[name] += dt
+                self.calls[name] += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.seconds.clear()
+            self.calls.clear()
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """{name: {"ms": total host ms, "calls": n}}."""
+        with self._lock:
+            return {k: {"ms": 1e3 * v, "calls": self.calls[k]}
+                    for k, v in sorted(self.seconds.items())}

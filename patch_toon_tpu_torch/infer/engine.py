@@ -1,19 +1,29 @@
-"""Tiled video stylization on one device, synchronously.
+"""Tiled video stylization on one device.
 
 Counterpart of ``patch_toon_tpu/infer/engine.py::StyleTransferInference``
-in ``tiled`` mode. ``process_directory`` lists the input frames, loads each
-frame with its guide channels and eroded mask, co-batches frames so one
+in ``tiled`` mode. ``process_directory`` streams a directory of frames as
+the JAX engine does (``engine.py:669-834``): two prefetch threads decode
+each frame with its guide channels (the port's native PNG codec), erode its
+mask, place its tiles and stage it for upload six frames ahead
+(:meth:`_load_for_dispatch`); the main thread co-batches frames so one
 generator batch holds about ``inference.tile_batch`` tiles
-(``frames_per_dispatch``: three 540x960 frames of 170 tiles go in one
-bucket of 512), runs :meth:`stylize_group` on each group and writes PNGs.
-A file that fails is named and skipped (reference generator.py:700-705).
+(``frames_per_dispatch``: three 512x910 frames of 170 tiles go in one
+bucket of 512) and dispatches each group; ``infer/pipeline.py``'s
+:class:`GroupPipeline` keeps the readbacks in flight and hands each frame
+to the native asynchronous writer. A file that fails to load is named and
+skipped, a group whose dispatch fails is dropped and each of its frames
+named (reference generator.py:700-705), and on an interrupt, an error or
+the end every dispatched frame reaches disk or is logged. The output files
+are those of :meth:`stylize_group`, the public synchronous call, run group
+by group.
 
 Semantics kept from the JAX engine: the channel count sniffed from the
 checkpoint must match the configured guide channels; masks are binarized
 (> 128), then eroded with the 7x7 full-support rule; a missing mask
 directory whose name ends in ``ignore`` means full-frame stylization; a
 fractional mask given to :meth:`stylize_group` is uploaded as fp32 and
-composites in part (JAX ``_mask_up``).
+composites in part (JAX ``_mask_up``); ``debug_mode`` writes
+``debug_<name>`` beside each frame with its tile boxes outlined.
 
 Precision ``32`` runs fp32 with TF32 off in cuDNN and matmuls and the
 fp32 matmul precision at "highest" (the JAX contract is HIGHEST precision,
@@ -24,17 +34,18 @@ and the smoother BatchNorm stay fp32, as in JAX.
 
 Not ported yet, and refused by name (``NotImplementedError``): modes other
 than tiled, precision ``32_fast``, ``quantize=int8``, ``file_shard``,
-``devices`` other than 1, ``debug_mode``, ``temporal.enabled`` and
-``watch.enabled``. The transport knobs (``crop_readback``, ``crop_upload``,
-``upload``, ``mask_upload``, ``readback_streams``, ``xla_options``) change
-no output in the JAX package and are no-ops here. Also not ported: the
-host/device pipeline and the async writer.
+``devices`` other than 1, ``temporal.enabled`` and ``watch.enabled``.
+``readback_streams`` sets the pipeline's in-flight window (its value plus 2
+frames, the JAX rule). The other transport knobs (``crop_readback``,
+``crop_upload``, ``upload``, ``mask_upload``, ``xla_options``) change no
+output in the JAX package and are no-ops here.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -46,9 +57,14 @@ from patch_toon_tpu_torch.data.io import (
     find_corresponding_image,
     image_bands,
     load_mask,
-    save_image_uint8,
 )
-from patch_toon_tpu_torch.infer.common import _image_files
+from patch_toon_tpu_torch.infer.common import HostSpans, _image_files
+from patch_toon_tpu_torch.infer.pipeline import (
+    GroupPipeline,
+    PinnedPools,
+    Staged,
+    stage_upload,
+)
 from patch_toon_tpu_torch.infer.programs import (
     make_multiframe_fn,
     make_tile_plan,
@@ -64,12 +80,19 @@ from patch_toon_tpu_torch.models.generator import (
     GeneratorJ,
     input_channels_of,
 )
+from patch_toon_tpu_torch.native.frameio import FrameWriter
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.utils.weights import load_generator_state
 
 # distinct tile layouts whose device-resident plan and weights are kept:
 # boxes recur exactly for static masks and for maskless frames
 _PACK_CACHE = 8
+# frames decoded and staged ahead of dispatch, on PREFETCH_THREADS threads
+# (JAX engine.py:780-782); bounds the staged frames' memory
+PREFETCH, PREFETCH_THREADS = 6, 2
+# the asynchronous writer's threads and zlib level (JAX engine.py:725 and
+# native/frameio.py: speed over size for video)
+WRITER_THREADS, WRITER_LEVEL = 2, 1
 
 
 def _resolve_device(device: Optional[str], cfg_inf: Dict[str, Any]):
@@ -119,9 +142,6 @@ def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"inference.devices={inf.get('devices')!r} is not ported yet "
             "(one device)")
-    if bool(inf.get("debug_mode", False)):
-        raise NotImplementedError(
-            "inference.debug_mode=true is not ported yet")
     for knob in ("temporal", "watch"):
         if bool((inf.get(knob) or {}).get("enabled", False)):
             raise NotImplementedError(
@@ -137,6 +157,8 @@ class StyleTransferInference:
         self.overlap_percent = float(inf.get("overlap_percent", 30.0))
         self.max_tile_batch = int(inf.get("tile_batch", 512))
         self.frames_per_dispatch = inf.get("frames_per_dispatch", "auto")
+        self.readback_streams = max(1, int(inf.get("readback_streams", 6)))
+        self.debug_mode = bool(inf.get("debug_mode", False))
         self.precision = inf.get("precision", "bf16")
         self.dtype = _resolve_dtype(self.precision)
         if self.dtype == torch.float32:
@@ -159,6 +181,11 @@ class StyleTransferInference:
 
         self.model = self._load_model(str(paths["checkpoint"]))
         self._packs: Dict[Any, Any] = {}  # tile layout -> (plan, weights)
+        self.spans = HostSpans()
+        # staging: pinned host buffers and a copy stream of their own
+        self.upload_pools = PinnedPools()
+        self.copy_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
 
     def _load_model(self, ckpt_path: str) -> GeneratorJ:
         sd = load_generator_state(ckpt_path)
@@ -204,11 +231,55 @@ class StyleTransferInference:
             else np.ones(hw, np.float32)
         return tile_boxes_from_mask(m, self.patch_size, self.overlap_percent)
 
+    def _mask_tensor(self, mask: Optional[np.ndarray],
+                     hw: Tuple[int, int]) -> np.ndarray:
+        """(H, W, 1): uint8 for a {0, 1} mask (lossless, 4x fewer bytes to
+        upload), fp32 for any other; all ones for None."""
+        if mask is None:
+            return np.ones(tuple(hw) + (1,), np.uint8)
+        m = np.asarray(mask)[..., None]
+        binary = m.astype(np.uint8)
+        return binary if (binary == m).all() else m.astype(np.float32)
+
+    def dispatch(self, frames: torch.Tensor, masks: torch.Tensor,
+                 group_boxes: Sequence[Sequence[Box]]) -> torch.Tensor:
+        """Run the multiframe program on frames and masks already on the
+        device: (F, H, W, C) uint8 and (F, H, W, 1) -> (F, H, W, 3) uint8 on
+        the device, queued on the current stream (no synchronisation)."""
+        f, h, w, _ = frames.shape
+        with self.spans("host/pack"):
+            plan, weights = self._pack(group_boxes, h, w)
+        fn = make_multiframe_fn(self.model, self.patch_size, f, h, w,
+                                self.dtype)
+        with self.spans("host/dispatch"):
+            u8, _ = fn(frames, plan, weights, masks)
+        return u8
+
+    def dispatch_staged(self, group: Sequence[Staged]) -> torch.Tensor:
+        """:meth:`dispatch` of frames staged by :meth:`_load_for_dispatch`:
+        the current (compute) stream waits for each frame's upload and is
+        recorded on its tensors, so the copy stream's memory is not reused
+        before the program has read it."""
+        with self.spans("host/stack"):
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                for s in group:
+                    stream.wait_event(s.ready)
+                    s.frame.record_stream(stream)
+                    s.mask.record_stream(stream)
+            frames = torch.stack([s.frame for s in group])
+            masks = [s.mask for s in group]
+            if len({m.dtype for m in masks}) > 1:
+                masks = [m.float() for m in masks]
+            masks = torch.stack(masks)
+        return self.dispatch(frames, masks, [s.boxes for s in group])
+
     def stylize_group(self, frames_u8: np.ndarray,
                       eroded_masks: Sequence[Optional[np.ndarray]],
                       group_boxes: Optional[Sequence[Sequence[Box]]] = None
                       ) -> np.ndarray:
-        """Stylize F frames of one shape in one generator batch.
+        """Stylize F frames of one shape in one generator batch, in line:
+        upload, dispatch, and a blocking readback.
 
         frames_u8 (F, H, W, C) uint8 (RGB then guide channels); eroded
         masks (H, W) in [0, 1] or None for full-frame stylization; {0, 1}
@@ -219,21 +290,22 @@ class StyleTransferInference:
         if c != self.total_channels:
             raise ValueError(f"frames have {c} channels, the model takes "
                              f"{self.total_channels}")
+        spans = self.spans
         if group_boxes is None:
-            group_boxes = [self.boxes_for(m, (h, w)) for m in eroded_masks]
-        plan, weights = self._pack(group_boxes, h, w)
-        masks = np.stack([m if m is not None else np.ones((h, w), np.float32)
-                          for m in eroded_masks])[..., None]
-        binary = masks.astype(np.uint8)
-        if (binary == masks).all():
-            masks = binary  # lossless, 4x fewer bytes to upload
-        else:
-            masks = masks.astype(np.float32)
-        fn = make_multiframe_fn(self.model, self.patch_size, f, h, w,
-                                self.dtype)
-        u8, _ = fn(torch.from_numpy(frames_u8).to(self.device), plan,
-                   weights, torch.from_numpy(masks).to(self.device))
-        return u8.cpu().numpy()
+            with spans("host/tile_placement"):
+                group_boxes = [self.boxes_for(m, (h, w))
+                               for m in eroded_masks]
+        with spans("host/mask_stack"):
+            masks = [self._mask_tensor(m, (h, w)) for m in eroded_masks]
+            if len({m.dtype for m in masks}) > 1:
+                masks = [m.astype(np.float32) for m in masks]
+            masks = np.stack(masks)
+        with spans("host/upload"):
+            frames_d = torch.from_numpy(frames_u8).to(self.device)
+            masks_d = torch.from_numpy(masks).to(self.device)
+        u8 = self.dispatch(frames_d, masks_d, group_boxes)
+        with spans("host/readback"):
+            return u8.cpu().numpy()
 
     # ------------------------------------------------------------------
 
@@ -252,8 +324,8 @@ class StyleTransferInference:
                     f"Channel {name} has insufficient channels: expected "
                     f"{ccfg['depth']}, but found {image_bands(samples[0])}")
 
-    def load_frame(self, input_path: Path) -> np.ndarray:
-        """(H, W, C) uint8: RGB, then each guide channel's first bands."""
+    def load_frame_parts(self, input_path: Path) -> List[np.ndarray]:
+        """[(H, W, 3) uint8 RGB, then each guide channel's first bands]."""
         parts = [decode_rgb_uint8(input_path)]
         for name, ccfg in self.additional_channels.items():
             cpath = find_corresponding_image(ccfg["path"], str(input_path))
@@ -261,7 +333,11 @@ class StyleTransferInference:
                 raise FileNotFoundError(
                     f"Required channel {name} not found: {cpath}")
             parts.append(decode_rgb_uint8(cpath)[..., :ccfg["depth"]])
-        return np.concatenate(parts, axis=-1)
+        return parts
+
+    def load_frame(self, input_path: Path) -> np.ndarray:
+        """(H, W, C) uint8: RGB, then each guide channel's first bands."""
+        return np.concatenate(self.load_frame_parts(input_path), axis=-1)
 
     def load_eroded_mask(self, mask_path: Path,
                          shape_hw) -> Optional[np.ndarray]:
@@ -281,10 +357,37 @@ class StyleTransferInference:
                 f"{tuple(shape_hw)} — mask/frame resolutions must match")
         return erode_full_support_np(mask)
 
-    def process_directory(self) -> int:
-        """Stylize every frame of paths.input_dir into paths.output_dir.
+    def _load_for_dispatch(self, input_path: Path,
+                           mask_dir: Path) -> Staged:
+        """Decode, erode, place tiles and stage one frame for dispatch, on
+        a prefetch thread (JAX ``engine.py:623-667`` without the crop
+        window). On a CUDA device the frame and its mask go up through
+        pinned buffers on the engine's copy stream; on the CPU they stay
+        host tensors."""
+        spans = self.spans
+        with spans("host/decode"):
+            parts = self.load_frame_parts(input_path)
+        hw = parts[0].shape[:2]
+        with spans("host/mask"):
+            mask = self.load_eroded_mask(mask_dir / input_path.name, hw)
+        with spans("host/tile_placement"):
+            boxes = self.boxes_for(mask, hw)
+        with spans("host/upload"):
+            frame_d, _ = stage_upload(parts, self.device, self.upload_pools,
+                                      self.copy_stream)
+            # the mask's copy follows the frame's on the one copy stream,
+            # so its event covers both
+            mask_d, ready = stage_upload([self._mask_tensor(mask, hw)],
+                                         self.device, self.upload_pools,
+                                         self.copy_stream)
+        return Staged(frame_d, mask_d, ready, boxes, input_path)
 
-        -> the number of frames written."""
+    def process_directory(self) -> int:
+        """Stylize every frame of paths.input_dir into paths.output_dir, as
+        a stream (see the module's docstring).
+
+        -> the number of frames written (handed to the writer, less the
+        writes it reports failed)."""
         paths = self.cfg["paths"]
         input_dir = Path(paths["input_dir"])
         mask_dir = Path(paths["mask_dir"])
@@ -298,49 +401,64 @@ class StyleTransferInference:
         files = _image_files(input_dir)
         self.logger.info(f"Found {len(files)} images to process")
 
-        written = 0
-        group: List[Tuple[np.ndarray, Optional[np.ndarray], List[Box],
-                          Path]] = []
+        writer = FrameWriter(num_threads=WRITER_THREADS,
+                             compress_level=WRITER_LEVEL)
+        pipe = GroupPipeline(self, writer, output_dir)
+        group: List[Staged] = []
         group_size = None
 
-        def flush() -> None:
-            nonlocal group, written
+        def flush_group() -> None:
+            # hand off and clear before dispatching: a failed dispatch drops
+            # its own group, not every later one
+            nonlocal group
             if not group:
                 return
             g, group = group, []
             try:
-                out = self.stylize_group(np.stack([x[0] for x in g]),
-                                         [x[1] for x in g],
-                                         [x[2] for x in g])
+                pipe.dispatch(g)
             except Exception as e:
-                names = ", ".join(x[3].name for x in g)
-                self.logger.error(f"Group failed; dropping [{names}]: {e}")
-                return
-            for k, (_, _, _, path) in enumerate(g):
-                try:
-                    save_image_uint8(out[k], output_dir / path.name)
-                    written += 1
-                except Exception as e:
-                    self.logger.error(f"Failed to write {path.name}: {e}")
+                names = ", ".join(x.path.name for x in g)
+                self.logger.error(
+                    f"Dispatch failed; dropping group [{names}]: {e}")
 
-        for path in files:
-            try:
-                frame = self.load_frame(path)
-                mask = self.load_eroded_mask(mask_dir / path.name,
-                                             frame.shape[:2])
-                boxes = self.boxes_for(mask, frame.shape[:2])
-            except Exception as e:
-                self.logger.error(f"Failed to process {path.name}: {e}")
-                continue
-            if group and group[0][0].shape != frame.shape:
-                flush()
-            if group_size is None:
-                group_size = self._group_size(len(boxes))
-            group.append((frame, mask, boxes, path))
-            if len(group) >= group_size:
-                flush()
-        flush()
-        return written
+        pool = ThreadPoolExecutor(max_workers=PREFETCH_THREADS)
+        try:
+            futures = {p: pool.submit(self._load_for_dispatch, p, mask_dir)
+                       for p in files[:PREFETCH]}
+            for i, path in enumerate(files):
+                if i + PREFETCH < len(files):
+                    nxt = files[i + PREFETCH]
+                    futures[nxt] = pool.submit(self._load_for_dispatch, nxt,
+                                               mask_dir)
+                try:
+                    with self.spans("host/load_wait"):
+                        staged = futures.pop(path).result()
+                except Exception as e:
+                    self.logger.error(f"Failed to process {path.name}: {e}")
+                    continue
+                if group and group[0].frame.shape != staged.frame.shape:
+                    flush_group()  # a group holds frames of one shape
+                if group_size is None:
+                    group_size = self._group_size(len(staged.boxes))
+                group.append(staged)
+                if len(group) >= group_size:
+                    flush_group()
+            flush_group()
+        finally:
+            # on an interrupt, an error or the end: every dispatched frame
+            # reaches disk or is logged (JAX engine.py:815-834)
+            pool.shutdown(wait=True, cancel_futures=True)
+            if group:
+                self.logger.error("Stopped before dispatching [" + ", ".join(
+                    x.path.name for x in group) + "]")
+            pipe.drain_all()
+            pipe.close()
+            with self.spans("host/writer_drain"):
+                failed = writer.flush()
+            writer.close()
+            if failed:
+                self.logger.error(f"{failed} frame writes failed")
+        return pipe.submitted - failed
 
     def _group_size(self, n_boxes: int) -> int:
         if self.frames_per_dispatch != "auto":

@@ -1,7 +1,7 @@
 """Tile grid and Gaussian blending windows (host side, numpy).
 
-Copy of ``patch_toon_tpu/infer/tiling.py``. Tile placement follows the
-reference exactly (generator.py:353-398): walk the row-major nonzero list of
+Copy of ``patch_toon_tpu/infer/tiling.py``, with tile placement in numpy
+instead of a Python loop. Tile placement follows the reference exactly (generator.py:353-398): walk the row-major nonzero list of
 the eroded mask with step = stride over the list index, dedupe by the
 (y // stride, x // stride) cell, and emit boxes
 (max(0, y - ps/2), min(H, y + ps/2), max(0, x - ps/2), min(W, x + ps/2)).
@@ -24,23 +24,26 @@ Box = Tuple[int, int, int, int]  # y_start, y_end, x_start, x_end
 
 def tile_boxes_from_mask(eroded_mask: np.ndarray, patch_size: int,
                          overlap_percent: float = 30.0) -> List[Box]:
+    """The reference's walk, in numpy: every ``stride``-th entry of the
+    row-major nonzero list (``flatnonzero`` of a bool plane, several times
+    faster than ``nonzero`` of the float mask), the first entry of each (y // stride,
+    x // stride) cell (``np.unique(..., return_index=True)``), in the
+    order of the list. No Python loop, so the prefetch threads that place
+    tiles hold the interpreter lock only briefly."""
     overlap = min(max(overlap_percent, 0.0), 100.0) / 100.0
     stride = max(1, int(patch_size * (1.0 - overlap)))
     half = patch_size // 2
     h, w = eroded_mask.shape[-2:]
 
-    ys, xs = np.nonzero(np.asarray(eroded_mask).reshape(h, w))
-    boxes: List[Box] = []
-    used = set()
-    for idx in range(0, len(ys), stride):
-        y, x = int(ys[idx]), int(xs[idx])
-        key = (y // stride, x // stride)
-        if key in used:
-            continue
-        used.add(key)
-        boxes.append((max(0, y - half), min(h, y + half),
-                      max(0, x - half), min(w, x + half)))
-    return boxes
+    flat = np.flatnonzero(np.asarray(eroded_mask).reshape(-1) != 0)
+    ys, xs = np.divmod(flat[::stride], w)
+    cells = (ys // stride) * (w // stride + 1) + xs // stride
+    first = np.sort(np.unique(cells, return_index=True)[1])
+    y, x = ys[first], xs[first]
+    boxes = np.stack([np.maximum(0, y - half), np.minimum(h, y + half),
+                      np.maximum(0, x - half), np.minimum(w, x + half)],
+                     axis=1)
+    return [tuple(b) for b in boxes.tolist()]
 
 
 @functools.lru_cache(maxsize=1024)
@@ -110,3 +113,22 @@ def pack_boxes(boxes: List[Box], patch_size: int,
         out_boxes[i] = (y0, y1, x0, x1)
         out_weights[i] = gaussian_tile_weight(y1 - y0, x1 - x0, patch_size)
     return out_boxes, out_weights, n
+
+
+def draw_tile_boxes(frame: np.ndarray, boxes: List[Box],
+                    width: int = 2) -> np.ndarray:
+    """A copy of ``frame`` (H, W, 3) uint8 with each box outlined, as the
+    JAX engine's debug overlay draws it (``engine.py:569-582``, reference
+    generator.py:301-325): PIL's ``ImageDraw.rectangle([x0, y0, x1, y1],
+    width=2)``, both ends included and clipped to the frame, one colour a
+    box from ``np.random.default_rng(0).integers(100, 256, 3)`` in box
+    order, a later box over an earlier one."""
+    out = np.array(frame, dtype=np.uint8, copy=True)
+    rng = np.random.default_rng(0)
+    for y0, y1, x0, x1 in boxes:
+        color = rng.integers(100, 256, 3).astype(np.uint8)
+        out[y0:y0 + width, x0:x1 + 1] = color
+        out[max(0, y1 - width + 1):y1 + 1, x0:x1 + 1] = color
+        out[y0:y1 + 1, x0:x0 + width] = color
+        out[y0:y1 + 1, max(0, x1 - width + 1):x1 + 1] = color
+    return out

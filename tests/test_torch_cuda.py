@@ -477,3 +477,58 @@ def test_training_step_on_cuda_against_the_cpu(cuda):
                            _train_model("bf16", True, 4), batch, cuda)
     assert r["kinks"] == 25
     assert_device_step_parity(r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["32", "bf16"])
+def test_process_directory_on_cuda_equals_stylize_group(cuda, tmp_path,
+                                                        precision):
+    """The pipelined directory run on the card (pinned staging on the copy
+    stream, two groups in flight) writes the frames of ``stylize_group``
+    run group by group, bit for bit, with PIL unimportable; the pinned
+    upload buffers are reused, not allocated a frame."""
+    from chip_smoke import write_scene
+    from patch_toon_tpu_torch.config.defaults import inference_config
+    from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+    from patch_toon_tpu_torch.native import decode_png
+
+    torch.manual_seed(7)
+    model = GeneratorJ(input_channels=6, filters=(8, 16, 16, 16, 16, 8),
+                       use_bias=True, resnet_blocks=1)
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                               model.state_dict().items()}},
+               tmp_path / "gen.ckpt")
+    scene = tmp_path / "scene"
+    write_scene(scene, 11, 96, 160)
+    cfg = inference_config(
+        paths={"checkpoint": str(tmp_path / "gen.ckpt"),
+               "input_dir": str(scene / "input"),
+               "mask_dir": str(scene / "mask"),
+               "output_dir": str(tmp_path / "out"),
+               "additional_channels": {"point_vector": {
+                   "path": str(scene / "tracking"), "depth": 3}}},
+        inference={"precision": precision, "frames_per_dispatch": 2})
+    cfg["model"]["generator"]["args"].update(
+        filters=[8, 16, 16, 16, 16, 8], resnet_blocks=1)
+    cfg["data"]["patch_size"] = 32
+    eng = StyleTransferInference(cfg, device="cuda")
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None
+    try:
+        assert eng.process_directory() == 11
+    finally:
+        del sys.modules["PIL"]
+        if saved is not None:
+            sys.modules["PIL"] = saved
+    assert eng.upload_pools.allocated() <= 6
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    for i in range(0, 11, 2):
+        chunk = names[i:i + 2]
+        frames = np.stack([eng.load_frame(scene / "input" / n)
+                           for n in chunk])
+        masks = [eng.load_eroded_mask(scene / "mask" / n, frames.shape[1:3])
+                 for n in chunk]
+        for n, want in zip(chunk, eng.stylize_group(frames, masks)):
+            np.testing.assert_array_equal(decode_png(tmp_path / "out" / n),
+                                          want, err_msg=n)

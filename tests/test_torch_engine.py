@@ -125,13 +125,14 @@ def test_engine_refusals(scene, tmp_path):
             ("inference.file_shard=0/2", "file_shard"),
             ("inference.devices=2", "devices"),
             ("inference.devices=-1", "devices"),
-            ("inference.debug_mode=true", "debug_mode"),
             ("inference.temporal.enabled=true", "temporal.enabled"),
             ("inference.watch.enabled=true", "watch.enabled")]:
         with pytest.raises(NotImplementedError, match=knob):
             _engine(scene, tmp_path, override)
     with pytest.raises(ValueError, match="quantize"):
         _engine(scene, tmp_path, "inference.quantize=int4")
+    # debug_mode is ported: the tile-box overlays
+    assert _engine(scene, tmp_path, "inference.debug_mode=true").debug_mode
     # the transport knobs change no output in the JAX package: no-ops here
     _engine(scene, tmp_path, "inference.crop_readback=off",
             "inference.upload=f32", "inference.mask_upload=u8")

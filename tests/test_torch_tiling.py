@@ -9,6 +9,8 @@ import pathlib
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from PIL import Image
 
 from patch_toon_tpu.config import compose as jax_compose
@@ -44,6 +46,26 @@ def _masks():
 @pytest.mark.parametrize("ps,overlap", [(16, 30.0), (32, 0.0), (20, 50.0)])
 def test_tile_boxes_equal(k, ps, overlap):
     m = tm.erode_full_support_np(_masks()[k])
+    assert tt.tile_boxes_from_mask(m, ps, overlap) == \
+        jt.tile_boxes_from_mask(m, ps, overlap)
+
+
+@settings(max_examples=80, deadline=None, database=None)
+@given(h=st.integers(1, 70), w=st.integers(1, 90),
+       density=st.floats(0.0, 1.0), speckle=st.booleans(),
+       ps=st.integers(1, 48), overlap=st.floats(0.0, 100.0),
+       seed=st.integers(0, 2 ** 32 - 1))
+def test_tile_boxes_equal_on_random_masks(h, w, density, speckle, ps,
+                                          overlap, seed):
+    """The numpy placement equals the JAX copy's loop on random masks
+    (blobs of a random density, or sparse speckle), eroded or not, at any
+    stride, touching the border or empty."""
+    rng = np.random.default_rng(seed)
+    if speckle:
+        m = (rng.random((h, w)) < density * 0.05).astype(np.float32)
+    else:
+        m = (rng.random((h, w)) < density).astype(np.float32)
+        m = tm.erode_full_support_np(m) if rng.random() < 0.5 else m
     assert tt.tile_boxes_from_mask(m, ps, overlap) == \
         jt.tile_boxes_from_mask(m, ps, overlap)
 

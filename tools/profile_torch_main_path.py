@@ -4,6 +4,7 @@ CUDA card.
 
     python3 tools/profile_torch_main_path.py [--groups 6] [--out FILE]
     python3 tools/profile_torch_main_path.py --train [--steps 10] [--out FILE]
+    python3 tools/profile_torch_main_path.py --dir [--frames 36] [--out FILE]
 
 Builds ``patch_toon_tpu_torch``'s engine at full width (the weights of
 docs/quality_2000/torch_train.ckpt, 6 input channels) for precision bf16 and
@@ -31,6 +32,20 @@ share, and the copies that B1's backward makes of a dy that is not
 NHWC-contiguous (their device time, and each such dy's shape and
 strides).
 
+With ``--dir`` it serves a directory instead, through ``process_directory``:
+``chip_smoke.py``'s synthetic scene of ``--frames`` 512x910 PNG frames (RGB,
+a 3-band tracking guide, full masks), written by the port's codec. For each
+precision: a first run (set-up), a timed run (eq-frames/s and ms per group
+by host clock), the same run with twice the writer's threads, then a
+traced run: the device's busy share and device ms
+by category over the whole directory, and the host split of a group, the
+host ms of each named step of ``infer/common.py::HostSpans`` (decode, mask,
+tile placement, pack, mask stacking, upload, dispatch, readback, encode,
+and the pipeline's waits) per group, from every thread. Beside it, the same
+split of ``stylize_group`` on three frames already in memory (tile
+placement included, as ``stylize_group`` places tiles itself when it is
+given no boxes).
+
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
 """
@@ -51,6 +66,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from patch_toon_tpu_torch.config.defaults import inference_config  # noqa
+from patch_toon_tpu_torch.infer import engine as engine_mod  # noqa: E402
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference  # noqa
 from patch_toon_tpu_torch.ops.instance_norm import InstanceNormAct  # noqa
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np  # noqa
@@ -103,8 +119,11 @@ def _device_split(prof, steady: int, category) -> tuple:
     step or group, from a finished trace."""
     by_kernel, launches = {}, 0
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host ops: their kernels are listed on their own
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.key.startswith("host/"):
+            # host ops: their kernels are listed on their own; a HostSpans
+            # range also shows on the device timeline as an annotation
+            continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
@@ -298,12 +317,112 @@ def _serve_records(groups: int, card: str) -> list:
     return records
 
 
+# the HostSpans steps that run on the main thread of a directory run
+MAIN_THREAD_STEPS = ("host/load_wait", "host/stack", "host/pack",
+                     "host/dispatch", "host/readback_issue",
+                     "host/readback_wait", "host/encode_submit",
+                     "host/writer_drain")
+
+
+def _spans_per_group(eng, groups: int) -> dict:
+    return {k: v["ms"] / groups for k, v in eng.spans.snapshot().items()}
+
+
+def _dir_records(n_frames: int, card: str) -> list:
+    import tempfile
+
+    from chip_smoke import write_scene
+
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = pathlib.Path(tmp) / "scene"
+        write_scene(scene, n_frames, H, W)
+        for prec in ("bf16", "32"):
+            out = pathlib.Path(tmp) / f"out_{prec}"
+            eng = StyleTransferInference(inference_config(
+                paths={"checkpoint": str(CKPT),
+                       "input_dir": str(scene / "input"),
+                       "mask_dir": str(scene / "mask"),
+                       "output_dir": str(out),
+                       "additional_channels": {"point_vector": {
+                           "path": str(scene / "tracking"), "depth": 3}}},
+                inference={"precision": prec}))
+            eng.process_directory()  # set-up: cuDNN, the codec, the rings
+            eng.spans.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = eng.process_directory()
+            seconds = time.perf_counter() - t0
+            groups = -(-written // 3)
+            timed_spans = _spans_per_group(eng, groups)
+            # the same run with twice the writer's threads: how far the
+            # writer bounds the stream
+            threads = engine_mod.WRITER_THREADS
+            engine_mod.WRITER_THREADS = 2 * threads
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.process_directory()
+                more_writers_s = time.perf_counter() - t0
+            finally:
+                engine_mod.WRITER_THREADS = threads
+            eng.spans.reset()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                eng.process_directory()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            device_ms, launches, cats, top = _device_split(prof, groups,
+                                                           _category)
+            traced_spans = _spans_per_group(eng, groups)
+            frames = np.stack([eng.load_frame(p) for p in sorted(
+                (scene / "input").glob("*.png"))[:3]])
+            mask = erode_full_support_np(np.ones((H, W), np.float32))
+            eng.stylize_group(frames, [mask] * 3)
+            eng.spans.reset()
+            for _ in range(groups):
+                eng.stylize_group(frames, [mask] * 3)
+            rec = {
+                "precision": prec, "card": card, "entry": "process_directory",
+                "frames": written, "frames_per_group": 3, "groups": groups,
+                "eq_frames_per_s": written / seconds,
+                "ms_per_group": 1e3 * seconds / groups,
+                "writer_threads": threads,
+                f"ms_per_group_writer_threads_{2 * threads}":
+                1e3 * more_writers_s / groups,
+                "host_ms_per_group_by_step": timed_spans,
+                # the main thread's time outside its steps: Python between
+                # them and waits for the interpreter lock there
+                "main_thread_unspanned_ms_per_group": 1e3 * seconds / groups
+                - sum(v for k, v in timed_spans.items()
+                      if k in MAIN_THREAD_STEPS),
+                "traced_wall_ms_per_group": wall_ms / groups,
+                "device_ms_per_group": device_ms,
+                "device_busy_share": device_ms * groups / wall_ms,
+                "kernel_launches_per_group": launches,
+                "device_ms_per_group_by_category": cats,
+                "traced_host_ms_per_group_by_step": traced_spans,
+                "stylize_group_host_ms_by_step": _spans_per_group(eng,
+                                                                  groups),
+                "top_kernels_ms_per_group": top}
+            records.append(rec)
+            print(json.dumps(rec), flush=True)
+            del eng
+            torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--groups", type=int, default=6)
     ap.add_argument("--train", action="store_true",
                     help="profile training through fit instead")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--dir", action="store_true",
+                    help="serve a directory of PNG frames instead")
+    ap.add_argument("--frames", type=int, default=36)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -313,8 +432,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    records = _train_records(args.steps, card) if args.train \
-        else _serve_records(args.groups, card)
+    if args.train:
+        records = _train_records(args.steps, card)
+    elif args.dir:
+        records = _dir_records(args.frames, card)
+    else:
+        records = _serve_records(args.groups, card)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
