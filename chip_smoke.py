@@ -17,6 +17,15 @@ lines each, flushed as they go:
    (streaming, cluster, cluster, streaming), the plain version and the
    library call (``F.instance_norm`` + activation), the bound and the
    share of it; per-call totals over the 19 sites.
+   ``instance_norm_fullframe``: the split variant of B1 (``plan``'s pick
+   for the planes of a full frame) at the 19 sites of one full-frame pass
+   over a 512x910 frame (512x912 after padding), bf16 and fp32, against
+   the plain version with the tolerance above, its statistics within 1e-5,
+   and bitwise equal to a second call; at the quarter-resolution sites
+   also the cluster variant at the largest G whose unit fits 8 CTAs. Timed
+   as device time (``queued_ms``, over input copies beyond twice the L2
+   cache): split and streaming in turns, the cluster alternative, the plain
+   version and the library; per-frame totals against the bound.
 3. ``blend``: kernel B2 against its plain version on the real tile layout of
    three 512x910 frames (510 tiles in a bucket of 512). Bitwise equal.
    Timed three times over.
@@ -44,6 +53,20 @@ lines each, flushed as they go:
    loader raises ``KeyboardInterrupt`` at frame 13 with groups in flight,
    and every frame taken before it must be on disk, and right, or named in
    the log.
+   ``fullframe``: ``process_directory`` in full-frame mode over the same 36
+   frames, precision bf16 and 32: a timed run with the counters zeroed just
+   before and read just after (19 split launches a frame, none of the
+   other B1 variants, no B2), ms a frame beside the tiled run; its files
+   against ``stylize_group`` on 3 frames (limit 1 count); the card against
+   the CPU at precision 32 on a 256x456 crop (limit 1 count).
+   ``temporal``: the temporal chain, flows from files, over the first 12
+   of those frames with seeded smooth flows (one missing) and a full-width
+   generator taking 6 + 3 channels with seeded weights, tiled and
+   fullframe, bf16 and 32: a timed run of the chain from its start (19 B1
+   launches a frame in the mode's variant, one B2 launch a frame when
+   tiled), its files bitwise against driving ``_chain_step`` directly; the
+   first 4 frames of a 200x320 crop, card against the CPU at precision 32
+   (limit 1 count).
 7. ``instance_norm_backward``: both variants of B1's backward kernel
    (cluster and streaming) against its plain version at every
    InstanceNorm site of a training step (batch 80, the generator's 19
@@ -92,6 +115,7 @@ to the CPU or to a plain version. A process alarm ends a run that hangs.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import signal
@@ -116,6 +140,7 @@ from patch_toon_tpu_torch.infer.engine import StyleTransferInference
 from patch_toon_tpu_torch.infer.pipeline import GroupPipeline
 from patch_toon_tpu_torch.infer.programs import make_tile_plan
 from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
+from patch_toon_tpu_torch.models.generator import GeneratorJ
 from patch_toon_tpu_torch.infer.tiling import (
     bucket_size,
     pack_boxes_multi,
@@ -135,6 +160,7 @@ CKPT = REPO / "docs" / "quality_2000" / "torch_train.ckpt"
 ALARM_S = 1100            # the whole run, build included
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12         # H100 SXM, fp32 outside the tensor cores
+L2_BYTES = 50e6            # H100 SXM data sheet
 B = 512                    # tiles per generator call on the main path
 # 512p 16:9 frames, the JAX package's benchmark workload (bench.py): full
 # masks give 170 tiles of 80x80 a frame, and the engine co-batches 3 frames
@@ -147,6 +173,15 @@ SITES = ([((80, 80, 32), "leaky_relu"), ((40, 40, 64), "leaky_relu"),
          + [((20, 20, 128), "relu"), ((20, 20, 128), None)] * 7
          + [((40, 40, 128), "relu"), ((80, 80, 128), "relu")])
 DIR_FRAMES = 36  # PNG frames of the serve_directory phase: 12 groups
+# the InstanceNorm sites of one full-frame generator pass over a 512x910
+# frame, padded to 512x912 (infer/programs.py::make_fullframe_fn)
+HP, WP = 512, 912
+FF_SITES = ([((HP, WP, 32), "leaky_relu"),
+             ((HP // 2, WP // 2, 64), "leaky_relu"),
+             ((HP // 4, WP // 4, 128), "leaky_relu")]
+            + [((HP // 4, WP // 4, 128), "relu"),
+               ((HP // 4, WP // 4, 128), None)] * 7
+            + [((HP // 2, WP // 2, 128), "relu"), ((HP, WP, 128), "relu")])
 BT = 80  # patches per training step (config/training/default.yaml)
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # the InstanceNorm sites of one training step, forward and backward alike:
@@ -330,6 +365,147 @@ def phase_instance_norm(dev) -> dict:
     return rec
 
 
+def _input_copies(x: torch.Tensor) -> list:
+    """x and enough copies of it that together they exceed twice the L2
+    cache, so that calls over them in turn read x from HBM."""
+    n = max(1, -(-int(2 * L2_BYTES) // x.nbytes))
+    return [x] + [x.clone() for _ in range(n - 1)]
+
+
+def _fitting_cluster(shape, dtype):
+    """The cluster variant's plan at the largest G of ``GROUPS`` (in whole
+    16-byte vectors) whose unit of ``shape`` fits 8 CTAs, or None."""
+    for g in instance_norm.GROUPS:
+        if shape[2] % g == 0 and (g * dtype.itemsize) % 16 == 0:
+            p = instance_norm.cluster_plan(1, *shape, dtype, g)
+            if p is not None:
+                return p
+    return None
+
+
+def phase_instance_norm_fullframe(dev) -> dict:
+    """B1 at the 19 sites of one full-frame generator pass over a 512x910
+    frame (padded to 512x912), bf16 and fp32: the variant ``plan`` picks
+    (the split variant; at the quarter-resolution sites the cluster variant
+    at the least G that fits 8 CTAs as well, which ``plan`` does not take)
+    against the plain version (``_in_check``), its statistics against the
+    plain version's, and two calls bitwise equal. Then timed as device time
+    (``queued_ms``, over input copies beyond twice the L2 cache): the split
+    variant and the streaming variant in turns (split, streaming,
+    streaming, split), the quarter-resolution cluster alternative, the
+    plain version and the library (``F.instance_norm`` + activation);
+    per-frame totals over the 19 sites against the bound (one read and one
+    write of each site's tensor)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    per = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, act in sorted(set(FF_SITES), key=str):
+            x = (torch.randn((1,) + shape, device=dev, generator=gen) * 2.0
+                 + 0.5).to(dtype)
+            p = instance_norm.plan_for(x)
+            if p.variant != "split":
+                raise AssertionError(f"{shape} {dtype}: plan {p}")
+            want, pmean, prstd = instance_norm._plain_forward(x, act, 0.2,
+                                                              1e-5)
+            got, mean, rstd = instance_norm.instance_norm_act_split(
+                x, act, stats=True)
+            r = {"err": _in_check(got, want, dtype),
+                 "stats_err": max(float((mean - pmean).abs().max()),
+                                  float(((rstd - prstd) / prstd)
+                                        .abs().max()))}
+            if r["stats_err"] > 1e-5:
+                raise AssertionError(f"{shape} {dtype}: statistics "
+                                     f"{r['stats_err']}")
+            if not torch.equal(got, instance_norm.instance_norm_act_split(
+                    x, act)):
+                raise AssertionError(f"{shape} {dtype}: the split variant "
+                                     "is not repeatable")
+            small = _fitting_cluster(shape, dtype)
+            if small is not None:
+                r["err_cluster"] = _in_check(
+                    instance_norm.instance_norm_act_cluster(x, act, p=small),
+                    want, dtype)
+            del want, got
+            copies = _input_copies(x)
+            reps = max(4, 2 * len(copies))
+            fns = {
+                "split": lambda xc: lambda: instance_norm.
+                instance_norm_act_split(xc, act),
+                "streaming": lambda xc: lambda: instance_norm.
+                instance_norm_act_streaming(xc, act)}
+            ms = {v: [] for v in fns}
+            for v in ("split", "streaming", "streaming", "split"):
+                ms[v].append(queued_ms([fns[v](xc) for xc in copies], reps))
+            r.update({f"ms_{v}": sum(t) / len(t) for v, t in ms.items()})
+            if small is not None:
+                r["ms_cluster"] = queued_ms(
+                    [lambda xc=xc: instance_norm.instance_norm_act_cluster(
+                        xc, act, p=small) for xc in copies], reps)
+            r["plain_ms"] = queued_ms(
+                [lambda xc=xc: instance_norm.instance_norm_act_plain(xc, act)
+                 for xc in copies], len(copies))
+            r["library_ms"] = queued_ms(
+                [lambda xc=xc: _library_in(xc, act) for xc in copies],
+                len(copies))
+            r["bound_ms"] = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
+            per[(dtype, shape, act)] = r
+            del copies, x
+            say("instance_norm_fullframe", dtype=str(dtype).split(".")[1],
+                shape=f"1x{shape[0]}x{shape[1]}x{shape[2]}", act=act,
+                G=p.group, chunks=p.chunks, pixels_a_chunk=p.ppc,
+                chunk_kb=f"{p.cta_bytes / 1024:.1f}",
+                split_ms=f"{r['ms_split']:.4f}",
+                split_runs="/".join(f"{t:.4f}" for t in ms["split"]),
+                streaming_ms=f"{r['ms_streaming']:.4f}",
+                streaming_runs="/".join(f"{t:.4f}" for t in ms["streaming"]),
+                bound_ms=f"{r['bound_ms']:.4f}",
+                split_share_of_bound=f"{r['bound_ms'] / r['ms_split']:.3f}",
+                cluster_small_g=(f"G{small.group}k{small.k}"
+                                 if small else None),
+                cluster_ms=(f"{r['ms_cluster']:.4f}" if small else None),
+                plain_ms=f"{r['plain_ms']:.4f}",
+                library_ms=f"{r['library_ms']:.4f}",
+                max_abs_err=f"{r['err']:.3g}",
+                max_abs_err_cluster=(f"{r['err_cluster']:.3g}"
+                                     if small else None),
+                stats_err=f"{r['stats_err']:.3g}")
+    rec = {}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        rows = [per[(dtype, s, a)] for s, a in FF_SITES]
+        elems = sum(s[0] * s[1] * s[2] for s, _ in FF_SITES)
+        bytes_ms = 2 * elems * dtype.itemsize / HBM_BYTES_PER_S * 1e3
+        ops_ms = 8 * elems / FP32_FLOPS * 1e3
+        rec.update({
+            f"ms{tag}": sum(r["ms_split"] for r in rows),
+            f"streaming_ms{tag}": sum(r["ms_streaming"] for r in rows),
+            f"plain_ms{tag}": sum(r["plain_ms"] for r in rows),
+            f"library_ms{tag}": sum(r["library_ms"] for r in rows),
+            f"bound_ms{tag}": max(bytes_ms, ops_ms),
+            f"bound_by{tag}": "bytes" if bytes_ms >= ops_ms else "operations",
+            f"max_abs_err{tag}": max(r["err"] for r in rows),
+            f"quarter_sites_split_ms{tag}": sum(
+                r["ms_split"] for r in rows if "ms_cluster" in r),
+            f"quarter_sites_cluster_ms{tag}": sum(
+                r["ms_cluster"] for r in rows if "ms_cluster" in r)})
+        say("instance_norm_fullframe", per_frame=str(dtype).split(".")[1],
+            sites=len(FF_SITES), elements=elems,
+            split_ms=f"{rec['ms' + tag]:.4f}",
+            bound_ms=f"{rec['bound_ms' + tag]:.4f}",
+            split_share_of_bound=
+            f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
+            streaming_ms=f"{rec['streaming_ms' + tag]:.4f}",
+            quarter_sites_split_ms=
+            f"{rec['quarter_sites_split_ms' + tag]:.4f}",
+            quarter_sites_cluster_ms=
+            f"{rec['quarter_sites_cluster_ms' + tag]:.4f}",
+            plain_ms=f"{rec['plain_ms' + tag]:.4f}",
+            library_ms=f"{rec['library_ms' + tag]:.4f}",
+            below_half_of_bound=[
+                f"{s[0]}x{s[1]}x{s[2]}:{a}" for (d, s, a), r in per.items()
+                if d == dtype and r["bound_ms"] / r["ms_split"] < 0.5])
+    return rec
+
+
 def _full_mask():
     """A full-frame mask as the engine loads one (eroded at the border)."""
     return erode_full_support_np(np.ones((H, W), np.float32))
@@ -487,13 +663,14 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
             "blend_tiles": n_bl}
 
 
-def _dir_engine(precision: str, scene: Path, out: Path):
+def _dir_engine(precision: str, scene: Path, out: Path, mode: str = "tiled",
+                device=None):
     return StyleTransferInference(inference_config(
         paths={"checkpoint": str(CKPT), "input_dir": str(scene / "input"),
                "mask_dir": str(scene / "mask"), "output_dir": str(out),
                "additional_channels": {"point_vector": {
                    "path": str(scene / "tracking"), "depth": 3}}},
-        inference={"precision": precision}))
+        inference={"precision": precision, "mode": mode}), device=device)
 
 
 def _inline_directory(eng, scene: Path, out: Path, fpd: int) -> float:
@@ -655,6 +832,260 @@ def phase_serve_directory(dev, card: str, tmp: Path) -> dict:
         sys.modules.update(saved_pil)
 
 
+@contextlib.contextmanager
+def _without_pil():
+    """PIL made unimportable: the card's serving path needs none."""
+    saved = {k: sys.modules[k] for k in list(sys.modules)
+             if k == "PIL" or k.startswith("PIL.")}
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+B1_WRAPPERS = {"cluster": instance_norm.instance_norm_act_cluster,
+               "split": instance_norm.instance_norm_act_split,
+               "streaming": instance_norm.instance_norm_act_streaming}
+
+
+def _zero_counts() -> None:
+    for fn in (*B1_WRAPPERS.values(), blend.blend_tiles):
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    out = {k: fn.launches for k, fn in B1_WRAPPERS.items()}
+    out["blend"] = blend.blend_tiles.launches
+    return out
+
+
+def _check_counts(what: str, got: dict, frames: int, tiled: bool) -> None:
+    """19 B1 launches a generator call, in the cluster variant and with one
+    B2 launch a call when tiled (one call a frame in these phases), in the
+    split variant and no B2 launch in full-frame mode; never streaming."""
+    want = {"cluster": 19 * frames if tiled else 0,
+            "split": 0 if tiled else 19 * frames, "streaming": 0,
+            "blend": frames if tiled else 0}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_fullframe(dev, card: str, tmp: Path, tiled: dict) -> dict:
+    """``process_directory`` in full-frame mode over the serve_directory
+    phase's 36 frames of 512x910 (one generator pass a frame, 512x912 after
+    padding), PIL unimportable, precision bf16 and 32: a set-up run, then a
+    timed run with the counters zeroed just before and read just after (19
+    split launches a frame, none of the other variants, no B2), beside the
+    tiled run on the same frames (``tiled``: the serve_directory records).
+    Its files against ``stylize_group`` frame by frame on 3 frames (limit 1
+    count). Then at precision 32 the card against the CPU engine on a
+    256x456 crop of a frame with a partial mask (limit 1 count)."""
+    scene = tmp / "scene"
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    rec, launches = {}, 0
+    with _without_pil():
+        for prec in ("bf16", "32"):
+            out = tmp / f"ff_{prec}"
+            eng = _dir_engine(prec, scene, out, mode="fullframe")
+            eng.process_directory()  # set-up
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _read_counts()
+            if written != DIR_FRAMES:
+                raise AssertionError(f"fullframe {prec}: {written} frames")
+            _check_counts(f"fullframe {prec}", counts, DIR_FRAMES, False)
+            launches += counts["split"]
+            worst = 0
+            for name in names[:3]:
+                frame = eng.load_frame(scene / "input" / name)
+                mask = eng.load_eroded_mask(scene / "mask" / name, (H, W))
+                want = eng.stylize_group(frame[None], [mask])[0]
+                d = np.abs(decode_png(out / name).astype(int) - want)
+                worst = max(worst, int(d.max()))
+            ms = 1e3 * seconds / DIR_FRAMES
+            tiled_ms = tiled[prec]["ms_per_group"] / 3
+            rec[prec] = {"ms_per_frame": ms,
+                         "eq_frames_per_s": DIR_FRAMES / seconds,
+                         "tiled_ms_per_frame": tiled_ms,
+                         "tiled_eq_frames_per_s":
+                         tiled[prec]["eq_frames_per_s"]}
+            say("fullframe", precision=prec, frames=written,
+                ms_per_frame=f"{ms:.2f}",
+                eq_frames_per_s=f"{DIR_FRAMES / seconds:.2f}",
+                tiled_ms_per_frame=f"{tiled_ms:.2f}",
+                tiled_eq_frames_per_s=
+                f"{tiled[prec]['eq_frames_per_s']:.2f}",
+                split_launches=counts["split"],
+                cluster_launches=counts["cluster"],
+                streaming_launches=counts["streaming"],
+                blend_launches=counts["blend"],
+                vs_stylize_group_max_abs=worst, card=f"'{card}'")
+            if worst > 1:
+                raise AssertionError(f"fullframe {prec}: process_directory "
+                                     f"is {worst} counts from stylize_group")
+            if prec == "32":  # the card against the CPU
+                frame = eng.load_frame(scene / "input" / names[0])
+                frame = frame[100:356, 200:656][None]
+                mask = np.zeros((256, 456), np.float32)
+                mask[20:230, 40:400] = 1
+                eroded = erode_full_support_np(mask)
+                got = eng.stylize_group(frame, [eroded])
+                cpu = _dir_engine(prec, scene, out, mode="fullframe",
+                                  device="cpu")
+                want = cpu.stylize_group(frame, [eroded])
+                dm = np.abs(got.astype(int) - want.astype(int))
+                say("fullframe", card_vs_cpu="256x456", precision=prec,
+                    max_abs=int(dm.max()), differing_pixels=int(
+                        (dm > 0).sum()))
+                if dm.max() > 1 or got.std() < 1.0:
+                    raise AssertionError(f"fullframe card vs CPU: {dm.max()}"
+                                         " counts apart (limit 1)")
+            del eng
+    return {"rec": rec, "launches": {"split": launches}}
+
+
+TEMPORAL_FRAMES, TEMPORAL_MISSING = 12, 5  # chain length, missing flow
+
+
+def _temporal_scene(scene: Path, root: Path, n: int, crop=None) -> Path:
+    """The first ``n`` frames of ``scene`` (cropped to ``crop``, (y0, y1,
+    x0, x1), when given) with a 3-band guide and masks, and seeded smooth
+    backward flows ``flow_bwd/%03d.npy``, the one of frame
+    ``TEMPORAL_MISSING`` left out."""
+    rng = np.random.default_rng(6)
+    for sub in ("input", "tracking", "mask", "flow_bwd"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i, name in enumerate(sorted(p.name for p in
+                                    (scene / "input").glob("*.png"))[:n]):
+        for sub in ("input", "tracking", "mask"):
+            img = decode_png(scene / sub / name)
+            if crop is not None:
+                img = img[crop[0]:crop[1], crop[2]:crop[3]]
+            encode_png(root / sub / name, img, compress_level=1)
+        h, w = img.shape[:2]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        a, b = rng.random(2) * 2 * np.pi
+        flow = np.stack([-6.0 + 2.0 * np.sin(yy / 37 + a),
+                         1.5 * np.cos(xx / 53 + b)], -1).astype(np.float32)
+        if i != TEMPORAL_MISSING:
+            np.save(root / "flow_bwd" / f"{i:03d}.npy", flow)
+    return root
+
+
+def _temporal_engine(prec: str, scene: Path, out: Path, ckpt: Path, mode: str,
+                     device=None) -> StyleTransferInference:
+    cfg = inference_config(
+        paths={"checkpoint": str(ckpt), "input_dir": str(scene / "input"),
+               "mask_dir": str(scene / "mask"), "output_dir": str(out),
+               "additional_channels": {"point_vector": {
+                   "path": str(scene / "tracking"), "depth": 3}}},
+        inference={"precision": prec, "mode": mode,
+                   "temporal": {"enabled": True, "depth": 3,
+                                "flow_dir": str(scene / "flow_bwd"),
+                                "file_format": "%03d", "flow_source": "files",
+                                "flow_scale": 1, "flow_batch": "auto",
+                                "flow_upload": "auto"}})
+    return StyleTransferInference(cfg, device=device)
+
+
+def phase_temporal(dev, card: str, tmp: Path) -> dict:
+    """The temporal guide chain with flows from files through
+    ``process_directory``: the first 12 frames of the serve_directory
+    scene with seeded smooth flows (the flow of frame 5 missing: the chain
+    holds the previous output there), a full-width generator taking 6 + 3
+    channels with seeded weights, tiled and fullframe, bf16 and 32. For
+    each: a set-up run, then the chain from its start, timed, with the
+    counters zeroed just before and read just after; its files bitwise
+    against driving ``_chain_step`` directly over the engine's own staging.
+    Then at precision 32 the first 4 frames of the chain on a 200x320 crop,
+    card against the CPU (limit 1 count)."""
+    torch.manual_seed(9)
+    args = dict(inference_config()["model"]["generator"]["args"])
+    args["input_channels"] = 9
+    gen = GeneratorJ(**args)
+    with torch.no_grad():  # move off the zero-bias init
+        for p in gen.parameters():
+            p.add_(torch.randn_like(p) * 0.02)
+    ckpt = tmp / "temporal.ckpt"
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                               gen.state_dict().items()}}, ckpt)
+    del gen
+    scene = _temporal_scene(tmp / "scene", tmp / "tscene", TEMPORAL_FRAMES)
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    with _without_pil():
+        for mode in ("tiled", "fullframe"):
+            for prec in ("bf16", "32"):
+                out = tmp / f"t_{mode}_{prec}"
+                eng = _temporal_engine(prec, scene, out, ckpt, mode)
+                eng.process_directory()  # set-up
+                eng._temporal_prev = None  # the chain from its start
+                _zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                written = eng.process_directory()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = _read_counts()
+                if written != TEMPORAL_FRAMES:
+                    raise AssertionError(f"temporal {mode} {prec}: {written}")
+                _check_counts(f"temporal {mode} {prec}", counts,
+                              TEMPORAL_FRAMES, mode == "tiled")
+                for k in launches:
+                    launches[k] += counts[k]
+                carry, differ = (None, None), []
+                for name in names:
+                    st = eng._load_for_dispatch(
+                        scene / "input" / name, scene / "mask",
+                        eng._temporal_position(name))
+                    eng._await_staged([st])
+                    u8, _, carry = eng._chain_step(
+                        st.frame, st.mask, st.boxes, carry, aux=st.flow,
+                        label=eng._flow_label(st.position))
+                    if not np.array_equal(u8.cpu().numpy(),
+                                          decode_png(out / name)):
+                        differ.append(name)
+                ms = 1e3 * seconds / TEMPORAL_FRAMES
+                rec[f"{mode}_{prec}"] = {"ms_per_frame": ms,
+                                         "frames_per_s": 1e3 / ms}
+                say("temporal", mode=mode, precision=prec, frames=written,
+                    ms_per_frame=f"{ms:.2f}", frames_per_s=f"{1e3 / ms:.2f}",
+                    flow_f16=eng.temporal_flow_f16, **{
+                        f"{k}_launches": v for k, v in counts.items()},
+                    directory_vs_chain_steps_differing_frames=len(differ),
+                    card=f"'{card}'")
+                if differ:
+                    raise AssertionError(f"temporal {mode} {prec}: the "
+                                         "directory run differs from the "
+                                         f"chain steps at {differ}")
+                del eng
+        # the card against the CPU: the first 4 chain frames, a crop
+        small = _temporal_scene(tmp / "scene", tmp / "tsmall", 4,
+                                crop=(150, 350, 300, 620))
+        for mode in ("tiled", "fullframe"):
+            outs = {}
+            for device in ("cuda", "cpu"):
+                out = tmp / f"tsmall_{mode}_{device}"
+                _temporal_engine("32", small, out, ckpt, mode,
+                                 device=device).process_directory()
+                outs[device] = [decode_png(out / n).astype(int) for n in
+                                sorted(p.name for p in out.glob("*.png"))]
+            dm = max(int(np.abs(a - b).max())
+                     for a, b in zip(outs["cuda"], outs["cpu"]))
+            say("temporal", card_vs_cpu="200x320, 4 frames", mode=mode,
+                precision="32", max_abs=dm)
+            if len(outs["cuda"]) != 4 or dm > 1:
+                raise AssertionError(f"temporal {mode}: card vs CPU {dm} "
+                                     "counts apart (limit 1)")
+    return {"rec": rec, "launches": launches}
+
+
 def phase_signed_unit(dev) -> None:
     """C4: all 256 bytes through the card's normalization, bitwise against
     the host's IEEE values; the division it replaced, for the record."""
@@ -706,8 +1137,6 @@ BWD_VARIANTS = {"cluster": instance_norm.instance_norm_act_backward_cluster,
                 "streaming":
                 instance_norm.instance_norm_act_backward_streaming}
 
-
-L2_BYTES = 50e6  # H100 SXM data sheet
 
 
 def phase_instance_norm_backward(dev) -> dict:
@@ -1065,16 +1494,20 @@ def main() -> int:
         cuda=torch.version.cuda, card=f"'{card}'")
     phase_build()
     rec_in = phase_instance_norm(dev)
+    rec_ff = phase_instance_norm_fullframe(dev)
     rec_bl = phase_blend(dev)
     phase_signed_unit(dev)
     launches = phase_main_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve_directory(dev, card, Path(tmp))
+        full = phase_fullframe(dev, card, Path(tmp), served["rec"])
+        chain = phase_temporal(dev, card, Path(tmp))
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
     rec_in["variants"]["cluster"]["launches"] = launches[
-        "instance_norm_act"] + served["launches"]["instance_norm_act"]
+        "instance_norm_act"] + served["launches"]["instance_norm_act"] \
+        + chain["launches"]["cluster"]
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
         "instance_norm_act_streaming"]
@@ -1084,13 +1517,25 @@ def main() -> int:
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
              launches=launches["instance_norm_act"]
              + served["launches"]["instance_norm_act"]
-             + train["launches"]["forward"],
+             + chain["launches"]["cluster"] + train["launches"]["forward"],
              launches_by_path={"serve": launches["instance_norm_act"],
                                "serve_directory":
                                served["launches"]["instance_norm_act"],
+                               "temporal_tiled": chain["launches"]["cluster"],
                                "train": train["launches"]["forward"]},
              dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
+        dict(name="instance_norm_act_split", route="cuda",
+             source="patch_toon_tpu_torch/csrc/instance_norm_split.cu",
+             replaces="patch_toon_tpu/ops/pallas_norm.py:52",
+             launches=full["launches"]["split"] + chain["launches"]["split"],
+             launches_by_path={"fullframe": full["launches"]["split"],
+                               "temporal_fullframe":
+                               chain["launches"]["split"]},
+             dtype="bf16", variant="split",
+             note="two launches (statistics, normalize) counted as one",
+             per="the 19 sites of one full-frame pass over a 512x912 frame",
+             **rec_ff),
         *[dict(name=f"instance_norm_act_backward_{v}", route="cuda",
                source="patch_toon_tpu_torch/csrc/instance_norm_bwd.cu",
                replaces="patch_toon_tpu/ops/pallas_norm.py:52",
@@ -1106,15 +1551,18 @@ def main() -> int:
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",
              launches=launches["blend_tiles"]
-             + served["launches"]["blend_tiles"],
+             + served["launches"]["blend_tiles"] + chain["launches"]["blend"],
              launches_by_path={"serve": launches["blend_tiles"],
                                "serve_directory":
-                               served["launches"]["blend_tiles"]},
+                               served["launches"]["blend_tiles"],
+                               "temporal_tiled": chain["launches"]["blend"]},
              per="one group of 3 512x910 frames", **rec_bl),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels, "train": train["rec"],
-                      "serve_directory": served["rec"]}), flush=True)
+                      "serve_directory": served["rec"],
+                      "fullframe": full["rec"], "temporal": chain["rec"]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Tiled video stylization with the PyTorch/CUDA port.
+"""Video stylization with the PyTorch/CUDA port (tiled, full-frame, temporal).
 
 Usage:
     python generator_torch.py paths.checkpoint=run/torch_train.ckpt \

@@ -1,6 +1,7 @@
 """patch-toon-tpu-torch: the PyTorch/CUDA port of patch_toon_tpu.
 
-Tiled video stylization with the GeneratorJ model on one NVIDIA GPU. The two
+Video stylization (tiled, full-frame, with or without the temporal guide)
+and GAN training with the GeneratorJ model on one NVIDIA GPU. The two
 Pallas kernels of the JAX package become CUDA kernels written for Hopper
 (``csrc/``), built with plain ``nvcc`` at first use and bound with
 ``ctypes`` (``_build.py``). Every kernel wrapper runs its plain PyTorch

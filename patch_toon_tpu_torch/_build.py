@@ -50,6 +50,12 @@ SIGNATURES = {
     # x, dy, mean, rstd, dx, n, hw, c, dtype, act, slope, device, stream
     "ptt_instance_norm_act_backward_streaming": [_P, _P, _P, _P, _P, _I, _I,
                                                  _I, _I, _I, _F, _I, _P],
+    # x, y, mean, rstd ((n, c) fp32, always written), part (workspace of
+    # 2 * units * group * chunks fp32), counters (units zeros, left zero),
+    # n, hw, c, group, ppc (pixels a chunk), chunks, dtype, act, slope, eps,
+    # device, stream
+    "ptt_instance_norm_act_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _F, _I, _P],
     # the cluster variant's shared-memory budget a CTA, in bytes
     "ptt_instance_norm_slice_bytes": [],
     # gen, weights, positions, offsets, ids, canvas, wcanvas, n_tiles, ps,

@@ -1,4 +1,5 @@
-"""Command line: tiled stylization of a directory of frames.
+"""Command line: stylization of a directory of frames (tiled or full-frame,
+alone or with the temporal guide chain).
 
     python generator_torch.py paths.checkpoint=... paths.input_dir=... \
         paths.mask_dir=... paths.output_dir=... [key=value ...]

@@ -1,5 +1,6 @@
-// What the forward (instance_norm.cu) and backward (instance_norm_bwd.cu)
-// kernels of B1 share: type conversions, 16-byte vectors, cp.async, the
+// What the kernels of B1 share (the forward variants of instance_norm.cu and
+// instance_norm_split.cu, the backward ones of instance_norm_bwd.cu): type
+// conversions, the activation, 16-byte vectors, cp.async, the
 // cluster barrier's halves, the fixed-order sums over a block and over a
 // cluster, and the checked launch of a cluster kernel.
 #pragma once
@@ -35,6 +36,14 @@ template <> __device__ __forceinline__ float from_f32<float>(float v) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The activation after the normalization: kAct 0 none, 1 ReLU, 2 LeakyReLU.
+template <int kAct>
+__device__ __forceinline__ float activate(float v, float slope) {
+  if (kAct == 1) return v >= 0.f ? v : 0.f;
+  if (kAct == 2) return v >= 0.f ? v : v * slope;
+  return v;
 }
 
 // A 16-byte vector: 4 fp32 or 8 bf16 values.

@@ -27,12 +27,13 @@
 // CTA leaves only after its peers have read its partial sums (the split
 // cluster barrier at the end).
 //
-// Streaming variant, for what the cluster variant does not take (a unit
-// larger than 8 CTAs' slices, such as a 540x960x128 full-frame plane; C
-// times the item size not a multiple of 16 bytes; a pointer not 16-byte
-// aligned): one block per (sample, 32 channels) reads the input three
-// times (mean, variance, normalize); the 32 lanes of a warp take 32
-// neighbouring channels of one pixel, the 16 warps every 16th pixel.
+// Streaming variant, for what neither the cluster variant nor the split
+// variant (instance_norm_split.cu: a unit larger than 8 CTAs' slices, such
+// as a full frame's plane) takes: C times the item size not a multiple of
+// 16 bytes, or a pointer not 16-byte aligned. One block per (sample, 32
+// channels) reads the input three times (mean, variance, normalize); the
+// 32 lanes of a warp take 32 neighbouring channels of one pixel, the 16
+// warps every 16th pixel.
 //
 // Under autograd both variants also write the per-(sample, channel) fp32
 // mean and rstd that the backward kernel (instance_norm_bwd.cu) reads; the
@@ -46,13 +47,6 @@
 namespace {
 
 using namespace b1;
-
-template <int kAct>
-__device__ __forceinline__ float activate(float v, float slope) {
-  if (kAct == 1) return v >= 0.f ? v : 0.f;
-  if (kAct == 2) return v >= 0.f ? v : v * slope;
-  return v;
-}
 
 // ---------------------------------------------------------------- cluster
 

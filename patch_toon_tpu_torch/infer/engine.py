@@ -1,7 +1,11 @@
-"""Tiled video stylization on one device.
+"""Video stylization on one device: tiled, full-frame and temporal.
 
 Counterpart of ``patch_toon_tpu/infer/engine.py::StyleTransferInference``
-in ``tiled`` mode. ``process_directory`` streams a directory of frames as
+in ``tiled`` mode (the reference's semantics, the default) and
+``fullframe`` mode (one generator pass over each whole frame, JAX
+``engine.py:447-456``; a group is one frame), each alone or with the
+temporal guide chain reading its flows from files (``infer/temporal.py``).
+``process_directory`` streams a directory of frames as
 the JAX engine does (``engine.py:669-834``): two prefetch threads decode
 each frame with its guide channels (the port's native PNG codec), erode its
 mask, place its tiles and stage it for upload six frames ahead
@@ -32,13 +36,16 @@ patch_toon_tpu/models/layers.py:91-93 for the upsample's products and
 ``bf16`` (the default) runs the convs in bf16 while InstanceNorm statistics
 and the smoother BatchNorm stay fp32, as in JAX.
 
-Not ported yet, and refused by name (``NotImplementedError``): modes other
-than tiled, precision ``32_fast``, ``quantize=int8``, ``file_shard``,
-``devices`` other than 1, ``temporal.enabled`` and ``watch.enabled``.
-``readback_streams`` sets the pipeline's in-flight window (its value plus 2
-frames, the JAX rule). The other transport knobs (``crop_readback``,
-``crop_upload``, ``upload``, ``mask_upload``, ``xla_options``) change no
-output in the JAX package and are no-ops here.
+Not ported yet, and refused by name (``NotImplementedError``): precision
+``32_fast``, ``quantize=int8``, ``file_shard``, ``devices`` other than 1,
+``temporal.flow_source=device``, the multi-stream temporal layout (a
+subdirectory per video) and ``watch.enabled``; a mode other than tiled and
+fullframe raises ``ValueError``. ``readback_streams`` sets the pipeline's
+in-flight window (its value plus 2 frames, the JAX rule). ``upload`` is
+validated as JAX does and decides ``temporal.flow_upload: auto`` (f16
+unless it resolves to f32), which rounds the flows; otherwise it and the
+other transport knobs (``crop_readback``, ``crop_upload``, ``mask_upload``,
+``xla_options``) change no output in the JAX package and are no-ops here.
 """
 
 from __future__ import annotations
@@ -66,9 +73,11 @@ from patch_toon_tpu_torch.infer.pipeline import (
     stage_upload,
 )
 from patch_toon_tpu_torch.infer.programs import (
+    make_fullframe_fn,
     make_multiframe_fn,
     make_tile_plan,
 )
+from patch_toon_tpu_torch.infer.temporal import TemporalChain
 from patch_toon_tpu_torch.infer.tiling import (
     Box,
     bucket_size,
@@ -120,13 +129,17 @@ def _resolve_dtype(precision: Any) -> torch.dtype:
     raise ValueError(f"inference.precision={precision!r}: expected 32 or bf16")
 
 
+MODES = ("tiled", "fullframe")
+
+
 def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
     """Raise NotImplementedError naming each inference knob that asks for
-    what this port does not do yet (the JAX engine acts on all of them)."""
+    what this port does not do yet (the JAX engine acts on all of them),
+    ValueError for a mode that does not exist."""
     mode = str(inf.get("mode", "tiled"))
-    if mode != "tiled":
-        raise NotImplementedError(
-            f"inference.mode={mode!r} is not ported yet (tiled only)")
+    if mode not in MODES:
+        raise ValueError(f"inference.mode={mode!r}: expected tiled or "
+                         "fullframe")
     q = str(inf.get("quantize", "off")).lower()
     if q in ("int8", "w8a8"):
         raise NotImplementedError(f"inference.quantize={q!r} is not ported "
@@ -142,17 +155,67 @@ def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"inference.devices={inf.get('devices')!r} is not ported yet "
             "(one device)")
-    for knob in ("temporal", "watch"):
-        if bool((inf.get(knob) or {}).get("enabled", False)):
-            raise NotImplementedError(
-                f"inference.{knob}.enabled=true is not ported yet")
+    tcfg = inf.get("temporal") or {}
+    if bool(tcfg.get("enabled", False)) and \
+            str(tcfg.get("flow_source", "files")).lower() == "device":
+        raise NotImplementedError(
+            "inference.temporal.flow_source='device' (the on-device flow) "
+            "is not ported yet (flow_source=files)")
+    if bool((inf.get("watch") or {}).get("enabled", False)):
+        raise NotImplementedError(
+            "inference.watch.enabled=true is not ported yet")
 
 
-class StyleTransferInference:
+def _parse_temporal(eng, inf: Dict[str, Any]) -> None:
+    """The temporal knobs, parsed and checked as the JAX engine does
+    (``engine.py:108-160, 205-221, 234-250``); flow_scale and flow_batch
+    serve the device flow only and are checked, not used."""
+    tcfg = inf.get("temporal") or {}
+    eng.temporal_enabled = bool(tcfg.get("enabled", False))
+    eng.temporal_flow_dir = tcfg.get("flow_dir")
+    eng.temporal_depth = int(tcfg.get("depth", 3))
+    eng.temporal_format = str(tcfg.get("file_format", "%03d"))
+    eng.temporal_flow_source = str(tcfg.get("flow_source", "files")).lower()
+    if eng.temporal_flow_source not in ("files", "device"):
+        raise ValueError(f"inference.temporal.flow_source="
+                         f"{eng.temporal_flow_source!r}: expected "
+                         "files/device")
+    eng.temporal_flow_scale = int(tcfg.get("flow_scale", 1))
+    if eng.temporal_flow_scale not in (1, 2, 4):
+        raise ValueError(f"inference.temporal.flow_scale="
+                         f"{eng.temporal_flow_scale!r}: expected 1, 2 or 4")
+    fb = str(tcfg.get("flow_batch", "auto")).lower()
+    eng.temporal_flow_batch = 1 if fb == "auto" else int(fb)
+    if not 1 <= eng.temporal_flow_batch <= 16:
+        raise ValueError(f"inference.temporal.flow_batch={fb!r}: expected "
+                         "auto or an int in [1, 16]")
+    up = str(inf.get("upload", "auto")).lower()
+    if up == "auto":
+        upload_u8 = eng.precision not in (32, "32")
+    elif up in ("u8", "uint8"):
+        upload_u8 = True
+    elif up in ("f32", "float32", "fp32"):
+        upload_u8 = False
+    else:
+        raise ValueError(f"inference.upload={up!r}: expected auto/u8/f32")
+    fu = str(tcfg.get("flow_upload", "auto")).lower()
+    if fu == "auto":
+        eng.temporal_flow_f16 = upload_u8
+    elif fu in ("f16", "float16", "half"):
+        eng.temporal_flow_f16 = True
+    elif fu in ("f32", "float32", "fp32"):
+        eng.temporal_flow_f16 = False
+    else:
+        raise ValueError(f"inference.temporal.flow_upload={fu!r}: expected "
+                         "auto/f16/f32")
+
+
+class StyleTransferInference(TemporalChain):
     def __init__(self, cfg: Any, device: Optional[str] = None):
         self.cfg = cfg
         inf = cfg.get("inference", {}) or {}
         check_unported_inference_knobs(inf)
+        self.mode = str(inf.get("mode", "tiled"))
         self.device = _resolve_device(device, inf)
         self.overlap_percent = float(inf.get("overlap_percent", 30.0))
         self.max_tile_batch = int(inf.get("tile_batch", 512))
@@ -161,6 +224,7 @@ class StyleTransferInference:
         self.debug_mode = bool(inf.get("debug_mode", False))
         self.precision = inf.get("precision", "bf16")
         self.dtype = _resolve_dtype(self.precision)
+        _parse_temporal(self, inf)
         if self.dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -178,6 +242,8 @@ class StyleTransferInference:
             self.additional_channels[name] = {"path": path, "depth": depth}
         self.total_channels = 3 + sum(
             c["depth"] for c in self.additional_channels.values())
+        if self.temporal_enabled:  # the warped previous output, last
+            self.total_channels += self.temporal_depth
 
         self.model = self._load_model(str(paths["checkpoint"]))
         self._packs: Dict[Any, Any] = {}  # tile layout -> (plan, weights)
@@ -186,6 +252,7 @@ class StyleTransferInference:
         self.upload_pools = PinnedPools()
         self.copy_stream = (torch.cuda.Stream(self.device)
                             if self.device.type == "cuda" else None)
+        self._temporal_init()  # JAX engine.py:350-351, temporal.py:184
 
     def _load_model(self, ckpt_path: str) -> GeneratorJ:
         sd = load_generator_state(ckpt_path)
@@ -241,19 +308,51 @@ class StyleTransferInference:
         binary = m.astype(np.uint8)
         return binary if (binary == m).all() else m.astype(np.float32)
 
-    def dispatch(self, frames: torch.Tensor, masks: torch.Tensor,
-                 group_boxes: Sequence[Sequence[Box]]) -> torch.Tensor:
-        """Run the multiframe program on frames and masks already on the
-        device: (F, H, W, C) uint8 and (F, H, W, 1) -> (F, H, W, 3) uint8 on
-        the device, queued on the current stream (no synchronisation)."""
+    def _run(self, frames: torch.Tensor, masks: torch.Tensor,
+             group_boxes: Sequence[Sequence[Box]]):
+        """The program of the engine's mode on frames and masks already on
+        the device: (F, H, W, C) uint8 or fp32 and (F, H, W, 1) -> (uint8,
+        fp32 composite), each (F, H, W, 3) on the device, queued on the
+        current stream (no synchronisation). Fullframe mode takes no
+        boxes."""
         f, h, w, _ = frames.shape
+        if self.mode == "fullframe":
+            fn = make_fullframe_fn(self.model, h, w, self.dtype)
+            with self.spans("host/dispatch"):
+                return fn(frames, masks)
         with self.spans("host/pack"):
             plan, weights = self._pack(group_boxes, h, w)
         fn = make_multiframe_fn(self.model, self.patch_size, f, h, w,
                                 self.dtype)
         with self.spans("host/dispatch"):
-            u8, _ = fn(frames, plan, weights, masks)
-        return u8
+            return fn(frames, plan, weights, masks)
+
+    def dispatch(self, frames: torch.Tensor, masks: torch.Tensor,
+                 group_boxes: Sequence[Sequence[Box]]) -> torch.Tensor:
+        """:meth:`_run`'s uint8 frames, (F, H, W, 3) on the device."""
+        return self._run(frames, masks, group_boxes)[0]
+
+    def _stylize_device(self, frame: torch.Tensor, mask: torch.Tensor,
+                        boxes: Sequence[Box]):
+        """One frame, (H, W, C) and its (H, W, 1) mask on the device, and
+        its tile boxes -> ((H, W, 3) uint8, (H, W, 3) fp32 composite, the
+        boxes: [] in fullframe mode)."""
+        boxes = [] if self.mode == "fullframe" else boxes
+        u8, out = self._run(frame[None], mask[None], [boxes])
+        return u8[0], out[0], boxes
+
+    def _await_staged(self, group: Sequence[Staged]) -> None:
+        """The current (compute) stream waits for each staged frame's
+        upload and is recorded on its tensors, so the copy stream's memory
+        is not reused before the program has read it."""
+        if self.device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for s in group:
+            stream.wait_event(s.ready)
+            for t in (s.frame, s.mask, s.flow):
+                if t is not None:
+                    t.record_stream(stream)
 
     def dispatch_staged(self, group: Sequence[Staged]) -> torch.Tensor:
         """:meth:`dispatch` of frames staged by :meth:`_load_for_dispatch`:
@@ -261,12 +360,7 @@ class StyleTransferInference:
         recorded on its tensors, so the copy stream's memory is not reused
         before the program has read it."""
         with self.spans("host/stack"):
-            if self.device.type == "cuda":
-                stream = torch.cuda.current_stream(self.device)
-                for s in group:
-                    stream.wait_event(s.ready)
-                    s.frame.record_stream(stream)
-                    s.mask.record_stream(stream)
+            self._await_staged(group)
             frames = torch.stack([s.frame for s in group])
             masks = [s.mask for s in group]
             if len({m.dtype for m in masks}) > 1:
@@ -291,7 +385,9 @@ class StyleTransferInference:
             raise ValueError(f"frames have {c} channels, the model takes "
                              f"{self.total_channels}")
         spans = self.spans
-        if group_boxes is None:
+        if self.mode == "fullframe":
+            group_boxes = [[] for _ in range(f)]
+        elif group_boxes is None:
             with spans("host/tile_placement"):
                 group_boxes = [self.boxes_for(m, (h, w))
                                for m in eroded_masks]
@@ -357,34 +453,74 @@ class StyleTransferInference:
                 f"{tuple(shape_hw)} — mask/frame resolutions must match")
         return erode_full_support_np(mask)
 
-    def _load_for_dispatch(self, input_path: Path,
-                           mask_dir: Path) -> Staged:
-        """Decode, erode, place tiles and stage one frame for dispatch, on
-        a prefetch thread (JAX ``engine.py:623-667`` without the crop
-        window). On a CUDA device the frame and its mask go up through
-        pinned buffers on the engine's copy stream; on the CPU they stay
-        host tensors."""
+    def load_flow(self, position: int) -> Optional[np.ndarray]:
+        """Frame ``position``'s backward flow, (H, W, 2), from
+        ``flow_dir / (file_format % position).npy``, rounded to float16
+        where ``temporal_flow_f16`` says; None without a flow_dir or for a
+        missing file (JAX ``temporal.py:316-325``)."""
+        if self.temporal_flow_dir is None:
+            return None
+        path = Path(self.temporal_flow_dir) / \
+            f"{self.temporal_format % position}.npy"
+        if not path.exists():
+            return None
+        flow = np.load(str(path))
+        if self.temporal_flow_f16 and flow.dtype != np.float16:
+            flow = flow.astype(np.float16)
+        return flow
+
+    def _load_for_dispatch(self, input_path: Path, mask_dir: Path,
+                           position: Optional[int] = None) -> Staged:
+        """Decode, erode, place tiles (none in fullframe mode) and stage
+        one frame for dispatch, on a prefetch thread (JAX
+        ``engine.py:623-667`` without the crop window); with a stream
+        ``position`` (the temporal chain) its flow file too. On a CUDA
+        device the frame, its mask and its flow go up through pinned
+        buffers on the engine's copy stream; on the CPU they stay host
+        tensors."""
         spans = self.spans
         with spans("host/decode"):
             parts = self.load_frame_parts(input_path)
+            flow = None if position is None else self.load_flow(position)
         hw = parts[0].shape[:2]
         with spans("host/mask"):
             mask = self.load_eroded_mask(mask_dir / input_path.name, hw)
         with spans("host/tile_placement"):
-            boxes = self.boxes_for(mask, hw)
+            boxes = [] if self.mode == "fullframe" \
+                else self.boxes_for(mask, hw)
         with spans("host/upload"):
             frame_d, _ = stage_upload(parts, self.device, self.upload_pools,
                                       self.copy_stream)
-            # the mask's copy follows the frame's on the one copy stream,
-            # so its event covers both
+            # the later copies follow the frame's on the one copy stream,
+            # so the last event covers them all
             mask_d, ready = stage_upload([self._mask_tensor(mask, hw)],
                                          self.device, self.upload_pools,
                                          self.copy_stream)
-        return Staged(frame_d, mask_d, ready, boxes, input_path)
+            flow_d = None
+            if flow is not None:
+                flow_d, ready = stage_upload([flow], self.device,
+                                             self.upload_pools,
+                                             self.copy_stream)
+        return Staged(frame_d, mask_d, ready, boxes, input_path, position,
+                      flow_d)
 
-    def process_directory(self) -> int:
-        """Stylize every frame of paths.input_dir into paths.output_dir, as
-        a stream (see the module's docstring).
+    def _detect_streams(self, input_dir: Path) -> List[str]:
+        """The multi-stream temporal layout (JAX ``multistream.py:42-52``):
+        no images in input_dir itself, and subdirectories that hold
+        some."""
+        if _image_files(input_dir):
+            return []
+        try:
+            subdirs = list(input_dir.iterdir())
+        except (FileNotFoundError, NotADirectoryError):
+            return []
+        return sorted(d.name for d in subdirs
+                      if d.is_dir() and _image_files(d))
+
+    def process_directory(self, files: Optional[List[Path]] = None) -> int:
+        """Stylize every frame of paths.input_dir (or the given ``files``)
+        into paths.output_dir, as a stream (see the module's docstring);
+        with the temporal guide, as one chain that later calls continue.
 
         -> the number of frames written (handed to the writer, less the
         writes it reports failed)."""
@@ -396,16 +532,26 @@ class StyleTransferInference:
             raise FileNotFoundError(f"Input directory not found: {input_dir}")
         if not mask_dir.name.endswith("ignore") and not mask_dir.exists():
             raise FileNotFoundError(f"Mask directory not found: {mask_dir}")
+        if files is None and self.temporal_enabled \
+                and self._detect_streams(input_dir):
+            raise NotImplementedError(
+                f"{input_dir} holds a subdirectory per video: multi-stream "
+                "temporal serving is not ported yet (one video a run)")
         self._check_channel_dirs()
         output_dir.mkdir(parents=True, exist_ok=True)
-        files = _image_files(input_dir)
+        if files is None:
+            files = _image_files(input_dir)
         self.logger.info(f"Found {len(files)} images to process")
 
         writer = FrameWriter(num_threads=WRITER_THREADS,
                              compress_level=WRITER_LEVEL)
         pipe = GroupPipeline(self, writer, output_dir)
+        if self.temporal_enabled:
+            return self._process_directory_temporal(files, mask_dir, pipe,
+                                                    writer)
         group: List[Staged] = []
-        group_size = None
+        # a fullframe group is one frame (JAX engine.py:767-768)
+        group_size = 1 if self.mode == "fullframe" else None
 
         def flush_group() -> None:
             # hand off and clear before dispatching: a failed dispatch drops
@@ -451,13 +597,69 @@ class StyleTransferInference:
             if group:
                 self.logger.error("Stopped before dispatching [" + ", ".join(
                     x.path.name for x in group) + "]")
-            pipe.drain_all()
-            pipe.close()
-            with self.spans("host/writer_drain"):
-                failed = writer.flush()
-            writer.close()
-            if failed:
-                self.logger.error(f"{failed} frame writes failed")
+            failed = self._finish(pipe, writer)
+        return pipe.submitted - failed
+
+    def _finish(self, pipe: GroupPipeline, writer: FrameWriter) -> int:
+        """Drain every frame in flight, flush the writer -> the writes it
+        reports failed."""
+        pipe.drain_all()
+        pipe.close()
+        with self.spans("host/writer_drain"):
+            failed = writer.flush()
+        writer.close()
+        if failed:
+            self.logger.error(f"{failed} frame writes failed")
+        return failed
+
+    def _process_directory_temporal(self, files: List[Path], mask_dir: Path,
+                                    pipe: GroupPipeline,
+                                    writer: FrameWriter) -> int:
+        """The temporal chain over ``files`` (JAX
+        ``_process_directory_temporal``, files mode): each frame's stream
+        position is taken on this thread in file order, its decode, flow
+        and upload run ahead on the prefetch threads, then
+        :meth:`_chain_step` and the pipeline's readback, which drains while
+        later frames run. A frame that fails is named and restarts the
+        chain; the carry is kept on the engine for the next call, also on
+        an interrupt."""
+        prev = self._temporal_prev
+        pool = ThreadPoolExecutor(max_workers=PREFETCH_THREADS)
+        futures: Dict[Path, Any] = {}
+
+        def submit(path: Path) -> None:
+            futures[path] = pool.submit(
+                self._load_for_dispatch, path, mask_dir,
+                self._temporal_position(path.name))
+
+        try:
+            for path in files[:PREFETCH]:
+                submit(path)
+            for i, path in enumerate(files):
+                if i + PREFETCH < len(files):
+                    submit(files[i + PREFETCH])
+                try:
+                    with self.spans("host/load_wait"):
+                        staged = futures.pop(path).result()
+                    self._await_staged([staged])
+                    u8, _, (prev, _) = self._chain_step(
+                        staged.frame, staged.mask, staged.boxes, (prev, None),
+                        aux=staged.flow,
+                        label=self._flow_label(staged.position))
+                except Exception as e:
+                    self.logger.error(f"Failed to process {path.name}: {e}")
+                    prev = None  # restart the chain
+                    continue
+                try:
+                    pipe.submit([staged], u8[None])
+                except Exception as e:
+                    # a deferred error of an earlier frame: this frame and
+                    # the chain are intact
+                    self.logger.error(f"Readback failed: {e}")
+        finally:
+            self._temporal_prev = prev
+            pool.shutdown(wait=True, cancel_futures=True)
+            failed = self._finish(pipe, writer)
         return pipe.submitted - failed
 
     def _group_size(self, n_boxes: int) -> int:

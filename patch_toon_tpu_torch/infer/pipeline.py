@@ -38,13 +38,17 @@ from patch_toon_tpu_torch.infer.tiling import Box, draw_tile_boxes
 class Staged:
     """One frame ready for dispatch: (H, W, C) uint8 and its (H, W, 1)
     mask (uint8 when it is {0, 1}, else fp32) on the engine's device, the
-    copy's event (None on the CPU), its tile boxes and its input path."""
+    copies' event (None on the CPU), its tile boxes, its input path and,
+    in a temporal chain, its stream position and (H, W, 2) backward flow
+    (None when missing)."""
 
     frame: torch.Tensor
     mask: torch.Tensor
     ready: Optional[torch.cuda.Event]
     boxes: List[Box]
     path: Path
+    position: Optional[int] = None
+    flow: Optional[torch.Tensor] = None
 
 
 class PinnedPool:
@@ -161,11 +165,16 @@ class GroupPipeline:
         return sum(len(g.paths) for g in self.in_flight)
 
     def dispatch(self, group: Sequence[Staged]) -> None:
-        """Run a group and queue its readback; then drain the oldest
-        groups while more than ``window`` frames are in flight, keeping at
-        least the group just dispatched (JAX ``engine.py:1092-1099``)."""
+        """Run a group (``engine.dispatch_staged``) and :meth:`submit` its
+        output."""
+        self.submit(group, self.e.dispatch_staged(group))
+
+    def submit(self, group: Sequence[Staged], u8: torch.Tensor) -> None:
+        """Queue the readback of a group's (F, H, W, 3) uint8 output on the
+        device; then drain the oldest groups while more than ``window``
+        frames are in flight, keeping at least this group (JAX
+        ``engine.py:1092-1099``)."""
         e = self.e
-        u8 = e.dispatch_staged(group)  # (F, H, W, 3) uint8 on the device
         g = _InFlight()
         with e.spans("host/readback_issue"):
             for k, staged in enumerate(group):

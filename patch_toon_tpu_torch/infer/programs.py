@@ -1,6 +1,7 @@
-"""The tiled program for a group of co-batched frames.
+"""The serving programs: tiled (a group of co-batched frames) and full-frame.
 
-Counterpart of ``patch_toon_tpu/infer/programs.py::make_multiframe_fn``
+``make_multiframe_fn`` is the counterpart of
+``patch_toon_tpu/infer/programs.py::make_multiframe_fn``
 (``_multiframe_body``, :172-234). In order:
 
 1. uint8 frames -> [-1, 1] (``_to_signed_unit``);
@@ -15,6 +16,11 @@ Counterpart of ``patch_toon_tpu/infer/programs.py::make_multiframe_fn``
 
 The host builds a :class:`TilePlan` once per tile layout (the engine caches
 it): the boxes, the blend positions and their CSR binning, on the device.
+
+``make_fullframe_fn`` is the counterpart of ``make_fullframe_fn``
+(:26-50), ``inference.mode: fullframe``: one generator pass over each whole
+frame, so InstanceNorm takes per-frame statistics (not per-tile ones as the
+reference does) and no tile is gathered or blended.
 """
 
 from __future__ import annotations
@@ -94,5 +100,28 @@ def make_multiframe_fn(generator: Callable, patch_size: int, n_frames: int,
         out = out / torch.where(wsum > 1e-8, wsum, torch.ones_like(wsum))
         rgb = _to_signed_unit(frames[..., :3])
         return _composite_u8(rgb, out, masks.float())
+
+    return fn
+
+
+def make_fullframe_fn(generator: Callable, h: int, w: int,
+                      dtype: torch.dtype) -> Callable:
+    """-> fn(frames (F,H,W,C) u8 or f32, masks (F,H,W,1)) -> (uint8
+    (F,H,W,3), composite fp32 (F,H,W,3)): [-1, 1], zero padding of H and W
+    up to multiples of 4 (the generator's two stride-2 stages and two
+    upsamples) after the normalization, so that the padded pixels enter
+    every InstanceNorm's statistics as zeros, as in the JAX program; the
+    generator in ``dtype``, the crop to ``[:h, :w]`` after the head, fp32,
+    and the composite through the mask. Each frame is its own sample, so
+    frames do not mix."""
+    hp, wp = (h + 3) // 4 * 4, (w + 3) // 4 * 4
+
+    def fn(frames: torch.Tensor, masks: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = _to_signed_unit(frames)
+        xp = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
+        with torch.no_grad():
+            out = generator(xp.to(dtype))[:, :h, :w].float()
+        return _composite_u8(x[..., :3], out, masks.float())
 
     return fn

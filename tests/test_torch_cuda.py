@@ -31,9 +31,11 @@ from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
     instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
+    instance_norm_act_split,
     instance_norm_act_streaming,
     plan_backward_for,
     plan_for,
+    split_plan,
 )
 
 ACTS = [None, "relu", "leaky_relu"]
@@ -154,13 +156,22 @@ def test_instance_norm_cluster_variant_at_odd_sizes(cuda, dtype, shape, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_instance_norm_streaming_dispatch(cuda, dtype):
-    """What the cluster variant does not take goes to the streaming one,
-    and the cluster wrapper refuses it."""
+    """What the cluster variant does not take goes to the split variant (a
+    full frame's plane) or, unaligned, to the streaming one; the cluster
+    wrapper refuses both."""
     full = _randn((1, 540, 960, 128), dtype, cuda, seed=3)  # a full frame
+    assert plan_for(full).variant == "split"
+    before = instance_norm_act_split.launches
+    got = instance_norm_act(full, "relu")
+    torch.cuda.synchronize()
+    assert instance_norm_act_split.launches == before + 1
+    _assert_in_close(got, instance_norm_act_plain(full, "relu"), dtype)
+    with pytest.raises(ValueError):
+        instance_norm_act_cluster(full, "relu")
     base = _randn((2 * 20 * 20 * 32 + 1,), dtype, cuda, seed=4)
     misaligned = base[1:].view(2, 20, 20, 32)
     odd = _randn((2, 20, 20, 12), dtype, cuda, seed=5)  # C = 12
-    cases = [full, misaligned] + ([odd] if dtype == torch.bfloat16 else [])
+    cases = [misaligned] + ([odd] if dtype == torch.bfloat16 else [])
     for x in cases:
         assert plan_for(x).variant == "streaming", tuple(x.shape)
         before = instance_norm_act_streaming.launches
@@ -175,10 +186,66 @@ def test_instance_norm_streaming_dispatch(cuda, dtype):
         _check_variant(odd, "leaky_relu", "cluster")
 
 
+# the distinct InstanceNorm sites of a full-frame pass over a 512x910 frame
+# (padded to 512x912), with their activations
+FULLFRAME_SITES = [((512, 912, 32), "leaky_relu"),
+                   ((256, 456, 64), "leaky_relu"),
+                   ((128, 228, 128), "leaky_relu"), ((128, 228, 128), "relu"),
+                   ((128, 228, 128), None), ((256, 456, 128), "relu"),
+                   ((512, 912, 128), "relu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hwc,act", FULLFRAME_SITES)
+def test_instance_norm_split_matches_plain_at_fullframe_shapes(cuda, dtype,
+                                                                hwc, act):
+    """The split variant, which the plan picks at every full-frame site,
+    against the plain version (one launch counted), its statistics against
+    the plain version's, and bitwise equal to a second call (the combine
+    runs in a fixed order whichever CTA finishes last)."""
+    x = _randn((1,) + hwc, dtype, cuda, seed=12)
+    assert plan_for(x).variant == "split"
+    before = {k: f.launches for k, f in
+              dict(VARIANTS, split=instance_norm_act_split).items()}
+    y, mean, rstd = instance_norm_act_split(x, act, stats=True)
+    torch.cuda.synchronize()
+    after = {k: f.launches for k, f in
+             dict(VARIANTS, split=instance_norm_act_split).items()}
+    assert after == {k: v + (k == "split") for k, v in before.items()}
+    _assert_in_close(y, instance_norm_act_plain(x, act), dtype)
+    want_mean, want_rstd = _stats(x)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, instance_norm_act_split(x, act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,ctas", [
+    ((2, 79, 81, 32), 40),    # ragged chunks, two samples
+    ((3, 9, 7, 40), 7),       # G = 8 (bf16) or 8 (fp32), one chunk a unit
+    ((1, 33, 47, 16), 1000),  # more chunks than pixels allow: a pixel each
+])
+def test_instance_norm_split_variant_at_odd_sizes(cuda, dtype, shape, ctas):
+    """The split variant on any aligned tensor, at a plan forced by
+    ``split_plan``, against the plain version; a call with another plan
+    after it still sees zeroed counters (each launch leaves them zero)."""
+    x = _randn(shape, dtype, cuda, seed=13)
+    p = split_plan(*shape, dtype, ctas=ctas)
+    for act in ACTS:
+        _assert_in_close(instance_norm_act_split(x, act, p=p),
+                         instance_norm_act_plain(x, act), dtype)
+    other = split_plan(*shape, dtype, ctas=max(1, ctas // 3))
+    _assert_in_close(instance_norm_act_split(x, "relu", p=other),
+                     instance_norm_act_plain(x, "relu"), dtype)
+
+
 @pytest.mark.cuda
 def test_instance_norm_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.randn(2, 8, 8, 32, device=cuda)
-    for fn in (instance_norm_act, *VARIANTS.values()):
+    for fn in (instance_norm_act, *VARIANTS.values(),
+               instance_norm_act_split):
         with pytest.raises(ValueError):
             fn(x.permute(0, 2, 1, 3), None)  # not contiguous
         with pytest.raises(TypeError):
@@ -350,15 +417,17 @@ def test_instance_norm_backward_kernel_refuses_what_it_cannot_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 20, 20, 24), (2, 540, 960, 32)])
 def test_instance_norm_forward_writes_the_statistics(cuda, dtype, shape):
-    """Both forward variants (the second shape goes to the streaming one)
-    give the plain version's mean and rstd with ``stats=True``: within
-    1e-5 relative, 5e-5 for rstd of the 518,400-pixel plane, whose
-    streaming sums add 32,400 values a thread in sequence."""
+    """Every forward variant that takes the shape (the second shape goes to
+    the split one, and the streaming one takes both) gives the plain
+    version's mean and rstd with ``stats=True``: within 1e-5 relative,
+    5e-5 for rstd of the 518,400-pixel plane, whose streaming sums add
+    32,400 values a thread in sequence."""
     rtol = 5e-5 if shape[1] * shape[2] > 100_000 else 1e-5
     x = _randn(shape, dtype, cuda, seed=8)
     want_mean, want_rstd = _stats(x)
-    for variant, fn in VARIANTS.items():
-        if variant == "cluster" and plan_for(x).variant != "cluster":
+    picked = plan_for(x).variant
+    for variant, fn in dict(VARIANTS, split=instance_norm_act_split).items():
+        if variant != "streaming" and variant != picked:
             continue
         y, mean, rstd = fn(x, "relu", stats=True)
         torch.cuda.synchronize()
@@ -532,3 +601,75 @@ def test_process_directory_on_cuda_equals_stylize_group(cuda, tmp_path,
         for n, want in zip(chunk, eng.stylize_group(frames, masks)):
             np.testing.assert_array_equal(decode_png(tmp_path / "out" / n),
                                           want, err_msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,temporal", [("fullframe", False),
+                                           ("fullframe", True),
+                                           ("tiled", True)])
+def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
+        cuda, tmp_path, mode, temporal):
+    """``process_directory`` on the card at precision 32 writes the frames
+    of the same engine on the CPU within 1 count: full-frame mode and the
+    temporal chain with flows from files (one missing) in both modes. One
+    B1 launch a site and frame (7 sites at one residual block), never the
+    streaming variant; in full-frame mode the 192x256 stem plane goes to
+    the split variant and no B2 runs, tiled one B2 launch a frame."""
+    from chip_smoke import _temporal_scene, write_scene
+    from patch_toon_tpu_torch.config.defaults import inference_config
+    from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+    from patch_toon_tpu_torch.native import decode_png
+    from patch_toon_tpu_torch.ops import blend
+
+    channels = 9 if temporal else 6
+    torch.manual_seed(8)
+    model = GeneratorJ(input_channels=channels,
+                       filters=(8, 16, 16, 16, 16, 8), use_bias=True,
+                       resnet_blocks=1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn_like(p) * 0.1)
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                               model.state_dict().items()}},
+               tmp_path / "gen.ckpt")
+    write_scene(tmp_path / "base", 6, 192, 256)
+    scene = _temporal_scene(tmp_path / "base", tmp_path / "scene", 6) \
+        if temporal else tmp_path / "base"
+    inf = {"precision": "32", "mode": mode}
+    if temporal:
+        inf["temporal"] = {"enabled": True, "depth": 3,
+                           "flow_dir": str(scene / "flow_bwd")}
+    outs = {}
+    counts = {}
+    for device in ("cuda", "cpu"):
+        cfg = inference_config(
+            paths={"checkpoint": str(tmp_path / "gen.ckpt"),
+                   "input_dir": str(scene / "input"),
+                   "mask_dir": str(scene / "mask"),
+                   "output_dir": str(tmp_path / device),
+                   "additional_channels": {"point_vector": {
+                       "path": str(scene / "tracking"), "depth": 3}}},
+            inference=inf)
+        cfg["model"]["generator"]["args"].update(
+            filters=[8, 16, 16, 16, 16, 8], resnet_blocks=1)
+        cfg["data"]["patch_size"] = 32
+        fns = {**VARIANTS, "split": instance_norm_act_split,
+               "blend": blend.blend_tiles}
+        before = {k: f.launches for k, f in fns.items()}
+        assert StyleTransferInference(cfg, device=device) \
+            .process_directory() == 6
+        torch.cuda.synchronize()
+        counts[device] = {k: f.launches - before[k] for k, f in fns.items()}
+        outs[device] = {p.name: decode_png(p).astype(int)
+                        for p in sorted((tmp_path / device).glob("*.png"))}
+    assert counts["cpu"] == {k: 0 for k in counts["cpu"]}
+    got = counts["cuda"]
+    assert got["cluster"] + got["split"] == 7 * 6 and got["streaming"] == 0
+    if mode == "tiled":
+        assert got["split"] == 0 and got["blend"] == 6
+    else:
+        assert got["split"] >= 6 and got["blend"] == 0
+    assert outs["cuda"].keys() == outs["cpu"].keys() and len(outs["cpu"]) == 6
+    for name, want in outs["cpu"].items():
+        assert np.abs(outs["cuda"][name] - want).max() <= 1, name

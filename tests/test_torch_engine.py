@@ -117,18 +117,36 @@ def test_stylize_group_cobatches_frames(scene, tmp_path):
 def test_engine_refusals(scene, tmp_path):
     with pytest.raises(NotImplementedError):
         _engine(scene, tmp_path, "inference.precision=32_fast")
-    with pytest.raises(NotImplementedError):
-        _engine(scene, tmp_path, "inference.mode=fullframe")
+    # fullframe mode is ported; a mode that does not exist is an error
+    assert _engine(scene, tmp_path,
+                   "inference.mode=fullframe").mode == "fullframe"
+    with pytest.raises(ValueError, match="inference.mode"):
+        _engine(scene, tmp_path, "inference.mode=tile")
+    # the temporal chain with flows from files is ported: 3 RGB channels
+    # and the 3 of the warped previous output make the checkpoint's 6
+    eng = _engine(scene, tmp_path, "inference.temporal.enabled=true",
+                  "paths.additional_channels={}")
+    assert eng.temporal_enabled and eng.total_channels == 6
     # knobs the JAX engine acts on and the port does not yet: each is named
     for override, knob in [
             ("inference.quantize=int8", "quantize"),
             ("inference.file_shard=0/2", "file_shard"),
             ("inference.devices=2", "devices"),
             ("inference.devices=-1", "devices"),
-            ("inference.temporal.enabled=true", "temporal.enabled"),
+            ("inference.temporal.flow_source=device", "flow_source"),
             ("inference.watch.enabled=true", "watch.enabled")]:
         with pytest.raises(NotImplementedError, match=knob):
-            _engine(scene, tmp_path, override)
+            _engine(scene, tmp_path, override,
+                    "inference.temporal.enabled=true",
+                    "paths.additional_channels={}")
+    # the multi-stream temporal layout: a subdirectory per video
+    streams = tmp_path / "streams"
+    (streams / "shot_a").mkdir(parents=True)
+    src = sorted((scene / "scene" / "input").glob("*.png"))[0]
+    (streams / "shot_a" / src.name).write_bytes(src.read_bytes())
+    eng.cfg["paths"]["input_dir"] = str(streams)
+    with pytest.raises(NotImplementedError, match="multi-stream"):
+        eng.process_directory()
     with pytest.raises(ValueError, match="quantize"):
         _engine(scene, tmp_path, "inference.quantize=int4")
     # debug_mode is ported: the tile-box overlays

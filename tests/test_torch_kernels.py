@@ -37,7 +37,9 @@ from patch_toon_tpu_torch.ops.instance_norm import (
     CLUSTER_SIZES,
     CTA_BYTES,
     GROUPS,
+    SPLIT_CTAS,
     Plan,
+    _split_forward_plain,
     instance_norm_act,
     instance_norm_act_backward,
     instance_norm_act_backward_cluster,
@@ -45,9 +47,11 @@ from patch_toon_tpu_torch.ops.instance_norm import (
     instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
+    instance_norm_act_split,
     instance_norm_act_streaming,
     plan,
     plan_backward,
+    split_plan,
 )
 
 ACTS = [None, "relu", "leaky_relu"]
@@ -105,12 +109,20 @@ def test_instance_norm_wrapper_uses_plain_on_cpu():
         (2, 5, 7, 3)).astype(np.float32))
     want = instance_norm_act_plain(x, "leaky_relu")
     counters = (instance_norm_act_cluster, instance_norm_act_streaming)
-    before = [f.launches for f in counters]
+    before = [f.launches for f in counters + (instance_norm_act_split,)]
     for wrapper in (instance_norm_act, *counters):
         assert torch.equal(wrapper(x, "leaky_relu"), want)
         with pytest.raises(ValueError):
             wrapper(x, "gelu")
-    assert [f.launches for f in counters] == before  # no launch on the CPU
+    # the split variant runs its own arithmetic (chunks, then Chan's
+    # combine) in plain PyTorch: fp32 roundoff from the two-pass version
+    got = instance_norm_act_split(x, "leaky_relu")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        instance_norm_act_split(x, "gelu")
+    # no launch on the CPU
+    assert [f.launches for f in counters + (instance_norm_act_split,)] == \
+        before
 
 
 # the 19 InstanceNorm sites of one generator call at the shipped widths
@@ -145,8 +157,10 @@ def test_instance_norm_plan_takes_every_main_path_site_to_the_cluster(dtype):
 def test_instance_norm_plan_gives_the_streaming_variant_what_clusters_cannot_take(
         dtype):
     # a full-frame plane (A8): 540x960 pixels of a 32-channel unit need more
-    # than 8 CTAs' slices
-    assert plan(1, 540, 960, 128, dtype, True).variant == "streaming"
+    # than 8 CTAs' slices, and at 16 channels too; it goes to the split
+    # variant since it was added, and the streaming variant keeps only what
+    # neither takes
+    assert plan(1, 540, 960, 128, dtype, True).variant == "split"
     # a pointer that is not 16-byte aligned
     assert plan(2, 20, 20, 128, dtype, False).variant == "streaming"
     # C = 12: 24 bytes a pixel in bf16, not whole 16-byte vectors; in fp32
@@ -164,8 +178,9 @@ def test_instance_norm_plan_gives_the_streaming_variant_what_clusters_cannot_tak
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_instance_norm_plan_stays_within_its_limits(dtype):
     """k is a portable cluster size of at most 8, a CTA's slice stays within
-    the budget, G is the largest that takes C in whole 16-byte vectors, and
-    the streaming variant gets a shape only where no such cluster fits."""
+    the budget, G is the largest that takes C in whole 16-byte vectors; the
+    split variant takes a unit that no such cluster fits, in whole chunks;
+    the streaming variant gets only what takes no whole 16-byte vectors."""
     item = dtype.itemsize
     for c in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
         whole = [g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0]
@@ -176,10 +191,73 @@ def test_instance_norm_plan_stays_within_its_limits(dtype):
                 assert p.k in CLUSTER_SIZES and p.k <= 8
                 assert 0 < p.cta_bytes <= CTA_BYTES
                 assert p.group == max(whole)
+            elif p.variant == "split":
+                assert p.group == max(whole)
+                assert -(-h * w // 8) * max(whole) * item > CTA_BYTES
+                assert 0 < p.cta_bytes == p.ppc * p.group * item
+                assert (p.chunks - 1) * p.ppc < h * w <= p.chunks * p.ppc
             else:
-                assert p == Plan("streaming")
-                assert not whole or \
-                    -(-h * w // 8) * max(whole) * item > CTA_BYTES
+                assert p == Plan("streaming") and not whole
+
+
+# the 19 InstanceNorm sites of a full-frame pass over a 512x910 frame
+# (padded to 512x912): stem, downsamples, 14 residual, upsamples
+FULLFRAME_SITES = ([(512, 912, 32), (256, 456, 64), (128, 228, 128)]
+                   + [(128, 228, 128)] * 14
+                   + [(256, 456, 128), (512, 912, 128)])
+# (chunks a unit, pixels a chunk) of the split variant at each site shape:
+# about SPLIT_CTAS CTAs a launch over the site's units of 32 channels
+FULLFRAME_CHUNKS = {(512, 912, 32): (264, 1769), (256, 456, 64): (132, 885),
+                    (128, 228, 128): (66, 443), (256, 456, 128): (66, 1769),
+                    (512, 912, 128): (66, 7075)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_instance_norm_plan_takes_every_fullframe_site_to_the_split(dtype):
+    """Every site of a full-frame pass goes to the split variant at G = 32,
+    in about ``SPLIT_CTAS`` CTAs a launch; 540x960 frames too."""
+    item = dtype.itemsize
+    assert len(FULLFRAME_SITES) == 19
+    for h, w, c in FULLFRAME_SITES:
+        p = plan(1, h, w, c, dtype, aligned=True)
+        assert p.variant == "split" and p.group == 32, (h, w, c, p)
+        assert (p.chunks, p.ppc) == FULLFRAME_CHUNKS[(h, w, c)], p
+        assert p.cta_bytes == p.ppc * 32 * item
+        assert (p.chunks - 1) * p.ppc < h * w <= p.chunks * p.ppc
+        assert SPLIT_CTAS <= c // 32 * p.chunks < SPLIT_CTAS + c // 32
+    for h, w, c in ((540, 960, 32), (270, 480, 64), (135, 240, 128),
+                    (270, 480, 128), (540, 960, 128)):
+        assert plan(1, h, w, c, dtype, True).variant == "split"
+    assert plan(1, 512, 912, 128, dtype, False).variant == "streaming"
+
+
+def test_split_combine_matches_jax_at_a_large_mean():
+    """The split variant's arithmetic (fp32 chunks, Chan's combine in fp64)
+    on planes of mean 100 and standard deviation 1e-2, against JAX's
+    ``instance_norm`` (two-pass fp32 over the whole plane). Both lose the
+    same few fp32 ulps of 100 against a deviation of 1e-2, so the bound is
+    the problem's own conditioning: 16 ulps of the largest |x|, times rstd.
+    E[x^2] - E[x]^2 in fp32 misses it by orders of magnitude."""
+    rng = np.random.default_rng(11)
+    x = (100.0 + 1e-2 * rng.standard_normal((2, 37, 53, 32))).astype(
+        np.float32)
+    want = np.asarray(instance_norm(jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    p = split_plan(2, 37, 53, 32, torch.float32, ctas=48)
+    assert p.chunks > 20 and p.ppc * p.chunks > 37 * 53  # a ragged chunk
+    got, mean, rstd = _split_forward_plain(xt, None, 0.2, 1e-5, p)
+    tol = 16 * 2.0 ** -24 * float(np.abs(x).max()) * float(rstd.max())
+    assert tol < 0.02
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    # the statistics themselves: rstd of a 1e-2 deviation within 1e-3
+    ref_std = x.astype(np.float64).std(axis=(1, 2))
+    np.testing.assert_allclose(1.0 / rstd.numpy(),
+                               np.sqrt(ref_std ** 2 + 1e-5), rtol=1e-3)
+    naive_var = (torch.square(xt).mean(dim=(1, 2))
+                 - torch.square(xt.mean(dim=(1, 2)))).clamp_min(0)
+    naive = (xt - xt.mean(dim=(1, 2), keepdim=True)) * torch.rsqrt(
+        naive_var[:, None, None] + 1e-5)
+    assert np.abs(naive.numpy() - want).max() > 10 * tol
 
 
 # the 25 InstanceNorm sites of a training step at the default widths: the

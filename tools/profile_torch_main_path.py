@@ -5,6 +5,8 @@ CUDA card.
     python3 tools/profile_torch_main_path.py [--groups 6] [--out FILE]
     python3 tools/profile_torch_main_path.py --train [--steps 10] [--out FILE]
     python3 tools/profile_torch_main_path.py --dir [--frames 36] [--out FILE]
+    python3 tools/profile_torch_main_path.py --fullframe [--frames 36]
+    python3 tools/profile_torch_main_path.py --temporal [--out FILE]
 
 Builds ``patch_toon_tpu_torch``'s engine at full width (the weights of
 docs/quality_2000/torch_train.ckpt, 6 input channels) for precision bf16 and
@@ -44,7 +46,14 @@ tile placement, pack, mask stacking, upload, dispatch, readback, encode,
 and the pipeline's waits) per group, from every thread. Beside it, the same
 split of ``stylize_group`` on three frames already in memory (tile
 placement included, as ``stylize_group`` places tiles itself when it is
-given no boxes).
+given no boxes). ``--fullframe`` serves the same directory in full-frame
+mode (a group is one frame; B1's split variant).
+
+With ``--temporal`` it serves the temporal chain with flows from files:
+``chip_smoke.py``'s temporal scene (12 frames, one flow missing) and a
+full-width generator taking 6 + 3 channels with seeded weights, tiled and
+fullframe: ms a frame by host clock, then a traced run's device ms a frame
+by category, busy share and host split.
 
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
@@ -78,6 +87,8 @@ H, W = 512, 910
 
 def _category(name: str) -> str:
     n = name.lower()
+    if "instance_norm_split_" in n and "_kernel" in n:  # its 2 launches
+        return "B1 instance_norm (split)"
     if "instance_norm_act_" in n and "_kernel" in n:  # both variants
         return "B1 instance_norm"
     if "blend_tiles_kernel" in n:
@@ -328,12 +339,13 @@ def _spans_per_group(eng, groups: int) -> dict:
     return {k: v["ms"] / groups for k, v in eng.spans.snapshot().items()}
 
 
-def _dir_records(n_frames: int, card: str) -> list:
+def _dir_records(n_frames: int, card: str, mode: str = "tiled") -> list:
     import tempfile
 
     from chip_smoke import write_scene
 
     records = []
+    fpg = 3 if mode == "tiled" else 1  # frames a group
     with tempfile.TemporaryDirectory() as tmp:
         scene = pathlib.Path(tmp) / "scene"
         write_scene(scene, n_frames, H, W)
@@ -346,14 +358,14 @@ def _dir_records(n_frames: int, card: str) -> list:
                        "output_dir": str(out),
                        "additional_channels": {"point_vector": {
                            "path": str(scene / "tracking"), "depth": 3}}},
-                inference={"precision": prec}))
+                inference={"precision": prec, "mode": mode}))
             eng.process_directory()  # set-up: cuDNN, the codec, the rings
             eng.spans.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             written = eng.process_directory()
             seconds = time.perf_counter() - t0
-            groups = -(-written // 3)
+            groups = -(-written // fpg)
             timed_spans = _spans_per_group(eng, groups)
             # the same run with twice the writer's threads: how far the
             # writer bounds the stream
@@ -378,15 +390,16 @@ def _dir_records(n_frames: int, card: str) -> list:
                                                            _category)
             traced_spans = _spans_per_group(eng, groups)
             frames = np.stack([eng.load_frame(p) for p in sorted(
-                (scene / "input").glob("*.png"))[:3]])
+                (scene / "input").glob("*.png"))[:fpg]])
             mask = erode_full_support_np(np.ones((H, W), np.float32))
-            eng.stylize_group(frames, [mask] * 3)
+            eng.stylize_group(frames, [mask] * fpg)
             eng.spans.reset()
             for _ in range(groups):
-                eng.stylize_group(frames, [mask] * 3)
+                eng.stylize_group(frames, [mask] * fpg)
             rec = {
                 "precision": prec, "card": card, "entry": "process_directory",
-                "frames": written, "frames_per_group": 3, "groups": groups,
+                "mode": mode, "frames": written, "frames_per_group": fpg,
+                "groups": groups,
                 "eq_frames_per_s": written / seconds,
                 "ms_per_group": 1e3 * seconds / groups,
                 "writer_threads": threads,
@@ -414,6 +427,78 @@ def _dir_records(n_frames: int, card: str) -> list:
     return records
 
 
+def _temporal_records(card: str) -> list:
+    """The temporal chain (flows from files) through ``process_directory``:
+    ``chip_smoke.py``'s temporal scene (12 frames of 512x910, seeded smooth
+    flows, one missing) and a full-width generator taking 6 + 3 channels
+    with seeded weights, tiled and fullframe, bf16 and 32: a set-up run,
+    a timed run of the chain from its start (ms a frame), then a traced
+    one (device ms a frame by category, busy share, host split)."""
+    import tempfile
+
+    from chip_smoke import (
+        TEMPORAL_FRAMES,
+        _temporal_engine,
+        _temporal_scene,
+        write_scene,
+    )
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_scene(tmp / "base", TEMPORAL_FRAMES, H, W)
+        scene = _temporal_scene(tmp / "base", tmp / "scene", TEMPORAL_FRAMES)
+        torch.manual_seed(9)
+        args = dict(inference_config()["model"]["generator"]["args"])
+        args["input_channels"] = 9
+        gen = GeneratorJ(**args)
+        with torch.no_grad():
+            for p in gen.parameters():
+                p.add_(torch.randn_like(p) * 0.02)
+        ckpt = tmp / "temporal.ckpt"
+        torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                                   gen.state_dict().items()}}, ckpt)
+        for mode in ("tiled", "fullframe"):
+            for prec in ("bf16", "32"):
+                eng = _temporal_engine(prec, scene, tmp / f"out_{mode}{prec}",
+                                       ckpt, mode)
+                eng.process_directory()  # set-up
+                eng._temporal_prev = None
+                eng.spans.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = eng.process_directory()
+                seconds = time.perf_counter() - t0
+                spans = _spans_per_group(eng, n)
+                eng._temporal_prev = None
+                acts = [torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    eng.process_directory()
+                    torch.cuda.synchronize()
+                    wall_ms = 1e3 * (time.perf_counter() - t0)
+                device_ms, launches, cats, top = _device_split(prof, n,
+                                                               _category)
+                rec = {"precision": prec, "card": card, "mode": mode,
+                       "entry": "process_directory (temporal, files)",
+                       "frames": n, "ms_per_frame": 1e3 * seconds / n,
+                       "frames_per_s": n / seconds,
+                       "host_ms_per_frame_by_step": spans,
+                       "traced_wall_ms_per_frame": wall_ms / n,
+                       "device_ms_per_frame": device_ms,
+                       "device_busy_share": device_ms * n / wall_ms,
+                       "kernel_launches_per_frame": launches,
+                       "device_ms_per_frame_by_category": cats,
+                       "top_kernels_ms_per_frame": top}
+                records.append(rec)
+                print(json.dumps(rec), flush=True)
+                del eng
+                torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--groups", type=int, default=6)
@@ -422,6 +507,10 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--dir", action="store_true",
                     help="serve a directory of PNG frames instead")
+    ap.add_argument("--fullframe", action="store_true",
+                    help="with --dir: inference.mode=fullframe")
+    ap.add_argument("--temporal", action="store_true",
+                    help="serve the temporal chain (flows from files)")
     ap.add_argument("--frames", type=int, default=36)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -434,8 +523,11 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     if args.train:
         records = _train_records(args.steps, card)
-    elif args.dir:
-        records = _dir_records(args.frames, card)
+    elif args.temporal:
+        records = _temporal_records(card)
+    elif args.dir or args.fullframe:
+        records = _dir_records(args.frames, card,
+                               "fullframe" if args.fullframe else "tiled")
     else:
         records = _serve_records(args.groups, card)
     if args.out:
