@@ -67,6 +67,25 @@ lines each, flushed as they go:
    tiled), its files bitwise against driving ``_chain_step`` directly; the
    first 4 frames of a 200x320 crop, card against the CPU at precision 32
    (limit 1 count).
+   ``temporal_device``: the chain with the device flow (``flow_source:
+   device``) over the same 12 frames with partial masks (frame 5's
+   missing: an unmasked flow there) and the same generator. (a) the flow
+   step as a replayed CUDA graph against the eager step on the card,
+   bitwise, for two frame pairs at scale 1 and one at scale 2, with the
+   graph's and the eager step's device ms and host launch calls; (b) the
+   card's flow against the CPU's on a 256x456 crop (within 1e-3 px max and
+   1e-4 px at the 99.9th percentile, or twice the CPU's own one-ulp
+   spread); then tiled and full-frame at bf16 and 32 with flow_scale 1,
+   and full-frame bf16 at flow_scale 2: a timed run of the chain from its
+   start (19 B1 launches a frame, B2 when tiled, the two graphs, masked
+   and not, captured in a set-up run and replayed 11 times), a traced run (device ms a frame, busy share,
+   launch calls a frame) and the files bitwise against driving
+   ``_chain_step``; (c) at scale 1 the port's flow tool on the card over
+   the 12 frames, its ``flow_bwd`` served in files mode at ``flow_upload:
+   f32``, within 1 count of the device run; at full-frame bf16 the chain
+   with the eager flow step timed beside it and (d) ``flow_batch`` 3
+   bitwise equal to 1; (e) the first 4 frames of a 200x320 crop, card
+   against the CPU at precision 32 (limit 1 count).
 7. ``instance_norm_backward``: both variants of B1's backward kernel
    (cluster and streaming) against its plain version at every
    InstanceNorm site of a training step (batch 80, the generator's 19
@@ -138,6 +157,11 @@ from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
 from patch_toon_tpu_torch.infer.common import SIGNED_UNIT, _to_signed_unit
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference
 from patch_toon_tpu_torch.infer.pipeline import GroupPipeline
+from patch_toon_tpu_torch.infer.temporal import (
+    FlowGraphs,
+    _device_gray,
+    _temporal_device_flow,
+)
 from patch_toon_tpu_torch.infer.programs import make_tile_plan
 from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
 from patch_toon_tpu_torch.models.generator import GeneratorJ
@@ -147,6 +171,7 @@ from patch_toon_tpu_torch.infer.tiling import (
     tile_boxes_from_mask,
 )
 from patch_toon_tpu_torch.ops import blend, instance_norm
+from patch_toon_tpu_torch.ops.flow import dense_flow
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.train.loop import fit
 from patch_toon_tpu_torch.train.model import StyleTransferModel
@@ -978,11 +1003,30 @@ def _temporal_scene(scene: Path, root: Path, n: int, crop=None) -> Path:
     return root
 
 
+def _temporal_ckpt(tmp: Path) -> Path:
+    """A full-width generator taking 6 + 3 channels, seeded weights (no
+    trained temporal checkpoint is at this width), saved once in ``tmp``."""
+    ckpt = tmp / "temporal.ckpt"
+    if ckpt.exists():
+        return ckpt
+    torch.manual_seed(9)
+    args = dict(inference_config()["model"]["generator"]["args"])
+    args["input_channels"] = 9
+    gen = GeneratorJ(**args)
+    with torch.no_grad():  # move off the zero-bias init
+        for p in gen.parameters():
+            p.add_(torch.randn_like(p) * 0.02)
+    torch.save({"state_dict": {f"generator.{k}": v for k, v in
+                               gen.state_dict().items()}}, ckpt)
+    return ckpt
+
+
 def _temporal_engine(prec: str, scene: Path, out: Path, ckpt: Path, mode: str,
-                     device=None) -> StyleTransferInference:
+                     device=None, mask: str = "mask",
+                     **temporal) -> StyleTransferInference:
     cfg = inference_config(
         paths={"checkpoint": str(ckpt), "input_dir": str(scene / "input"),
-               "mask_dir": str(scene / "mask"), "output_dir": str(out),
+               "mask_dir": str(scene / mask), "output_dir": str(out),
                "additional_channels": {"point_vector": {
                    "path": str(scene / "tracking"), "depth": 3}}},
         inference={"precision": prec, "mode": mode,
@@ -990,7 +1034,7 @@ def _temporal_engine(prec: str, scene: Path, out: Path, ckpt: Path, mode: str,
                                 "flow_dir": str(scene / "flow_bwd"),
                                 "file_format": "%03d", "flow_source": "files",
                                 "flow_scale": 1, "flow_batch": "auto",
-                                "flow_upload": "auto"}})
+                                "flow_upload": "auto", **temporal}})
     return StyleTransferInference(cfg, device=device)
 
 
@@ -1005,17 +1049,7 @@ def phase_temporal(dev, card: str, tmp: Path) -> dict:
     against driving ``_chain_step`` directly over the engine's own staging.
     Then at precision 32 the first 4 frames of the chain on a 200x320 crop,
     card against the CPU (limit 1 count)."""
-    torch.manual_seed(9)
-    args = dict(inference_config()["model"]["generator"]["args"])
-    args["input_channels"] = 9
-    gen = GeneratorJ(**args)
-    with torch.no_grad():  # move off the zero-bias init
-        for p in gen.parameters():
-            p.add_(torch.randn_like(p) * 0.02)
-    ckpt = tmp / "temporal.ckpt"
-    torch.save({"state_dict": {f"generator.{k}": v for k, v in
-                               gen.state_dict().items()}}, ckpt)
-    del gen
+    ckpt = _temporal_ckpt(tmp)
     scene = _temporal_scene(tmp / "scene", tmp / "tscene", TEMPORAL_FRAMES)
     names = sorted(p.name for p in (scene / "input").glob("*.png"))
     rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
@@ -1083,6 +1117,341 @@ def phase_temporal(dev, card: str, tmp: Path) -> dict:
             if len(outs["cuda"]) != 4 or dm > 1:
                 raise AssertionError(f"temporal {mode}: card vs CPU {dm} "
                                      "counts apart (limit 1)")
+    return {"rec": rec, "launches": launches}
+
+
+FLOW_FMT = "%04d"  # the scene's frame names: the flow tool finds masks by them
+# the device-flow runs: (mode, precision, flow_scale)
+DEVICE_FLOW_RUNS = [("tiled", "bf16", 1), ("tiled", "32", 1),
+                    ("fullframe", "bf16", 1), ("fullframe", "32", 1),
+                    ("fullframe", "bf16", 2)]
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _device_flow_scene(base: Path, root: Path, n: int, crop=None) -> Path:
+    """The first ``n`` frames of ``base`` (cropped to ``crop``, (y0, y1,
+    x0, x1)) with their 3-band guide; partial masks (an ellipse of 255 in a
+    ring of 128, which the flow mask keeps and the composite mask drops) in
+    ``mask_ignore/``, frame ``TEMPORAL_MISSING``'s left out (a full-frame
+    composite and an unmasked flow there); and for the flow tool, which
+    needs every mask, the same masks in ``tool_mask/`` with that frame's
+    all 255."""
+    for sub in ("input", "tracking", "mask_ignore", "tool_mask"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i, name in enumerate(sorted(p.name for p in
+                                    (base / "input").glob("*.png"))[:n]):
+        for sub in ("input", "tracking"):
+            img = decode_png(base / sub / name)
+            if crop is not None:
+                img = img[crop[0]:crop[1], crop[2]:crop[3]]
+            encode_png(root / sub / name, img, compress_level=1)
+        h, w = img.shape[:2]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        r = ((yy - h * 0.5) / (h * 0.42)) ** 2 \
+            + ((xx - w * (0.45 + 0.01 * i)) / (w * 0.38)) ** 2
+        mask = np.where(r < 0.8, 255, np.where(r < 1.0, 128, 0)).astype(
+            np.uint8)
+        encode_png(root / "tool_mask" / name, mask if i != TEMPORAL_MISSING
+                   else np.full((h, w), 255, np.uint8), compress_level=1)
+        if i != TEMPORAL_MISSING:
+            encode_png(root / "mask_ignore" / name, mask, compress_level=1)
+    return root
+
+
+def _traced(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: wall ms, device ms (the sum of the
+    kernels' and copies' times), device operations, and the host's launch
+    calls (kernels, graphs, asynchronous copies and sets)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device_us = ops = calls = 0
+    for ev in prof.key_averages():
+        if ev.key in LAUNCH_CALLS:
+            calls += ev.count
+        elif ev.device_type == torch.autograd.DeviceType.CUDA \
+                and not ev.key.startswith("host/"):
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                device_us += us
+                ops += ev.count
+    return {"wall_ms": wall, "device_ms": device_us / 1e3,
+            "device_ops": ops, "launch_calls": calls}
+
+
+def _ulp_spread(g1, g2, scale: int) -> tuple:
+    """(max, 99.9th percentile) of |d| of the CPU's ``dense_flow`` when g1
+    moves by one ulp at random pixels: LK's own roundoff sensitivity on
+    these frames (the CPU tests' bar is the larger of this doubled and
+    1e-3 / 1e-4 px on blocky frames)."""
+    want = dense_flow(g1, g2, scale=scale)
+    step = torch.from_numpy(np.random.default_rng(0).choice(
+        [-1.0, 0.0, 1.0], tuple(g1.shape)).astype(np.float32))
+    moved = g1 + step * (torch.nextafter(g1, g1 + 1) - g1)
+    d = (dense_flow(moved, g2, scale=scale) - want).abs().numpy()
+    return float(d.max()), float(np.quantile(d, 0.999))
+
+
+def _flow_checks(dev, scene: Path) -> dict:
+    """(a) the flow step's graph replay against the eager step on the card,
+    bitwise: frames 1 -> 0 and 2 -> 1 at scale 1 (masked), 3 -> 2 at scale
+    2; CUDA events over 20 replays and over 5 eager steps (which the
+    host's launches bound), and from a trace of one call each the sum of
+    its kernels' times, its kernels and the host's launch calls. (b) the card's step against the CPU's on
+    a 256x456 crop of frames 1 and 0: the luma bitwise, the flow within
+    the CPU tests' blocky bar."""
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    frames = [torch.from_numpy(decode_png(scene / "input" / n)).to(dev)
+              for n in names[:4]]
+    masks = [torch.from_numpy((decode_png(scene / "mask_ignore" / n)[..., 0]
+                               > 127).astype(np.uint8)).to(dev)
+             for n in names[:4]]
+    graphs = FlowGraphs()
+    rec = {}
+    for i, scale in ((1, 1), (2, 1), (3, 2)):
+        prev = _device_gray(frames[i - 1])
+        want = _temporal_device_flow(frames[i], prev, masks[i], scale)
+        got = graphs(frames[i], prev, masks[i], scale)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            d = float((got[0] - want[0]).abs().max())
+            raise AssertionError(f"flow graph replay {i} -> {i - 1} scale "
+                                 f"{scale} differs from the eager step "
+                                 f"(max |d| {d}); it must be bitwise")
+        if float(want[0].abs().max()) < 1.0:
+            raise AssertionError(f"flow {i} -> {i - 1}: no motion found")
+        if i == 1 or scale == 2:
+            key = f"scale{scale}"
+            rec[f"graph_ms_{key}"] = time_ms(
+                lambda: graphs(frames[i], prev, masks[i], scale), 20)
+            rec[f"eager_wall_ms_{key}"] = time_ms(
+                lambda: _temporal_device_flow(frames[i], prev, masks[i],
+                                              scale), 5)
+            for name, fn in (("graph", lambda: graphs(
+                    frames[i], prev, masks[i], scale)), ("eager", lambda:
+                    _temporal_device_flow(frames[i], prev, masks[i],
+                                          scale))):
+                tr = _traced(fn)  # the kernels' own time, the launches
+                rec[f"{name}_kernel_ms_{key}"] = tr["device_ms"]
+                rec[f"{name}_calls_{key}"] = tr["launch_calls"]
+                rec[f"{name}_kernels_{key}"] = tr["device_ops"]
+    say("temporal_device", check="a: graph replay vs eager step, "
+        "512x910", pairs="1->0 s1, 2->1 s1, 3->2 s2", bitwise_equal=True,
+        captures=graphs.captures, **{k: (f"{v:.4f}" if isinstance(v, float)
+                                         else v) for k, v in rec.items()})
+    if graphs.captures != 2 or rec["graph_calls_scale1"] >= \
+            rec["eager_calls_scale1"] or rec["eager_calls_scale1"] < 100:
+        raise AssertionError(f"flow graph: {graphs.captures} captures, "
+                             f"launch calls {rec}")
+    # (b) card against CPU
+    f1 = frames[1][100:356, 200:656]
+    f0 = frames[0][100:356, 200:656]
+    for scale in (1, 2):
+        gf, gg = _temporal_device_flow(f1, _device_gray(f0), None, scale)
+        cprev = _device_gray(f0.cpu())
+        cf, cg = _temporal_device_flow(f1.cpu(), cprev, None, scale)
+        spread = _ulp_spread(cg.to(torch.float32) / 255.0,
+                             cprev.to(torch.float32) / 255.0, scale)
+        d = (gf.cpu() - cf).abs().numpy()
+        worst, tail = max(1e-3, 2 * spread[0]), max(1e-4, 2 * spread[1])
+        say("temporal_device", check="b: card vs CPU flow, 256x456",
+            scale=scale, luma_bitwise=torch.equal(gg.cpu(), cg),
+            max_abs_px=f"{d.max():.3g}", p999_px=f"{np.quantile(d, .999):.3g}",
+            bar=f"{worst:.3g}/{tail:.3g}", cpu_ulp_spread=f"{spread[0]:.3g}/"
+            f"{spread[1]:.3g}", bitwise_equal=bool((d == 0).all()))
+        if not torch.equal(gg.cpu(), cg) or d.max() > worst \
+                or np.quantile(d, 0.999) > tail:
+            raise AssertionError(f"card vs CPU flow at scale {scale}: max "
+                                 f"{d.max()}, p99.9 {np.quantile(d, .999)}")
+    return rec
+
+
+def phase_temporal_device(dev, card: str, tmp: Path) -> dict:
+    """The temporal chain with the device flow (``flow_source: device``)
+    through ``process_directory``: the first 12 frames of the
+    serve_directory scene, partial masks with frame 5's missing, the
+    temporal phase's generator. Checks (a) and (b) of ``_flow_checks``;
+    then for each run of ``DEVICE_FLOW_RUNS`` a set-up run, the chain from
+    its start timed with the counters zeroed just before and read just
+    after (19 B1 launches a frame, B2 when tiled; the flow graphs, masked
+    and not, captured in the set-up run and replayed 11 times, never run
+    eagerly), a traced
+    run (device ms, busy share, launch calls a frame) and the files
+    against driving ``_chain_step``, bitwise. At scale 1, (c): the port's
+    flow tool on the card over the 12 frames, its ``flow_bwd`` served in
+    files mode at ``flow_upload: f32``, within 1 count of the device run.
+    Full-frame bf16 also: the chain with the eager flow step, traced beside
+    the graph's, and (d) ``flow_batch`` 3 bitwise equal to 1. Last, (e):
+    the first 4 chain frames of a 200x320 crop at precision 32, card
+    against the CPU, within 1 count."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "optical_flow_torch", REPO / "tools" / "optical_flow_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ckpt = _temporal_ckpt(tmp)
+    scene = _device_flow_scene(tmp / "scene", tmp / "dscene",
+                               TEMPORAL_FRAMES)
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    rec = {"flow": _flow_checks(dev, scene)}
+    t0 = time.perf_counter()
+    rc = tool.main([str(scene / "input"), str(scene / "tool_mask"),
+                    str(scene / "flow_fwd"), str(scene / "flow_bwd"),
+                    "--format", FLOW_FMT, "--device", str(dev)])
+    torch.cuda.synchronize()
+    say("temporal_device", tool="tools/optical_flow_torch.py", rc=rc,
+        frames=TEMPORAL_FRAMES, seconds=f"{time.perf_counter() - t0:.2f}",
+        flow_bwd_files=len(list((scene / "flow_bwd").glob("*.npy"))))
+    if rc != 0 or len(list((scene / "flow_bwd").glob("*.npy"))) != \
+            TEMPORAL_FRAMES - 1:
+        raise AssertionError(f"the flow tool failed ({rc})")
+    device = dict(mask="mask_ignore", flow_source="device",
+                  file_format=FLOW_FMT)
+    launches = {"cluster": 0, "split": 0, "blend": 0}
+    with _without_pil():
+        for mode, prec, scale in DEVICE_FLOW_RUNS:
+            tag = f"{mode}_{prec}_s{scale}"
+            out = tmp / f"td_{tag}"
+            eng = _temporal_engine(prec, scene, out, ckpt, mode, **device,
+                                   flow_scale=scale)
+            eng.process_directory()  # set-up: cuDNN, the flow graph
+            graphs = eng.flow_graphs
+            replays = graphs.replays
+            eng._temporal_prev = eng._temporal_prev_gray = None
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _read_counts()
+            if written != TEMPORAL_FRAMES:
+                raise AssertionError(f"temporal_device {tag}: {written}")
+            _check_counts(f"temporal_device {tag}", counts, TEMPORAL_FRAMES,
+                          mode == "tiled")
+            # one graph with the mask, one without (frame 5), both made
+            # in the set-up run
+            if graphs.captures != 2 or \
+                    graphs.replays - replays != TEMPORAL_FRAMES - 1:
+                raise AssertionError(
+                    f"temporal_device {tag}: {graphs.captures} graph "
+                    f"captures, {graphs.replays - replays} replays in the "
+                    f"timed run (expected 2 and {TEMPORAL_FRAMES - 1})")
+            for k in launches:
+                launches[k] += counts[k]
+            eng._temporal_prev = eng._temporal_prev_gray = None
+            tr = _traced(eng.process_directory)
+            carry, differ, tiles = (None, None), [], 0
+            for name in names:
+                st = eng._load_for_dispatch(
+                    scene / "input" / name, scene / "mask_ignore",
+                    eng._temporal_position(name))
+                tiles += len(st.boxes)
+                eng._await_staged([st])
+                u8, _, carry = eng._chain_step(st.frame, st.mask, st.boxes,
+                                               carry, aux=st.fmask)
+                if not np.array_equal(u8.cpu().numpy(),
+                                      decode_png(out / name)):
+                    differ.append(name)
+            ms = 1e3 * seconds / TEMPORAL_FRAMES
+            r = rec[tag] = {
+                "ms_per_frame": ms, "frames_per_s": 1e3 / ms,
+                "traced_device_ms_per_frame":
+                tr["device_ms"] / TEMPORAL_FRAMES,
+                "busy_share": tr["device_ms"] / tr["wall_ms"],
+                "launch_calls_per_frame":
+                tr["launch_calls"] / TEMPORAL_FRAMES,
+                "device_ops_per_frame": tr["device_ops"] / TEMPORAL_FRAMES,
+                "tiles_per_frame": tiles / TEMPORAL_FRAMES}
+            extra = {}
+            if scale == 1:  # (c) the flow tool's files, served
+                fout = tmp / f"tf_{tag}"
+                _temporal_engine(prec, scene, fout, ckpt, mode,
+                                 mask="mask_ignore", file_format=FLOW_FMT,
+                                 flow_upload="f32").process_directory()
+                worst, differ_px = _compare_dirs(fout, out, names)
+                r["files_vs_device_max_abs"] = extra[
+                    "c_files_vs_device_max_abs"] = worst
+                extra["c_differing_pixels"] = differ_px
+                if worst > 1:
+                    raise AssertionError(f"temporal_device {tag}: the flow "
+                                         f"tool's files served {worst} "
+                                         "counts from the device flow")
+            if (mode, prec, scale) == ("fullframe", "bf16", 1):
+                # (d) flow_batch 3
+                bout = tmp / f"tb_{tag}"
+                _temporal_engine(prec, scene, bout, ckpt, mode, **device,
+                                 flow_batch=3).process_directory()
+                worst, differ_px = _compare_dirs(bout, out, names)
+                extra["d_flow_batch3_vs_1_differing_pixels"] = differ_px
+                if differ_px:
+                    raise AssertionError(f"flow_batch 3 differs from 1 at "
+                                         f"{differ_px} pixels")
+                # the same chain with the same step run eagerly
+                keep, eng.flow_graphs = eng.flow_graphs, _temporal_device_flow
+                try:
+                    eng._temporal_prev = eng._temporal_prev_gray = None
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.process_directory()
+                    torch.cuda.synchronize()
+                    eager_s = time.perf_counter() - t0
+                    eng._temporal_prev = eng._temporal_prev_gray = None
+                    et = _traced(eng.process_directory)
+                finally:
+                    eng.flow_graphs = keep
+                r["eager_flow_ms_per_frame"] = extra[
+                    "eager_flow_ms_per_frame"] = 1e3 * eager_s / TEMPORAL_FRAMES
+                r["eager_flow_launch_calls_per_frame"] = extra[
+                    "eager_flow_launch_calls_per_frame"] = \
+                    et["launch_calls"] / TEMPORAL_FRAMES
+                r["eager_flow_busy_share"] = et["device_ms"] / et["wall_ms"]
+            say("temporal_device", mode=mode, precision=prec,
+                flow_scale=scale, frames=written, ms_per_frame=f"{ms:.2f}",
+                frames_per_s=f"{1e3 / ms:.2f}",
+                device_ms_per_frame=f"{r['traced_device_ms_per_frame']:.2f}",
+                busy_share=f"{r['busy_share']:.3f}",
+                launch_calls_per_frame=f"{r['launch_calls_per_frame']:.1f}",
+                device_ops_per_frame=f"{r['device_ops_per_frame']:.1f}",
+                tiles_per_frame=f"{r['tiles_per_frame']:.1f}",
+                graph_replays=graphs.replays - replays, **{
+                    f"{k}_launches": v for k, v in counts.items()},
+                directory_vs_chain_steps_differing_frames=len(differ),
+                **{k: (f"{v:.2f}" if isinstance(v, float) else v)
+                   for k, v in extra.items()}, card=f"'{card}'")
+            if differ:
+                raise AssertionError(f"temporal_device {tag}: the directory "
+                                     f"run differs from the chain steps at "
+                                     f"{differ}")
+            del eng
+        # (e) the card against the CPU: the first 4 chain frames, a crop
+        small = _device_flow_scene(tmp / "scene", tmp / "dsmall", 4,
+                                   crop=(150, 350, 300, 620))
+        for mode in ("tiled", "fullframe"):
+            outs = {}
+            for device_ in ("cuda", "cpu"):
+                out = tmp / f"dsmall_{mode}_{device_}"
+                _temporal_engine("32", small, out, ckpt, mode,
+                                 device=device_, **device).process_directory()
+                outs[device_] = [decode_png(out / n).astype(int) for n in
+                                 sorted(p.name for p in out.glob("*.png"))]
+            dm = max(int(np.abs(a - b).max())
+                     for a, b in zip(outs["cuda"], outs["cpu"]))
+            say("temporal_device", check="e: card vs CPU, 200x320, 4 "
+                "frames", mode=mode, precision="32", max_abs=dm)
+            if len(outs["cuda"]) != 4 or dm > 1:
+                raise AssertionError(f"temporal_device {mode}: card vs CPU "
+                                     f"{dm} counts apart (limit 1)")
     return {"rec": rec, "launches": launches}
 
 
@@ -1502,12 +1871,13 @@ def main() -> int:
         served = phase_serve_directory(dev, card, Path(tmp))
         full = phase_fullframe(dev, card, Path(tmp), served["rec"])
         chain = phase_temporal(dev, card, Path(tmp))
+        dflow = phase_temporal_device(dev, card, Path(tmp))
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
     rec_in["variants"]["cluster"]["launches"] = launches[
         "instance_norm_act"] + served["launches"]["instance_norm_act"] \
-        + chain["launches"]["cluster"]
+        + chain["launches"]["cluster"] + dflow["launches"]["cluster"]
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
         "instance_norm_act_streaming"]
@@ -1517,21 +1887,27 @@ def main() -> int:
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
              launches=launches["instance_norm_act"]
              + served["launches"]["instance_norm_act"]
-             + chain["launches"]["cluster"] + train["launches"]["forward"],
+             + chain["launches"]["cluster"] + dflow["launches"]["cluster"]
+             + train["launches"]["forward"],
              launches_by_path={"serve": launches["instance_norm_act"],
                                "serve_directory":
                                served["launches"]["instance_norm_act"],
                                "temporal_tiled": chain["launches"]["cluster"],
+                               "temporal_device_tiled":
+                               dflow["launches"]["cluster"],
                                "train": train["launches"]["forward"]},
              dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
         dict(name="instance_norm_act_split", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm_split.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
-             launches=full["launches"]["split"] + chain["launches"]["split"],
+             launches=full["launches"]["split"] + chain["launches"]["split"]
+             + dflow["launches"]["split"],
              launches_by_path={"fullframe": full["launches"]["split"],
                                "temporal_fullframe":
-                               chain["launches"]["split"]},
+                               chain["launches"]["split"],
+                               "temporal_device_fullframe":
+                               dflow["launches"]["split"]},
              dtype="bf16", variant="split",
              note="two launches (statistics, normalize) counted as one",
              per="the 19 sites of one full-frame pass over a 512x912 frame",
@@ -1551,17 +1927,21 @@ def main() -> int:
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",
              launches=launches["blend_tiles"]
-             + served["launches"]["blend_tiles"] + chain["launches"]["blend"],
+             + served["launches"]["blend_tiles"] + chain["launches"]["blend"]
+             + dflow["launches"]["blend"],
              launches_by_path={"serve": launches["blend_tiles"],
                                "serve_directory":
                                served["launches"]["blend_tiles"],
-                               "temporal_tiled": chain["launches"]["blend"]},
+                               "temporal_tiled": chain["launches"]["blend"],
+                               "temporal_device_tiled":
+                               dflow["launches"]["blend"]},
              per="one group of 3 512x910 frames", **rec_bl),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels, "train": train["rec"],
                       "serve_directory": served["rec"],
-                      "fullframe": full["rec"], "temporal": chain["rec"]}),
+                      "fullframe": full["rec"], "temporal": chain["rec"],
+                      "temporal_device": dflow["rec"]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -115,11 +115,16 @@ def image_bands(path: Union[str, Path]) -> int:
                          lambda img: len(img.getbands()))
 
 
+def load_luma(path: Union[str, Path]) -> np.ndarray:
+    """(H, W) uint8 as PIL's ``convert("L")`` of the file."""
+    return _codec_or_pil(path, to_luma,
+                         lambda img: np.asarray(img.convert("L")))
+
+
 def load_mask(path: Union[str, Path],
               binarize_threshold: int = 128) -> np.ndarray:
     """(H, W) float32 mask in {0, 1}: grayscale > threshold."""
-    luma = _codec_or_pil(path, to_luma,
-                         lambda img: np.asarray(img.convert("L")))
+    luma = load_luma(path)
     return (luma.astype(np.float32) > binarize_threshold).astype(np.float32)
 
 

@@ -4,7 +4,8 @@ Counterpart of ``patch_toon_tpu/infer/engine.py::StyleTransferInference``
 in ``tiled`` mode (the reference's semantics, the default) and
 ``fullframe`` mode (one generator pass over each whole frame, JAX
 ``engine.py:447-456``; a group is one frame), each alone or with the
-temporal guide chain reading its flows from files (``infer/temporal.py``).
+temporal guide chain, its flows read from files or computed on the device
+(``infer/temporal.py``).
 ``process_directory`` streams a directory of frames as
 the JAX engine does (``engine.py:669-834``): two prefetch threads decode
 each frame with its guide channels (the port's native PNG codec), erode its
@@ -38,14 +39,15 @@ and the smoother BatchNorm stay fp32, as in JAX.
 
 Not ported yet, and refused by name (``NotImplementedError``): precision
 ``32_fast``, ``quantize=int8``, ``file_shard``, ``devices`` other than 1,
-``temporal.flow_source=device``, the multi-stream temporal layout (a
-subdirectory per video) and ``watch.enabled``; a mode other than tiled and
+the multi-stream temporal layout (a subdirectory per video) and
+``watch.enabled``; a mode other than tiled and
 fullframe raises ``ValueError``. ``readback_streams`` sets the pipeline's
 in-flight window (its value plus 2 frames, the JAX rule). ``upload`` is
 validated as JAX does and decides ``temporal.flow_upload: auto`` (f16
 unless it resolves to f32), which rounds the flows; otherwise it and the
 other transport knobs (``crop_readback``, ``crop_upload``, ``mask_upload``,
-``xla_options``) change no output in the JAX package and are no-ops here.
+``xla_options``) change no output in the JAX package and are no-ops here:
+the device flow's mask goes up as a dense uint8 plane.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from patch_toon_tpu_torch.data.io import (
     decode_rgb_uint8,
     find_corresponding_image,
     image_bands,
+    load_luma,
     load_mask,
 )
 from patch_toon_tpu_torch.infer.common import HostSpans, _image_files
@@ -155,12 +158,6 @@ def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"inference.devices={inf.get('devices')!r} is not ported yet "
             "(one device)")
-    tcfg = inf.get("temporal") or {}
-    if bool(tcfg.get("enabled", False)) and \
-            str(tcfg.get("flow_source", "files")).lower() == "device":
-        raise NotImplementedError(
-            "inference.temporal.flow_source='device' (the on-device flow) "
-            "is not ported yet (flow_source=files)")
     if bool((inf.get("watch") or {}).get("enabled", False)):
         raise NotImplementedError(
             "inference.watch.enabled=true is not ported yet")
@@ -169,7 +166,7 @@ def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
 def _parse_temporal(eng, inf: Dict[str, Any]) -> None:
     """The temporal knobs, parsed and checked as the JAX engine does
     (``engine.py:108-160, 205-221, 234-250``); flow_scale and flow_batch
-    serve the device flow only and are checked, not used."""
+    serve the device flow only (``flow_batch: auto`` is 1, as in JAX)."""
     tcfg = inf.get("temporal") or {}
     eng.temporal_enabled = bool(tcfg.get("enabled", False))
     eng.temporal_flow_dir = tcfg.get("flow_dir")
@@ -350,7 +347,7 @@ class StyleTransferInference(TemporalChain):
         stream = torch.cuda.current_stream(self.device)
         for s in group:
             stream.wait_event(s.ready)
-            for t in (s.frame, s.mask, s.flow):
+            for t in (s.frame, s.mask, s.flow, s.fmask):
                 if t is not None:
                     t.record_stream(stream)
 
@@ -469,22 +466,38 @@ class StyleTransferInference(TemporalChain):
             flow = flow.astype(np.float16)
         return flow
 
+    def load_flow_mask(self, input_path: Path,
+                       mask_dir: Path) -> Optional[np.ndarray]:
+        """The device flow's mask of a frame, (H, W) uint8 {0, 1}: the
+        flow tool's rule (luma > 127; JAX ``temporal.py:327-344``), apart
+        from the composite mask's > 128; None when the frame has no mask
+        file (unmasked flow)."""
+        resolved = find_corresponding_image(mask_dir, input_path.name)
+        if not os.path.exists(resolved):
+            return None
+        return (load_luma(resolved) > 127).astype(np.uint8)
+
     def _load_for_dispatch(self, input_path: Path, mask_dir: Path,
                            position: Optional[int] = None) -> Staged:
         """Decode, erode, place tiles (none in fullframe mode) and stage
         one frame for dispatch, on a prefetch thread (JAX
         ``engine.py:623-667`` without the crop window); with a stream
-        ``position`` (the temporal chain) its flow file too. On a CUDA
-        device the frame, its mask and its flow go up through pinned
-        buffers on the engine's copy stream; on the CPU they stay host
-        tensors."""
+        ``position`` (the temporal chain) its flow file too, or with the
+        device flow its raw flow mask. On a CUDA device the frame, its
+        mask and its flow or flow mask go up through pinned buffers on the
+        engine's copy stream; on the CPU they stay host tensors."""
         spans = self.spans
+        device_flow = self.temporal_flow_source == "device"
+        flow = fmask = None
         with spans("host/decode"):
             parts = self.load_frame_parts(input_path)
-            flow = None if position is None else self.load_flow(position)
+            if position is not None and not device_flow:
+                flow = self.load_flow(position)
         hw = parts[0].shape[:2]
         with spans("host/mask"):
             mask = self.load_eroded_mask(mask_dir / input_path.name, hw)
+            if position is not None and device_flow:
+                fmask = self.load_flow_mask(input_path, mask_dir)
         with spans("host/tile_placement"):
             boxes = [] if self.mode == "fullframe" \
                 else self.boxes_for(mask, hw)
@@ -496,13 +509,17 @@ class StyleTransferInference(TemporalChain):
             mask_d, ready = stage_upload([self._mask_tensor(mask, hw)],
                                          self.device, self.upload_pools,
                                          self.copy_stream)
-            flow_d = None
+            flow_d = fmask_d = None
             if flow is not None:
                 flow_d, ready = stage_upload([flow], self.device,
                                              self.upload_pools,
                                              self.copy_stream)
+            if fmask is not None:
+                fmask_d, ready = stage_upload([fmask], self.device,
+                                              self.upload_pools,
+                                              self.copy_stream)
         return Staged(frame_d, mask_d, ready, boxes, input_path, position,
-                      flow_d)
+                      flow_d, fmask_d)
 
     def _detect_streams(self, input_dir: Path) -> List[str]:
         """The multi-stream temporal layout (JAX ``multistream.py:42-52``):
@@ -616,39 +633,72 @@ class StyleTransferInference(TemporalChain):
                                     pipe: GroupPipeline,
                                     writer: FrameWriter) -> int:
         """The temporal chain over ``files`` (JAX
-        ``_process_directory_temporal``, files mode): each frame's stream
-        position is taken on this thread in file order, its decode, flow
+        ``_process_directory_temporal``): each frame's stream position is
+        taken on this thread in file order, its decode, flow or flow mask
         and upload run ahead on the prefetch threads, then
         :meth:`_chain_step` and the pipeline's readback, which drains while
-        later frames run. A frame that fails is named and restarts the
-        chain; the carry is kept on the engine for the next call, also on
-        an interrupt."""
-        prev = self._temporal_prev
+        later frames run. With the device flow and ``flow_batch`` K > 1,
+        the flows of the next K frames (up to a failed decode or a change
+        of shape) are computed ahead against the chain's luma, one graph
+        replay each: flows depend on the input frames only. A frame that
+        fails is named and restarts the chain; the carry is kept on the
+        engine for the next call, also on an interrupt."""
+        prev, prev_gray = self._temporal_prev, self._temporal_prev_gray
+        device_flow = self.temporal_flow_source == "device"
+        lookahead = self.temporal_flow_batch if device_flow else 1
+        depth = max(PREFETCH, lookahead)
         pool = ThreadPoolExecutor(max_workers=PREFETCH_THREADS)
         futures: Dict[Path, Any] = {}
+        fcache: Dict[int, Any] = {}  # loop index -> (flow, luma) ahead
 
         def submit(path: Path) -> None:
             futures[path] = pool.submit(
                 self._load_for_dispatch, path, mask_dir,
                 self._temporal_position(path.name))
 
+        def window_flows(i: int, first: Staged, pg) -> None:
+            ents = [first]
+            for path in files[i + 1:i + lookahead]:
+                try:
+                    st = futures[path].result()
+                except Exception:
+                    break  # that frame's own turn names the error
+                if st.frame.shape != first.frame.shape:
+                    break
+                ents.append(st)
+            if len(ents) < 2:
+                return
+            self._await_staged(ents)
+            with self.spans("host/flow"):
+                for t, st in enumerate(ents):
+                    fcache[i + t] = self.flow_graphs(
+                        st.frame, pg, st.fmask, self.temporal_flow_scale)
+                    pg = fcache[i + t][1]
+
         try:
-            for path in files[:PREFETCH]:
+            for path in files[:depth]:
                 submit(path)
             for i, path in enumerate(files):
-                if i + PREFETCH < len(files):
-                    submit(files[i + PREFETCH])
+                if i + depth < len(files):
+                    submit(files[i + depth])
                 try:
                     with self.spans("host/load_wait"):
                         staged = futures.pop(path).result()
                     self._await_staged([staged])
-                    u8, _, (prev, _) = self._chain_step(
-                        staged.frame, staged.mask, staged.boxes, (prev, None),
-                        aux=staged.flow,
+                    flow_hit = fcache.pop(i, None)
+                    if flow_hit is None and lookahead > 1 \
+                            and prev_gray is not None:
+                        window_flows(i, staged, prev_gray)
+                        flow_hit = fcache.pop(i, None)
+                    u8, _, (prev, prev_gray) = self._chain_step(
+                        staged.frame, staged.mask, staged.boxes,
+                        (prev, prev_gray),
+                        aux=staged.fmask if device_flow else staged.flow,
+                        flow_hit=flow_hit,
                         label=self._flow_label(staged.position))
                 except Exception as e:
                     self.logger.error(f"Failed to process {path.name}: {e}")
-                    prev = None  # restart the chain
+                    prev = prev_gray = None  # restart the chain
                     continue
                 try:
                     pipe.submit([staged], u8[None])
@@ -658,6 +708,7 @@ class StyleTransferInference(TemporalChain):
                     self.logger.error(f"Readback failed: {e}")
         finally:
             self._temporal_prev = prev
+            self._temporal_prev_gray = prev_gray
             pool.shutdown(wait=True, cancel_futures=True)
             failed = self._finish(pipe, writer)
         return pipe.submitted - failed

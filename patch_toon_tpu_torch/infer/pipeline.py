@@ -39,8 +39,9 @@ class Staged:
     """One frame ready for dispatch: (H, W, C) uint8 and its (H, W, 1)
     mask (uint8 when it is {0, 1}, else fp32) on the engine's device, the
     copies' event (None on the CPU), its tile boxes, its input path and,
-    in a temporal chain, its stream position and (H, W, 2) backward flow
-    (None when missing)."""
+    in a temporal chain, its stream position and either its (H, W, 2)
+    backward flow (flows from files) or its (H, W) uint8 raw flow mask (the
+    device flow); None when missing."""
 
     frame: torch.Tensor
     mask: torch.Tensor
@@ -49,6 +50,7 @@ class Staged:
     path: Path
     position: Optional[int] = None
     flow: Optional[torch.Tensor] = None
+    fmask: Optional[torch.Tensor] = None
 
 
 class PinnedPool:

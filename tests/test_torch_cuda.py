@@ -606,12 +606,14 @@ def test_process_directory_on_cuda_equals_stylize_group(cuda, tmp_path,
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,temporal", [("fullframe", False),
                                            ("fullframe", True),
-                                           ("tiled", True)])
+                                           ("tiled", True),
+                                           ("fullframe", "device")])
 def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
         cuda, tmp_path, mode, temporal):
     """``process_directory`` on the card at precision 32 writes the frames
     of the same engine on the CPU within 1 count: full-frame mode and the
-    temporal chain with flows from files (one missing) in both modes. One
+    temporal chain with flows from files (one missing) in both modes, and
+    with the device flow (one graph captured, replayed each frame). One
     B1 launch a site and frame (7 sites at one residual block), never the
     streaming variant; in full-frame mode the 192x256 stem plane goes to
     the split variant and no B2 runs, tiled one B2 launch a frame."""
@@ -640,8 +642,11 @@ def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
     if temporal:
         inf["temporal"] = {"enabled": True, "depth": 3,
                            "flow_dir": str(scene / "flow_bwd")}
+    if temporal == "device":
+        inf["temporal"]["flow_source"] = "device"
     outs = {}
     counts = {}
+    graphs = {}
     for device in ("cuda", "cpu"):
         cfg = inference_config(
             paths={"checkpoint": str(tmp_path / "gen.ckpt"),
@@ -657,13 +662,16 @@ def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
         fns = {**VARIANTS, "split": instance_norm_act_split,
                "blend": blend.blend_tiles}
         before = {k: f.launches for k, f in fns.items()}
-        assert StyleTransferInference(cfg, device=device) \
-            .process_directory() == 6
+        eng = StyleTransferInference(cfg, device=device)
+        assert eng.process_directory() == 6
         torch.cuda.synchronize()
+        graphs[device] = (eng.flow_graphs.captures, eng.flow_graphs.replays)
         counts[device] = {k: f.launches - before[k] for k, f in fns.items()}
         outs[device] = {p.name: decode_png(p).astype(int)
                         for p in sorted((tmp_path / device).glob("*.png"))}
     assert counts["cpu"] == {k: 0 for k in counts["cpu"]}
+    assert graphs["cpu"] == (0, 0)
+    assert graphs["cuda"] == ((1, 5) if temporal == "device" else (0, 0))
     got = counts["cuda"]
     assert got["cluster"] + got["split"] == 7 * 6 and got["streaming"] == 0
     if mode == "tiled":
@@ -673,3 +681,73 @@ def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
     assert outs["cuda"].keys() == outs["cpu"].keys() and len(outs["cpu"]) == 6
     for name, want in outs["cpu"].items():
         assert np.abs(outs["cuda"][name] - want).max() <= 1, name
+
+
+def _flow_pair(h, w, seed):
+    """Two (H, W, 3) uint8 frames of flat 10x10 squares, the second moved
+    by (3, -2) px, and a partial (H, W) uint8 mask."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (h // 10 + 3, w // 10 + 3, 3),
+                          dtype=np.uint8)
+    big = np.repeat(np.repeat(coarse, 10, 0), 10, 1)
+    mask = np.zeros((h, w), np.uint8)
+    mask[h // 8:-h // 8, w // 8:-w // 4] = 1
+    return (np.ascontiguousarray(big[4:4 + h, 4:4 + w]),
+            np.ascontiguousarray(big[6:6 + h, 1:1 + w]), mask)
+
+
+@pytest.mark.cuda
+def test_flow_graph_replay_is_bitwise_the_eager_step(cuda):
+    """The flow step as a replayed CUDA graph equals the eager step on the
+    card bit for bit: two frame pairs at scale 1 (masked, then not) and one
+    at scale 2, one graph a (shape, scale, mask) and its replays not
+    disturbing each other's outputs."""
+    from patch_toon_tpu_torch.infer.temporal import (
+        FlowGraphs,
+        _device_gray,
+        _temporal_device_flow,
+    )
+
+    graphs = FlowGraphs()
+    outs = []
+    for seed, scale, masked in ((0, 1, True), (1, 1, False), (2, 2, True)):
+        f1, f2, mask = _flow_pair(256, 456, seed)
+        f1, f2, mask = (torch.from_numpy(a).to(cuda) for a in (f1, f2, mask))
+        prev = _device_gray(f2)
+        fm = mask if masked else None
+        want = _temporal_device_flow(f1, prev, fm, scale)
+        got = graphs(f1, prev, fm, scale)
+        outs.append((got, want))
+        again = graphs(f1, prev, fm, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], got[0])
+    for (gf, gg), (wf, wg) in outs:
+        assert torch.equal(gg, wg) and torch.equal(gf, wf)
+        assert gf.abs().max() > 1.0  # the motion is there
+    assert graphs.captures == 3 and graphs.replays == 6
+
+
+@pytest.mark.cuda
+def test_flow_on_cuda_matches_the_cpu(cuda):
+    """The card's flow step against the CPU's on a blocky 256x456 pair at
+    scale 1 and 2: the luma bitwise, the flow within the CPU tests' blocky
+    bars (1e-3 px max, 1e-4 px at the 99.9th percentile) or twice LK's own
+    one-ulp spread where that is larger."""
+    from chip_smoke import _ulp_spread
+    from patch_toon_tpu_torch.infer.temporal import _temporal_device_flow
+    from patch_toon_tpu_torch.ops.flow import pil_gray
+
+    f1, f2, _ = _flow_pair(256, 456, 3)
+    prev = pil_gray(torch.from_numpy(f2))
+    for scale in (1, 2):
+        cf, cg = _temporal_device_flow(torch.from_numpy(f1), prev, None,
+                                       scale)
+        gf, gg = _temporal_device_flow(torch.from_numpy(f1).to(cuda),
+                                       prev.to(cuda), None, scale)
+        assert torch.equal(gg.cpu(), cg)
+        spread = _ulp_spread(cg.to(torch.float32) / 255.0,
+                             prev.to(torch.float32) / 255.0, scale)
+        d = (gf.cpu() - cf).abs().numpy()
+        worst, tail = max(1e-3, 2 * spread[0]), max(1e-4, 2 * spread[1])
+        assert d.max() <= worst and np.quantile(d, 0.999) <= tail, (
+            scale, float(d.max()), float(np.quantile(d, 0.999)), spread)

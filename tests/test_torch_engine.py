@@ -127,13 +127,17 @@ def test_engine_refusals(scene, tmp_path):
     eng = _engine(scene, tmp_path, "inference.temporal.enabled=true",
                   "paths.additional_channels={}")
     assert eng.temporal_enabled and eng.total_channels == 6
+    # and with the flow computed on the device
+    assert _engine(scene, tmp_path, "inference.temporal.enabled=true",
+                   "paths.additional_channels={}",
+                   "inference.temporal.flow_source=device"
+                   ).temporal_flow_source == "device"
     # knobs the JAX engine acts on and the port does not yet: each is named
     for override, knob in [
             ("inference.quantize=int8", "quantize"),
             ("inference.file_shard=0/2", "file_shard"),
             ("inference.devices=2", "devices"),
             ("inference.devices=-1", "devices"),
-            ("inference.temporal.flow_source=device", "flow_source"),
             ("inference.watch.enabled=true", "watch.enabled")]:
         with pytest.raises(NotImplementedError, match=knob):
             _engine(scene, tmp_path, override,
@@ -259,7 +263,8 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                           r"(?!_torch)\b)", re.M)
     top = re.compile(r"^(from|import)\s+(PIL|yaml|tqdm)\b", re.M)
     files = sorted((REPO / "patch_toon_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "generator_torch.py"]
+        REPO / "chip_smoke.py", REPO / "generator_torch.py",
+        REPO / "tools" / "optical_flow_torch.py"]
     offenders = [str(f) for f in files
                  if anywhere.search(f.read_text()) or top.search(f.read_text())]
     assert not offenders, offenders

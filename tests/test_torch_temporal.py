@@ -10,7 +10,12 @@ from the host's IEEE values by an ulp). The chain through
 missing, and the broken chain without a flow_dir; tiled and fullframe;
 precision 32) is held within 1 uint8 count of the JAX engine on the same
 torch checkpoint, and the port's own loop bitwise to driving
-``_chain_step`` directly and to a chain split over two calls.
+``_chain_step`` directly and to a chain split over two calls. The chain
+with the device flow (``flow_source: device``; partial masks in a
+``mask_ignore`` directory, with a band of luma 128 that the flow mask keeps
+and the composite mask drops, and one frame's mask missing) is held within
+1 count of the JAX engine, tiled and fullframe, at flow_scale 1 and 2;
+``flow_batch`` 3 and a chain split over two calls bitwise to one call.
 """
 
 import logging
@@ -37,6 +42,7 @@ from patch_toon_tpu_torch.utils.weights import generator_state_from_jax
 REPO = pathlib.Path(__file__).resolve().parents[1]
 N, H, W = 5, 48, 64
 MISSING = 2  # the frame whose flow file is left out
+NO_MASK = 3  # the frame whose mask is left out of mask_ignore
 
 
 def test_warp_image_matches_jax():
@@ -90,8 +96,11 @@ def scene(tmp_path_factory):
     checkpoint taking 3 + 3 channels."""
     root = tmp_path_factory.mktemp("torch_temporal")
     rng = np.random.default_rng(3)
-    for sub in ("input", "mask", "flow_bwd"):
+    for sub in ("input", "mask", "flow_bwd", "mask_ignore"):
         (root / sub).mkdir()
+    partial = np.zeros((H, W), np.uint8)
+    partial[6:42, 4:50] = 255
+    partial[6:42, 50:58] = 128  # in the flow mask (> 127), not the composite
     bg = (rng.random((H, W, 3)) * 160).astype(np.uint8)
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     for i in range(N):
@@ -102,6 +111,8 @@ def scene(tmp_path_factory):
         Image.fromarray(frame).save(root / "input" / f"{i:03d}.png")
         Image.fromarray(np.full((H, W), 255, np.uint8)).save(
             root / "mask" / f"{i:03d}.png")
+        if i != NO_MASK:
+            Image.fromarray(partial).save(root / "mask_ignore" / f"{i:03d}.png")
         a, b = rng.random(2) * 2 * np.pi
         flow = np.stack([-5.0 + 1.5 * np.sin(yy / 9 + a),
                          0.8 * np.cos(xx / 11 + b)], -1).astype(np.float32)
@@ -257,3 +268,77 @@ def test_flow_upload_follows_the_jax_rule(scene, tmp_path, precision, upload,
 def test_temporal_knobs_are_validated(scene, tmp_path, override, knob):
     with pytest.raises(ValueError, match=knob):
         _port(scene, tmp_path, override)
+
+
+def _device(root, *extra):
+    return [f"paths.mask_dir={root / 'mask_ignore'}",
+            "inference.temporal.flow_source=device", *extra]
+
+
+@pytest.mark.parametrize("mode,scale", [("tiled", 1), ("fullframe", 1),
+                                        ("fullframe", 2)])
+def test_device_flow_chain_matches_jax_engine(scene, tmp_path, mode, scale):
+    """``flow_source: device``: each frame within 1 count of the JAX engine
+    at ``flow_source: device`` (the flow against the previous frame's
+    luma, zeroed outside the raw mask; frame NO_MASK's flow unmasked)."""
+    from patch_toon_tpu.config import compose as jax_compose
+    from patch_toon_tpu.infer import StyleTransferInference as JaxEngine
+
+    over = [f"inference.mode={mode}",
+            f"inference.temporal.flow_scale={scale}"]
+    JaxEngine(jax_compose(REPO / "config", "inference", overrides=[
+        *_overrides(scene, tmp_path / "jax", *over), *_device(scene)])
+    ).process_directory(progress=False)
+    eng = _port(scene, tmp_path / "port", *over, *_device(scene))
+    assert eng.temporal_flow_source == "device"
+    assert eng.process_directory() == N
+    want, got = _read(tmp_path / "jax"), _read(tmp_path / "port")
+    assert len(got) == N and got.keys() == want.keys()
+    for name in want:
+        d = np.abs(got[name] - want[name])
+        assert d.max() <= 1, (mode, scale, name, d.max())
+    assert eng._temporal_prev_gray is not None
+    assert eng.flow_graphs.captures == 0  # the CPU runs the step eagerly
+
+
+def test_device_flow_loop_windows_and_split_calls(scene, tmp_path):
+    """The device-flow chain through ``process_directory`` writes what
+    driving ``_chain_step`` over the engine's own staging gives, bitwise;
+    ``flow_batch`` 3 (flows computed ahead) and the chain split over two
+    calls (the carry and the luma kept on the engine) write the same
+    files; a missing flow mask stages as None and serves the unmasked
+    flow (the same step as an all-ones mask)."""
+    files = sorted((scene / "input").glob("*.png"))
+    runs = {}
+    for name, extra, calls in (
+            ("one", [], [files]),
+            ("batch3", ["inference.temporal.flow_batch=3"], [files]),
+            ("split", [], [files[:2], files[2:]])):
+        eng = _port(scene, tmp_path / name, "inference.mode=fullframe",
+                    *_device(scene, *extra))
+        assert sum(eng.process_directory(files=c) for c in calls) == N
+        runs[name] = _read(tmp_path / name)
+    for name in ("batch3", "split"):
+        assert runs[name].keys() == runs["one"].keys()
+        for k, want in runs["one"].items():
+            np.testing.assert_array_equal(runs[name][k], want, (name, k))
+    direct = _port(scene, tmp_path / "direct", "inference.mode=fullframe",
+                   *_device(scene))
+    carry = (None, None)
+    for i, p in enumerate(files):
+        st = direct._load_for_dispatch(p, scene / "mask_ignore",
+                                       direct._temporal_position(p.name))
+        assert st.flow is None and (st.fmask is None) == (i == NO_MASK)
+        if st.fmask is not None:
+            luma = np.asarray(Image.open(scene / "mask_ignore" / p.name))
+            np.testing.assert_array_equal(st.fmask.numpy(), luma > 127)
+        if i == NO_MASK:
+            ones = torch.ones((H, W), dtype=torch.uint8)
+            with_ones = direct._chain_step(st.frame, st.mask, st.boxes,
+                                           carry, aux=ones)[0]
+        u8, _, carry = direct._chain_step(st.frame, st.mask, st.boxes,
+                                          carry, aux=st.fmask)
+        np.testing.assert_array_equal(u8.numpy(), runs["one"][p.name])
+        if i == NO_MASK:
+            assert torch.equal(u8, with_ones)
+        assert carry[1].dtype == torch.uint8 and carry[1].shape == (H, W)

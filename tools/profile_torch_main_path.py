@@ -7,6 +7,7 @@ CUDA card.
     python3 tools/profile_torch_main_path.py --dir [--frames 36] [--out FILE]
     python3 tools/profile_torch_main_path.py --fullframe [--frames 36]
     python3 tools/profile_torch_main_path.py --temporal [--out FILE]
+    python3 tools/profile_torch_main_path.py --temporal --device-flow
 
 Builds ``patch_toon_tpu_torch``'s engine at full width (the weights of
 docs/quality_2000/torch_train.ckpt, 6 input channels) for precision bf16 and
@@ -53,7 +54,14 @@ With ``--temporal`` it serves the temporal chain with flows from files:
 ``chip_smoke.py``'s temporal scene (12 frames, one flow missing) and a
 full-width generator taking 6 + 3 channels with seeded weights, tiled and
 fullframe: ms a frame by host clock, then a traced run's device ms a frame
-by category, busy share and host split.
+by category, busy share and host split. ``--device-flow`` serves it with the
+flow computed on the device instead (``flow_source: device``;
+``chip_smoke.py``'s temporal_device scene: partial masks, one missing; the
+runs of its ``DEVICE_FLOW_RUNS``, flow_scale 1 and 2): the flow step is its
+own device category (the kernels of one flow step traced alone, times the
+chain's steps: the profiler links a graph's kernels to no host op), and
+each record adds the host's launch calls a frame (kernels, graph launches,
+asynchronous copies).
 
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
@@ -77,6 +85,7 @@ sys.path.insert(0, str(ROOT))
 from patch_toon_tpu_torch.config.defaults import inference_config  # noqa
 from patch_toon_tpu_torch.infer import engine as engine_mod  # noqa: E402
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference  # noqa
+from patch_toon_tpu_torch.infer.temporal import _device_gray  # noqa: E402
 from patch_toon_tpu_torch.ops.instance_norm import InstanceNormAct  # noqa
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np  # noqa
 from patch_toon_tpu_torch.train import optim  # noqa: E402
@@ -125,9 +134,10 @@ def _train_category(name: str) -> str:
     return c
 
 
-def _device_split(prof, steady: int, category) -> tuple:
+def _device_split(prof, steady: int, category, carve=None) -> tuple:
     """-> (device ms, launches, ms by category, top 15 kernels), each per
-    step or group, from a finished trace."""
+    step or group, from a finished trace. ``carve`` (category -> {kernel
+    name: us}) moves those kernels' time out of their name's category."""
     by_kernel, launches = {}, 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA \
@@ -141,9 +151,15 @@ def _device_split(prof, steady: int, category) -> tuple:
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us
             launches += ev.count
     cats = {}
+    moved = {}
+    for c, kernels in (carve or {}).items():
+        for k, us in kernels.items():
+            moved[k] = moved.get(k, 0.0) + us
+        cats[c] = sum(kernels.values()) / 1e3 / steady
     for k, us in by_kernel.items():
         c = category(k)
-        cats[c] = cats.get(c, 0.0) + us / 1e3 / steady
+        cats[c] = cats.get(c, 0.0) + max(0.0, us - moved.get(k, 0.0)) \
+            / 1e3 / steady
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]
     return (sum(by_kernel.values()) / 1e3 / steady, launches / steady, cats,
             [[k[:90], us / 1e3 / steady] for k, us in top])
@@ -427,75 +443,126 @@ def _dir_records(n_frames: int, card: str, mode: str = "tiled") -> list:
     return records
 
 
-def _temporal_records(card: str) -> list:
-    """The temporal chain (flows from files) through ``process_directory``:
-    ``chip_smoke.py``'s temporal scene (12 frames of 512x910, seeded smooth
-    flows, one missing) and a full-width generator taking 6 + 3 channels
-    with seeded weights, tiled and fullframe, bf16 and 32: a set-up run,
-    a timed run of the chain from its start (ms a frame), then a traced
-    one (device ms a frame by category, busy share, host split)."""
+def _flow_step_kernels(eng, scene: pathlib.Path, names) -> dict:
+    """{kernel name: device us} of one flow step as the chain runs it (the
+    graph's replay with its input and output copies), frame 1 against
+    frame 0, traced alone: the profiler links a graph's kernels to no
+    host op, so the chain's trace cannot tell them from the rest."""
+    st0, st1 = (eng._load_for_dispatch(scene / "input" / n,
+                                       scene / "mask_ignore", i)
+                for i, n in enumerate(names[:2]))
+    eng._await_staged([st0, st1])
+    prev = _device_gray(st0.frame)
+
+    def step():
+        eng.flow_graphs(st1.frame, prev, st1.fmask, eng.temporal_flow_scale)
+
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                out[ev.key] = out.get(ev.key, 0.0) + us
+    return out
+
+
+def _temporal_records(card: str, device_flow: bool = False) -> list:
+    """The temporal chain through ``process_directory``: flows from files
+    (``chip_smoke.py``'s temporal scene: 12 frames of 512x910, seeded
+    smooth flows, one missing), or with ``device_flow`` computed on the
+    device (its temporal_device scene and runs), with a full-width
+    generator taking 6 + 3 channels with seeded weights, tiled and
+    fullframe, bf16 and 32: a set-up run, a timed run of the chain from its
+    start (ms a frame), then a traced one (device ms a frame by category,
+    the flow its own, busy share, host split, launch calls)."""
     import tempfile
 
     from chip_smoke import (
+        DEVICE_FLOW_RUNS,
+        FLOW_FMT,
+        LAUNCH_CALLS,
         TEMPORAL_FRAMES,
+        _device_flow_scene,
+        _temporal_ckpt,
         _temporal_engine,
         _temporal_scene,
         write_scene,
     )
-    from patch_toon_tpu_torch.models.generator import GeneratorJ
 
     records = []
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         write_scene(tmp / "base", TEMPORAL_FRAMES, H, W)
-        scene = _temporal_scene(tmp / "base", tmp / "scene", TEMPORAL_FRAMES)
-        torch.manual_seed(9)
-        args = dict(inference_config()["model"]["generator"]["args"])
-        args["input_channels"] = 9
-        gen = GeneratorJ(**args)
-        with torch.no_grad():
-            for p in gen.parameters():
-                p.add_(torch.randn_like(p) * 0.02)
-        ckpt = tmp / "temporal.ckpt"
-        torch.save({"state_dict": {f"generator.{k}": v for k, v in
-                                   gen.state_dict().items()}}, ckpt)
-        for mode in ("tiled", "fullframe"):
-            for prec in ("bf16", "32"):
-                eng = _temporal_engine(prec, scene, tmp / f"out_{mode}{prec}",
-                                       ckpt, mode)
-                eng.process_directory()  # set-up
-                eng._temporal_prev = None
-                eng.spans.reset()
-                torch.cuda.synchronize()
+        if device_flow:
+            scene = _device_flow_scene(tmp / "base", tmp / "scene",
+                                       TEMPORAL_FRAMES)
+            runs = DEVICE_FLOW_RUNS
+            extra = dict(mask="mask_ignore", flow_source="device",
+                         file_format=FLOW_FMT)
+        else:
+            scene = _temporal_scene(tmp / "base", tmp / "scene",
+                                    TEMPORAL_FRAMES)
+            runs = [(m, p, 1) for m in ("tiled", "fullframe")
+                    for p in ("bf16", "32")]
+            extra = {}
+        ckpt = _temporal_ckpt(tmp)
+        for mode, prec, scale in runs:
+            eng = _temporal_engine(prec, scene, tmp / f"out_{mode}{prec}",
+                                   ckpt, mode, flow_scale=scale, **extra)
+            eng.process_directory()  # set-up
+            eng._temporal_prev = eng._temporal_prev_gray = None
+            eng.spans.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = eng.process_directory()
+            seconds = time.perf_counter() - t0
+            spans = _spans_per_group(eng, n)
+            eng._temporal_prev = eng._temporal_prev_gray = None
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
                 t0 = time.perf_counter()
-                n = eng.process_directory()
-                seconds = time.perf_counter() - t0
-                spans = _spans_per_group(eng, n)
-                eng._temporal_prev = None
-                acts = [torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]
-                with torch.profiler.profile(activities=acts) as prof:
-                    t0 = time.perf_counter()
-                    eng.process_directory()
-                    torch.cuda.synchronize()
-                    wall_ms = 1e3 * (time.perf_counter() - t0)
-                device_ms, launches, cats, top = _device_split(prof, n,
-                                                               _category)
-                rec = {"precision": prec, "card": card, "mode": mode,
-                       "entry": "process_directory (temporal, files)",
-                       "frames": n, "ms_per_frame": 1e3 * seconds / n,
-                       "frames_per_s": n / seconds,
-                       "host_ms_per_frame_by_step": spans,
-                       "traced_wall_ms_per_frame": wall_ms / n,
-                       "device_ms_per_frame": device_ms,
-                       "device_busy_share": device_ms * n / wall_ms,
-                       "kernel_launches_per_frame": launches,
-                       "device_ms_per_frame_by_category": cats,
-                       "top_kernels_ms_per_frame": top}
-                records.append(rec)
-                print(json.dumps(rec), flush=True)
-                del eng
-                torch.cuda.empty_cache()
+                eng.process_directory()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            carve = None
+            if device_flow:  # n - 1 flow steps in the traced run
+                one = _flow_step_kernels(eng, scene, sorted(
+                    p.name for p in (scene / "input").glob("*.png")))
+                carve = {"flow": {k: us * (n - 1) for k, us in one.items()}}
+            device_ms, launches, cats, top = _device_split(prof, n, _category,
+                                                           carve)
+            calls = sum(ev.count for ev in prof.key_averages()
+                        if ev.key in LAUNCH_CALLS)
+            rec = {"precision": prec, "card": card, "mode": mode,
+                   "entry": "process_directory (temporal, "
+                   f"{'device flow' if device_flow else 'files'})",
+                   "flow_scale": scale,
+                   "frames": n, "ms_per_frame": 1e3 * seconds / n,
+                   "frames_per_s": n / seconds,
+                   "host_ms_per_frame_by_step": spans,
+                   "traced_wall_ms_per_frame": wall_ms / n,
+                   "device_ms_per_frame": device_ms,
+                   "device_busy_share": device_ms * n / wall_ms,
+                   "kernel_launches_per_frame": launches,
+                   "host_launch_calls_per_frame": calls / n,
+                   "device_ms_per_frame_by_category": cats,
+                   "top_kernels_ms_per_frame": top}
+            if device_flow:
+                rec["flow_graphs"] = {"captures": eng.flow_graphs.captures,
+                                      "replays": eng.flow_graphs.replays}
+            records.append(rec)
+            print(json.dumps(rec), flush=True)
+            del eng
+            torch.cuda.empty_cache()
     return records
 
 
@@ -511,6 +578,8 @@ def main() -> int:
                     help="with --dir: inference.mode=fullframe")
     ap.add_argument("--temporal", action="store_true",
                     help="serve the temporal chain (flows from files)")
+    ap.add_argument("--device-flow", action="store_true",
+                    help="with --temporal: the flow computed on the device")
     ap.add_argument("--frames", type=int, default=36)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -524,7 +593,7 @@ def main() -> int:
     if args.train:
         records = _train_records(args.steps, card)
     elif args.temporal:
-        records = _temporal_records(card)
+        records = _temporal_records(card, args.device_flow)
     elif args.dir or args.fullframe:
         records = _dir_records(args.frames, card,
                                "fullframe" if args.fullframe else "tiled")
