@@ -137,10 +137,13 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
+import shutil
 import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -174,10 +177,18 @@ from patch_toon_tpu_torch.ops import blend, instance_norm
 from patch_toon_tpu_torch.ops.flow import dense_flow
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.train.loop import fit
-from patch_toon_tpu_torch.train.model import StyleTransferModel
+from patch_toon_tpu_torch.train.model import (
+    StyleTransferModel,
+    training_backends,
+)
 from patch_toon_tpu_torch.train.parity import (
+    Kinks,
     assert_device_step_parity,
+    assert_first_step_close,
     device_step_parity,
+    first_step_agreement,
+    run_step,
+    state_pairs,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -978,16 +989,17 @@ def phase_fullframe(dev, card: str, tmp: Path, tiled: dict) -> dict:
 TEMPORAL_FRAMES, TEMPORAL_MISSING = 12, 5  # chain length, missing flow
 
 
-def _temporal_scene(scene: Path, root: Path, n: int, crop=None) -> Path:
-    """The first ``n`` frames of ``scene`` (cropped to ``crop``, (y0, y1,
-    x0, x1), when given) with a 3-band guide and masks, and seeded smooth
-    backward flows ``flow_bwd/%03d.npy``, the one of frame
-    ``TEMPORAL_MISSING`` left out."""
-    rng = np.random.default_rng(6)
+def _temporal_scene(scene: Path, root: Path, n: int, crop=None,
+                    start: int = 0) -> Path:
+    """``n`` frames of ``scene`` from its frame ``start`` (cropped to
+    ``crop``, (y0, y1, x0, x1), when given) with a 3-band guide and masks,
+    and seeded smooth backward flows ``flow_bwd/%03d.npy`` numbered from
+    0, the one of frame ``TEMPORAL_MISSING`` left out."""
+    rng = np.random.default_rng(6 + start)
     for sub in ("input", "tracking", "mask", "flow_bwd"):
         (root / sub).mkdir(parents=True, exist_ok=True)
-    for i, name in enumerate(sorted(p.name for p in
-                                    (scene / "input").glob("*.png"))[:n]):
+    for i, name in enumerate(sorted(p.name for p in (
+            scene / "input").glob("*.png"))[start:start + n]):
         for sub in ("input", "tracking", "mask"):
             img = decode_png(scene / sub / name)
             if crop is not None:
@@ -1455,6 +1467,687 @@ def phase_temporal_device(dev, card: str, tmp: Path) -> dict:
     return {"rec": rec, "launches": launches}
 
 
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |d|, max |d| / (2e-5 + 2e-5 |want|)) of two outputs."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float((d / (2e-5 + 2e-5 * want.float().abs()))
+                                 .max())
+
+
+def _conv_errors(model, x, n: int = 4) -> dict:
+    """Every conv of ``model`` (precision ``32_fast``) on the card, at the
+    inputs a forward over ``x`` gives it, over ``n`` samples, the largest
+    |d| over the largest |y|: the split against the conv in fp64 on the
+    CPU; beside it the strict fp32 conv and one TF32 pass against the same,
+    and the split's hi*hi pass alone against hi*hi in fp64 (the tensor
+    cores' own accumulation error: their inputs are exact there). -> the
+    worst of each, the conv where the split's is worst, and the convs
+    where the split is beyond 2e-6 and further than one TF32 pass or more
+    than 2e-6 beyond 1.5 times its hi*hi pass's error (a conv that cuDNN
+    runs outside the tensor cores, such as the 1x1 head to 3 channels, is
+    fp32 in every pass: within 2e-6 either way). The split removes the
+    rounding of the inputs to TF32, not the tensor cores' accumulation:
+    where that dominates (the 7x7 conv over 166 channels, K = 8,134) the
+    split is about twice as close as one pass, elsewhere up to 50 times."""
+    from patch_toon_tpu_torch.models.layers import Conv2d, _split, _tf32_convs
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append((mod, inp[0][:n], out[:n])))
+        for m in model.modules() if isinstance(m, Conv2d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = {k: 0.0 for k in ("split", "strict", "one_pass", "hihi")}
+    worst.update(convs=len(seen), at=None, beyond=[])
+
+    def rel(got, want):
+        return float((got.cpu().double() - want).abs().max()) \
+            / float(want.abs().max())
+
+    def d64(t):
+        return None if t is None else t.cpu().double()
+
+    for i, (mod, xi, yi) in enumerate(seen):
+        w = mod.weight.detach()
+        b = None if mod.bias is None else mod.bias.detach()
+
+        def conv(a, k, c, mod=mod):
+            return F.conv2d(a, k, c, mod.stride, mod.padding)
+
+        (xh, _), (wh, _) = _split(xi), _split(w)
+        with torch.no_grad():
+            strict = conv(xi, w, b)
+            with _tf32_convs():
+                one, hihi = conv(xi, w, b), conv(xh, wh, b)
+        y64 = conv(d64(xi), d64(w), d64(b))
+        e = {"split": rel(yi, y64), "strict": rel(strict, y64),
+             "one_pass": rel(one, y64),
+             "hihi": rel(hihi, conv(d64(xh), d64(wh), d64(b)))}
+        if e["split"] > worst["split"]:
+            worst["at"] = f"{i}:{tuple(w.shape)}"
+        for k, v in e.items():
+            worst[k] = max(worst[k], v)
+        if e["split"] > 2e-6 and (e["split"] > e["one_pass"]
+                                  or e["split"] > 1.5 * e["hihi"] + 2e-6):
+            worst["beyond"].append((i, tuple(w.shape), {
+                k: f"{v:.3g}" for k, v in e.items()}))
+    return worst
+
+
+def _against_fp64(model, x, y32, yfast, n: int = 16) -> dict:
+    """Precision 32 and ``32_fast`` against fp64 on the CPU (the network
+    in fp64: the card's kernels take fp32 and bf16 only), over the ``n``
+    samples where the two differ most (each sample is its own: the
+    InstanceNorm statistics are a sample's, the BatchNorm's fixed).
+    -> the samples' count and each precision's largest |d| from fp64."""
+    import copy
+
+    worst = (yfast - y32).abs().flatten(1).amax(1)
+    idx = worst.argsort(descending=True)[:n].cpu()
+    ref = copy.deepcopy(model).cpu().double().eval()
+    with torch.no_grad():
+        y64 = ref(x[idx].cpu().double())
+    return {"fp64_samples": len(idx),
+            "max_abs_32": float((y32[idx].cpu().double() - y64).abs().max()),
+            "max_abs_32_fast": float((yfast[idx].cpu().double() - y64)
+                                     .abs().max())}
+
+
+def phase_precision_32_fast(dev, card: str, tmp: Path) -> dict:
+    """Precision ``32_fast`` in serving: (a) the 19-site generator call at
+    B = 512 tiles and one full-frame pass over a 512x912 frame, at 32,
+    ``32_fast`` and bf16, timed by CUDA events, ``32_fast``'s largest |d|
+    from 32 printed (JAX's test holds 2e-5 absolute and relative on a
+    randomly initialized generator; where the two part by more, both are
+    printed against fp64 over the samples that part most), and every conv
+    of the ``32_fast`` generator at the inputs the call gives it held
+    against fp64 (``_conv_errors``): within 2e-6, or closer than one TF32
+    pass and within 2e-6 of 1.5 times the error of its own hi*hi pass,
+    whose inputs are exact in TF32, so that what is left is the tensor
+    cores' accumulation (the split's products are exact to 2^-21: hi has
+    TF32's 10 mantissa bits, lo loses its last bits, lo*lo is dropped);
+    (b) ``process_directory`` over the
+    serve_directory phase's 36 frames, tiled and full-frame, at
+    ``32_fast``, timed, with the launch counters zeroed just before and
+    read just after, each file within 1 count of the precision-32 run's
+    (the differing pixels printed); (c) a precision-32 engine built after
+    them finds TF32 off in cuDNN and matmuls."""
+    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    engines = {p: _engine(p) for p in ("32", "32_fast", "bf16")}
+    g = torch.Generator(device=dev).manual_seed(4)
+    inputs = {"tiles": torch.rand((B, PS, PS, 6), device=dev, generator=g)
+              * 2 - 1,
+              "frame": torch.rand((1, HP, WP, 6), device=dev, generator=g)
+              * 2 - 1}
+    outs = {}
+    for prec, eng in engines.items():
+        for tag, x in inputs.items():
+            xin = x.to(eng.dtype)
+
+            def run(model=eng.model, xin=xin):
+                with torch.no_grad():
+                    return model(xin)
+
+            outs[prec, tag] = run()
+            rec[f"{tag}_ms_{prec}"] = time_ms(run, 3)
+    for tag in inputs:
+        d, share = _max_rel(outs["32_fast", tag], outs["32", tag])
+        db, _ = _max_rel(outs["bf16", tag], outs["32", tag])
+        rec[f"{tag}_max_abs_32_fast_vs_32"] = d
+        extra = {}
+        if share > 1.0:  # beyond JAX's network bar: which of the two?
+            extra = _against_fp64(engines["32"].model, inputs[tag],
+                                  outs["32", tag], outs["32_fast", tag])
+            rec[f"{tag}_against_fp64"] = extra
+        convs = _conv_errors(engines["32_fast"].model,
+                             inputs[tag].to(torch.float32))
+        rec[f"{tag}_conv_errors"] = convs
+        extra.update(conv_split_worst_rel=convs["split"],
+                     conv_strict_worst_rel=convs["strict"],
+                     conv_one_tf32_pass_worst_rel=convs["one_pass"],
+                     conv_hihi_pass_worst_rel=convs["hihi"],
+                     conv_split_worst_at=convs["at"], convs=convs["convs"],
+                     convs_beyond_bar=len(convs["beyond"]))
+        say("precision_32_fast", call=f"generator, {tag}",
+            shape="x".join(map(str, inputs[tag].shape)),
+            **{f"ms_{p}": f"{rec[f'{tag}_ms_{p}']:.3f}" for p in engines},
+            max_abs_32_fast_vs_32=f"{d:.3g}",
+            share_of_2e5_bar=f"{share:.3f}",
+            max_abs_bf16_vs_32=f"{db:.3g}",
+            **{k: f"{v:.3g}" if isinstance(v, float) else v
+               for k, v in extra.items()}, card=f"'{card}'")
+        if convs["beyond"]:
+            raise AssertionError(f"32_fast {tag}: convs beyond 2e-6 and "
+                                 "further from fp64 than one TF32 pass, or "
+                                 "beyond their hi*hi pass's own error: "
+                                 f"{convs}")
+    del engines, outs
+    scene = tmp / "scene"
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    with _without_pil():
+        for mode, ref in (("tiled", "dir_32"), ("fullframe", "ff_32")):
+            out = tmp / f"fast_{mode}"
+            eng = _dir_engine("32_fast", scene, out, mode=mode)
+            eng.process_directory()  # set-up
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _read_counts()
+            calls = DIR_FRAMES if mode == "fullframe" else -(-DIR_FRAMES // (
+                eng._group_size(len(eng.boxes_for(_full_mask(), (H, W))))))
+            if written != DIR_FRAMES:
+                raise AssertionError(f"32_fast {mode}: {written} frames")
+            _check_counts(f"32_fast {mode}", counts, calls, mode == "tiled")
+            for k in launches:
+                launches[k] += counts[k]
+            worst, differ = _compare_dirs(out, tmp / ref, names)
+            ms = 1e3 * seconds / calls
+            rec[f"directory_{mode}"] = {
+                "ms_per_call": ms, "eq_frames_per_s": DIR_FRAMES / seconds,
+                "vs_32_max_abs": worst, "vs_32_differing_pixels": differ}
+            say("precision_32_fast", entry="process_directory", mode=mode,
+                frames=written, **{("ms_per_group" if mode == "tiled" else
+                                    "ms_per_frame"): f"{ms:.2f}"},
+                eq_frames_per_s=f"{DIR_FRAMES / seconds:.2f}",
+                **{f"{k}_launches": v for k, v in counts.items()},
+                vs_precision_32_max_abs=worst,
+                vs_precision_32_differing_pixels=differ, card=f"'{card}'")
+            if worst > 1:
+                raise AssertionError(f"32_fast {mode}: {worst} counts from "
+                                     "precision 32 (limit 1)")
+            del eng
+    _engine("32")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    say("precision_32_fast", strict_engine_after="precision 32",
+        cudnn_allow_tf32=flags[0], matmul_allow_tf32=flags[1],
+        float32_matmul_precision=flags[2])
+    if flags != (False, False, "highest"):
+        raise AssertionError(f"the strict flags after 32_fast: {flags}")
+    return {"rec": rec, "launches": launches}
+
+
+SINGLE_H, SINGLE_W = 540, 960
+
+
+def phase_single_image(dev, card: str, tmp: Path) -> dict:
+    """The single-image calls on one 540x960 frame (RGB and a 3-band guide
+    from numpy seed 3) with an elliptical mask, tiled and full-frame, at
+    bf16 and 32, PIL unimportable: ``process_image`` (files in, a PNG out)
+    timed with the counters zeroed just before and read just after (19 B1
+    launches, cluster with one B2 launch when tiled, split when full-frame),
+    its file bitwise equal to ``stylize_group`` on the same frame; then
+    ``process_large_image`` with a fractional mask (a band of 0.5),
+    timed, and at precision 32 within 1 count of the CPU engine."""
+    root = tmp / "single"
+    for sub in ("input", "tracking", "mask", "out"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 256, (SINGLE_H // 10, SINGLE_W // 10, 6),
+                        dtype=np.uint8)
+    u8 = np.repeat(np.repeat(base, 10, axis=0), 10, axis=1)
+    yy, xx = np.mgrid[0:SINGLE_H, 0:SINGLE_W].astype(np.float32)
+    ell = ((yy - 0.5 * SINGLE_H) / (0.43 * SINGLE_H)) ** 2 \
+        + ((xx - 0.49 * SINGLE_W) / (0.4 * SINGLE_W)) ** 2
+    encode_png(root / "input" / "0000.png", u8[..., :3], compress_level=1)
+    encode_png(root / "tracking" / "0000.png", u8[..., 3:], compress_level=1)
+    encode_png(root / "mask" / "0000.png",
+               np.where(ell < 1.0, 255, 0).astype(np.uint8), compress_level=1)
+    inp, mask_path = root / "input" / "0000.png", root / "mask" / "0000.png"
+    rec = {}
+    launches = {"cluster": 0, "split": 0, "blend": 0}
+    with _without_pil():
+        for mode in ("tiled", "fullframe"):
+            for prec in ("bf16", "32"):
+                tag = f"{mode}_{prec}"
+                cfg = dict(paths={"checkpoint": str(CKPT),
+                                  "additional_channels": {"point_vector": {
+                                      "path": str(root / "tracking"),
+                                      "depth": 3}}},
+                           inference={"precision": prec, "mode": mode})
+                eng = StyleTransferInference(inference_config(**cfg))
+                out = root / "out" / f"{tag}.png"
+                eng.process_image(inp, mask_path, out)  # set-up
+                _zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.process_image(inp, mask_path, out)
+                ms = 1e3 * (time.perf_counter() - t0)
+                counts = _read_counts()
+                _check_counts(f"single_image {tag}", counts, 1,
+                              mode == "tiled")
+                for k in launches:
+                    launches[k] += counts[k]
+                frame = eng.load_frame(inp)
+                eroded = eng.load_eroded_mask(mask_path, frame.shape[:2])
+                got = decode_png(out)
+                want = eng.stylize_group(frame[None], [eroded])[0]
+                bitwise = bool(np.array_equal(got, want))
+                frac = eroded.copy()
+                frac[(ell > 0.5) & (ell < 0.8)] *= 0.5
+                unit = SIGNED_UNIT[frame]
+                eng.process_large_image(unit, frac)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frac_out = eng.process_large_image(unit, frac)
+                frac_ms = 1e3 * (time.perf_counter() - t0)
+                extra = {}
+                if prec == "32":
+                    cpu = StyleTransferInference(inference_config(**cfg),
+                                                 device="cpu")
+                    cpu_out = cpu.process_large_image(unit, frac)
+                    d = np.abs(frac_out.astype(int) - cpu_out)
+                    extra = {"fractional_card_vs_cpu_max_abs": int(d.max()),
+                             "fractional_card_vs_cpu_differing_pixels":
+                             int((d.max(axis=-1) > 0).sum())}
+                    if d.max() > 1:
+                        raise AssertionError(f"single_image {tag}: the "
+                                             "fractional mask card vs CPU "
+                                             f"{d.max()} counts (limit 1)")
+                rec[tag] = {"process_image_ms": ms,
+                            "process_large_image_ms": frac_ms,
+                            "tiles": len(eng.boxes_for(eroded, (
+                                SINGLE_H, SINGLE_W))) if mode == "tiled"
+                            else 0, **extra}
+                say("single_image", mode=mode, precision=prec,
+                    frame=f"{SINGLE_H}x{SINGLE_W}", tiles=rec[tag]["tiles"],
+                    process_image_ms=f"{ms:.2f}",
+                    process_large_image_fractional_ms=f"{frac_ms:.2f}",
+                    **{f"{k}_launches": v for k, v in counts.items()},
+                    vs_stylize_group_bitwise=bitwise,
+                    fractional_changed_pixels=int(
+                        (frac_out != got).any(axis=-1).sum()),
+                    **extra, card=f"'{card}'")
+                if not bitwise or got.std() < 1.0:
+                    raise AssertionError(f"single_image {tag}: process_image "
+                                         "differs from stylize_group")
+                del eng
+    return {"rec": rec, "launches": launches}
+
+
+# the watch phase's service: generator_torch.py as __main__ with PyYAML
+# unimportable (the card's machine has none), its B1 and B2 launch counts
+# printed on its way out
+WATCH_SERVICE = r"""
+import json, runpy, sys
+sys.modules["yaml"] = None
+sys.argv = ["generator_torch.py"] + sys.argv[1:]
+try:
+    runpy.run_path("generator_torch.py", run_name="__main__")
+finally:
+    from patch_toon_tpu_torch.ops import blend, instance_norm as b1
+    print("LAUNCHES " + json.dumps({
+        "cluster": b1.instance_norm_act_cluster.launches,
+        "split": b1.instance_norm_act_split.launches,
+        "streaming": b1.instance_norm_act_streaming.launches,
+        "blend": blend.blend_tiles.launches}), flush=True)
+"""
+WATCH_POLL, WATCH_IDLE, WATCH_BURSTS = 0.1, 3.0, 4  # bursts of 3 frames
+
+
+def _watch_args(inp: Path, mask: Path, track: Path, out: Path, ckpt: Path,
+                precision: str, *extra) -> list:
+    return [f"paths.checkpoint={ckpt}", f"paths.input_dir={inp}",
+            f"paths.mask_dir={mask}", f"paths.output_dir={out}",
+            f"paths.additional_channels.point_vector.path={track}",
+            f"inference.precision={precision}", "inference.mode=tiled",
+            "inference.watch.enabled=true",
+            f"inference.watch.poll_seconds={WATCH_POLL}",
+            f"inference.watch.idle_timeout_seconds={WATCH_IDLE}", *extra]
+
+
+def _feed(src: Path, inp: Path, mask_src, mask: Path, track: Path, names,
+          out: Path, bursts: int, wait_s: float = 120.0) -> list:
+    """Write ``names`` into the watched directories in ``bursts`` bursts,
+    each frame's mask (when ``mask_src`` has one) and guide before the
+    frames, the frames of a burst given one mtime so that they settle
+    together; each burst waits for the last one's outputs. -> per burst
+    (the last input's mtime, the time its last output appeared)."""
+    per = -(-len(names) // bursts)
+    marks = []
+    for b in range(bursts):
+        chunk = names[b * per:(b + 1) * per]
+        for n in chunk:
+            if mask_src is not None and (mask_src / n).exists():
+                shutil.copyfile(mask_src / n, mask / n)
+            shutil.copyfile(src / "tracking" / n, track / n)
+        for n in chunk:
+            shutil.copyfile(src / "input" / n, inp / n)
+        stamp = time.time()
+        for n in chunk:
+            os.utime(inp / n, (stamp, stamp))
+        deadline = time.time() + wait_s
+        while not all((out / n).exists() for n in chunk):
+            if time.time() > deadline:
+                raise AssertionError(f"watch: burst {b} not served in "
+                                     f"{wait_s} s")
+            time.sleep(0.02)
+        marks.append((stamp, time.time()))
+    return marks
+
+
+def _service(args, log: Path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.Popen([sys.executable, "-c", WATCH_SERVICE, *args],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=open(log, "w"), text=True)
+
+
+def _service_ready(proc, log: Path, timeout: float = 300.0) -> None:
+    """Wait for the service to log that it is watching."""
+    deadline = time.time() + timeout
+    while "Watching" not in log.read_text():
+        if time.time() > deadline or proc.poll() is not None:
+            raise AssertionError(f"the watch service did not start: "
+                                 f"{log.read_text()[-2000:]}")
+        time.sleep(0.05)
+
+
+def _service_end(proc, what: str, timeout: float = 300.0) -> dict:
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"watch {what}: the service exited "
+                             f"{proc.returncode}")
+    line = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")]
+    return json.loads(line[-1][len("LAUNCHES "):])
+
+
+def phase_watch(dev, card: str, tmp: Path) -> dict:
+    """Watch mode through ``python generator_torch.py ...
+    inference.watch.enabled=true`` run as a service process on the card
+    with PyYAML unimportable, poll 0.1 s, idle timeout 3 s, its launch
+    counts printed by the process itself: (1) 12 frames of the
+    serve_directory scene written in 4 bursts of 3 (mask and guide first),
+    the outputs bitwise equal to ``process_directory``'s for the same 12
+    frames; the latency from a burst's last settled input to its last
+    output, of which the settle rule holds 0.25 s and the poll up to 0.1 s;
+    (2) the same with the temporal chain at ``flow_source: device`` over
+    the temporal_device scene, bitwise equal to its one-shot chain; (3)
+    SIGTERM once the first outputs of 12 frames at precision 32 are on
+    disk: exit 0, every output a whole PNG equal to the one-shot run's."""
+    scene = tmp / "scene"
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))[:12]
+    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    # (1) flat
+    root = tmp / "watch_flat"
+    dirs = [root / d for d in ("input", "mask", "tracking", "out")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    proc = _service(_watch_args(*dirs, CKPT, "bf16"), root / "log")
+    _service_ready(proc, root / "log")
+    marks = _feed(scene, dirs[0], scene / "mask", dirs[1], dirs[2], names,
+                  dirs[3], WATCH_BURSTS)
+    counts = _service_end(proc, "flat")
+    for k in launches:
+        launches[k] += counts[k]
+    _dir_engine("bf16", root, root / "once").process_directory()
+    worst, differ = _compare_dirs(dirs[3], root / "once", names)
+    lat = [b - a for a, b in marks]
+    settle = max(0.25, WATCH_POLL / 2)
+    rec["flat"] = {"latency_s": lat, "settle_s": settle,
+                   "poll_s": WATCH_POLL, "differing_pixels": differ}
+    say("watch", run="flat, 4 bursts of 3, bf16", frames=len(names),
+        **{f"{k}_launches": v for k, v in counts.items()},
+        vs_process_directory_differing_pixels=differ,
+        burst_latency_s="/".join(f"{x:.3f}" for x in lat),
+        of_which_settle_s=settle, of_which_poll_up_to_s=WATCH_POLL,
+        card=f"'{card}'")
+    if differ or counts["cluster"] != 19 * WATCH_BURSTS \
+            or counts["blend"] != WATCH_BURSTS:
+        raise AssertionError(f"watch flat: {differ} pixels differ from "
+                             f"process_directory, launches {counts}")
+    # (2) the temporal chain with the device flow
+    dscene = tmp / "dscene"
+    root = tmp / "watch_chain"
+    dirs = [root / d for d in ("input", "mask_ignore", "tracking", "out")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    ckpt = _temporal_ckpt(tmp)
+    dnames = sorted(p.name for p in (dscene / "input").glob("*.png"))
+    proc = _service(_watch_args(
+        *dirs, ckpt, "bf16", "inference.temporal.enabled=true", "inference.temporal.depth=3",
+        "inference.temporal.flow_source=device",
+        f"inference.temporal.file_format='{FLOW_FMT}'"), root / "log")
+    _service_ready(proc, root / "log")
+    marks = _feed(dscene, dirs[0], dscene / "mask_ignore", dirs[1], dirs[2],
+                  dnames, dirs[3], WATCH_BURSTS)
+    counts = _service_end(proc, "chain")
+    for k in launches:
+        launches[k] += counts[k]
+    worst, differ = _compare_dirs(dirs[3], tmp / "td_tiled_bf16_s1", dnames)
+    lat = [b - a for a, b in marks]
+    rec["chain"] = {"latency_s": lat, "differing_pixels": differ}
+    say("watch", run="temporal chain, device flow, 4 bursts of 3, bf16",
+        frames=len(dnames), **{f"{k}_launches": v for k, v in counts.items()},
+        vs_one_shot_chain_differing_pixels=differ,
+        burst_latency_s="/".join(f"{x:.3f}" for x in lat), card=f"'{card}'")
+    if differ or counts["cluster"] != 19 * len(dnames):
+        raise AssertionError(f"watch chain: {differ} pixels differ from "
+                             f"the one-shot chain, launches {counts}")
+    # (3) SIGTERM mid-stream
+    root = tmp / "watch_term"
+    dirs = [root / d for d in ("input", "mask", "tracking", "out")]
+    for d in dirs:
+        d.mkdir(parents=True)
+    for n in names:
+        shutil.copyfile(scene / "mask" / n, dirs[1] / n)
+        shutil.copyfile(scene / "tracking" / n, dirs[2] / n)
+        shutil.copyfile(scene / "input" / n, dirs[0] / n)
+    proc = _service(_watch_args(*dirs, CKPT, "32"), root / "log")
+    deadline = time.time() + 300
+    while not any(dirs[3].glob("*.png")):
+        if time.time() > deadline or proc.poll() is not None:
+            raise AssertionError("watch SIGTERM run: no output appeared")
+        time.sleep(0.01)
+    proc.send_signal(signal.SIGTERM)
+    counts = _service_end(proc, "SIGTERM")
+    on_disk = sorted(p.name for p in dirs[3].glob("*.png"))
+    worst, differ = _compare_dirs(dirs[3], tmp / "dir_32", on_disk)
+    interrupted = "Watch interrupted" in (root / "log").read_text()
+    rec["sigterm"] = {"on_disk": len(on_disk), "differing_pixels": differ}
+    say("watch", run="SIGTERM after the first output, 12 frames, 32",
+        exit_code=0, interrupted_in_log=interrupted, on_disk=len(on_disk),
+        vs_one_shot_differing_pixels=differ,
+        **{f"{k}_launches": v for k, v in counts.items()})
+    for k in launches:
+        launches[k] += counts[k]
+    if differ or not on_disk or not interrupted:
+        raise AssertionError(f"watch SIGTERM: {len(on_disk)} on disk, "
+                             f"{differ} pixels differ, interrupted "
+                             f"{interrupted}")
+    return {"rec": rec, "launches": launches}
+
+
+MS_STREAMS, MS_FRAMES = ("shot_a", "shot_b", "shot_c"), 12
+
+
+def _ms_scene(base: Path, root: Path, partial: bool = False) -> Path:
+    """Three streams of ``MS_FRAMES`` frames each (frames 0-11, 12-23 and
+    24-35 of ``base``), each laid out as ``_temporal_scene`` lays one out
+    (guide, full masks, seeded flows, frame 5's missing) under
+    ``root/<stream>/``; with ``partial``, masks of an ellipse of 255 in a
+    ring of 128 instead. -> ``root/ms``, the multi-stream view:
+    ``input/``, ``tracking/``, ``mask/`` and ``flow_bwd/``, each holding
+    one link a stream."""
+    for k, s in enumerate(MS_STREAMS):
+        one = _temporal_scene(base, root / s, MS_FRAMES,
+                              start=k * MS_FRAMES)
+        if partial:
+            for i, p in enumerate(sorted((one / "mask").glob("*.png"))):
+                yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+                r = ((yy - H * 0.5) / (H * 0.42)) ** 2 \
+                    + ((xx - W * (0.45 + 0.01 * i)) / (W * 0.38)) ** 2
+                encode_png(p, np.where(r < 0.8, 255, np.where(
+                    r < 1.0, 128, 0)).astype(np.uint8), compress_level=1)
+    for sub in ("input", "tracking", "mask", "flow_bwd"):
+        (root / "ms" / sub).mkdir(parents=True, exist_ok=True)
+        for s in MS_STREAMS:
+            (root / "ms" / sub / s).symlink_to(root / s / sub)
+    return root / "ms"
+
+
+MS_RUNS = [("device", "bf16", False), ("device", "32", False),
+           ("files", "bf16", False), ("files", "32", False),
+           ("device", "bf16", True)]
+
+
+def phase_multistream(dev, card: str, tmp: Path) -> dict:
+    """Multi-stream temporal serving through ``process_directory``: three
+    streams of 12 frames of 512x910 (a subdirectory each), the temporal
+    phase's generator, tiled, for each run of ``MS_RUNS`` (flow source,
+    precision, partial masks): a set-up run, a timed run with the counters
+    zeroed just before and read just after (19 B1 cluster launches and one
+    B2 launch a cycle: three frames, 510 tiles with full masks, in one 512
+    bucket), a traced run (device ms a cycle, busy share, launch calls a
+    cycle), and each stream against the same stream served alone as a
+    single-stream chain (within 1 count; the frames where bitwise
+    printed). Then ``_watch_multistream`` over the device-flow bf16
+    streams fed in 4 bursts of 3 frames a stream by a thread: its outputs
+    bitwise equal to the one-shot multi-stream run's."""
+    ckpt = _temporal_ckpt(tmp)
+    views = {False: _ms_scene(tmp / "scene", tmp / "ms_full"),
+             True: _ms_scene(tmp / "scene", tmp / "ms_part", partial=True)}
+    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    with _without_pil():
+        for source, prec, partial in MS_RUNS:
+            tag = f"{source}_{prec}" + ("_partial" if partial else "")
+            view = views[partial]
+            out = tmp / f"ms_{tag}"
+            extra = dict(flow_source=source)
+            if source == "files":
+                extra["flow_upload"] = "f32"
+            eng = _temporal_engine(prec, view, out, ckpt, "tiled", **extra)
+            eng.process_directory()  # set-up
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = _read_counts()
+            if written != len(MS_STREAMS) * MS_FRAMES:
+                raise AssertionError(f"multistream {tag}: {written}")
+            _check_counts(f"multistream {tag}", counts, MS_FRAMES, True)
+            for k in launches:
+                launches[k] += counts[k]
+            tr = _traced(eng.process_directory)
+            bitwise, worst = [], 0
+            for s in MS_STREAMS:
+                solo = tmp / f"ms_{tag}_solo_{s}"
+                _temporal_engine(prec, view.parent / s, solo, ckpt, "tiled",
+                                 **extra).process_directory()
+                snames = sorted(p.name for p in (solo).glob("*.png"))
+                w, _ = _compare_dirs(out / s, solo, snames)
+                worst = max(worst, w)
+                bitwise.append(sum(np.array_equal(
+                    decode_png(out / s / n), decode_png(solo / n))
+                    for n in snames))
+            ms = 1e3 * seconds / MS_FRAMES
+            rec[tag] = {"ms_per_cycle": ms,
+                        "frames_per_s": written / seconds,
+                        "traced_device_ms_per_cycle":
+                        tr["device_ms"] / MS_FRAMES,
+                        "busy_share": tr["device_ms"] / tr["wall_ms"],
+                        "launch_calls_per_cycle":
+                        tr["launch_calls"] / MS_FRAMES,
+                        "vs_single_stream_max_abs": worst,
+                        "bitwise_frames_per_stream": bitwise}
+            say("multistream", flow_source=source, precision=prec,
+                masks="partial" if partial else "full",
+                streams=len(MS_STREAMS), frames=written,
+                ms_per_cycle=f"{ms:.2f}",
+                frames_per_s=f"{written / seconds:.2f}",
+                device_ms_per_cycle=f"{tr['device_ms'] / MS_FRAMES:.2f}",
+                busy_share=f"{tr['device_ms'] / tr['wall_ms']:.3f}",
+                launch_calls_per_cycle=
+                f"{tr['launch_calls'] / MS_FRAMES:.1f}",
+                **{f"{k}_launches": v for k, v in counts.items()},
+                vs_single_stream_max_abs=worst,
+                bitwise_frames_per_stream="/".join(map(str, bitwise)),
+                card=f"'{card}'")
+            if worst > 1:
+                raise AssertionError(f"multistream {tag}: {worst} counts "
+                                     "from the single-stream chains")
+            del eng
+        # watched, fed in bursts
+        view = views[False]
+        win = tmp / "ms_watch"
+        for sub in ("input", "tracking", "mask"):
+            for s in MS_STREAMS:
+                (win / sub / s).mkdir(parents=True)
+        eng = _temporal_engine("bf16", win, tmp / "ms_watch_out", ckpt,
+                               "tiled", flow_source="device")
+        eng.cfg["inference"]["watch"].update(
+            enabled=True, poll_seconds=WATCH_POLL,
+            idle_timeout_seconds=WATCH_IDLE)
+        errors = []
+
+        def feeder():
+            try:
+                snames = {s: sorted(p.name for p in (view / "input" / s)
+                                    .glob("*.png")) for s in MS_STREAMS}
+                for b in range(WATCH_BURSTS):
+                    chunk = [(s, n) for s in MS_STREAMS
+                             for n in snames[s][b * 3:(b + 1) * 3]]
+                    for s, n in chunk:
+                        for sub in ("mask", "tracking"):
+                            shutil.copyfile(view / sub / s / n,
+                                            win / sub / s / n)
+                    for s, n in chunk:
+                        shutil.copyfile(view / "input" / s / n,
+                                        win / "input" / s / n)
+                    stamp = time.time()
+                    for s, n in chunk:
+                        os.utime(win / "input" / s / n, (stamp, stamp))
+                    deadline = time.time() + 120
+                    while not all((tmp / "ms_watch_out" / s / n).exists()
+                                  for s, n in chunk):
+                        if time.time() > deadline:
+                            raise AssertionError(f"burst {b} not served")
+                        time.sleep(0.02)
+            except Exception as e:  # noqa: BLE001 (re-raised below)
+                errors.append(e)
+
+        # the first burst is there before the watch starts
+        thread = threading.Thread(target=feeder)
+        thread.start()
+        while not all(any((win / "input" / s).iterdir())
+                      for s in MS_STREAMS):
+            if not thread.is_alive():
+                raise errors[0] if errors else AssertionError("no frames")
+            time.sleep(0.01)
+        _zero_counts()
+        eng.watch_directory()
+        counts = _read_counts()
+        thread.join()
+        if errors:
+            raise errors[0]
+        _check_counts("multistream watch", counts, MS_FRAMES, True)
+        for k in launches:
+            launches[k] += counts[k]
+        differ = sum(_compare_dirs(tmp / "ms_watch_out" / s,
+                                   tmp / "ms_device_bf16" / s,
+                                   sorted(p.name for p in (
+                                       view / "input" / s).glob("*.png")))[1]
+                     for s in MS_STREAMS)
+        say("multistream", run="_watch_multistream, device flow, bf16, "
+            "4 bursts of 3 frames a stream",
+            **{f"{k}_launches": v for k, v in counts.items()},
+            vs_one_shot_differing_pixels=differ, card=f"'{card}'")
+        if differ:
+            raise AssertionError(f"watched multi-stream: {differ} pixels "
+                                 "differ from the one-shot run")
+    return {"rec": rec, "launches": launches}
+
+
 def phase_signed_unit(dev) -> None:
     """C4: all 256 bytes through the card's normalization, bitwise against
     the host's IEEE values; the division it replaced, for the record."""
@@ -1717,6 +2410,50 @@ def _step_parity(dev, small: bool, batch: int) -> dict:
                               dev)
 
 
+def _fast_step_parity(dev) -> dict:
+    """One ``32_fast`` step on the card against one precision-32 step on
+    the card from the same parameters and batch (full width, batch 2):
+    ``first_step_agreement`` of the two within 1e-2 in relative L2 (where
+    an activation input lies within the split's roundoff of 0 the two take
+    other branches, each flip moving every gradient upstream by about 3e-3;
+    the flips are counted), and the ``32_fast`` step against the fp64 step
+    that takes its own branches within 5e-5, the bar precision 32 meets
+    (``train/parity.py``)."""
+    rng = np.random.default_rng(1)
+    batch = {"pre": rng.standard_normal((2, PS, PS, 3)),
+             "channels": rng.standard_normal((2, PS, PS, 3)),
+             "post": rng.random((2, PS, PS, 3)) * 2 - 1}
+    m32, mfast = _train_model("32", batch=2), _train_model("32_fast", batch=2)
+    with training_backends(torch.float32):
+        # one seed: the same parameters, the networks' convs split or not
+        start, start_fast = m32.init_state(0, "cpu"), mfast.init_state(0,
+                                                                       "cpu")
+        if any(not torch.equal(a, b) for a, b in zip(
+                _net_tensors(start).values(),
+                _net_tensors(start_fast).values())):
+            raise AssertionError("32 and 32_fast start from other weights")
+        k32, kfast = Kinks(), Kinks()
+        st32, _ = run_step(m32, start, batch, dev, k32)
+        stfast, _ = run_step(mfast, start_fast, batch, dev, kfast)
+        ref, _ = run_step(mfast, start_fast, batch, "cpu",
+                          Kinks(replay=kfast.masks), torch.float64)
+    vs32 = first_step_agreement(state_pairs(st32, stfast))
+    own = first_step_agreement(state_pairs(ref, stfast))
+    flips = sum(int((a != b).sum()) for a, b in zip(k32.masks, kfast.masks))
+    say("train", first_step="32_fast against 32 on the card, full width, "
+        "batch 2", grad_rel_l2=f"{vs32['grad_rel_l2']:.3g}",
+        kernel_rel_l2=f"{vs32['kernel_rel_l2']:.3g}",
+        params_beyond_tolerance=vs32["beyond"], branch_flips=flips,
+        own_fp64_grad_rel_l2=f"{own['grad_rel_l2']:.3g}",
+        own_fp64_kernel_rel_l2=f"{own['kernel_rel_l2']:.3g}",
+        limits="1e-2 against 32, 5e-5 against its own fp64")
+    if vs32["grad_rel_l2"] > 1e-2:
+        raise AssertionError(f"32_fast step against 32: {vs32}")
+    assert_first_step_close(own, 5e-5, "32_fast against its fp64")
+    return {"vs_32_grad_rel_l2": vs32["grad_rel_l2"],
+            "own_fp64_grad_rel_l2": own["grad_rel_l2"], "flips": flips}
+
+
 class _Window:
     """A step callback for ``fit``: zeroes the launch counters just after
     step ``start`` (and its logging), reads them and the host clock just
@@ -1752,8 +2489,9 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
     say("train", keyframes=data.num_images, size="270x480",
         patch_centers=len(data), batch=BT)
     rec = {}
-    launches = {"forward": 0, "backward": 0, "backward_streaming": 0}
-    for prec in ("32", "bf16"):
+    launches = {"forward": 0, "backward": 0, "backward_streaming": 0,
+                "forward_32_fast": 0, "backward_32_fast": 0}
+    for prec in ("32", "bf16", "32_fast"):
         model = _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS)
         win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
         state = fit(model, data, str(tmp / f"run_{prec}"), seed=0,
@@ -1775,6 +2513,9 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
         launches["forward"] += fwd
         launches["backward"] += bwd
         launches["backward_streaming"] += bst
+        if prec == "32_fast":
+            launches["forward_32_fast"] += fwd
+            launches["backward_32_fast"] += bwd
         ms = 1e3 * win.seconds / TRAIN_STEPS
         rec[prec] = {"ms_per_step": ms, "patches_per_s": BT / ms * 1e3}
         say("train", entry="fit", precision=prec, steps=TRAIN_STEPS,
@@ -1788,7 +2529,7 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
             d_total_loss=f"{vals['d_total_loss']:.4f}", card=f"'{card}'")
         del state
 
-    for prec in ("32", "bf16"):  # determinism: two runs of fit, bitwise
+    for prec in ("32", "bf16", "32_fast"):  # determinism: two fit runs
         model = _train_model(prec, max_steps=3)
         runs = [_net_tensors(fit(model, data, str(tmp / f"det_{prec}_{i}"),
                                  seed=5, progress=False))
@@ -1824,6 +2565,8 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
                for net, v in r["bf16"].items()},
             **{f"loss_d_{k}": f"{v:.3g}" for k, v in r["bf16_loss_d"].items()})
         assert_device_step_parity(r)
+
+    rec["32_fast_first_step"] = _fast_step_parity(dev)
 
     # the checkpoint fit wrote at the end of the precision-32 run serves on
     # the card
@@ -1870,44 +2613,59 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve_directory(dev, card, Path(tmp))
         full = phase_fullframe(dev, card, Path(tmp), served["rec"])
+        fast = phase_precision_32_fast(dev, card, Path(tmp))
         chain = phase_temporal(dev, card, Path(tmp))
         dflow = phase_temporal_device(dev, card, Path(tmp))
+        single = phase_single_image(dev, card, Path(tmp))
+        watch = phase_watch(dev, card, Path(tmp))
+        multi = phase_multistream(dev, card, Path(tmp))
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
-    rec_in["variants"]["cluster"]["launches"] = launches[
-        "instance_norm_act"] + served["launches"]["instance_norm_act"] \
-        + chain["launches"]["cluster"] + dflow["launches"]["cluster"]
+    # launches of B1's cluster variant and of B2 by path: the serving
+    # paths of every phase, one entry each
+    cluster = {"serve": launches["instance_norm_act"],
+               "serve_directory": served["launches"]["instance_norm_act"],
+               "temporal_tiled": chain["launches"]["cluster"],
+               "temporal_device_tiled": dflow["launches"]["cluster"],
+               "32_fast_serve": fast["launches"]["cluster"],
+               "single_image": single["launches"]["cluster"],
+               "watch": watch["launches"]["cluster"],
+               "multistream": multi["launches"]["cluster"]}
+    blends = {"serve": launches["blend_tiles"],
+              "serve_directory": served["launches"]["blend_tiles"],
+              "temporal_tiled": chain["launches"]["blend"],
+              "temporal_device_tiled": dflow["launches"]["blend"],
+              "32_fast_serve": fast["launches"]["blend"],
+              "single_image": single["launches"]["blend"],
+              "watch": watch["launches"]["blend"],
+              "multistream": multi["launches"]["blend"]}
+    splits = {"fullframe": full["launches"]["split"],
+              "temporal_fullframe": chain["launches"]["split"],
+              "temporal_device_fullframe": dflow["launches"]["split"],
+              "32_fast_serve": fast["launches"]["split"],
+              "single_image": single["launches"]["split"],
+              "watch": watch["launches"]["split"],
+              "multistream": multi["launches"]["split"]}
+    rec_in["variants"]["cluster"]["launches"] = sum(cluster.values())
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
         "instance_norm_act_streaming"]
+    train_fwd = {"train": train["launches"]["forward"]
+                 - train["launches"]["forward_32_fast"],
+                 "32_fast_train": train["launches"]["forward_32_fast"]}
     kernels = [
         dict(name="instance_norm_act", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
-             launches=launches["instance_norm_act"]
-             + served["launches"]["instance_norm_act"]
-             + chain["launches"]["cluster"] + dflow["launches"]["cluster"]
-             + train["launches"]["forward"],
-             launches_by_path={"serve": launches["instance_norm_act"],
-                               "serve_directory":
-                               served["launches"]["instance_norm_act"],
-                               "temporal_tiled": chain["launches"]["cluster"],
-                               "temporal_device_tiled":
-                               dflow["launches"]["cluster"],
-                               "train": train["launches"]["forward"]},
+             launches=sum(cluster.values()) + sum(train_fwd.values()),
+             launches_by_path={**cluster, **train_fwd},
              dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
         dict(name="instance_norm_act_split", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm_split.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
-             launches=full["launches"]["split"] + chain["launches"]["split"]
-             + dflow["launches"]["split"],
-             launches_by_path={"fullframe": full["launches"]["split"],
-                               "temporal_fullframe":
-                               chain["launches"]["split"],
-                               "temporal_device_fullframe":
-                               dflow["launches"]["split"]},
+             launches=sum(splits.values()), launches_by_path=splits,
              dtype="bf16", variant="split",
              note="two launches (statistics, normalize) counted as one",
              per="the 19 sites of one full-frame pass over a 512x912 frame",
@@ -1918,6 +2676,12 @@ def main() -> int:
                note="backward pass of B1; the Pallas kernel has none (JAX "
                     "differentiates patch_toon_tpu/models/layers.py:29-40)",
                launches=train["launches"][key], dtype="bf16", variant=v,
+               launches_by_path={
+                   "train": train["launches"][key]
+                   - (train["launches"]["backward_32_fast"]
+                      if v == "cluster" else 0),
+                   "32_fast_train": train["launches"]["backward_32_fast"]
+                   if v == "cluster" else 0},
                picked_by_plan_backward=v == "cluster",
                per="the 25 sites of one training step at batch 80",
                **rec_bw[v])
@@ -1926,22 +2690,17 @@ def main() -> int:
         dict(name="blend_tiles", route="cuda",
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",
-             launches=launches["blend_tiles"]
-             + served["launches"]["blend_tiles"] + chain["launches"]["blend"]
-             + dflow["launches"]["blend"],
-             launches_by_path={"serve": launches["blend_tiles"],
-                               "serve_directory":
-                               served["launches"]["blend_tiles"],
-                               "temporal_tiled": chain["launches"]["blend"],
-                               "temporal_device_tiled":
-                               dflow["launches"]["blend"]},
+             launches=sum(blends.values()), launches_by_path=blends,
              per="one group of 3 512x910 frames", **rec_bl),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels, "train": train["rec"],
                       "serve_directory": served["rec"],
                       "fullframe": full["rec"], "temporal": chain["rec"],
-                      "temporal_device": dflow["rec"]}),
+                      "temporal_device": dflow["rec"],
+                      "precision_32_fast": fast["rec"],
+                      "single_image": single["rec"], "watch": watch["rec"],
+                      "multistream": multi["rec"]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,35 +1,80 @@
 """Command line: stylization of a directory of frames (tiled or full-frame,
-alone or with the temporal guide chain).
+alone or with the temporal guide chain, one video or a subdirectory per
+video), once or as a watched service.
 
     python generator_torch.py paths.checkpoint=... paths.input_dir=... \
         paths.mask_dir=... paths.output_dir=... [key=value ...]
 
 The same ``paths.*`` / ``inference.*`` dotlist overrides as the JAX
-package's ``generator.py``, composed over ``config/inference.yaml``.
+package's ``generator.py``, composed over ``config/inference.yaml``; where
+PyYAML is not installed, over the same defaults kept as Python
+(``config/defaults.py``), which is said in one log line. With
+``inference.watch.enabled`` the CLI serves the input directory until its
+idle timeout or an interrupt, and SIGTERM takes Ctrl-C's path, so every
+dispatched frame reaches disk (JAX ``generator.py:56-72``).
 ``inference.use_gpu=false`` runs on the CPU; otherwise a CUDA device is
-required. Reading the YAML needs PyYAML and reading frames needs Pillow.
+required.
 """
 
 from __future__ import annotations
 
 import logging
+import signal
 import sys
 from pathlib import Path
 
-from patch_toon_tpu_torch.config.compose import compose
+from patch_toon_tpu_torch.config.compose import compose, compose_without_yaml
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "config"
+logger = logging.getLogger("patch_toon_tpu_torch.cli")
+
+
+def load_config(argv):
+    """The inference config: ``config/inference.yaml`` composed with the
+    overrides, or without PyYAML the composed defaults of
+    ``config/defaults.py`` with the same overrides."""
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        from patch_toon_tpu_torch.config.defaults import (
+            INFERENCE,
+            INFERENCE_LINKS,
+        )
+
+        logger.info("PyYAML is not installed: composing the inference "
+                    "defaults of config/defaults.py with the overrides")
+        return compose_without_yaml(INFERENCE, list(argv), INFERENCE_LINKS)
+    return compose(CONFIG_DIR, "inference", overrides=list(argv))
+
+
+def _sigterm(signum, frame):
+    raise KeyboardInterrupt
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
-    cfg = compose(CONFIG_DIR, "inference", overrides=list(argv))
+    cfg = load_config(argv)
     from patch_toon_tpu_torch.infer.engine import StyleTransferInference
 
-    n = StyleTransferInference(cfg).process_directory()
-    print(f"Inference completed: {n} frames written to "
-          f"{cfg.paths.output_dir}")
+    engine = StyleTransferInference(cfg)
+    if not bool((cfg["inference"].get("watch") or {}).get("enabled", False)):
+        n = engine.process_directory()
+        print(f"Inference completed: {n} frames written to "
+              f"{cfg['paths']['output_dir']}")
+        return 0
+    # a service: a stop request (SIGTERM from systemd or kubernetes) takes
+    # the path of Ctrl-C, which flushes every dispatched frame
+    try:
+        previous = signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:  # not the main thread (embedded use): Ctrl-C only
+        previous = None
+    try:
+        engine.watch_directory()
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+    print(f"Watch stopped; outputs in {cfg['paths']['output_dir']}")
     return 0
 
 

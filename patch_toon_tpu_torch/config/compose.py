@@ -7,7 +7,8 @@ CLI dotlist overrides (``a.b=v``, ``+a.b=v``, ``~a.b``, ``group=name``) and
 attribute access through :class:`ConfigNode`. ``yaml`` is imported inside
 the functions that parse YAML text, so importing this module needs none;
 ``defaults.INFERENCE`` holds the composed inference defaults as a plain
-dict for machines without PyYAML.
+dict for machines without PyYAML, which :func:`compose_without_yaml`
+overrides as :func:`compose` does.
 """
 
 from __future__ import annotations
@@ -152,6 +153,89 @@ def _parse_override_value(text: str) -> Any:
     return yaml.safe_load(text)
 
 
+# PyYAML's (YAML 1.1) implicit scalars, for the overrides of a machine
+# without it
+_NULLS = ("~", "null", "Null", "NULL", "")
+_BOOLS = {v: b for b, vs in (
+    (True, "yes Yes YES true True TRUE on On ON"),
+    (False, "no No NO false False FALSE off Off OFF")) for v in vs.split()}
+_INT_RE = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
+_FLOAT_RE = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?"
+                       r"|\.[0-9_]+([eE][-+][0-9]+)?")
+
+
+def _split_flow(body: str) -> List[str]:
+    """The items of a flow sequence's or mapping's body, split at the
+    commas outside brackets and quotes."""
+    items, depth, quote, cur = [], 0, None, ""
+    for ch in body:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(cur)
+            cur = ""
+            continue
+        cur += ch
+    if cur.strip():
+        items.append(cur)
+    return [i.strip() for i in items]
+
+
+def parse_scalar(text: str) -> Any:
+    """An override's value as ``yaml.safe_load`` reads the forms a dotlist
+    uses (null, bools, decimal ints, floats, quoted strings, flow
+    sequences and mappings; anything else a string), without PyYAML."""
+    t = text.strip()
+    if t in _NULLS:
+        return None
+    if t in _BOOLS:
+        return _BOOLS[t]
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t.startswith("[") and t.endswith("]"):
+        return [parse_scalar(i) for i in _split_flow(t[1:-1])]
+    if t.startswith("{") and t.endswith("}"):
+        out = {}
+        for item in _split_flow(t[1:-1]):
+            key, _, value = item.partition(":")
+            out[parse_scalar(key)] = parse_scalar(value)
+        return out
+    if _INT_RE.fullmatch(t):
+        return int(t.replace("_", ""))
+    if _FLOAT_RE.fullmatch(t):
+        return float(t.replace("_", ""))
+    if t.lower() in (".inf", "+.inf", "-.inf"):
+        return float(t.lower().replace(".", ""))
+    if t.lower() == ".nan":
+        return float("nan")
+    return t
+
+
+def apply_overrides(cfg: ConfigNode, overrides: List[str],
+                    parse=_parse_override_value) -> ConfigNode:
+    """Apply dotlist overrides (``a.b=v``, ``+a.b=v``, ``~a.b``) to
+    ``cfg`` in place, each value read by ``parse``; -> the resolved
+    tree."""
+    for ov in overrides:
+        if ov.startswith("~"):
+            _delete_dotted(cfg, ov[1:].split("=", 1)[0])
+            continue
+        allow_new = ov.startswith("+")
+        body = ov[1:] if allow_new else ov
+        if "=" not in body:
+            raise ValueError(f"Malformed override (need key=value): {ov!r}")
+        key, text = body.split("=", 1)
+        _set_dotted(cfg, key, None if text == "" else parse(text),
+                    allow_new=allow_new or True)
+    return resolve(cfg)
+
+
 def _set_dotted(cfg: ConfigNode, dotted: str, value: Any, allow_new: bool) -> None:
     parts = dotted.split(".")
     node: Any = cfg
@@ -254,16 +338,26 @@ def compose(
             sub = load_yaml(config_dir / group / f"{name}.yaml")
             cfg = merge(cfg, ConfigNode({group: sub}))
 
-    for ov in value_overrides:
-        if ov.startswith("~"):
-            _delete_dotted(cfg, ov[1:].split("=", 1)[0])
-            continue
-        allow_new = ov.startswith("+")
-        body = ov[1:] if allow_new else ov
-        if "=" not in body:
-            raise ValueError(f"Malformed override (need key=value): {ov!r}")
-        key, text = body.split("=", 1)
-        _set_dotted(cfg, key, _parse_override_value(text), allow_new=allow_new or True)
+    return apply_overrides(cfg, value_overrides)
 
-    return resolve(cfg)
+
+def compose_without_yaml(defaults: Dict[str, Any],
+                         overrides: Optional[List[str]] = None,
+                         links: Optional[Dict[str, str]] = None
+                         ) -> ConfigNode:
+    """A composed tree kept as Python (``config/defaults.py``) with the
+    same dotlist overrides as :func:`compose`, their values read by
+    :func:`parse_scalar`: for a machine without PyYAML. ``links``
+    (dotted key -> ``${...}``) puts the YAML's interpolations back first,
+    so an override of their source carries through. A config-group choice
+    (``group=name``) needs the YAML files and raises."""
+    cfg = _wrap(copy.deepcopy(defaults))
+    for key, ref in (links or {}).items():
+        _set_dotted(cfg, key, ref, allow_new=False)
+    for ov in overrides or []:
+        if not ov.startswith(("+", "~")) and "=" in ov \
+                and "." not in ov.split("=", 1)[0]:
+            raise ValueError(f"{ov!r} chooses a config group, which needs "
+                             "the YAML files and PyYAML")
+    return apply_overrides(cfg, list(overrides or []), parse=parse_scalar)
 

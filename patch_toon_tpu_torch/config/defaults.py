@@ -164,6 +164,15 @@ INFERENCE: Dict[str, Any] = {
 }
 
 
+# the interpolations of config/inference.yaml, put back into INFERENCE
+# before a machine without PyYAML applies its overrides, so that an
+# override of their source carries through as it does in compose()
+INFERENCE_LINKS: Dict[str, str] = {
+    'data.dir_pre': '${paths.input_dir}',
+    'data.dir_mask': '${paths.mask_dir}',
+}
+
+
 # config/data/default.yaml: the training scene; the other groups of
 # config/config.yaml are those of INFERENCE
 TRAINING_DATA: Dict[str, Any] = {

@@ -33,21 +33,33 @@ composites in part (JAX ``_mask_up``); ``debug_mode`` writes
 Precision ``32`` runs fp32 with TF32 off in cuDNN and matmuls and the
 fp32 matmul precision at "highest" (the JAX contract is HIGHEST precision,
 patch_toon_tpu/models/layers.py:91-93 for the upsample's products and
-:100-119 for the convs).
+:100-119 for the convs). ``32_fast`` (aliases ``tf32``, ``fp32_fast``) is
+fp32 with the same strict flags, the generator's convs at JAX's
+``Precision.HIGH``: three TF32 products of a hi/lo split, TF32 allowed for
+those products alone (``models/layers.py::conv2d_3xtf32``); the upsample's
+products stay at "highest", as in JAX.
 ``bf16`` (the default) runs the convs in bf16 while InstanceNorm statistics
 and the smoother BatchNorm stay fp32, as in JAX.
 
-Not ported yet, and refused by name (``NotImplementedError``): precision
-``32_fast``, ``quantize=int8``, ``file_shard``, ``devices`` other than 1,
-the multi-stream temporal layout (a subdirectory per video) and
-``watch.enabled``; a mode other than tiled and
-fullframe raises ``ValueError``. ``readback_streams`` sets the pipeline's
-in-flight window (its value plus 2 frames, the JAX rule). ``upload`` is
-validated as JAX does and decides ``temporal.flow_upload: auto`` (f16
-unless it resolves to f32), which rounds the flows; otherwise it and the
-other transport knobs (``crop_readback``, ``crop_upload``, ``mask_upload``,
-``xla_options``) change no output in the JAX package and are no-ops here:
-the device flow's mask goes up as a dense uint8 plane.
+The public single-frame calls are :meth:`process_large_image` (a frame in
+memory, fp32 in [-1, 1] or uint8, an optional mask, fractional masks
+compositing in part) and :meth:`process_image` (files in, a PNG out); a
+group of frames goes through :meth:`stylize_group`. Watch mode
+(``inference.watch.enabled``, :meth:`watch_directory`, ``infer/watch.py``)
+polls the input directory; a subdirectory per video with the temporal
+guide is served as co-batched chains (``infer/multistream.py``).
+
+Not ported yet, and refused by name (``NotImplementedError``):
+``quantize=int8``, ``file_shard``, ``devices`` other than 1; a mode other
+than tiled and fullframe raises ``ValueError``. ``readback_streams`` sets
+the pipeline's in-flight window (its value plus 2 frames, the JAX rule).
+``upload`` is validated as JAX does and decides ``temporal.flow_upload:
+auto`` (f16 unless it resolves to f32), which rounds the flows; otherwise
+it and the other transport knobs (``crop_readback``, ``crop_upload``,
+``mask_upload``, ``xla_options``) change no output in the JAX package and
+are no-ops here, validated as the JAX engine validates them
+(``utils/knobs.py``): the device flow's mask goes up as a dense uint8
+plane.
 """
 
 from __future__ import annotations
@@ -69,10 +81,12 @@ from patch_toon_tpu_torch.data.io import (
     load_mask,
 )
 from patch_toon_tpu_torch.infer.common import HostSpans, _image_files
+from patch_toon_tpu_torch.infer.multistream import MultiStreamMixin
 from patch_toon_tpu_torch.infer.pipeline import (
     GroupPipeline,
     PinnedPools,
     Staged,
+    stack_masks,
     stage_upload,
 )
 from patch_toon_tpu_torch.infer.programs import (
@@ -81,9 +95,11 @@ from patch_toon_tpu_torch.infer.programs import (
     make_tile_plan,
 )
 from patch_toon_tpu_torch.infer.temporal import TemporalChain
+from patch_toon_tpu_torch.infer.watch import WatchMixin
 from patch_toon_tpu_torch.infer.tiling import (
     Box,
     bucket_size,
+    draw_tile_boxes,
     frames_per_dispatch,
     pack_boxes_multi,
     tile_boxes_from_mask,
@@ -92,8 +108,13 @@ from patch_toon_tpu_torch.models.generator import (
     GeneratorJ,
     input_channels_of,
 )
-from patch_toon_tpu_torch.native.frameio import FrameWriter
+from patch_toon_tpu_torch.models.layers import (
+    FAST_PRECISIONS,
+    resolve_conv_precision,
+)
+from patch_toon_tpu_torch.native.frameio import FrameWriter, encode_png
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
+from patch_toon_tpu_torch.utils.knobs import check_transport_knobs
 from patch_toon_tpu_torch.utils.weights import load_generator_state
 
 # distinct tile layouts whose device-resident plan and weights are kept:
@@ -122,14 +143,12 @@ def _resolve_device(device: Optional[str], cfg_inf: Dict[str, Any]):
 
 def _resolve_dtype(precision: Any) -> torch.dtype:
     p = str(precision)
-    if p in ("32_fast", "tf32", "fp32_fast"):
-        raise NotImplementedError(
-            f"inference.precision={precision!r} is not ported yet")
     if p in ("bf16", "bfloat16", "16"):
         return torch.bfloat16
-    if p in ("32", "fp32", "float32"):
+    if p in ("32", "fp32", "float32") + FAST_PRECISIONS:
         return torch.float32
-    raise ValueError(f"inference.precision={precision!r}: expected 32 or bf16")
+    raise ValueError(f"inference.precision={precision!r}: expected 32, "
+                     "32_fast or bf16")
 
 
 MODES = ("tiled", "fullframe")
@@ -158,9 +177,7 @@ def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
         raise NotImplementedError(
             f"inference.devices={inf.get('devices')!r} is not ported yet "
             "(one device)")
-    if bool((inf.get("watch") or {}).get("enabled", False)):
-        raise NotImplementedError(
-            "inference.watch.enabled=true is not ported yet")
+    check_transport_knobs(inf)
 
 
 def _parse_temporal(eng, inf: Dict[str, Any]) -> None:
@@ -207,7 +224,7 @@ def _parse_temporal(eng, inf: Dict[str, Any]) -> None:
                          "auto/f16/f32")
 
 
-class StyleTransferInference(TemporalChain):
+class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
     def __init__(self, cfg: Any, device: Optional[str] = None):
         self.cfg = cfg
         inf = cfg.get("inference", {}) or {}
@@ -221,6 +238,7 @@ class StyleTransferInference(TemporalChain):
         self.debug_mode = bool(inf.get("debug_mode", False))
         self.precision = inf.get("precision", "bf16")
         self.dtype = _resolve_dtype(self.precision)
+        self.conv_precision = resolve_conv_precision(self.precision)
         _parse_temporal(self, inf)
         if self.dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
@@ -244,6 +262,7 @@ class StyleTransferInference(TemporalChain):
 
         self.model = self._load_model(str(paths["checkpoint"]))
         self._packs: Dict[Any, Any] = {}  # tile layout -> (plan, weights)
+        self.patch_positions: List[Box] = []  # the last single frame's
         self.spans = HostSpans()
         # staging: pinned host buffers and a copy stream of their own
         self.upload_pools = PinnedPools()
@@ -261,6 +280,7 @@ class StyleTransferInference(TemporalChain):
                 f"{self.total_channels} channels.")
         args = dict(self.cfg["model"]["generator"].get("args") or {})
         args["input_channels"] = ckpt_channels
+        args["conv_precision"] = self.conv_precision
         model = GeneratorJ(**args)
         model.load_state_dict(sd, strict=True)
         model = model.eval().to(self.device,
@@ -317,6 +337,14 @@ class StyleTransferInference(TemporalChain):
             fn = make_fullframe_fn(self.model, h, w, self.dtype)
             with self.spans("host/dispatch"):
                 return fn(frames, masks)
+        return self._stylize_group(frames, masks, group_boxes)
+
+    def _stylize_group(self, frames: torch.Tensor, masks: torch.Tensor,
+                       group_boxes: Sequence[Sequence[Box]]):
+        """:meth:`_run` through the tiled multiframe program whatever the
+        mode, as JAX ``engine.py:951-979`` (the multi-stream cycle of two
+        or more streams takes it)."""
+        f, h, w, _ = frames.shape
         with self.spans("host/pack"):
             plan, weights = self._pack(group_boxes, h, w)
         fn = make_multiframe_fn(self.model, self.patch_size, f, h, w,
@@ -359,10 +387,7 @@ class StyleTransferInference(TemporalChain):
         with self.spans("host/stack"):
             self._await_staged(group)
             frames = torch.stack([s.frame for s in group])
-            masks = [s.mask for s in group]
-            if len({m.dtype for m in masks}) > 1:
-                masks = [m.float() for m in masks]
-            masks = torch.stack(masks)
+            masks = stack_masks(group)
         return self.dispatch(frames, masks, [s.boxes for s in group])
 
     def stylize_group(self, frames_u8: np.ndarray,
@@ -400,6 +425,58 @@ class StyleTransferInference(TemporalChain):
         with spans("host/readback"):
             return u8.cpu().numpy()
 
+    def process_large_image(self, frame: np.ndarray,
+                            mask: Optional[np.ndarray] = None,
+                            overlap_percent: Optional[float] = None
+                            ) -> np.ndarray:
+        """Stylize one frame in line (JAX ``engine.py:472-481``): (H, W, C)
+        fp32 in [-1, 1] or uint8 (RGB then guide channels), an eroded mask
+        (H, W) in [0, 1] or None for the whole frame ({0, 1} uploads as
+        uint8, any other as fp32 and composites in part), the tile overlap
+        (the engine's when None) -> (H, W, 3) uint8. Full-frame mode takes
+        the full-frame program; tiled mode the multiframe program at F = 1,
+        as :meth:`stylize_group` does. The tile boxes are kept in
+        ``patch_positions`` ([] in fullframe mode)."""
+        frame = np.ascontiguousarray(frame)
+        h, w, c = frame.shape
+        if c != self.total_channels:
+            raise ValueError(f"frame has {c} channels, the model takes "
+                             f"{self.total_channels}")
+        boxes: List[Box] = []
+        if self.mode != "fullframe":
+            m = mask if mask is not None else np.ones((h, w), np.float32)
+            boxes = tile_boxes_from_mask(
+                m, self.patch_size, self.overlap_percent
+                if overlap_percent is None else float(overlap_percent))
+        frame_d = torch.from_numpy(frame).to(self.device)
+        mask_d = torch.from_numpy(self._mask_tensor(mask, (h, w))).to(
+            self.device)
+        u8, _, boxes = self._stylize_device(frame_d, mask_d, boxes)
+        self.patch_positions = boxes
+        return u8.cpu().numpy()
+
+    def process_image(self, input_path, mask_path, save_path) -> None:
+        """Stylize one image file into ``save_path`` (JAX
+        ``engine.py:559-567``): the frame with its guide channels, its
+        eroded mask (a mask of another size raises; one missing from a
+        directory ending in ``ignore`` means the whole frame), then
+        :meth:`process_large_image`; with ``debug_mode`` also
+        ``debug_<name>`` with the tile boxes outlined."""
+        frame = self.load_frame(Path(input_path))
+        mask = self.load_eroded_mask(Path(mask_path), frame.shape[:2])
+        out = self.process_large_image(frame, mask)
+        encode_png(save_path, out)
+        if self.debug_mode:
+            self._save_debug_overlay(out, save_path)
+        self.logger.info(f"Saved {save_path}")
+
+    def _save_debug_overlay(self, out: np.ndarray, save_path) -> None:
+        """``debug_<name>`` beside ``save_path``: the frame with the last
+        call's tile boxes outlined (JAX ``engine.py:569-582``)."""
+        path = Path(save_path)
+        encode_png(path.with_name(f"debug_{path.name}"),
+                   draw_tile_boxes(out, self.patch_positions))
+
     # ------------------------------------------------------------------
 
     def _check_channel_dirs(self) -> None:
@@ -417,10 +494,15 @@ class StyleTransferInference(TemporalChain):
                     f"Channel {name} has insufficient channels: expected "
                     f"{ccfg['depth']}, but found {image_bands(samples[0])}")
 
-    def load_frame_parts(self, input_path: Path) -> List[np.ndarray]:
-        """[(H, W, 3) uint8 RGB, then each guide channel's first bands]."""
+    def load_frame_parts(self, input_path: Path,
+                         channels: Optional[Dict[str, Dict[str, Any]]] = None
+                         ) -> List[np.ndarray]:
+        """[(H, W, 3) uint8 RGB, then each guide channel's first bands];
+        ``channels`` in place of the engine's guide channels (a stream's
+        own directories)."""
         parts = [decode_rgb_uint8(input_path)]
-        for name, ccfg in self.additional_channels.items():
+        chans = self.additional_channels if channels is None else channels
+        for name, ccfg in chans.items():
             cpath = find_corresponding_image(ccfg["path"], str(input_path))
             if not os.path.exists(cpath):
                 raise FileNotFoundError(
@@ -450,15 +532,17 @@ class StyleTransferInference(TemporalChain):
                 f"{tuple(shape_hw)} — mask/frame resolutions must match")
         return erode_full_support_np(mask)
 
-    def load_flow(self, position: int) -> Optional[np.ndarray]:
+    def load_flow(self, position: int,
+                  flow_dir: Optional[Path] = None) -> Optional[np.ndarray]:
         """Frame ``position``'s backward flow, (H, W, 2), from
-        ``flow_dir / (file_format % position).npy``, rounded to float16
-        where ``temporal_flow_f16`` says; None without a flow_dir or for a
-        missing file (JAX ``temporal.py:316-325``)."""
-        if self.temporal_flow_dir is None:
+        ``flow_dir / (file_format % position).npy`` (the engine's flow_dir
+        when None), rounded to float16 where ``temporal_flow_f16`` says;
+        None without a flow_dir or for a missing file (JAX
+        ``temporal.py:316-325``)."""
+        flow_dir = flow_dir or self.temporal_flow_dir
+        if flow_dir is None:
             return None
-        path = Path(self.temporal_flow_dir) / \
-            f"{self.temporal_format % position}.npy"
+        path = Path(flow_dir) / f"{self.temporal_format % position}.npy"
         if not path.exists():
             return None
         flow = np.load(str(path))
@@ -501,7 +585,18 @@ class StyleTransferInference(TemporalChain):
         with spans("host/tile_placement"):
             boxes = [] if self.mode == "fullframe" \
                 else self.boxes_for(mask, hw)
-        with spans("host/upload"):
+        return self._stage(parts, mask, boxes, input_path, position, flow,
+                           fmask)
+
+    def _stage(self, parts: List[np.ndarray], mask: Optional[np.ndarray],
+               boxes: List[Box], path: Path, position: Optional[int],
+               flow: Optional[np.ndarray], fmask: Optional[np.ndarray]
+               ) -> Staged:
+        """Upload a decoded frame (its parts joined), its mask (None: the
+        whole frame) and its flow or flow mask, through pinned buffers on
+        the copy stream (host tensors on the CPU) -> :class:`Staged`."""
+        hw = parts[0].shape[:2]
+        with self.spans("host/upload"):
             frame_d, _ = stage_upload(parts, self.device, self.upload_pools,
                                       self.copy_stream)
             # the later copies follow the frame's on the one copy stream,
@@ -518,8 +613,8 @@ class StyleTransferInference(TemporalChain):
                 fmask_d, ready = stage_upload([fmask], self.device,
                                               self.upload_pools,
                                               self.copy_stream)
-        return Staged(frame_d, mask_d, ready, boxes, input_path, position,
-                      flow_d, fmask_d)
+        return Staged(frame_d, mask_d, ready, boxes, path, position, flow_d,
+                      fmask_d)
 
     def _detect_streams(self, input_dir: Path) -> List[str]:
         """The multi-stream temporal layout (JAX ``multistream.py:42-52``):
@@ -537,7 +632,9 @@ class StyleTransferInference(TemporalChain):
     def process_directory(self, files: Optional[List[Path]] = None) -> int:
         """Stylize every frame of paths.input_dir (or the given ``files``)
         into paths.output_dir, as a stream (see the module's docstring);
-        with the temporal guide, as one chain that later calls continue.
+        with the temporal guide, as one chain that later calls continue,
+        or, for a subdirectory per video, as co-batched chains
+        (``infer/multistream.py``).
 
         -> the number of frames written (handed to the writer, less the
         writes it reports failed)."""
@@ -549,13 +646,15 @@ class StyleTransferInference(TemporalChain):
             raise FileNotFoundError(f"Input directory not found: {input_dir}")
         if not mask_dir.name.endswith("ignore") and not mask_dir.exists():
             raise FileNotFoundError(f"Mask directory not found: {mask_dir}")
-        if files is None and self.temporal_enabled \
-                and self._detect_streams(input_dir):
-            raise NotImplementedError(
-                f"{input_dir} holds a subdirectory per video: multi-stream "
-                "temporal serving is not ported yet (one video a run)")
-        self._check_channel_dirs()
         output_dir.mkdir(parents=True, exist_ok=True)
+        if files is None and self.temporal_enabled:
+            # a subdirectory per video: co-batched chains (JAX
+            # engine.py:694-705)
+            streams = self._detect_streams(input_dir)
+            if streams:
+                return self._process_multistream(streams, input_dir,
+                                                 mask_dir, output_dir)
+        self._check_channel_dirs()
         if files is None:
             files = _image_files(input_dir)
         self.logger.info(f"Found {len(files)} images to process")

@@ -53,6 +53,15 @@ class Staged:
     fmask: Optional[torch.Tensor] = None
 
 
+def stack_masks(group: Sequence[Staged]) -> torch.Tensor:
+    """The staged frames' masks as one (F, H, W, 1) tensor: fp32 when any
+    is fractional (uint8 otherwise)."""
+    masks = [s.mask for s in group]
+    if len({m.dtype for m in masks}) > 1:
+        masks = [m.float() for m in masks]
+    return torch.stack(masks)
+
+
 class PinnedPool:
     """Pinned host buffers of one shape and dtype, each with the event of
     the copy that last used it. ``acquire`` takes the buffer released
@@ -171,9 +180,11 @@ class GroupPipeline:
         output."""
         self.submit(group, self.e.dispatch_staged(group))
 
-    def submit(self, group: Sequence[Staged], u8: torch.Tensor) -> None:
+    def submit(self, group: Sequence[Staged], u8: torch.Tensor,
+               paths: Optional[Sequence[Path]] = None) -> None:
         """Queue the readback of a group's (F, H, W, 3) uint8 output on the
-        device; then drain the oldest groups while more than ``window``
+        device, to ``paths`` (``output_dir`` / each input's name when
+        None); then drain the oldest groups while more than ``window``
         frames are in flight, keeping at least this group (JAX
         ``engine.py:1092-1099``)."""
         e = self.e
@@ -191,7 +202,8 @@ class GroupPipeline:
                 else:
                     g.outs.append(u8[k])
                     g.events.append(None)
-                g.paths.append(self.output_dir / staged.path.name)
+                g.paths.append(self.output_dir / staged.path.name
+                               if paths is None else Path(paths[k]))
                 g.boxes.append(staged.boxes)
         self.in_flight.append(g)
         while self.frames_in_flight() > self.window \

@@ -2,8 +2,10 @@
 
 Counterpart of ``patch_toon_tpu/infer/temporal.py``: ``_temporal_prep``
 (:28-55), ``_temporal_device_flow`` (:57-91), ``_device_gray`` (:93-98),
-the chain's state on the engine (``_temporal_register`` /
-``_temporal_position``, :184-227), ``_chain_step`` (:229-274) and, in
+``_temporal_flow_pairs`` (:123-144, with ``_masked_flows_from_grays``
+:101-120: the multi-stream cycle's flows, pair by pair here), the chain's
+state on the engine (``_temporal_register`` / ``_temporal_position``,
+:184-227), ``_chain_step`` (:229-274) and, in
 ``infer/engine.py``, ``_process_directory_temporal`` (:276-529). Frame i's
 generator input gains ``depth`` channels holding the previous stylized
 frame warped by the backward flow i -> i-1. That flow comes
@@ -30,15 +32,16 @@ sequential only on the device: frame i+1's input needs frame i's fp32
 composite, which stays on the card, so stream order carries it and the host
 dispatches frame i+1 without waiting on a readback.
 
-Not ported yet, and refused by name by the engine: the multi-stream layout
-(a subdirectory per video; JAX's ``_temporal_flow_pairs`` serves it) and
-watch mode.
+The multi-stream layout (a subdirectory per video, ``infer/multistream.py``)
+runs one such chain per stream, each step's prologue the same
+(:meth:`TemporalChain._chain_prologue`), the generator co-batched across
+streams.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -83,6 +86,27 @@ def _temporal_device_flow(frame: torch.Tensor, prev_gray: torch.Tensor,
     if fmask is not None:
         flow = flow * (fmask.to(torch.float32) > 0.5)[..., None]
     return flow, gray
+
+
+def _temporal_flow_pairs(frames: Sequence[torch.Tensor],
+                         prev_grays: Sequence[torch.Tensor],
+                         fmasks: Sequence[Optional[torch.Tensor]],
+                         scale: int = 1,
+                         step: Callable = _temporal_device_flow):
+    """The multi-stream cycle's flows (JAX ``_temporal_flow_pairs``, whose
+    vmap over the pairs is a loop here): for N independent frames, each
+    with its previous frame's luma and its raw flow mask or None -> ([(H,
+    W, 2) fp32 flow], [(H, W) uint8 luma]). ``step`` is the flow step (the
+    engine passes its :class:`FlowGraphs`: on the card one graph replay a
+    stream, each output cloned out before the next replay), so each
+    stream's flow is bitwise its own chain's."""
+    flows: List[torch.Tensor] = []
+    grays: List[torch.Tensor] = []
+    for frame, prev_gray, fmask in zip(frames, prev_grays, fmasks):
+        flow, gray = step(frame, prev_gray, fmask, scale)
+        flows.append(flow)
+        grays.append(gray)
+    return flows, grays
 
 
 class _FlowGraph:
@@ -183,20 +207,15 @@ class TemporalChain:
         return (f"{position} ({self.temporal_flow_dir}/"
                 f"{self.temporal_format % position}.npy)")
 
-    def _chain_step(self, fdev: torch.Tensor, mask: torch.Tensor, boxes,
-                    carry, aux: Optional[torch.Tensor] = None,
-                    flow_hit=None, label: Optional[str] = None):
-        """One step of the chain: the guide from ``carry`` (the previous
-        frame's fp32 composite and, with the device flow, its luma; each
-        None at a chain's start) and ``aux`` (files: this frame's flow on
-        the device; device: its raw flow mask; either may be None), then
-        the serving program of the engine's mode on the (H, W, C + depth)
-        input. ``flow_hit``: this frame's (flow, luma), computed ahead by a
-        lookahead window.
-
-        fdev (H, W, C) and mask (H, W, 1) on the device -> ((H, W, 3)
-        uint8 on the device, the tile boxes ([] in fullframe mode), the
-        new carry); nothing is synchronised."""
+    def _chain_prologue(self, fdev: torch.Tensor, carry,
+                        aux: Optional[torch.Tensor] = None, flow_hit=None,
+                        label: Optional[str] = None):
+        """The guide of one chain step from ``carry`` (the previous frame's
+        fp32 composite and, with the device flow, its luma; each None at a
+        chain's start) and ``aux`` (files: this frame's flow on the device;
+        device: its raw flow mask; either may be None). ``flow_hit``: this
+        frame's (flow, luma), computed ahead. -> (the (H, W, C + depth)
+        generator input, this frame's luma or None)."""
         prev, prev_gray = carry
         gray = None
         if self.temporal_flow_source == "device":
@@ -223,6 +242,18 @@ class TemporalChain:
             self.logger.warning(f"No flow for frame {label}; "
                                 "using unwarped previous output")
             prev_in, flow_in = prev, None
-        full = _temporal_prep(fdev, prev_in, flow_in, self.temporal_depth)
+        return _temporal_prep(fdev, prev_in, flow_in,
+                              self.temporal_depth), gray
+
+    def _chain_step(self, fdev: torch.Tensor, mask: torch.Tensor, boxes,
+                    carry, aux: Optional[torch.Tensor] = None,
+                    flow_hit=None, label: Optional[str] = None):
+        """One step of the chain: :meth:`_chain_prologue`, then the serving
+        program of the engine's mode on the (H, W, C + depth) input.
+
+        fdev (H, W, C) and mask (H, W, 1) on the device -> ((H, W, 3)
+        uint8 on the device, the tile boxes ([] in fullframe mode), the
+        new carry); nothing is synchronised."""
+        full, gray = self._chain_prologue(fdev, carry, aux, flow_hit, label)
         u8, out_float, boxes = self._stylize_device(full, mask, boxes)
         return u8, boxes, (out_float, gray)

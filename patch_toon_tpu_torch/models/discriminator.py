@@ -30,9 +30,10 @@ class DiscriminatorN_IN(nn.Module):
                  n_layers: int = 3, use_noise: bool = False,
                  noise_sigma: float = 0.2,
                  norm_layer: str = "instance_norm", use_bias: bool = True,
-                 **unused: Any):
+                 conv_precision: Optional[str] = None, **unused: Any):
         """Arguments as the reference constructor; ``additional_channels``
-        is accepted and unused, as there."""
+        is accepted and unused, as there. ``conv_precision`` as the
+        generator's (JAX ``models/discriminator.py:39``)."""
         super().__init__()
         if norm_layer != "instance_norm":
             raise NotImplementedError(
@@ -40,19 +41,23 @@ class DiscriminatorN_IN(nn.Module):
         self.use_noise = bool(use_noise)
         self.noise_sigma = float(noise_sigma)
         nf = int(num_filters)
+        cp = conv_precision
         self.initial = nn.Sequential(
-            conv(int(input_channels), nf, 4, 2, 1, use_bias), nn.LeakyReLU(0.2))
+            conv(int(input_channels), nf, 4, 2, 1, use_bias, cp),
+            nn.LeakyReLU(0.2))
         blocks, curr = [], nf
         for _ in range(1, n_layers):
             nxt = min(curr * 2, nf * 8)
-            blocks.append(nn.Sequential(conv(curr, nxt, 4, 2, 1, use_bias),
-                                        nn.Identity(), nn.LeakyReLU(0.2)))
+            blocks.append(nn.Sequential(
+                conv(curr, nxt, 4, 2, 1, use_bias, cp), nn.Identity(),
+                nn.LeakyReLU(0.2)))
             curr = nxt
         self.intermediate = nn.Sequential(*blocks)
         nxt = min(curr * 2, nf * 8)
-        self.pre_output = nn.Sequential(conv(curr, nxt, 4, 1, 1, use_bias),
-                                        nn.Identity(), nn.LeakyReLU(0.2))
-        self.output = nn.Sequential(conv(nxt, 1, 4, 1, 1, use_bias))
+        self.pre_output = nn.Sequential(
+            conv(curr, nxt, 4, 1, 1, use_bias, cp), nn.Identity(),
+            nn.LeakyReLU(0.2))
+        self.output = nn.Sequential(conv(nxt, 1, 4, 1, 1, use_bias, cp))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -22,7 +22,7 @@ statistics and advances its running statistics once
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +41,14 @@ class ResNetBlock(nn.Module):
     """x + (ReLU -> Conv3x3 -> IN -> ReLU -> Conv3x3 -> IN)(x)
     (reference src/models/generator.py:18-58)."""
 
-    def __init__(self, channels: int, use_bias: bool):
+    def __init__(self, channels: int, use_bias: bool,
+                 conv_precision: Optional[str] = None):
         super().__init__()
+        cp = conv_precision
         self.block = nn.Sequential(
-            nn.ReLU(), conv(channels, channels, 3, 1, 1, use_bias),
+            nn.ReLU(), conv(channels, channels, 3, 1, 1, use_bias, cp),
             nn.Identity(), nn.ReLU(),
-            conv(channels, channels, 3, 1, 1, use_bias), nn.Identity())
+            conv(channels, channels, 3, 1, 1, use_bias, cp), nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.block[1](F.relu(x))
@@ -60,33 +62,41 @@ class GeneratorJ(nn.Module):
                  filters: Sequence[int] = (32, 64, 128, 128, 128, 64),
                  norm_layer: str = "instance_norm", use_bias: bool = False,
                  resnet_blocks: int = 7, tanh: bool = True,
-                 append_smoothers: bool = True, **unused: Any):
+                 append_smoothers: bool = True,
+                 conv_precision: Optional[str] = None, **unused: Any):
         """Arguments as the reference constructor; ``additional_channels``
-        and ``input_size`` are accepted and unused, as there."""
+        and ``input_size`` are accepted and unused, as there.
+        ``conv_precision`` "high" is precision ``32_fast`` (JAX
+        ``models/generator.py:85``): every conv of an fp32 forward runs as
+        ``layers.conv2d_3xtf32``."""
         super().__init__()
         if norm_layer != "instance_norm":
             raise NotImplementedError(
                 f"norm_layer={norm_layer!r} is not ported yet")
         f = list(filters)
         c = int(input_channels)
+        cp = conv_precision
         self.tanh = bool(tanh)
-        self.initial_conv = nn.Sequential(conv(c, f[0], 7, 1, 3, use_bias))
-        self.downsample1 = nn.Sequential(conv(f[0], f[1], 3, 2, 1, use_bias))
-        self.downsample2 = nn.Sequential(conv(f[1], f[2], 3, 2, 1, use_bias))
+        self.initial_conv = nn.Sequential(
+            conv(c, f[0], 7, 1, 3, use_bias, cp))
+        self.downsample1 = nn.Sequential(
+            conv(f[0], f[1], 3, 2, 1, use_bias, cp))
+        self.downsample2 = nn.Sequential(
+            conv(f[1], f[2], 3, 2, 1, use_bias, cp))
         self.resnet_blocks = nn.Sequential(
-            *[ResNetBlock(f[2], use_bias) for _ in range(resnet_blocks)])
+            *[ResNetBlock(f[2], use_bias, cp) for _ in range(resnet_blocks)])
         self.upsample2 = nn.Sequential(
-            nn.Identity(), conv(2 * f[2], f[4], 3, 1, 1, use_bias))
+            nn.Identity(), conv(2 * f[2], f[4], 3, 1, 1, use_bias, cp))
         self.upsample1 = nn.Sequential(
-            nn.Identity(), conv(f[4] + f[1], f[4], 3, 1, 1, use_bias))
+            nn.Identity(), conv(f[4] + f[1], f[4], 3, 1, 1, use_bias, cp))
         self.conv11 = nn.Sequential(
-            conv(f[4] + f[0] + c, f[5], 7, 1, 3, use_bias))
+            conv(f[4] + f[0] + c, f[5], 7, 1, 3, use_bias, cp))
         self.smoothers = nn.Sequential(
-            conv(f[5], f[5], 3, 1, 1, use_bias), nn.ReLU(),
+            conv(f[5], f[5], 3, 1, 1, use_bias, cp), nn.ReLU(),
             nn.BatchNorm2d(f[5]),
-            conv(f[5], f[5], 3, 1, 1, use_bias), nn.ReLU(),
+            conv(f[5], f[5], 3, 1, 1, use_bias, cp), nn.ReLU(),
         ) if append_smoothers else None
-        self.output = nn.Sequential(conv(f[5], 3, 1, 1, 0, True))
+        self.output = nn.Sequential(conv(f[5], 3, 1, 1, 0, True, cp))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

@@ -6,12 +6,21 @@ go to cuDNN in that layout and the InstanceNorm kernel reads it without a
 copy. Conv weights are torch's OIHW (reference ``nn.Conv2d``), kept in fp32
 for training and cast to the activation's type in each forward, as flax
 casts fp32 parameters to a module's compute dtype.
+
+Precision ``32_fast`` (JAX ``conv_precision="high"``, ``lax.Precision.HIGH``:
+a 3-pass bf16 product with fp32 tensors) is :func:`conv2d_3xtf32` here:
+each fp32 operand splits into hi (rounded to TF32's 10 mantissa bits) and
+lo = x - hi, and three fp32 cuDNN convolutions with TF32 allowed for them
+alone, hi*hi + hi*lo + lo*hi, sum in fp32. The forward and both gradients
+take the same split (:class:`_Conv3xTF32`); the flag is restored after
+each call, so the strict fp32 path keeps TF32 off.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import contextlib
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -21,22 +30,123 @@ from torch import nn
 from patch_toon_tpu_torch.ops.instance_norm import instance_norm_act_autograd
 
 
+FAST_PRECISIONS = ("32_fast", "tf32", "fp32_fast")
+
+
+def resolve_conv_precision(precision: Any) -> Optional[str]:
+    """The networks' conv precision for a precision name (JAX
+    ``train/model.py::_resolve_conv_precision``): "high" for ``32_fast``
+    and its aliases, None (the dtype's own policy) for the others."""
+    return "high" if str(precision) in FAST_PRECISIONS else None
+
+
+def _round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to the nearest value with 10 mantissa bits (ties to
+    even), the part of an operand that a TF32 tensor core multiplies
+    exactly."""
+    i = t.view(torch.int32)
+    i = (i + (0xFFF + ((i >> 13) & 1))) & -0x2000
+    return i.view(torch.float32)
+
+
+def _split(t: torch.Tensor):
+    hi = _round_tf32(t)
+    return hi, t - hi
+
+
+@contextlib.contextmanager
+def _tf32_convs():
+    """TF32 allowed in cuDNN convolutions for the block only; the flag is
+    put back as it was (the strict fp32 path keeps it off)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _conv_backward(gy, x, w, stride, padding, want_input: bool):
+    """One cuDNN product of a conv's backward pass: the input gradient
+    (``want_input``) or the weight gradient, of ``gy`` against ``w`` or
+    ``x``."""
+    mask = [want_input, not want_input, False]
+    out = torch.ops.aten.convolution_backward(
+        gy, x, w, None, list(stride), list(padding), [1, 1], False, [0, 0],
+        1, mask)
+    return out[0] if want_input else out[1]
+
+
+class _Conv3xTF32(torch.autograd.Function):
+    """An fp32 conv as three TF32 products of the hi/lo split, in the
+    forward and in both gradients (JAX differentiates a HIGH conv into
+    transposed convs at the same precision)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = (stride, padding, b is not None)
+        (xh, xl), (wh, wl) = _split(x), _split(w)
+        with _tf32_convs():
+            y = F.conv2d(xh, wh, None, stride, padding)
+            y = y + F.conv2d(xh, wl, None, stride, padding)
+            y = y + F.conv2d(xl, wh, None, stride, padding)
+        return y if b is None else y + b[None, :, None, None]
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, has_bias = ctx.geometry
+        (gh, gl), (xh, xl), (wh, wl) = _split(gy), _split(x), _split(w)
+        gx = gw = gb = None
+        with _tf32_convs():
+            if ctx.needs_input_grad[0]:
+                gx = _conv_backward(gh, xh, wh, stride, padding, True)
+                gx = gx + _conv_backward(gh, xh, wl, stride, padding, True)
+                gx = gx + _conv_backward(gl, xh, wh, stride, padding, True)
+            if ctx.needs_input_grad[1]:
+                gw = _conv_backward(gh, xh, wh, stride, padding, False)
+                gw = gw + _conv_backward(gh, xl, wh, stride, padding, False)
+                gw = gw + _conv_backward(gl, xh, wh, stride, padding, False)
+        if has_bias and ctx.needs_input_grad[2]:
+            gb = gy.sum(dim=(0, 2, 3))
+        return gx, gw, gb, None, None
+
+
+def conv2d_3xtf32(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor], stride, padding) -> torch.Tensor:
+    """``F.conv2d`` of fp32 tensors at JAX's ``Precision.HIGH``: three TF32
+    products of the hi/lo split summed in fp32 (within 2e-5 of the fp32
+    conv; the gradients split alike)."""
+    return _Conv3xTF32.apply(x, w, b, tuple(stride), tuple(padding))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in its input's type: the weight and bias are
     cast to it (a no-op when they already have it; differentiable, so fp32
-    parameters receive fp32 gradients from a bf16 forward)."""
+    parameters receive fp32 gradients from a bf16 forward).
+    ``conv_precision="high"`` runs an fp32 input through
+    :func:`conv2d_3xtf32` (precision ``32_fast``)."""
+
+    conv_precision: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.conv_precision == "high" and x.dtype == torch.float32:
+            return conv2d_3xtf32(x, w, b, self.stride, self.padding)
         return self._conv_forward(x, w, b)
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-         bias: bool = True) -> Conv2d:
+         bias: bool = True, conv_precision: Optional[str] = None) -> Conv2d:
     """Torch-compatible conv: explicit zero padding, N(0, 0.02) weights and
-    zero bias as at reference generator.py:149-154."""
+    zero bias as at reference generator.py:149-154; ``conv_precision``
+    None or "high" (JAX ``models/layers.py::resolve_mxu_precision``)."""
+    if conv_precision not in (None, "high"):
+        raise ValueError(f"Unknown conv_precision: {conv_precision!r}")
     layer = Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
+    layer.conv_precision = conv_precision
     nn.init.normal_(layer.weight, 0.0, 0.02)
     if bias:
         nn.init.zeros_(layer.bias)

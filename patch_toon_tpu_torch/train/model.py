@@ -7,14 +7,19 @@ builds GeneratorJ, DiscriminatorN_IN and the VGG19 prefix from the same
 config dicts, and owns the two optimizers (``init_state``).
 
 Precision ``32`` runs fp32 with TF32 off in cuDNN and in matrix products
-(the JAX contract is HIGHEST precision); ``bf16`` runs the networks in
-bf16 while InstanceNorm and BatchNorm statistics, the losses and the
-optimizer stay fp32, as in JAX. ``training_backends`` sets these flags and
-cuDNN's deterministic mode for the length of a run.
+(the JAX contract is HIGHEST precision); ``32_fast`` (and its aliases
+``tf32``, ``fp32_fast``) is fp32 with the generator's and discriminator's
+convs at JAX's ``Precision.HIGH``, three TF32 products of a hi/lo split
+(``models/layers.py::conv2d_3xtf32``), the VGG convs strict; ``bf16`` runs
+the networks in bf16 while InstanceNorm and BatchNorm statistics, the
+losses and the optimizer stay fp32, as in JAX. ``training_backends`` sets
+these flags and cuDNN's deterministic mode for the length of a run.
+``training.xla_options`` changes nothing here and is validated as the JAX
+step validates it.
 
-Not ported yet, and refused by name: precision ``32_fast``, gradient
-accumulation, several devices, the ``parallel.dcn`` cluster and the
-profiler trace (``training.profile_dir``).
+Not ported yet, and refused by name: gradient accumulation, several
+devices, the ``parallel.dcn`` cluster and the profiler trace
+(``training.profile_dir``).
 """
 
 from __future__ import annotations
@@ -27,10 +32,15 @@ import torch
 from patch_toon_tpu_torch.config.compose import to_container
 from patch_toon_tpu_torch.models.discriminator import DiscriminatorN_IN
 from patch_toon_tpu_torch.models.generator import GeneratorJ
+from patch_toon_tpu_torch.models.layers import (
+    FAST_PRECISIONS,
+    resolve_conv_precision,
+)
 from patch_toon_tpu_torch.models.perception import PerceptualVGG19
 from patch_toon_tpu_torch.train import optim
 from patch_toon_tpu_torch.train.losses import get_criterion
 from patch_toon_tpu_torch.train.state import GANTrainState
+from patch_toon_tpu_torch.utils.knobs import check_xla_options
 
 
 def calculate_total_channels(additional_channels: Optional[Dict[str, Any]]
@@ -55,22 +65,23 @@ def validate_additional_channels(additional_channels: Optional[Dict[str, Any]]
 
 def resolve_dtype(precision: Any) -> torch.dtype:
     p = str(precision)
-    if p in ("32_fast", "tf32", "fp32_fast"):
-        raise NotImplementedError(
-            f"training.precision={precision!r} is not ported yet (32 or bf16)")
     if p in ("bf16", "bfloat16", "16"):
         return torch.bfloat16
-    if p in ("32", "fp32", "float32"):
+    if p in ("32", "fp32", "float32") + FAST_PRECISIONS:
         return torch.float32
-    raise ValueError(f"training.precision={precision!r}: expected 32 or bf16")
+    raise ValueError(f"training.precision={precision!r}: expected 32, "
+                     "32_fast or bf16")
 
 
 def check_unported_training_knobs(training: Dict[str, Any],
                                   parallel: Optional[Dict[str, Any]] = None
                                   ) -> None:
     """Raise NotImplementedError naming each training knob that asks for
-    what this port does not do yet."""
+    what this port does not do yet; ValueError for a precision or an
+    ``xla_options`` value the JAX step refuses."""
     resolve_dtype(training.get("precision", 32))
+    check_xla_options(training.get("xla_options", "auto"),
+                      "training.xla_options")
     if int(training.get("accumulate_grad_batches", 1) or 1) != 1:
         raise NotImplementedError(
             "training.accumulate_grad_batches != 1 is not ported yet")
@@ -136,6 +147,8 @@ class StyleTransferModel:
             self.data_config.get("additional_channels") or {}
         validate_additional_channels(self.additional_channels)
         self.dtype = resolve_dtype(self.training_config.get("precision", 32))
+        self.conv_precision = resolve_conv_precision(
+            self.training_config.get("precision", 32))
         # fail fast on unknown criteria (lightning_model.py:48-54)
         get_criterion(self.training_config.get("reconstruction_criterion",
                                                "L1Loss"))
@@ -183,8 +196,10 @@ class StyleTransferModel:
         dev = torch.device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            gen = GeneratorJ(**self.generator_args)
-            disc = DiscriminatorN_IN(**self.discriminator_args) \
+            gen = GeneratorJ(**self.generator_args,
+                             conv_precision=self.conv_precision)
+            disc = DiscriminatorN_IN(**self.discriminator_args,
+                                     conv_precision=self.conv_precision) \
                 if self.discriminator_args is not None else None
         perc = None
         if self.perception_args is not None:

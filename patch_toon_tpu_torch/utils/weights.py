@@ -10,11 +10,14 @@ storage, and converted weights must never share memory with their source.
 reference Lightning ``.ckpt`` (``state_dict`` with a ``generator.`` prefix)
 and the ``{"gen": ...}`` layout of the repo's trained checkpoints
 (``docs/quality_2000/torch_train.ckpt``). Both load with
-``weights_only=True``: no pickled code runs.
+``weights_only=True``: no pickled code runs. A directory is the JAX
+package's Orbax checkpoint, which needs jax to read: it is refused with
+the command that exports it to a ``.ckpt``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -87,7 +90,15 @@ def vgg_state_from_jax(params: Mapping[str, Any]
 
 def load_generator_state(path) -> Dict[str, torch.Tensor]:
     """GeneratorJ state dict from a reference ``.ckpt`` or a ``{"gen"}``
-    checkpoint; raises on any other layout."""
+    checkpoint; raises on any other layout, and on a directory (an Orbax
+    checkpoint of the JAX package)."""
+    if os.path.isdir(str(path)):
+        raise ValueError(
+            f"{path} is a directory, an Orbax checkpoint of the JAX "
+            "package; this port reads torch .ckpt files only. Export it "
+            "first with tools/export_checkpoint.py (needs jax): python "
+            f"tools/export_checkpoint.py {path} out.ckpt, then pass "
+            "paths.checkpoint=out.ckpt")
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         pre = "generator."

@@ -751,3 +751,102 @@ def test_flow_on_cuda_matches_the_cpu(cuda):
         worst, tail = max(1e-3, 2 * spread[0]), max(1e-4, 2 * spread[1])
         assert d.max() <= worst and np.quantile(d, 0.999) <= tail, (
             scale, float(d.max()), float(np.quantile(d, 0.999)), spread)
+
+
+def _fast_generator(cuda, conv_precision):
+    """The shipped generator at full width (6 input channels) from one
+    seed, fp32, on the card."""
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+
+    torch.manual_seed(11)
+    gen = GeneratorJ(input_channels=6, use_bias=True,
+                     conv_precision=conv_precision)
+    with torch.no_grad():  # move off the zero-bias init
+        for p in gen.parameters():
+            p.add_(torch.randn_like(p) * 0.02)
+    return gen.to(cuda, memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,k,stride,hw", [
+    (6, 32, 7, 1, 80), (32, 64, 3, 2, 80), (128, 128, 3, 1, 20),
+    (256, 128, 3, 1, 40), (166, 64, 7, 1, 80), (12, 24, 4, 2, 80)])
+def test_32_fast_conv_on_cuda_within_the_bar(cuda, cin, cout, k, stride, hw):
+    """``conv2d_3xtf32`` on the card against the fp64 conv, the largest
+    |d| over the largest |y| of the output and of both gradients: each
+    within 2e-6 or closer than one TF32 pass of the same product (the
+    split removes the inputs' rounding to TF32, not the tensor cores'
+    accumulation), and the output within 2e-6 of 1.5 times the error of
+    its hi*hi pass alone, whose inputs are exact in TF32 (what remains is
+    that accumulation: at K = 166 x 49 it is 2.3e-5 where the strict fp32
+    conv is 3.5e-6); cuDNN's TF32 flag is left off."""
+    import torch.nn.functional as F
+
+    from patch_toon_tpu_torch.models.layers import (
+        _split,
+        _tf32_convs,
+        conv2d_3xtf32,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(cin + k)
+    x = torch.rand((8, cin, hw, hw), generator=g) * 2 - 1
+    w = torch.randn((cout, cin, k, k), generator=g) * (1.0 / (cin * k * k))
+    b = torch.randn((cout,), generator=g) * 0.1
+    pad = (k - 1) // 2 if k != 4 else 1
+    xd = x.to(cuda).contiguous(memory_format=torch.channels_last)
+    xd.requires_grad_(True)
+    wd = w.to(cuda).clone().requires_grad_(True)
+    bd = b.to(cuda)
+    gy = None
+
+    def rel(got, want):
+        want = want.detach()
+        return float((got.detach().cpu().double() - want).abs().max()) \
+            / float(want.abs().max())
+
+    def products(fn, xs, ws):
+        nonlocal gy
+        y = fn(xs, ws)
+        if gy is None:
+            gy = torch.randn(y.shape, generator=g)
+        return (y, *torch.autograd.grad(y, (xs, ws), gy.to(y.device,
+                                                            y.dtype)))
+
+    split = products(lambda a, c: conv2d_3xtf32(a, c, bd, (stride, stride),
+                                                (pad, pad)), xd, wd)
+    assert torch.backends.cudnn.allow_tf32 is False
+    with _tf32_convs():
+        one = products(lambda a, c: F.conv2d(a, c, bd, stride, pad), xd, wd)
+        (xh, _), (wh, _) = _split(xd.detach()), _split(wd.detach())
+        hihi = F.conv2d(xh, wh, bd, stride, pad)
+    xr = x.double().requires_grad_(True)
+    wr = w.double().requires_grad_(True)
+    ref = products(lambda a, c: F.conv2d(a, c, b.double(), stride, pad),
+                   xr, wr)
+    ref_hihi = F.conv2d(xh.cpu().double(), wh.cpu().double(), b.double(),
+                        stride, pad)
+    errs = [(rel(s_, r), rel(o, r)) for s_, o, r in zip(split, one, ref)]
+    for e_split, e_one in errs:  # 2e-6: a product cuDNN keeps in fp32
+        assert e_split <= max(2e-6, e_one), errs
+    assert errs[0][0] <= 1.5 * rel(hihi, ref_hihi) + 2e-6, errs
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.cuda
+def test_32_fast_generator_on_cuda_within_2e5_of_fp32(cuda):
+    """The full-width generator with ``conv_precision="high"`` against the
+    same weights at strict fp32, both on the card: within 2e-5 absolute
+    and relative (JAX's test's bar). (The whole network's gradient is no
+    test of the conv: strict fp32 itself is 0.8 % from fp64 there, through
+    the activations' branches; each conv's gradients are held above.)"""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    strict = _fast_generator(cuda, None).eval()
+    fast = _fast_generator(cuda, "high").eval()
+    x = (torch.rand((16, 80, 80, 6), generator=torch.Generator(
+        ).manual_seed(3)) * 2 - 1).to(cuda)
+    with torch.no_grad():
+        a, b = strict(x), fast(x)
+    torch.testing.assert_close(b, a, atol=2e-5, rtol=2e-5)
+    assert torch.backends.cudnn.allow_tf32 is False

@@ -115,8 +115,9 @@ def test_stylize_group_cobatches_frames(scene, tmp_path):
 
 
 def test_engine_refusals(scene, tmp_path):
-    with pytest.raises(NotImplementedError):
-        _engine(scene, tmp_path, "inference.precision=32_fast")
+    # precision 32_fast is ported: fp32 tensors, the split convs
+    fast = _engine(scene, tmp_path, "inference.precision=32_fast")
+    assert fast.dtype == torch.float32 and fast.conv_precision == "high"
     # fullframe mode is ported; a mode that does not exist is an error
     assert _engine(scene, tmp_path,
                    "inference.mode=fullframe").mode == "fullframe"
@@ -137,32 +138,78 @@ def test_engine_refusals(scene, tmp_path):
             ("inference.quantize=int8", "quantize"),
             ("inference.file_shard=0/2", "file_shard"),
             ("inference.devices=2", "devices"),
-            ("inference.devices=-1", "devices"),
-            ("inference.watch.enabled=true", "watch.enabled")]:
+            ("inference.devices=-1", "devices")]:
         with pytest.raises(NotImplementedError, match=knob):
             _engine(scene, tmp_path, override,
                     "inference.temporal.enabled=true",
                     "paths.additional_channels={}")
-    # the multi-stream temporal layout: a subdirectory per video
+    # watch mode is ported: the engine takes the knob
+    assert _engine(scene, tmp_path, "inference.watch.enabled=true",
+                   "inference.temporal.enabled=true",
+                   "paths.additional_channels={}").temporal_enabled
+    # the multi-stream temporal layout (a subdirectory per video) is
+    # ported: one stream of one frame is served under its own name
     streams = tmp_path / "streams"
     (streams / "shot_a").mkdir(parents=True)
+    (tmp_path / "smask" / "shot_a").mkdir(parents=True)
     src = sorted((scene / "scene" / "input").glob("*.png"))[0]
     (streams / "shot_a" / src.name).write_bytes(src.read_bytes())
+    (tmp_path / "smask" / "shot_a" / src.name).write_bytes(
+        (scene / "scene" / "mask" / src.name).read_bytes())
     eng.cfg["paths"]["input_dir"] = str(streams)
-    with pytest.raises(NotImplementedError, match="multi-stream"):
-        eng.process_directory()
+    eng.cfg["paths"]["mask_dir"] = str(tmp_path / "smask")
+    eng.cfg["paths"]["output_dir"] = str(tmp_path / "sout")
+    assert eng.process_directory() == 1
+    assert (tmp_path / "sout" / "shot_a" / src.name).exists()
     with pytest.raises(ValueError, match="quantize"):
         _engine(scene, tmp_path, "inference.quantize=int4")
     # debug_mode is ported: the tile-box overlays
     assert _engine(scene, tmp_path, "inference.debug_mode=true").debug_mode
-    # the transport knobs change no output in the JAX package: no-ops here
+    # the transport knobs change no output in the JAX package: no-ops
+    # here, validated as JAX validates them
     _engine(scene, tmp_path, "inference.crop_readback=off",
-            "inference.upload=f32", "inference.mask_upload=u8")
+            "inference.upload=f32", "inference.mask_upload=plane")
     with pytest.raises(ValueError, match="Channel count mismatch"):
         _engine(scene, tmp_path, "paths.additional_channels=null")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _engine(scene, tmp_path, "inference.use_gpu=true")
+
+
+@pytest.mark.parametrize("override,refused", [
+    ("inference.mask_upload=u8", True),
+    ("inference.mask_upload=plane", False),
+    ("inference.mask_upload=bits", False),
+    ("inference.crop_readback=of", True),
+    ("inference.crop_readback=disabled", False),
+    ("inference.crop_readback=yes", False),
+    ("inference.crop_upload=disable", True),
+    ("inference.crop_upload=on", False),
+    ("inference.xla_options=fast", True),
+    ("inference.xla_options=none", False),
+    ("inference.xla_options=off", False),
+    ("inference.xla_options={a: 1}", False)])
+def test_transport_knobs_are_validated_as_jax(scene, tmp_path, override,
+                                              refused):
+    """Fault C5: each transport knob (a no-op here) raises ValueError for a
+    value the JAX engine refuses, and takes each value it takes."""
+    from patch_toon_tpu.config import compose as jax_compose
+    from patch_toon_tpu.infer import StyleTransferInference as JaxEngine
+
+    knob = override.split("=")[0].split(".")[-1]
+    cfg = jax_compose(REPO / "config", "inference", overrides=_overrides(
+        scene, tmp_path, scene / "scene" / "mask") + [override])
+    try:
+        JaxEngine(cfg)
+        jax_refuses = False
+    except ValueError:
+        jax_refuses = True
+    assert jax_refuses == refused
+    if jax_refuses:
+        with pytest.raises(ValueError, match=knob):
+            _engine(scene, tmp_path, override)
+    else:
+        _engine(scene, tmp_path, override)
 
 
 def test_fractional_mask_composites_in_part_as_jax(scene, tmp_path):

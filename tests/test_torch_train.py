@@ -702,7 +702,6 @@ def test_training_defaults_equal_composed_yaml():
 
 
 @pytest.mark.parametrize("override,knob", [
-    ("training.precision=32_fast", "precision"),
     ("training.accumulate_grad_batches=2", "accumulate_grad_batches"),
     ("training.devices=2", "devices"),
     ("parallel.dcn.enabled=true", "parallel.dcn"),
@@ -717,3 +716,36 @@ def test_unported_training_knobs_are_refused(scene, tmp_path, override, knob):
                   override])
     with pytest.raises(NotImplementedError, match=knob):
         train_cli.train(cfg)
+
+
+@pytest.mark.parametrize("value,refused", [
+    ("fast", True), ("auto", False), ("none", False), ("off", False),
+    ("{xla_tpu_scoped_vmem_limit_kib: 28672}", False), ("[1]", True)])
+def test_training_xla_options_are_validated_as_jax(scene, tmp_path, value,
+                                                   refused):
+    """``training.xla_options`` changes nothing in the port, and raises
+    ValueError where the JAX step's ``resolve_xla_options`` does (the same
+    rule as the engine's knob)."""
+    from patch_toon_tpu.utils.xla_options import resolve_xla_options
+
+    from patch_toon_tpu_torch import train_cli
+
+    cfg = compose(REPO / "config", "config", overrides=_scene_overrides(
+        scene) + ["training.accelerator=cpu", f"run.dir={tmp_path}",
+                  f"training.xla_options={value}", "training.max_steps=0"])
+    try:
+        resolve_xla_options(cfg.training.xla_options, backend="cpu")
+        jax_refuses = False
+    except ValueError:
+        jax_refuses = True
+    assert jax_refuses == refused
+    model = (lambda: StyleTransferModel(
+        cfg.model.generator, cfg.model.discriminator, cfg.training,
+        cfg.optimizer, cfg.data, cfg.model.perception_loss, cfg.parallel))
+    if refused:
+        with pytest.raises(ValueError, match="xla_options"):
+            model()
+        with pytest.raises(ValueError, match="xla_options"):
+            train_cli.train(cfg)
+    else:
+        assert model().conv_precision is None

@@ -8,6 +8,8 @@ CUDA card.
     python3 tools/profile_torch_main_path.py --fullframe [--frames 36]
     python3 tools/profile_torch_main_path.py --temporal [--out FILE]
     python3 tools/profile_torch_main_path.py --temporal --device-flow
+    python3 tools/profile_torch_main_path.py --multistream
+    python3 tools/profile_torch_main_path.py --dir --precision 32_fast
 
 Builds ``patch_toon_tpu_torch``'s engine at full width (the weights of
 docs/quality_2000/torch_train.ckpt, 6 input channels) for precision bf16 and
@@ -62,6 +64,19 @@ own device category (the kernels of one flow step traced alone, times the
 chain's steps: the profiler links a graph's kernels to no host op), and
 each record adds the host's launch calls a frame (kernels, graph launches,
 asynchronous copies).
+
+With ``--multistream`` it serves ``chip_smoke.py``'s multi-stream scene
+(three streams of 12 frames of 512x910, full masks, a subdirectory each)
+with the device flow, tiled, through ``process_directory``: ms a cycle
+(three frames, one co-batched generator call) by host clock, then a traced
+run's device ms a cycle by category (the flow its own, as with
+``--device-flow``), busy share, host launch calls a cycle and the host
+split of a cycle by step, every thread's.
+
+``--precision`` picks the precisions (comma-separated, default
+``bf16,32``) of the serving, ``--dir``/``--fullframe``, ``--train`` and
+``--multistream`` modes, e.g. ``--precision 32_fast`` or
+``32,32_fast,bf16``.
 
 One JSON line per precision goes to stdout, and the list of them to
 ``--out`` when given. Needs one CUDA card.
@@ -244,7 +259,7 @@ class _TrainWindows:
         self.t0 = time.perf_counter()
 
 
-def _train_records(steps: int, card: str) -> list:
+def _train_records(steps: int, card: str, precs=("bf16", "32")) -> list:
     import tempfile
 
     from chip_smoke import BT, PS, _keyframes, _train_model
@@ -256,7 +271,7 @@ def _train_records(steps: int, card: str) -> list:
     data = StyleTransferDataset(pres, posts, masks, guides, [3],
                                 patch_size=PS, device=dev)
     records = []
-    for prec in ("bf16", "32"):
+    for prec in precs:
         steady = 3
         win = _TrainWindows(3, steps, steady)
         model = _train_model(prec, max_steps=win.marks[-1])
@@ -300,7 +315,7 @@ def _groups_ms(eng, frames, masks, n):
     return times
 
 
-def _serve_records(groups: int, card: str) -> list:
+def _serve_records(groups: int, card: str, precs=("bf16", "32")) -> list:
     mask = erode_full_support_np(np.ones((H, W), np.float32))
     rng = np.random.default_rng(0)
     base = rng.integers(0, 256, (3, -(-H // 10), -(-W // 10), 6),
@@ -308,7 +323,7 @@ def _serve_records(groups: int, card: str) -> list:
     frames = np.repeat(np.repeat(base, 10, axis=1), 10, axis=2)[:, :H, :W]
     masks = [mask] * 3
     records = []
-    for prec in ("bf16", "32"):
+    for prec in precs:
         torch.backends.cudnn.benchmark = False
         eng = StyleTransferInference(inference_config(
             paths={"checkpoint": str(CKPT)}, inference={"precision": prec}))
@@ -355,7 +370,8 @@ def _spans_per_group(eng, groups: int) -> dict:
     return {k: v["ms"] / groups for k, v in eng.spans.snapshot().items()}
 
 
-def _dir_records(n_frames: int, card: str, mode: str = "tiled") -> list:
+def _dir_records(n_frames: int, card: str, mode: str = "tiled",
+                 precs=("bf16", "32")) -> list:
     import tempfile
 
     from chip_smoke import write_scene
@@ -365,7 +381,7 @@ def _dir_records(n_frames: int, card: str, mode: str = "tiled") -> list:
     with tempfile.TemporaryDirectory() as tmp:
         scene = pathlib.Path(tmp) / "scene"
         write_scene(scene, n_frames, H, W)
-        for prec in ("bf16", "32"):
+        for prec in precs:
             out = pathlib.Path(tmp) / f"out_{prec}"
             eng = StyleTransferInference(inference_config(
                 paths={"checkpoint": str(CKPT),
@@ -443,13 +459,13 @@ def _dir_records(n_frames: int, card: str, mode: str = "tiled") -> list:
     return records
 
 
-def _flow_step_kernels(eng, scene: pathlib.Path, names) -> dict:
+def _flow_step_kernels(eng, scene: pathlib.Path, names,
+                       mask: str = "mask_ignore") -> dict:
     """{kernel name: device us} of one flow step as the chain runs it (the
     graph's replay with its input and output copies), frame 1 against
     frame 0, traced alone: the profiler links a graph's kernels to no
     host op, so the chain's trace cannot tell them from the rest."""
-    st0, st1 = (eng._load_for_dispatch(scene / "input" / n,
-                                       scene / "mask_ignore", i)
+    st0, st1 = (eng._load_for_dispatch(scene / "input" / n, scene / mask, i)
                 for i, n in enumerate(names[:2]))
     eng._await_staged([st0, st1])
     prev = _device_gray(st0.frame)
@@ -566,6 +582,77 @@ def _temporal_records(card: str, device_flow: bool = False) -> list:
     return records
 
 
+def _multistream_records(card: str, precs=("bf16", "32")) -> list:
+    """Multi-stream serving (``chip_smoke.py``'s three streams of 12
+    frames, full masks, the device flow, tiled) through
+    ``process_directory``: a set-up run, a timed run (ms a cycle), a
+    traced run (device ms a cycle by category with the flow its own, busy
+    share, launch calls, the host split of a cycle by step)."""
+    import tempfile
+
+    from chip_smoke import (
+        LAUNCH_CALLS,
+        MS_FRAMES,
+        MS_STREAMS,
+        _ms_scene,
+        _temporal_ckpt,
+        _temporal_engine,
+        write_scene,
+    )
+
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_scene(tmp / "scene", MS_FRAMES * len(MS_STREAMS), H, W)
+        view = _ms_scene(tmp / "scene", tmp / "ms")
+        ckpt = _temporal_ckpt(tmp)
+        for prec in precs:
+            eng = _temporal_engine(prec, view, tmp / f"out_{prec}", ckpt,
+                                   "tiled", flow_source="device")
+            eng.process_directory()  # set-up
+            eng.spans.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            spans = _spans_per_group(eng, MS_FRAMES)
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                eng.process_directory()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            solo = view.parent / MS_STREAMS[0]
+            one = _flow_step_kernels(eng, solo, sorted(
+                p.name for p in (solo / "input").glob("*.png")), "mask")
+            steps = len(MS_STREAMS) * (MS_FRAMES - 1)  # flow steps a run
+            device_ms, launches, cats, top = _device_split(
+                prof, MS_FRAMES, _category,
+                {"flow": {k: us * steps for k, us in one.items()}})
+            calls = sum(ev.count for ev in prof.key_averages()
+                        if ev.key in LAUNCH_CALLS)
+            rec = {"precision": prec, "card": card,
+                   "entry": "process_directory (multi-stream, device flow)",
+                   "streams": len(MS_STREAMS), "frames": n,
+                   "ms_per_cycle": 1e3 * seconds / MS_FRAMES,
+                   "frames_per_s": n / seconds,
+                   "host_ms_per_cycle_by_step": spans,
+                   "traced_wall_ms_per_cycle": wall_ms / MS_FRAMES,
+                   "device_ms_per_cycle": device_ms,
+                   "device_busy_share": device_ms * MS_FRAMES / wall_ms,
+                   "kernel_launches_per_cycle": launches,
+                   "host_launch_calls_per_cycle": calls / MS_FRAMES,
+                   "device_ms_per_cycle_by_category": cats,
+                   "top_kernels_ms_per_cycle": top}
+            records.append(rec)
+            print(json.dumps(rec), flush=True)
+            del eng
+            torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--groups", type=int, default=6)
@@ -580,6 +667,10 @@ def main() -> int:
                     help="serve the temporal chain (flows from files)")
     ap.add_argument("--device-flow", action="store_true",
                     help="with --temporal: the flow computed on the device")
+    ap.add_argument("--multistream", action="store_true",
+                    help="serve three streams as co-batched chains")
+    ap.add_argument("--precision", default="bf16,32",
+                    help="comma-separated: bf16, 32, 32_fast")
     ap.add_argument("--frames", type=int, default=36)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -590,15 +681,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    precs = tuple(args.precision.split(","))
     if args.train:
-        records = _train_records(args.steps, card)
+        records = _train_records(args.steps, card, precs)
+    elif args.multistream:
+        records = _multistream_records(card, precs)
     elif args.temporal:
         records = _temporal_records(card, args.device_flow)
     elif args.dir or args.fullframe:
         records = _dir_records(args.frames, card,
-                               "fullframe" if args.fullframe else "tiled")
+                               "fullframe" if args.fullframe else "tiled",
+                               precs)
     else:
-        records = _serve_records(args.groups, card)
+        records = _serve_records(args.groups, card, precs)
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
