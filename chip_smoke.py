@@ -126,6 +126,37 @@ lines each, flushed as they go:
    ``StyleTransferInference`` on the card and stylizes a masked keyframe,
    within 1 count of the CPU engine on the same file.
 
+9. ``train_rest``: the training knobs of the ninth slice through ``fit``
+   at full width, batch 80, on the train phase's keyframes. (a)
+   ``data.sampling=permutation``: the sampler alone over 2,500 batches,
+   each image's cycle between two resets covering each of its centres
+   exactly once (a hit table on the card), the straddling draws of
+   PARITY_NOTES #16 counted apart; two bf16 ``fit`` runs of 12 steps
+   bitwise equal. (c) In those runs ``image_log_freq=4`` with a spy
+   logger: images at steps 4, 8 and 12, of shape (8 x 84, 4 x 84, 3), the
+   last bitwise the copied numpy function's grid of the step's batch and an
+   eval-mode forward with the final parameters, both on the card. (b)
+   ``accumulate_grad_batches=2`` at 32 and bf16: two runs of 4
+   micro-steps bitwise equal, the parameters of both networks bitwise
+   unchanged after the odd micro-steps and after the even ones within
+   1e-6 (relative to each tensor's largest value) of one Adam step on the
+   Welford mean of the two gradients, computed on the card; ms a
+   micro-step at k = 2 against a step at k = 1, timed in turns. (d)
+   ``profile_dir``: the Chrome trace of epoch 0 names B1's kernels and
+   cuDNN's convolutions; its size and epoch 0's extra ms.
+10. ``guides``: the guide-channel tools on the card with Pillow made
+   unimportable, over a 25-frame 512x910 scene (a textured plane panning
+   5 px right and 2 px down a frame, PNG masks of an ellipse moving with
+   it): ``tools/optical_flow_torch.py`` makes the flows;
+   ``tools/gaussian_filter_torch.py`` at sigma 10 and 15 (radius 10,
+   keyframes 1, 11, 21, 24 of frames 1-24, process_pipeline's pick) on the
+   card, one splat launch a frame, and with the CPU asked for, every frame
+   within 1 count, the differing pixels printed, ms a frame split into
+   flow reads, advection, splat and PNG; the splat kernel against its
+   plain version on keyframe 11's points (within 1e-6; bitwise expected),
+   timed at sigma 15 against its bound; ``tools/temporal_guide_torch.py``
+   over the scene, card against CPU within 1 count.
+
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero before the last line; nothing falls back
@@ -157,6 +188,7 @@ from patch_toon_tpu_torch.config.defaults import (
     training_config,
 )
 from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
+from patch_toon_tpu_torch.data.io import decode_rgb_uint8
 from patch_toon_tpu_torch.infer.common import SIGNED_UNIT, _to_signed_unit
 from patch_toon_tpu_torch.infer.engine import StyleTransferInference
 from patch_toon_tpu_torch.infer.pipeline import GroupPipeline
@@ -174,8 +206,11 @@ from patch_toon_tpu_torch.infer.tiling import (
     tile_boxes_from_mask,
 )
 from patch_toon_tpu_torch.ops import blend, instance_norm
+from patch_toon_tpu_torch.ops import splat as ops_splat
 from patch_toon_tpu_torch.ops.flow import dense_flow
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
+from patch_toon_tpu_torch.train import optim
+from patch_toon_tpu_torch.train.logging import build_comparison_grid
 from patch_toon_tpu_torch.train.loop import fit
 from patch_toon_tpu_torch.train.model import (
     StyleTransferModel,
@@ -2397,6 +2432,14 @@ def _counts():
             instance_norm.instance_norm_act_backward_streaming.launches)
 
 
+def _set_counts(counts) -> None:
+    """Sets the four counters that ``_counts`` reads, in its order."""
+    (instance_norm.instance_norm_act_cluster.launches,
+     instance_norm.instance_norm_act_streaming.launches,
+     instance_norm.instance_norm_act_backward_cluster.launches,
+     instance_norm.instance_norm_act_backward_streaming.launches) = counts
+
+
 def _step_parity(dev, small: bool, batch: int) -> dict:
     """One step from the same parameters and batch on the card and on the
     CPU (``train/parity.py::device_step_parity``)."""
@@ -2467,10 +2510,7 @@ class _Window:
         self.metrics = metrics
         if step == self.start:
             torch.cuda.synchronize()
-            instance_norm.instance_norm_act_cluster.launches = 0
-            instance_norm.instance_norm_act_streaming.launches = 0
-            instance_norm.instance_norm_act_backward_cluster.launches = 0
-            instance_norm.instance_norm_act_backward_streaming.launches = 0
+            _set_counts((0, 0, 0, 0))
             torch.cuda.reset_peak_memory_stats()
             self.t0 = time.perf_counter()
         elif step == self.stop:
@@ -2591,6 +2631,514 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
                              f"{changed}")
     return {"rec": rec, "launches": launches}
 
+# ----------------------------------------------------------- train_rest
+
+REST_STEPS = 12       # steps of the grid and permutation runs
+ACC_STEPS = 4         # micro-steps of each accumulation determinism run
+PERM_DRAWS = 2500     # batches of the sampler-alone coverage check
+_REAL_MULTISTEP = optim.MultiSteps.step
+
+
+def _perm_coverage(data, draws: int) -> dict:
+    """The permutation sampler alone, ``draws`` batches of ``BT``: every
+    draw that does not straddle a reset marks its slot in a per-image hit
+    table on the device; when an image's cursor wraps, each of its
+    centres must have been hit exactly once in that cycle. The straddling
+    draws (PARITY_NOTES #16: they re-read the old permutation modulo the
+    count) are counted apart."""
+    sample = data.make_sampler(BT)
+    counts = data.counts.to(torch.int64)
+    slot_ok = torch.arange(data.centers.shape[1], device=data.device)[
+        None, :] < counts[:, None]
+    hits = torch.zeros(slot_ok.shape, dtype=torch.int32, device=data.device)
+    tally = torch.zeros(3, dtype=torch.int64, device=data.device)
+    real = data.sample_batch_permutation
+    images = torch.arange(data.num_images, device=data.device)
+
+    def spy(state, imgs, fresh, aug_u=None):
+        imgs = imgs.to(torch.int64)
+        occ = torch.tril(imgs[:, None] == imgs[None, :], -1).sum(1)
+        ahead = state["cursor"][imgs] + occ
+        keep = ahead < counts[imgs]
+        slots = state["perm"][imgs, ahead % counts[imgs]]
+        hits.index_put_((imgs[keep], slots[keep]), torch.ones_like(
+            slots[keep], dtype=torch.int32), accumulate=True)
+        wrapped = state["cursor"] + (imgs[None, :] == images[:, None]).sum(
+            1) >= counts
+        whole = ((hits == 1) | ~slot_ok).all(dim=1)
+        tally.add_(torch.stack([wrapped.sum(), (wrapped & ~whole).sum(),
+                                (~keep).sum()]))
+        hits.mul_((~wrapped)[:, None].to(torch.int32))
+        return real(state, imgs, fresh, aug_u)
+
+    data.sample_batch_permutation = spy
+    try:
+        gen = torch.Generator(device=data.device).manual_seed(4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(draws):
+            sample(gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del data.sample_batch_permutation
+    cycles, broken, straddles = tally.tolist()
+    return {"cycles": cycles, "broken_cycles": broken,
+            "straddling_draws": straddles, "draws": draws,
+            "ms_per_draw_with_check": 1e3 * seconds / draws}
+
+
+class _SpyLogger:
+    """``MetricsLogger`` in ``fit``: keeps the images, logs nothing."""
+    images: list = []
+
+    def __init__(self, log_dir):
+        _SpyLogger.images = []
+
+    def log_scalars(self, metrics, step):
+        pass
+
+    def log_image(self, tag, image, step):
+        _SpyLogger.images.append((tag, image, step))
+
+    def close(self):
+        pass
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, value):
+    saved = obj.__dict__[name]
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+class _AccumulationCheck:
+    """Wraps ``MultiSteps.step`` during a ``fit``: after a micro-step that
+    does not update, every parameter must be bitwise as before; after one
+    that does, the parameters are held against one ``Adam`` step, taken by
+    a copy of the optimizer's state before the update, on the Welford mean
+    that this check computes on the card from the held mean and the
+    micro-step's gradients (the largest |d| over the largest |p| of each
+    tensor)."""
+
+    def __init__(self):
+        self.moved_between = 0
+        self.updates = 0
+        self.worst_rel = 0.0
+
+    def __call__(self, opt, grads):
+        before = [p.detach().clone() for p in opt.params]
+        emit = opt.mini_step == opt.every_k - 1
+        if emit:
+            inner = opt.inner
+            ref = optim.Adam([torch.nn.Parameter(b.clone()) for b in before],
+                             inner.lr, (inner.b1, inner.b2),
+                             inner.weight_decay, inner.eps, inner.clip_norm)
+            ref.count = inner.count
+            ref.mu = [m.clone() for m in inner.mu]
+            ref.nu = [v.clone() for v in inner.nu]
+            mean = [a + (g.detach().float() - a) / float(opt.mini_step + 1)
+                    for a, g in zip(opt.acc, grads)]
+        _REAL_MULTISTEP(opt, grads)
+        if not emit:
+            self.moved_between += sum(
+                not torch.equal(b, p) for b, p in zip(before, opt.params))
+            return
+        ref.step(mean)
+        self.updates += 1
+        for r, p in zip(ref.params, opt.params):
+            scale = float(p.detach().abs().max()) or 1.0
+            self.worst_rel = max(self.worst_rel, float(
+                (r.detach() - p.detach()).abs().max()) / scale)
+
+
+def _fit_run(model, data, run_dir: Path, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = fit(model, data, str(run_dir), progress=False, **kw)
+    torch.cuda.synchronize()
+    return state, time.perf_counter() - t0
+
+
+def _rest_model(precision: str, max_steps: int, **training):
+    model = _train_model(precision, max_steps=max_steps)
+    model.training_config.update(training)
+    model.accumulate = int(training.get("accumulate_grad_batches", 1))
+    return model
+
+
+def phase_train_rest(dev, card: str, tmp: Path) -> dict:
+    """The training knobs of this slice through ``fit`` at the shipped
+    width, batch 80, on the train phase's keyframes: (a) permutation
+    sampling, (b) gradient accumulation, (c) the comparison grid, (d) the
+    profiler trace. B1's launches are counted over the whole phase."""
+    from patch_toon_tpu_torch.train import loop as train_loop
+
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=dev)
+    perm = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, sampling="permutation",
+                                device=dev)
+    rec = {}
+    _set_counts((0, 0, 0, 0))
+
+    # (a) the permutation sampler alone; (a, c) two bf16 fit runs with it,
+    # the grid every 4 steps, a spy logger keeping the images
+    cov = _perm_coverage(perm, PERM_DRAWS)
+    say("train_rest", sampler="permutation", batch=BT, **{
+        k: (f"{v:.3f}" if isinstance(v, float) else v)
+        for k, v in cov.items()},
+        centres_per_image="/".join(str(int(c)) for c in perm.counts_np))
+    if cov["cycles"] < perm.num_images or cov["broken_cycles"]:
+        raise AssertionError(f"permutation coverage: {cov}")
+    grids, runs = [], []
+    real_grid = train_loop.comparison_grid
+
+    def keep_grid(model, state, dataset, batch):
+        grid = real_grid(model, state, dataset, batch)
+        grids.append(({k: v.clone() for k, v in batch.items()}, grid))
+        return grid
+
+    with _patched(train_loop, "MetricsLogger", _SpyLogger), \
+            _patched(train_loop, "comparison_grid", keep_grid):
+        for i in range(2):
+            grids.clear()
+            state, sec = _fit_run(_rest_model("bf16", REST_STEPS,
+                                              image_log_freq=4),
+                                  perm, tmp / f"perm_{i}", seed=3)
+            runs.append(_net_tensors(state))
+    logged = [s for _, _, s in _SpyLogger.images]
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    b1 = _counts()
+    # the last grid against the copied numpy function on the card's arrays:
+    # the step's batch and an eval-mode forward with the final parameters
+    batch, grid = grids[-1]
+    gnet = state.generator.eval()
+    with torch.no_grad():
+        generated = gnet(perm.model_input(batch).to(torch.bfloat16))
+    gnet.train()
+    host = {k: v.float().cpu().numpy() for k, v in batch.items()}
+    want = build_comparison_grid(host["pre"], generated.float().cpu().numpy(),
+                                 host["post"], host["channels"], [3])
+    grid_equal = bool(np.array_equal(grid, want)) \
+        and bool(np.array_equal(grid, _SpyLogger.images[-1][1]))
+    say("train_rest", entry="fit", sampling="permutation", precision="bf16",
+        steps=REST_STEPS, runs_bitwise_equal=not differ,
+        differing_tensors=len(differ), image_log_freq=4,
+        log_image_steps="/".join(map(str, logged)),
+        grid_shape="x".join(map(str, grid.shape)), grid_bitwise=grid_equal,
+        seconds=f"{sec:.2f}")
+    if differ or logged != [4, 8, 12] or not grid_equal \
+            or grid.shape != (8 * (PS + 4), 4 * (PS + 4), 3):
+        raise AssertionError(f"permutation runs differ in {differ[:5]}, "
+                             f"images at {logged}, grid {grid.shape}, "
+                             f"bitwise {grid_equal}")
+    _set_counts(b1)
+
+    # ms a bf16 step with permutation sampling against uniform, in turns;
+    # the timing runs' launches are not counted (the window zeroes them)
+    ms = {}
+    for name, ds in (("permutation", perm), ("uniform", data),
+                     ("uniform", data), ("permutation", perm)):
+        win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+        _fit_run(_rest_model("bf16", TRAIN_WARMUP + TRAIN_STEPS), ds,
+                 tmp / f"samp_t_{name}", seed=0, on_step=win)
+        ms.setdefault(name, []).append(1e3 * win.seconds / TRAIN_STEPS)
+    _set_counts(b1)
+    say("train_rest", entry="fit", precision="bf16", steps=TRAIN_STEPS,
+        ms_per_step_permutation="/".join(f"{t:.2f}" for t in
+                                         ms["permutation"]),
+        ms_per_step_uniform="/".join(f"{t:.2f}" for t in ms["uniform"]),
+        card=f"'{card}'")
+    rec["permutation"] = {**cov, "ms_per_step": sum(ms["permutation"]) / 2,
+                          "ms_per_step_uniform": sum(ms["uniform"]) / 2}
+
+    # (b) accumulate_grad_batches = 2 at 32 and bf16: two runs, the first
+    # checked micro-step by micro-step; then ms a micro-step against k = 1
+    for prec in ("32", "bf16"):
+        check = _AccumulationCheck()
+        states = []
+        for i in range(2):
+            spy = (lambda opt, grads: check(opt, grads)) if i == 0 \
+                else _REAL_MULTISTEP
+            with _patched(optim.MultiSteps, "step", spy):
+                state, _ = _fit_run(_rest_model(
+                    prec, ACC_STEPS, accumulate_grad_batches=2), data,
+                    tmp / f"acc_{prec}_{i}", seed=5)
+            states.append(_net_tensors(state))
+        differ = [k for k in states[0]
+                  if not torch.equal(states[0][k], states[1][k])]
+        ms, saved = {}, _counts()
+        for k in (1, 2, 2, 1):  # in turns, launches not counted
+            win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+            _fit_run(_rest_model(prec, TRAIN_WARMUP + TRAIN_STEPS,
+                                 accumulate_grad_batches=k), data,
+                     tmp / f"acc_t_{prec}_{k}", seed=0, on_step=win)
+            ms.setdefault(k, []).append(1e3 * win.seconds / TRAIN_STEPS)
+        _set_counts(saved)
+        say("train_rest", entry="fit", accumulate_grad_batches=2,
+            precision=prec, micro_steps=ACC_STEPS,
+            runs_bitwise_equal=not differ, updates_checked=check.updates,
+            tensors_moved_between_updates=check.moved_between,
+            update_vs_adam_on_welford_mean_rel=f"{check.worst_rel:.3g}",
+            ms_per_micro_step_k2="/".join(f"{t:.2f}" for t in ms[2]),
+            ms_per_step_k1="/".join(f"{t:.2f}" for t in ms[1]),
+            card=f"'{card}'")
+        # 2 networks x 2 updates in 4 micro-steps
+        if differ or check.moved_between or check.updates != 4 \
+                or check.worst_rel > 1e-6:
+            raise AssertionError(
+                f"{prec} accumulation: runs differ in {differ[:5]}, "
+                f"{check.moved_between} tensors moved between updates, "
+                f"{check.updates} updates, worst {check.worst_rel}")
+        rec[f"accumulate_2_{prec}"] = {
+            "ms_per_micro_step": sum(ms[2]) / 2,
+            "ms_per_step_k1": sum(ms[1]) / 2, "worst_rel": check.worst_rel}
+
+    # (d) the profiler trace of epoch 0, and what it costs
+    walls = {}
+    for traced in (False, True, True, False):
+        extra = {"profile_dir": str(tmp / "trace")} if traced else {}
+        _, sec = _fit_run(_rest_model("bf16", 6, **extra), data,
+                          tmp / f"prof_{traced}", seed=0)
+        walls.setdefault(traced, []).append(sec)
+    trace = tmp / "trace" / "epoch_0.pt.trace.json"
+    names = [ev.get("name", "") for ev in json.loads(trace.read_text()).get(
+        "traceEvents", []) if ev.get("cat") == "kernel"]
+    b1_events = sum("instance_norm_act" in n for n in names)
+    conv_events = sum(any(s in n.lower() for s in ("conv", "cudnn", "xmma",
+                                                    "implicit"))
+                      for n in names)
+    extra_ms = 1e3 * (min(walls[True]) - min(walls[False]))
+    say("train_rest", entry="fit", profile_dir="epoch 0", steps=6,
+        trace_bytes=trace.stat().st_size, kernel_events=len(names),
+        b1_kernel_events=b1_events, conv_kernel_events=conv_events,
+        epoch0_extra_ms=f"{extra_ms:.1f}",
+        fit_s_plain="/".join(f"{t:.3f}" for t in walls[False]),
+        fit_s_traced="/".join(f"{t:.3f}" for t in walls[True]))
+    if not b1_events or not conv_events:
+        raise AssertionError(f"the trace names {b1_events} B1 and "
+                             f"{conv_events} conv kernels")
+    rec["profile"] = {"trace_bytes": trace.stat().st_size,
+                      "epoch0_extra_ms": extra_ms}
+    launches = dict(zip(("forward", "forward_streaming", "backward",
+                         "backward_streaming"), _counts()))
+    say("train_rest", **{f"b1_{k}_launches": v for k, v in launches.items()})
+    return {"rec": rec, "launches": launches}
+
+# --------------------------------------------------------------- guides
+
+GUIDE_FRAMES = 24               # frames 1-24; frame 0 only feeds the flow
+GUIDE_KEYS = [1, 11, 21, 24]    # process_pipeline's pick for 24 frames
+GUIDE_SIGMAS = (10.0, 15.0)     # process_pipeline's two guides, radius 10
+
+
+def _guide_scene(root: Path, n: int = GUIDE_FRAMES + 1, h: int = H,
+                 w: int = W) -> Path:
+    """``n`` frames ``%03d.png`` of a textured plane (10x10 blocks of
+    random colour, numpy seed 11) panning 5 px right and 2 px down a frame,
+    with PNG masks of an ellipse that moves with it (255 inside, 0
+    outside), as ``tools/imageprocessor.py`` leaves a scene."""
+    rng = np.random.default_rng(11)
+    big = np.repeat(np.repeat(rng.integers(
+        0, 256, ((h + 2 * n) // 10 + 2, (w + 5 * n) // 10 + 2, 3),
+        dtype=np.uint8), 10, 0), 10, 1)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for sub in ("input", "mask"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        y0, x0 = 2 * (n - i), 5 * (n - i)  # the view moves up-left
+        encode_png(root / "input" / f"{i:03d}.png",
+                   big[y0:y0 + h, x0:x0 + w], compress_level=1)
+        r = ((yy - h * 0.5 - 2 * i) / (h * 0.4)) ** 2 \
+            + ((xx - w * 0.4 - 5 * i) / (w * 0.3)) ** 2
+        encode_png(root / "mask" / f"{i:03d}.png",
+                   np.where(r <= 1, 255, 0).astype(np.uint8),
+                   compress_level=1)
+    return root
+
+
+def _load_tool(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _png_diff(a: Path, b: Path, names) -> tuple:
+    """(max |d|, differing pixels) over the PNGs ``names`` of two dirs."""
+    worst = pixels = 0
+    for name in names:
+        d = np.abs(decode_png(a / name).astype(int)
+                   - decode_png(b / name).astype(int))
+        worst, pixels = max(worst, int(d.max())), pixels + int(
+            (d.max(axis=-1) > 0).sum())
+    return worst, pixels
+
+
+def _splat_bound(h: int, w: int, points: np.ndarray, sigma: float):
+    """(bound ms, "bytes" or "operations", covered pairs): the canvas read
+    and written once, the points read once; 17 operations (an exp counted
+    as one) for each (pixel, point) pair inside a point's window, counted
+    from this frame's points."""
+    r = ops_splat.splat_radius(sigma)
+    pairs = 0
+    for x, y in points.astype(np.float32):
+        y0, y1 = ops_splat._window(y, r, h)
+        x0, x1 = ops_splat._window(x, r, w)
+        pairs += max(0, y1 - y0 + 1) * max(0, x1 - x0 + 1)
+    bytes_ms = (2 * h * w * 3 * 4 + len(points) * 21) / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * 17 / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), pairs
+
+
+def phase_guides(dev, card: str, tmp: Path) -> dict:
+    """The guide-channel tools on the card, without Pillow: the flow tool
+    over the scene, ``tools/gaussian_filter_torch.py`` at sigma 10 and 15
+    (radius 10, keyframes 1, 11, 21, 24) on the card and with the CPU
+    asked for (limit 1 count), the splat kernel against its plain version
+    on one frame's points, timed, and ``tools/temporal_guide_torch.py``
+    over the scene on the card and the CPU (limit 1 count)."""
+    flow_tool = _load_tool("optical_flow_torch")
+    gauss = _load_tool("gaussian_filter_torch")
+    temporal = _load_tool("temporal_guide_torch")
+    scene = _guide_scene(tmp / "guides")
+    rec = {}
+    with _without_pil():
+        t0 = time.perf_counter()
+        rc = flow_tool.main([str(scene / "input"), str(scene / "mask"),
+                             str(scene / "flow_fwd"), str(scene / "flow_bwd"),
+                             "--format", "%03d", "--device", str(dev)])
+        torch.cuda.synchronize()
+        say("guides", tool="tools/optical_flow_torch.py", rc=rc,
+            frames=GUIDE_FRAMES + 1, size=f"{H}x{W}",
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        if rc != 0:
+            raise AssertionError(f"the flow tool failed ({rc})")
+        names = [f"{f:03d}.png" for f in range(1, GUIDE_FRAMES + 1)]
+        launches = 0
+        for sigma in GUIDE_SIGMAS:
+            outs, tools = {}, {}
+            for device in (str(dev), "cpu"):
+                out = scene / (f"gauss_s{int(sigma)}_"
+                               f"{'cpu' if device == 'cpu' else 'card'}")
+                before = ops_splat.splat_points.launches
+                t0 = time.perf_counter()
+                tool = gauss.GaussianFilter(
+                    mask_dir=scene / "mask", flow_fwd_dir=scene / "flow_fwd",
+                    flow_bwd_dir=scene / "flow_bwd", output_dir=out,
+                    frame_first=1, frame_last=GUIDE_FRAMES,
+                    key_frames=GUIDE_KEYS, radius=10.0, sigma=sigma,
+                    device=device)
+                tool.process()
+                seconds = time.perf_counter() - t0
+                outs[device], tools[device] = out, tool
+                got = sorted(p.name for p in out.glob("*.png"))
+                frame = decode_png(out / names[0])
+                say("guides", tool="tools/gaussian_filter_torch.py",
+                    sigma=sigma, device=device, frames=len(got),
+                    seconds=f"{seconds:.2f}",
+                    ms_a_frame=f"{1e3 * seconds / len(got):.2f}",
+                    **{f"{k}_ms_a_frame": f"{1e3 * v / len(got):.2f}"
+                       for k, v in tool.seconds.items()},
+                    splat_launches=ops_splat.splat_points.launches - before,
+                    points_at_keys="/".join(str(len(tool.pts[k][f]))
+                                            for k, f in enumerate(
+                                                GUIDE_KEYS)))
+                if got != names or frame.shape != (H, W, 3):
+                    raise AssertionError(f"gaussian_filter_torch wrote "
+                                         f"{got[:3]}... of {frame.shape}")
+                if device != "cpu":
+                    launches += ops_splat.splat_points.launches - before
+                    rec[f"gauss_s{int(sigma)}_ms_a_frame"] = \
+                        1e3 * seconds / len(got)
+                    rec[f"gauss_s{int(sigma)}_split_ms_a_frame"] = {
+                        k: 1e3 * v / len(got)
+                        for k, v in tool.seconds.items()}
+            worst, pixels = _png_diff(outs[str(dev)], outs["cpu"], names)
+            say("guides", sigma=sigma, card_vs_cpu_max_abs=worst,
+                differing_pixels=pixels, limit=1)
+            if worst > 1:
+                raise AssertionError(f"sigma {sigma}: card vs CPU {worst}")
+        if launches != len(names) * len(GUIDE_SIGMAS):
+            raise AssertionError(f"{launches} splat launches for "
+                                 f"{len(names)} frames x 2 sigmas")
+
+        # the splat kernel against its plain version: keyframe 11's points
+        # on its mask, each sigma, bitwise; timed at sigma 15
+        tool = tools[str(dev)]
+        points = tool.pts[1][GUIDE_KEYS[1]].astype(np.float32)
+        n = len(points)
+        base = torch.from_numpy(decode_rgb_uint8(
+            scene / "mask" / f"{GUIDE_KEYS[1]:03d}.png").astype(np.float32)
+            / np.float32(255.0)).to(dev)
+        pts = torch.from_numpy(points).to(dev)
+        cols = torch.from_numpy(np.asarray(
+            [gauss.golden_ratio_color(i) for i in range(n)],
+            np.float32)).to(dev)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        for sigma in GUIDE_SIGMAS:
+            saved = ops_splat.splat_points.launches
+            got = ops_splat.splat_points(base, pts, cols, valid, sigma)
+            want = ops_splat.splat_points_plain(base, pts, cols, valid,
+                                                sigma)
+            torch.cuda.synchronize()
+            ops_splat.splat_points.launches = saved
+            err = float((got - want).abs().max())
+            bound, bound_by, pairs = _splat_bound(H, W, points, sigma)
+            say("guides", kernel="splat_points", sigma=sigma, points=n,
+                bitwise_equal=bool(torch.equal(got, want)),
+                max_abs_err=f"{err:.3g}", covered_pairs=pairs)
+            if err > 1e-6:
+                raise AssertionError(f"splat_points differs from its plain "
+                                     f"version by {err}")
+        ms = time_ms(lambda: ops_splat.splat_points(base, pts, cols, valid,
+                                                    15.0), 20)
+        plain = time_ms(lambda: ops_splat.splat_points_plain(
+            base, pts, cols, valid, 15.0), 2)
+        ops_splat.splat_points.launches = saved
+        say("guides", kernel="splat_points", sigma=15.0, points=n,
+            frame=f"{H}x{W}", ms=f"{ms:.4f}", plain_ms=f"{plain:.2f}",
+            bound_ms=f"{bound:.4f}", bound_by=bound_by,
+            share_of_bound=f"{bound / ms:.3f}", library="none: no single "
+            "PyTorch call composites ordered alpha blobs", card=f"'{card}'")
+        rec["splat"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": None, "points": n,
+                        "covered_pairs": pairs, "launches": launches}
+
+        # the temporal guide over the scene: the input frames stand in for
+        # the stylized ones (guide i = input i-1 warped by flow_bwd i)
+        outs = {}
+        for device in (str(dev), "cpu"):
+            out = scene / f"temporal_{'cpu' if device == 'cpu' else 'card'}"
+            t0 = time.perf_counter()
+            rc = temporal.main([str(scene / "input"), str(scene / "input"),
+                                str(scene / "flow_bwd"), str(out),
+                                "--device", device])
+            seconds = time.perf_counter() - t0
+            outs[device] = out
+            say("guides", tool="tools/temporal_guide_torch.py",
+                device=device, rc=rc, frames=GUIDE_FRAMES + 1,
+                ms_a_frame=f"{1e3 * seconds / (GUIDE_FRAMES + 1):.2f}")
+            if rc != 0:
+                raise AssertionError(f"temporal_guide_torch failed ({rc})")
+        tnames = [f"{i:03d}.png" for i in range(GUIDE_FRAMES + 1)]
+        worst, pixels = _png_diff(outs[str(dev)], outs["cpu"], tnames)
+        say("guides", temporal_card_vs_cpu_max_abs=worst,
+            differing_pixels=pixels, limit=1)
+        if worst > 1:
+            raise AssertionError(f"temporal guide: card vs CPU {worst}")
+    return {"rec": rec, "launches": launches}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2622,6 +3170,9 @@ def main() -> int:
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
+        rest = phase_train_rest(dev, card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        guides = phase_guides(dev, card, Path(tmp))
     # launches of B1's cluster variant and of B2 by path: the serving
     # paths of every phase, one entry each
     cluster = {"serve": launches["instance_norm_act"],
@@ -2650,10 +3201,13 @@ def main() -> int:
     rec_in["variants"]["cluster"]["launches"] = sum(cluster.values())
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
-        "instance_norm_act_streaming"]
+        "instance_norm_act_streaming"] + rest["launches"]["forward_streaming"]
     train_fwd = {"train": train["launches"]["forward"]
-                 - train["launches"]["forward_32_fast"],
+                 - train["launches"]["forward_32_fast"]
+                 + rest["launches"]["forward"],
                  "32_fast_train": train["launches"]["forward_32_fast"]}
+    rest_bwd = {"cluster": rest["launches"]["backward"],
+                "streaming": rest["launches"]["backward_streaming"]}
     kernels = [
         dict(name="instance_norm_act", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm.cu",
@@ -2675,9 +3229,10 @@ def main() -> int:
                replaces="patch_toon_tpu/ops/pallas_norm.py:52",
                note="backward pass of B1; the Pallas kernel has none (JAX "
                     "differentiates patch_toon_tpu/models/layers.py:29-40)",
-               launches=train["launches"][key], dtype="bf16", variant=v,
+               launches=train["launches"][key] + rest_bwd[v], dtype="bf16",
+               variant=v,
                launches_by_path={
-                   "train": train["launches"][key]
+                   "train": train["launches"][key] + rest_bwd[v]
                    - (train["launches"]["backward_32_fast"]
                       if v == "cluster" else 0),
                    "32_fast_train": train["launches"]["backward_32_fast"]
@@ -2692,6 +3247,19 @@ def main() -> int:
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",
              launches=sum(blends.values()), launches_by_path=blends,
              per="one group of 3 512x910 frames", **rec_bl),
+        dict(name="splat_points", route="cuda",
+             source="patch_toon_tpu_torch/csrc/splat.cu",
+             replaces="patch_toon_tpu/ops/splat.py:23 (lax.scan, not a "
+                      "Pallas kernel)",
+             launches=guides["launches"],
+             launches_by_path={"guides": guides["launches"]},
+             per=f"one 512x910 frame, {guides['rec']['splat']['points']} "
+                 "points, sigma 15",
+             library_note="no single PyTorch call composites ordered "
+                          "alpha blobs",
+             **{k: v for k, v in guides["rec"]["splat"].items()
+                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels, "train": train["rec"],
@@ -2700,7 +3268,8 @@ def main() -> int:
                       "temporal_device": dflow["rec"],
                       "precision_32_fast": fast["rec"],
                       "single_image": single["rec"], "watch": watch["rec"],
-                      "multistream": multi["rec"]}),
+                      "multistream": multi["rec"],
+                      "train_rest": rest["rec"], "guides": guides["rec"]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

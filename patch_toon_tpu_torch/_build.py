@@ -62,6 +62,8 @@ SIGNATURES = {
     # canvas_h, canvas_w, block, device, stream
     "ptt_blend_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
+    # image, out, points, colors, valid (u8), n, h, w, r, s2, device, stream
+    "ptt_splat_points": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

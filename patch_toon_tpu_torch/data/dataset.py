@@ -12,21 +12,33 @@ training step gathers its whole batch with one index gather
 - ``StyleTransferDataset.from_directories(...)`` decodes a scene through
   ``data/io.py`` first (needs Pillow).
 
-Sampling is uniform with replacement: an image uniformly, then one of its
-valid centres uniformly, drawn from the caller's ``torch.Generator``. The
-JAX package's ``permutation`` mode (without replacement) is not ported yet
-and raises.
+Sampling (``data.sampling``), both from the caller's ``torch.Generator``
+and on the device, with no host synchronisation:
+
+- ``uniform`` (the default): with replacement, an image uniformly, then one
+  of its valid centres uniformly;
+- ``permutation``: without replacement (JAX ``data/dataset.py:268-343``,
+  the reference's pop-and-refill of dataset.py:243-256): a per-image
+  cursor into a permuted table of its centres; draws of one image within a
+  batch take consecutive cursor offsets; an image whose cursor wraps gets
+  a fresh permutation for the *next* batch and its cursor goes back to 0,
+  and the draws that straddle the reset re-read the old permutation modulo
+  the count (PARITY_NOTES #16). The state lives in the sampler that
+  :meth:`StyleTransferDataset.make_sampler` returns, starts from its own
+  seed (11, as JAX's ``PRNGKey(11)``) and, as in JAX, is not checkpointed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from patch_toon_tpu_torch.ops.masks import dilate_valid_centers
 from patch_toon_tpu_torch.ops.patches import cut_patches, pad_images_for_gather
+
+Batch = Dict[str, torch.Tensor]
 
 
 def _channel_items(additional_channels: Optional[Dict[str, Any]]
@@ -45,10 +57,7 @@ def _channel_items(additional_channels: Optional[Dict[str, Any]]
 
 
 def _check_sampling(sampling: str) -> None:
-    if sampling == "permutation":
-        raise NotImplementedError(
-            "data.sampling='permutation' is not ported yet (uniform only)")
-    if sampling != "uniform":
+    if sampling not in ("uniform", "permutation"):
         raise ValueError(
             f"data.sampling={sampling!r}: expected uniform/permutation")
 
@@ -241,6 +250,85 @@ class StyleTransferDataset:
         if self.augmentation_factor > 1 and self._post_sl:
             _, aug_ctrs = self.sample_centers(generator, batch_size)
         return self.gather_batch(img, ctrs, aug_ctrs)
+
+    # -- without-replacement (permutation) sampling -------------------------
+
+    def fresh_perms(self, generator: torch.Generator) -> torch.Tensor:
+        """(N, max_count) int64: per image a fresh permutation of its slot
+        indices [0, count) in the first count positions (random keys, +inf
+        on the padded slots, a stable argsort per row)."""
+        maxc = self.centers.shape[1]
+        u = torch.rand((self.num_images, maxc), generator=generator,
+                       device=self.device)
+        u = torch.where(torch.arange(maxc, device=self.device)[None, :]
+                        < self.counts[:, None], u, torch.inf)
+        return torch.argsort(u, dim=1, stable=True)
+
+    def init_perm_state(self, generator: torch.Generator
+                        ) -> Dict[str, torch.Tensor]:
+        return {"perm": self.fresh_perms(generator),
+                "cursor": torch.zeros((self.num_images,), dtype=torch.int64,
+                                      device=self.device)}
+
+    def sample_batch_permutation(self, state: Dict[str, torch.Tensor],
+                                 imgs: torch.Tensor, fresh: torch.Tensor,
+                                 aug_u: Optional[torch.Tensor] = None
+                                 ) -> Tuple[Dict[str, torch.Tensor],
+                                            Dict[str, torch.Tensor]]:
+        """One without-replacement draw from explicit random inputs: the
+        batch's image indices ``imgs`` (B,), a fresh permutation table
+        ``fresh`` (as :meth:`fresh_perms`) that the rows whose cursor wraps
+        take for the next batch, and with ``aug_u`` (B,) uniforms the
+        independent uniform ``already`` pick. -> (new state, batch)."""
+        imgs = imgs.to(torch.int64)
+        eq = imgs[:, None] == imgs[None, :]
+        occ = torch.tril(eq, diagonal=-1).sum(dim=1)
+        cnt = self.counts[imgs].to(torch.int64)
+        pos = (state["cursor"][imgs] + occ) % cnt
+        slots = state["perm"][imgs, pos]
+        ctrs = self.centers[imgs, slots]
+
+        draws = (imgs[None, :] == torch.arange(
+            self.num_images, device=imgs.device)[:, None]).sum(dim=1)
+        advanced = state["cursor"] + draws
+        wrapped = advanced >= self.counts
+        # a wrapped row starts its fresh permutation at 0 (not at
+        # advanced % count, which would skip that permutation's first slots)
+        new_state = {"perm": torch.where(wrapped[:, None], fresh,
+                                         state["perm"]),
+                     "cursor": torch.where(wrapped, 0, advanced)}
+        aug_ctrs = None
+        if aug_u is not None and self.augmentation_factor > 1 \
+                and self._post_sl:
+            aidx = torch.minimum(torch.floor(aug_u * cnt).to(torch.int64),
+                                 cnt - 1)
+            aug_ctrs = self.centers[imgs, aidx]
+        return new_state, self.gather_batch(imgs, ctrs, aug_ctrs)
+
+    def make_sampler(self, batch_size: int) -> Callable[[torch.Generator],
+                                                        Batch]:
+        """The train loop's ``sample(generator) -> batch``. Permutation
+        mode keeps its state in the closure (``sample.state``), started
+        from a generator of its own seeded 11; each draw takes the image
+        indices, a fresh permutation table and the augmentation uniforms
+        from the loop's generator."""
+        if self.sampling == "uniform":
+            return lambda generator: self.sample_batch(generator, batch_size)
+
+        def sample(generator: torch.Generator) -> Batch:
+            imgs = torch.randint(0, self.num_images, (batch_size,),
+                                 generator=generator, device=self.device)
+            fresh = self.fresh_perms(generator)
+            aug_u = torch.rand((batch_size,), generator=generator,
+                               device=self.device) \
+                if self.augmentation_factor > 1 and self._post_sl else None
+            sample.state, batch = self.sample_batch_permutation(
+                sample.state, imgs, fresh, aug_u)
+            return batch
+
+        sample.state = self.init_perm_state(
+            torch.Generator(device=self.device).manual_seed(11))
+        return sample
 
     @staticmethod
     def model_input(batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -14,7 +14,13 @@ Retention is the reference's (train.py:22-31): the top ``keep_top_k``
 epochs by score plus an always-current ``last.ckpt``. The scores are read
 back from the files on start, so retention carries across a resume, and
 ``read_meta`` gives the resumed run its epoch numbering. Files are written
-to a temporary name and moved into place.
+to a temporary name and moved into place. Under gradient accumulation an
+optimizer state also carries k, the running mean of the gradients, its
+micro-step and its update count (``optim.MultiSteps.state_dict``), so a
+run resumed in the middle of an accumulation goes on exactly as Orbax's
+``g_opt`` lets the JAX package go on. The JAX package's Orbax directories
+are refused with the command that exports them
+(``tools/export_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +95,14 @@ class CheckpointManager:
     def restore(path, state: GANTrainState) -> GANTrainState:
         """Load the networks, the optimizer states and the step count of a
         checkpoint into ``state`` (same architecture), in place."""
+        if os.path.isdir(str(path)):
+            raise ValueError(
+                f"{path} is a directory, an Orbax checkpoint of the JAX "
+                "package; this port resumes from torch .ckpt files only. "
+                "Export it first with tools/export_checkpoint.py (needs "
+                f"jax): python tools/export_checkpoint.py {path} out.ckpt, "
+                "then pass training.resume_from=out.ckpt (the networks "
+                "resume; the optimizer states start anew)")
         ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
         sd = ckpt["state_dict"]
         nets = [("generator.", state.generator, state.g_opt)]

@@ -9,10 +9,16 @@ g_total_loss, the reference's; ``epoch_mean``; ``epoch_min``), which also
 drives early stopping (patience in epochs). A resumed run continues the
 epoch numbering from the checkpoint's own epoch.
 
-The batch is drawn on the device and the step runs there; the host reads
-the losses back only at a logging step and at the end of an epoch. The
-comparison-grid images (``image_log_freq``) are not ported yet and are
-skipped.
+The batch is drawn on the device (``data.sampling`` uniform or
+permutation, ``dataset.make_sampler``) and the step runs there; the host
+reads the losses back only at a logging step and at the end of an epoch.
+Every ``image_log_freq`` steps the ``training/comparison_grid`` image is
+built on the host from the step's batch and an eval-mode, no-grad
+generator forward with the parameters after the step (JAX
+``loop.py:222-235``); the generator goes back to train mode with its
+BatchNorm statistics untouched. ``training.profile_dir`` traces epoch 0
+with ``torch.profiler`` (CPU and, on a card, CUDA activity) and writes it
+there as a Chrome trace (JAX ``loop.py:144-148, 243-247``).
 """
 
 from __future__ import annotations
@@ -21,13 +27,50 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from patch_toon_tpu_torch.train.checkpoints import CheckpointManager
-from patch_toon_tpu_torch.train.logging import MetricsLogger
+from patch_toon_tpu_torch.train.logging import (
+    MetricsLogger,
+    build_comparison_grid,
+)
 from patch_toon_tpu_torch.train.model import training_backends
 from patch_toon_tpu_torch.train.state import GANTrainState
 from patch_toon_tpu_torch.train.step import make_train_step
+
+
+def comparison_grid(model, state: GANTrainState, dataset,
+                    batch: Dict[str, torch.Tensor]) -> np.ndarray:
+    """The comparison grid of ``batch``: Input | Generated | Target | each
+    guide channel, the generator run in eval mode without gradients and
+    put back in train mode."""
+    gen_net = state.generator
+    gen_net.eval()
+    try:
+        with torch.no_grad():
+            generated = gen_net(dataset.model_input(batch).to(model.dtype))
+    finally:
+        gen_net.train()
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.float().cpu().numpy()
+
+    return build_comparison_grid(
+        host(batch["pre"]), host(generated), host(batch["post"]),
+        host(batch["channels"]) if "channels" in batch else None,
+        dataset.channel_depths)
+
+
+def _start_profiler(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
 
 
 def fit(model, dataset, run_dir: str, seed: int = 0,
@@ -47,6 +90,7 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
     max_epochs = int(max_epochs if max_epochs is not None
                      else tc.get("max_epochs", 50))
     log_every = int(tc.get("log_every_n_steps", 10))
+    image_log_freq = int(tc.get("image_log_freq", 100))
     early_stopping = bool(tc.get("early_stopping", False))
     patience = int(tc.get("early_stopping_patience", 2))
     max_steps = int(tc.get("max_steps") or 0)
@@ -66,6 +110,7 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                            else state.step // steps_per_epoch)
             print(f"Resumed from {resume_from} at step {state.step}")
         step_fn = make_train_step(model, bool(tc.get("two_forward", False)))
+        sample = dataset.make_sampler(batch_size)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         ckpt = CheckpointManager(run_dir / "checkpoints", keep_top_k=3, meta={
             "input_channels": model.input_channels,
@@ -79,6 +124,8 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
               f"{len(dataset)} patch centers, on {dev}")
 
         best, stale, global_step = float("inf"), 0, state.step
+        profile_dir = tc.get("profile_dir")
+        prof = _start_profiler(dev) if profile_dir else None
         try:
             for epoch in range(start_epoch, max_epochs):
                 n_steps = steps_per_epoch
@@ -90,7 +137,7 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                 loss_min = torch.full((), float("inf"), device=dev)
                 t0 = time.perf_counter()
                 for _ in range(n_steps):
-                    batch = dataset.sample_batch(gen, batch_size)
+                    batch = sample(gen)
                     metrics = step_fn(state, batch, gen)
                     global_step += 1
                     loss_sum += metrics["g_total_loss"]
@@ -101,8 +148,23 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                         vals = torch.stack([metrics[k] for k in names]).tolist()
                         logger.log_scalars({**dict(zip(names, vals)),
                                             "lr-Adam": lr}, global_step)
+                    if global_step % image_log_freq == 0:
+                        logger.log_image(
+                            "training/comparison_grid",
+                            comparison_grid(model, state, dataset, batch),
+                            global_step)
                     if on_step is not None:
                         on_step(global_step, metrics)
+                if prof is not None:  # the trace covers the first epoch
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    prof.stop()
+                    Path(profile_dir).mkdir(parents=True, exist_ok=True)
+                    prof.export_chrome_trace(str(
+                        Path(profile_dir) / f"epoch_{epoch}.pt.trace.json"))
+                    prof = None
+                    print(f"Profiler trace of epoch {epoch} written to "
+                          f"{profile_dir}")
                 s, m, last = torch.stack(
                     [loss_sum, loss_min, metrics["g_total_loss"]]).tolist()
                 mean_loss = s / n_steps
@@ -128,5 +190,7 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                               f"(no improvement for {patience} epochs)")
                         break
         finally:
+            if prof is not None:
+                prof.stop()
             logger.close()
     return state

@@ -17,9 +17,9 @@ these flags and cuDNN's deterministic mode for the length of a run.
 ``training.xla_options`` changes nothing here and is validated as the JAX
 step validates it.
 
-Not ported yet, and refused by name: gradient accumulation, several
-devices, the ``parallel.dcn`` cluster and the profiler trace
-(``training.profile_dir``).
+``training.accumulate_grad_batches = k > 1`` wraps both optimizers in
+``optim.MultiSteps`` (JAX ``train/model.py:155-165``). Not ported yet, and
+refused by name: several devices and the ``parallel.dcn`` cluster.
 """
 
 from __future__ import annotations
@@ -82,18 +82,12 @@ def check_unported_training_knobs(training: Dict[str, Any],
     resolve_dtype(training.get("precision", 32))
     check_xla_options(training.get("xla_options", "auto"),
                       "training.xla_options")
-    if int(training.get("accumulate_grad_batches", 1) or 1) != 1:
-        raise NotImplementedError(
-            "training.accumulate_grad_batches != 1 is not ported yet")
     if int(training.get("devices", 1) or 1) != 1:
         raise NotImplementedError(
             "training.devices != 1 is not ported yet (one GPU)")
     if bool(((parallel or {}).get("dcn") or {}).get("enabled", False)):
         raise NotImplementedError(
             "parallel.dcn.enabled=true is not ported yet (one GPU)")
-    if training.get("profile_dir"):
-        raise NotImplementedError(
-            "training.profile_dir is not ported yet (no profiler trace)")
 
 
 @contextlib.contextmanager
@@ -185,6 +179,10 @@ class StyleTransferModel:
         tc = self.training_config
         self.clip = float(tc.get("gradient_clip_val", 0.5)) \
             if tc.get("use_gradient_clipping", False) else None
+        self.accumulate = int(tc.get("accumulate_grad_batches", 1) or 1)
+        if self.accumulate < 1:
+            raise ValueError(f"training.accumulate_grad_batches="
+                             f"{self.accumulate}: expected an integer >= 1")
 
     def init_state(self, seed: int = 0, device: Any = "cpu"
                    ) -> GANTrainState:
@@ -220,9 +218,10 @@ class StyleTransferModel:
             step=0, generator=gen,
             g_opt=optim.from_config(gen.parameters(),
                                     self.optimizer_config["generator"],
-                                    self.clip),
+                                    self.clip, self.accumulate),
             discriminator=disc,
             d_opt=optim.from_config(disc.parameters(),
                                     self.optimizer_config["discriminator"],
-                                    self.clip) if disc is not None else None,
+                                    self.clip, self.accumulate)
+            if disc is not None else None,
             perception=perc)

@@ -23,11 +23,19 @@ Everything stays on the device: the clip is a ``torch.where`` on the norm,
 with no host synchronisation, and each stage is one multi-tensor
 ``torch._foreach_*`` call over all of a network's tensors (a handful of
 launches a step instead of about nine per tensor).
+
+Gradient accumulation (``training.accumulate_grad_batches = k > 1``) wraps
+the chain in :class:`MultiSteps`, the counterpart of ``optax.MultiSteps``
+(JAX ``train/optim.py:37-39``): the running mean of the micro-steps'
+gradients in optax's Welford form, ``acc + (g - acc) / (n + 1)``, and the
+whole chain (clip, weight decay, Adam) on that mean at every k-th
+micro-step only, so Adam's count advances once every k; in between the
+parameters are not touched.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -88,16 +96,72 @@ class Adam:
                 "nu": [v.detach().cpu() for v in self.nu]}
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
+        if "inner" in state:
+            raise ValueError(
+                "this optimizer state was written under gradient "
+                "accumulation; resume it with the same "
+                "training.accumulate_grad_batches")
         self.count = int(state["count"])
         for dst, src in zip(self.mu + self.nu,
                             list(state["mu"]) + list(state["nu"])):
             dst.copy_(src)
 
 
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k)`` with ``use_grad_mean``: the
+    same ``step(grads)`` / ``state_dict`` surface as :class:`Adam`."""
+
+    def __init__(self, inner: Adam, every_k: int):
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.mini_step = 0       # micro-steps taken into the running mean
+        self.gradient_step = 0   # updates applied
+        self.acc = [torch.zeros_like(p, memory_format=torch.preserve_format)
+                    for p in inner.params]
+
+    @property
+    def params(self) -> List[torch.nn.Parameter]:
+        return self.inner.params
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """Fold one micro-step's gradients into the mean; at the k-th,
+        update the parameters from the mean and start a new one."""
+        delta = torch._foreach_sub([g.float() for g in grads], self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        if self.mini_step == self.every_k - 1:
+            self.inner.step(self.acc)
+            torch._foreach_zero_(self.acc)
+            self.gradient_step += 1
+        self.mini_step = (self.mini_step + 1) % self.every_k
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"inner": self.inner.state_dict(), "every_k": self.every_k,
+                "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": [a.detach().cpu() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        if int(state.get("every_k", 1)) != self.every_k:
+            raise ValueError(
+                "this optimizer state was written with another "
+                "training.accumulate_grad_batches; resume it with the same")
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        self.gradient_step = int(state["gradient_step"])
+        for dst, src in zip(self.acc, state["acc"]):
+            dst.copy_(src)
+
+
 def from_config(params: Sequence[torch.nn.Parameter], opt_cfg: dict,
-                clip_norm: Optional[float] = None) -> Adam:
-    """From the config/optimizer/default.yaml per-network schema."""
-    return Adam(params, lr=float(opt_cfg["lr"]),
+                clip_norm: Optional[float] = None,
+                accumulate_steps: int = 1) -> Union[Adam, MultiSteps]:
+    """From the config/optimizer/default.yaml per-network schema; with
+    ``accumulate_steps > 1`` wrapped in :class:`MultiSteps`."""
+    adam = Adam(params, lr=float(opt_cfg["lr"]),
                 betas=tuple(opt_cfg.get("betas", (0.9, 0.999))),
                 weight_decay=float(opt_cfg.get("weight_decay", 0.0)),
                 clip_norm=clip_norm)
+    return adam if accumulate_steps == 1 else MultiSteps(adam,
+                                                         accumulate_steps)

@@ -8,7 +8,8 @@ file imports no JAX, so it also runs on a machine without it:
 (``--noconftest`` because tests/conftest.py sets JAX up.) Tolerances:
 InstanceNorm fp32 1e-5 absolute and relative (sums in other orders); bf16
 one bf16 ulp of the value plus 1e-5, as two fp32 results that differ in the
-last bits may round to neighbouring bf16 values; the blend bit for bit.
+last bits may round to neighbouring bf16 values; the blend and the splat
+bit for bit.
 """
 
 import pathlib
@@ -21,6 +22,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from patch_toon_tpu_torch.ops import blend as tblend  # noqa: E402
+from patch_toon_tpu_torch.ops import splat as tsplat  # noqa: E402
 from patch_toon_tpu_torch import _build  # noqa: E402
 from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
     CTA_BYTES,
@@ -850,3 +852,47 @@ def test_32_fast_generator_on_cuda_within_2e5_of_fp32(cuda):
         a, b = strict(x), fast(x)
     torch.testing.assert_close(b, a, atol=2e-5, rtol=2e-5)
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _splat_case(seed, h, w, n):
+    rng = np.random.default_rng(seed)
+    img = rng.random((h, w, 3)).astype(np.float32)
+    pts = np.stack([rng.uniform(0, w, n), rng.uniform(0, h, n)],
+                   1).astype(np.float32)
+    # within r of each border and corner, overlapping, and invalid
+    pts[:8] = [[0, 0], [w - 1e-3, h - 1e-3], [0.4, h / 2], [w - 0.6, 7.5],
+               [w / 2, 0.2], [40, 40], [40.25, 40.5], [40.5, 39.75]]
+    cols = rng.random((n, 3)).astype(np.float32)
+    valid = rng.random(n) > 0.2
+    valid[:8] = True
+    return [torch.from_numpy(a) for a in (img, pts, cols, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [1.5, 10.0, 15.0])
+@pytest.mark.parametrize("h,w,n", [(130, 250, 300), (512, 910, 1000)])
+def test_splat_kernel_bitwise_equals_plain(cuda, sigma, h, w, n):
+    args = [t.to(cuda) for t in _splat_case(3, h, w, n)]
+    before = tsplat.splat_points.launches
+    got = tsplat.splat_points(*args, sigma)
+    assert tsplat.splat_points.launches == before + 1
+    want = tsplat.splat_points_plain(*args, sigma)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    # invalid points only: the canvas as it was
+    none = torch.zeros_like(args[3])
+    assert torch.equal(tsplat.splat_points(*args[:3], none, sigma), args[0])
+
+
+@pytest.mark.cuda
+def test_splat_kernel_refuses_what_it_cannot_take(cuda):
+    img, pts, cols, valid = [t.to(cuda) for t in _splat_case(0, 60, 90,
+                                                            10)]
+    with pytest.raises(ValueError):
+        tsplat.splat_points(img.double(), pts, cols, valid, 2.0)
+    with pytest.raises(ValueError):
+        tsplat.splat_points(img, pts[:3], cols, valid, 2.0)
+    with pytest.raises(ValueError):
+        tsplat.splat_points(img, pts, cols, valid.float(), 2.0)
+    with pytest.raises(ValueError):
+        tsplat.splat_points(img[..., :2], pts, cols, valid, 2.0)

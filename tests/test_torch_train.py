@@ -369,8 +369,13 @@ def test_dataset_tables_and_batches_equal_jax(scene):
         np.testing.assert_array_equal(mine[k].numpy(), np.asarray(theirs[k]))
     batch = got.sample_batch(torch.Generator().manual_seed(2), 8)
     assert batch["pre"].shape == (8, PS, PS, 3) and "already" in batch
-    with pytest.raises(NotImplementedError, match="permutation"):
-        StyleTransferDataset.from_directories(*args[:5], sampling="permutation",
+    perm = StyleTransferDataset.from_directories(
+        *args[:5], sampling="permutation", device="cpu")
+    assert perm.sampling == "permutation"
+    assert perm.make_sampler(8)(torch.Generator().manual_seed(3))[
+        "pre"].shape == (8, PS, PS, 3)
+    with pytest.raises(ValueError, match="sampling"):
+        StyleTransferDataset.from_directories(*args[:5], sampling="random",
                                               device="cpu")
 
 
@@ -702,11 +707,8 @@ def test_training_defaults_equal_composed_yaml():
 
 
 @pytest.mark.parametrize("override,knob", [
-    ("training.accumulate_grad_batches=2", "accumulate_grad_batches"),
     ("training.devices=2", "devices"),
     ("parallel.dcn.enabled=true", "parallel.dcn"),
-    ("+training.profile_dir=trace", "profile_dir"),
-    ("+data.sampling=permutation", "permutation"),
 ])
 def test_unported_training_knobs_are_refused(scene, tmp_path, override, knob):
     from patch_toon_tpu_torch import train_cli
@@ -716,6 +718,54 @@ def test_unported_training_knobs_are_refused(scene, tmp_path, override, knob):
                   override])
     with pytest.raises(NotImplementedError, match=knob):
         train_cli.train(cfg)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test: a test run shares the cores among
+    its worker processes, and torch's thread pool then spends most of its
+    time waiting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("override", [
+    "training.accumulate_grad_batches=2", "+training.profile_dir=trace",
+    "+data.sampling=permutation", "training.image_log_freq=1"])
+def test_ported_training_knobs_run_through_the_cli(scene, tmp_path,
+                                                   override, capsys,
+                                                   one_torch_thread):
+    """``train_torch.py`` (``train_cli.main``) on the CPU with each knob
+    that the port once refused and JAX has: two steps, a checkpoint, and
+    each knob's own trace (the update count, the profiler's file, the
+    grid's event)."""
+    from patch_toon_tpu_torch import train_cli
+
+    knob = override.lstrip("+").split("=")[0]
+    extra = [f"+training.profile_dir={tmp_path / 'trace'}"] \
+        if knob == "training.profile_dir" else [override]
+    assert train_cli.main(_scene_overrides(scene) + SMALL_ARCH + [
+        "training.accelerator=cpu", "training.max_steps=2",
+        "training.batch_size=4", f"run.dir={tmp_path / 'run'}"]
+        + extra) == 0
+    out = capsys.readouterr().out
+    last = tmp_path / "run" / "checkpoints" / "last.ckpt"
+    ckpt = torch.load(last, weights_only=True)
+    assert ckpt["global_step"] == 2
+    g_opt = ckpt["optimizer_states"][0]
+    if knob == "training.accumulate_grad_batches":
+        assert g_opt["inner"]["count"] == 1 and g_opt["mini_step"] == 0
+    else:
+        assert g_opt["count"] == 2
+    if knob == "training.profile_dir":
+        assert (tmp_path / "trace" / "epoch_0.pt.trace.json").is_file()
+        assert "Profiler trace of epoch 0 written to" in out
+    if knob == "training.image_log_freq":  # one image event a step
+        events = b"".join(f.read_bytes() for f in (
+            tmp_path / "run" / "tb").glob("events*"))
+        assert events.count(b"training/comparison_grid") == 2
 
 
 @pytest.mark.parametrize("value,refused", [
