@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (patch_toon_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--multi-gpu]
 
-Needs one CUDA card; run from the root of a checkout. Phases, one or more
-lines each, flushed as they go:
+Needs one CUDA card; run from the root of a checkout. ``--multi-gpu`` runs
+the build and phase 11 alone (for a machine with several cards). Phases,
+one or more lines each, flushed as they go:
 
 1. ``build``: the nvcc build of ``patch_toon_tpu_torch/csrc/*.cu`` (seconds,
    and each kernel's registers, shared memory and spills as ptxas reports
@@ -157,6 +158,34 @@ lines each, flushed as they go:
    timed at sigma 15 against its bound; ``tools/temporal_guide_torch.py``
    over the scene, card against CPU within 1 count.
 
+11. ``multi_gpu``: several cards through the entry points, on whatever
+   cards the machine has (each card's name and power limit printed, and
+   the link ``nvidia-smi topo -m`` shows between cards 0 and 1). On any
+   count: ``process_directory`` over the 36 frames, tiled, bf16 and 32, at
+   ``inference.devices=1`` (timed; the reference) and at
+   ``inference.devices=-1``, bitwise equal to it, with the launch counters
+   zeroed just before and read just after by card (19 B1 cluster launches
+   and one B2 launch a card a group); two engines at ``file_shard`` 0/2
+   and 1/2 whose files together are bitwise the one-device run's; ``fit``
+   (12 steps, batch 80, bf16 and 32) on ``training.devices=-1`` ranks
+   spawned by ``parallel.spawn`` (NCCL), bitwise equal to the plain
+   ``fit`` of the ``train`` phase, 25 forward and 25 backward cluster
+   launches a step on each rank, none streaming. One line says what did
+   not run on one card. With 2+ cards (``python3 chip_smoke.py
+   --multi-gpu`` runs the build and this phase alone): the same directory
+   at 2 and 4 devices, tiled and full-frame, bf16 and 32, eq-frames/s and
+   each card's busy share beside the one-card run, the files within 1
+   count of it (the differing pixels printed); with 4 cards 4 processes
+   at ``file_shard`` k/4, one card each, started together, eq-frames/s
+   and their files within 1 count of one process; ``fit`` over 1, 2 and 4
+   ranks, ms a step, the ranks bitwise equal, two runs of the largest
+   world bitwise equal, the largest world against one rank after 12 steps
+   (the update's relative L2 distance, limits 1e-1 at 32 and 5e-1 at
+   bf16), the gradients' all-reduce timed (two coalesced calls, G's and
+   D's) against the ring bound over the link, and one small-width step of
+   the ranks held to the fp64 one-device step that takes their branches
+   (``train/parity.py``, 5e-5).
+
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero before the last line; nothing falls back
@@ -169,6 +198,7 @@ import contextlib
 import json
 import logging
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -182,7 +212,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from patch_toon_tpu_torch import _build
+from patch_toon_tpu_torch import _build, parallel
 from patch_toon_tpu_torch.config.defaults import (
     inference_config,
     training_config,
@@ -209,6 +239,7 @@ from patch_toon_tpu_torch.ops import blend, instance_norm
 from patch_toon_tpu_torch.ops import splat as ops_splat
 from patch_toon_tpu_torch.ops.flow import dense_flow
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
+from patch_toon_tpu_torch.parallel import comm
 from patch_toon_tpu_torch.train import optim
 from patch_toon_tpu_torch.train.logging import build_comparison_grid
 from patch_toon_tpu_torch.train.loop import fit
@@ -268,12 +299,16 @@ def say(phase: str, **kv) -> None:
           flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
+def card_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi prints them."""
+    return [line.strip() for line in subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
+        timeout=60, check=True).stdout.strip().splitlines()]
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -2531,6 +2566,7 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
     rec = {}
     launches = {"forward": 0, "backward": 0, "backward_streaming": 0,
                 "forward_32_fast": 0, "backward_32_fast": 0}
+    final = {}
     for prec in ("32", "bf16", "32_fast"):
         model = _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS)
         win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
@@ -2556,6 +2592,8 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
         if prec == "32_fast":
             launches["forward_32_fast"] += fwd
             launches["backward_32_fast"] += bwd
+        if prec in ("32", "bf16"):  # the multi_gpu phase's reference
+            final[prec] = _net_tensors(state)
         ms = 1e3 * win.seconds / TRAIN_STEPS
         rec[prec] = {"ms_per_step": ms, "patches_per_s": BT / ms * 1e3}
         say("train", entry="fit", precision=prec, steps=TRAIN_STEPS,
@@ -2629,7 +2667,7 @@ def phase_train(dev, card: str, tmp: Path) -> dict:
         raise AssertionError(f"serving the trained checkpoint: shape "
                              f"{got.shape}, card vs CPU {d.max()}, changed "
                              f"{changed}")
-    return {"rec": rec, "launches": launches}
+    return {"rec": rec, "launches": launches, "final": final}
 
 # ----------------------------------------------------------- train_rest
 
@@ -2655,7 +2693,7 @@ def _perm_coverage(data, draws: int) -> dict:
     real = data.sample_batch_permutation
     images = torch.arange(data.num_images, device=data.device)
 
-    def spy(state, imgs, fresh, aug_u=None):
+    def spy(state, imgs, fresh, aug_u=None, rows=slice(None)):
         imgs = imgs.to(torch.int64)
         occ = torch.tril(imgs[:, None] == imgs[None, :], -1).sum(1)
         ahead = state["cursor"][imgs] + occ
@@ -2669,7 +2707,7 @@ def _perm_coverage(data, draws: int) -> dict:
         tally.add_(torch.stack([wrapped.sum(), (wrapped & ~whole).sum(),
                                 (~keep).sum()]))
         hits.mul_((~wrapped)[:, None].to(torch.int32))
-        return real(state, imgs, fresh, aug_u)
+        return real(state, imgs, fresh, aug_u, rows)
 
     data.sample_batch_permutation = spy
     try:
@@ -3140,7 +3178,536 @@ def phase_guides(dev, card: str, tmp: Path) -> dict:
     return {"rec": rec, "launches": launches}
 
 
+# ------------------------------------------------------------ multi_gpu
+
+MG_LINK_BPS = 25e9    # NVLink 4, bytes/s a link and direction (data sheet)
+MG_PCIE_BPS = 64e9    # PCIe Gen5 x16, bytes/s a direction (data sheet)
+MG_PARITY_BATCH = 8   # the N-rank step against fp64: small widths, batch 8
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _link_bps() -> tuple:
+    """(bytes/s a direction between card 0 and card 1, what nvidia-smi
+    shows there): ``topo -m``'s NV<k> is k NVLink 4 links, another entry
+    PCIe Gen5 x16; where ``topo -m`` fails, the sum of the link rates
+    ``nvlink --status`` lists for card 0 (a rate a link and direction)."""
+    def smi(*args):
+        return subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=60, check=True).stdout
+
+    try:
+        for line in smi("topo", "-m").splitlines():
+            cells = line.split()
+            if cells and cells[0] == "GPU0" and len(cells) > 2:
+                link = cells[2]
+                if link.startswith("NV") and link[2:].isdigit():
+                    return int(link[2:]) * MG_LINK_BPS, link
+                return MG_PCIE_BPS, link
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        rates = [float(r) for r in re.findall(
+            r"Link \d+: ([\d.]+) GB/s", smi("nvlink", "--status", "-i", "0"))]
+    except (OSError, subprocess.SubprocessError):
+        rates = []
+    if rates:
+        return sum(rates) * 1e9, f"NVLink-x{len(rates)}-{rates[0]}GB/s"
+    return MG_PCIE_BPS, "unknown"
+
+
+B1_B2 = {**B1_WRAPPERS, "blend": blend.blend_tiles}
+
+
+def _zero_by_device() -> None:
+    for fn in B1_B2.values():
+        fn.launches = 0
+        fn.by_device = {}
+
+
+def _busy_by_device(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: each card's busy time (the union
+    of its kernels' and copies' intervals) over the wall time, by card
+    index."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    _sync_all()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync_all()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(int(getattr(ev, "device_index", 0)), []).append(
+                (ev.time_range.start, ev.time_range.end))
+    busy = {}
+    for i, ivs in sorted(spans.items()):  # the union of the intervals
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(ivs):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        busy[i] = total / wall_us
+    return busy
+
+
+def _mg_engine(prec: str, mode: str, scene: Path, out: Path,
+               devices: int = 1, shard=None):
+    inf = {"precision": prec, "mode": mode, "devices": devices}
+    if shard is not None:
+        inf["file_shard"] = shard
+    return StyleTransferInference(inference_config(
+        paths={"checkpoint": str(CKPT), "input_dir": str(scene / "input"),
+               "mask_dir": str(scene / "mask"), "output_dir": str(out),
+               "additional_channels": {"point_vector": {
+                   "path": str(scene / "tracking"), "depth": 3}}},
+        inference=inf))
+
+
+def _mg_serve(prec: str, mode: str, devices: int, scene: Path, out: Path,
+              busy: bool) -> dict:
+    """A set-up run, then ``process_directory`` timed with the launch
+    counters zeroed just before and read just after (by card), checked
+    against the one-device rule on every card; with ``busy`` a third,
+    traced run gives each card's busy share."""
+    eng = _mg_engine(prec, mode, scene, out, devices)
+    eng.process_directory()
+    _zero_by_device()
+    _sync_all()
+    t0 = time.perf_counter()
+    written = eng.process_directory()
+    _sync_all()
+    seconds = time.perf_counter() - t0
+    by_card = {k: dict(fn.by_device) for k, fn in B1_B2.items()}
+    d = len(eng.cards)
+    per_card = DIR_FRAMES // d  # frames a card: 36 over 1, 2 or 4
+    calls = per_card // 3 if mode == "tiled" else per_card  # fpd 3
+    want = {"cluster": 19 * calls if mode == "tiled" else 0,
+            "split": 0 if mode == "tiled" else 19 * calls, "streaming": 0,
+            "blend": calls if mode == "tiled" else 0}
+    for kind, n in want.items():
+        for card in eng.cards:
+            if by_card[kind].get(card.index, 0) != n:
+                raise AssertionError(
+                    f"multi_gpu {mode} {prec} D={d}: {kind} launches by "
+                    f"card {by_card[kind]}, expected {n} on each of "
+                    f"{[c.index for c in eng.cards]}")
+    if written != DIR_FRAMES:
+        raise AssertionError(f"multi_gpu {mode} {prec} D={d}: {written} "
+                             "frames written")
+    rec = {"devices": d, "eq_frames_per_s": DIR_FRAMES / seconds,
+           "ms": 1e3 * seconds, "launches_by_card": by_card}
+    if busy:
+        try:
+            rec["busy_by_card"] = _busy_by_device(eng.process_directory)
+        except (AttributeError, RuntimeError) as e:
+            rec["busy_by_card"] = f"not measured ({e})"
+    return rec
+
+
+def _mg_fit_rank(device, out: str, runs: list, parity: bool,
+                 flags: tuple) -> None:
+    """One rank of the multi_gpu phase's training (``parallel.spawn``, the
+    launcher ``train_cli`` uses): ``fit`` on the train phase's keyframes
+    at batch 80 over the world, for each (precision, repeat) of ``runs``
+    (steps 3-12 timed, the launch counters zeroed after step 2 and read
+    after step 12; the final parameters saved); the gradients' all-reduce
+    timed on tensors of their shapes; with ``parity`` one small-width step
+    held to the fp64 one-device step (rank 0). ``flags``: the parent's
+    TF32 and matmul settings, so a rank computes as the parent's plain
+    ``fit`` does. Writes rank<r>.json."""
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     precision) = flags
+    torch.set_float32_matmul_precision(precision)
+    rank, world = parallel.rank(), parallel.world()
+    out = Path(out)
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=device)
+    rec = {"rank": rank, "world": world, "device": str(device),
+           "name": torch.cuda.get_device_name(device), "runs": []}
+    state = None
+    for prec, rep, batch in runs:
+        model = _train_model(prec, batch=batch,
+                             max_steps=TRAIN_WARMUP + TRAIN_STEPS)
+        win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+        state = fit(model, data, str(out / f"run_w{world}_{prec}_{rep}"
+                                     f"_{batch}"),
+                    seed=0, on_step=win, progress=False)
+        fwd, st, bwd, bst = win.counts
+        if batch == BT:
+            torch.save(_net_tensors(state),
+                       out / f"w{world}_{prec}_{rep}_rank{rank}.pt")
+        rec["runs"].append({
+            "precision": prec, "repeat": rep, "batch": batch,
+            "ms_per_step": 1e3 * win.seconds / TRAIN_STEPS,
+            "forward_cluster": fwd, "forward_streaming": st,
+            "backward_cluster": bwd, "backward_streaming": bst,
+            "g_total_loss": float(win.metrics["g_total_loss"])})
+    if world > 1:  # the step's two gradient all-reduces, G's then D's
+        grads = [[torch.randn_like(p) for p in net.parameters()]
+                 for net in (state.generator, state.discriminator)]
+
+        def reduce():
+            for g in grads:
+                parallel.all_reduce_mean_(g)
+
+        rec["allreduce_ms"] = time_ms(reduce, 20, warmup=3)
+        rec["allreduce_bytes"] = sum(4 * t.numel() for g in grads for t in g)
+        rec["params"] = [sum(t.numel() for t in g) for g in grads]
+    if parity:
+        rec["parity"] = _mg_step_parity(device)
+    (out / f"rank{rank}_w{world}.json").write_text(json.dumps(rec))
+
+
+def _mg_step_parity(device):
+    """The N-rank step, small widths and batch ``MG_PARITY_BATCH``, each
+    rank on its rows, its branches recorded and gathered in rank order;
+    rank 0 replays them in the fp64 one-device step over the whole batch
+    (``train/parity.py``) and holds its state to it: within 5e-5, the bar
+    that holds one card."""
+    rank, world = parallel.rank(), parallel.world()
+    model = _train_model("32", small=True, batch=MG_PARITY_BATCH)
+    rng = np.random.default_rng(1)
+    b, ps = MG_PARITY_BATCH, 32
+    batch = {"pre": rng.standard_normal((b, ps, ps, 3)),
+             "channels": rng.standard_normal((b, ps, ps, 3)),
+             "post": rng.random((b, ps, ps, 3)) * 2 - 1}
+    rows = parallel.shard_rows(b, rank, world)
+    with training_backends(torch.float32):
+        start = model.init_state(0, "cpu")
+        kinks = Kinks()
+        st, _ = run_step(model, start, {k: v[rows] for k, v in
+                                        batch.items()}, device, kinks)
+        masks = [parallel.gather_rows(m.to(device, torch.uint8)).bool()
+                 .cpu() for m in kinks.masks]
+        summary = None
+        if rank == 0:
+            with _patched(comm, "rank", lambda: 0), \
+                    _patched(comm, "world", lambda: 1):
+                ref, _ = run_step(model, start, batch, "cpu",
+                                  Kinks(replay=masks), torch.float64)
+            summary = first_step_agreement(state_pairs(ref, st))
+            assert_first_step_close(summary, 5e-5,
+                                    f"{world} ranks against fp64")
+        parallel.barrier()
+    return summary
+
+
+def _mg_train(tmp: Path, worlds: list, plain: dict) -> dict:
+    """``fit`` over 1, 2 and 4 ranks (those that fit): ms a step, the
+    launches of each rank, ranks bitwise equal, two runs of the largest
+    world bitwise equal, world 1 bitwise the plain ``fit`` of the train
+    phase (``plain``), the largest world against world 1 (the update's
+    relative L2 distance; limits 1e-1 at 32, 5e-1 at bf16), the
+    all-reduce against its bound, and the N-rank step against fp64."""
+    link_bps, link = _link_bps()
+    rec = {"link": link, "link_bytes_per_s": link_bps}
+    top = max(worlds)
+    for n in worlds:
+        out = tmp / f"mg_train_w{n}"
+        out.mkdir(parents=True, exist_ok=True)
+        runs = [("32", 0, BT), ("bf16", 0, BT)]
+        if n == top and n > 1:  # determinism: a second run of each
+            runs += [("32", 1, BT), ("bf16", 1, BT)]
+        if n == 1 and top > 1:  # one card at the rows a rank takes
+            runs += [(prec, 0, BT // m) for m in worlds[1:]
+                     for prec in ("32", "bf16")]
+        t0 = time.perf_counter()
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32,
+                 torch.get_float32_matmul_precision())
+        parallel.spawn(_mg_fit_rank, (str(out), runs, n > 1, flags),
+                       parallel.local_devices(n))
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((out / f"rank{r}_w{n}.json").read_text())
+                 for r in range(n)]
+        for r in ranks:
+            for run in r["runs"]:
+                if run["forward_cluster"] != 25 * TRAIN_STEPS \
+                        or run["backward_cluster"] != 25 * TRAIN_STEPS \
+                        or run["forward_streaming"] \
+                        or run["backward_streaming"]:
+                    raise AssertionError(f"world {n} rank {r['rank']}: B1 "
+                                         f"launches {run}")
+        tensors = {(prec, rep, r): torch.load(
+            out / f"w{n}_{prec}_{rep}_rank{r}.pt", weights_only=True)
+            for prec, rep, batch in runs if batch == BT for r in range(n)}
+        rank_differ = [f"{prec}/{rep}/rank{r}/{k}"
+                       for (prec, rep, r), t in tensors.items()
+                       for k in t if not torch.equal(
+                           t[k], tensors[prec, rep, 0][k])]
+        rep_differ = [f"{prec}/{k}" for prec in ("32", "bf16")
+                      if (prec, 1, 0) in tensors
+                      for k in tensors[prec, 0, 0] if not torch.equal(
+                          tensors[prec, 0, 0][k], tensors[prec, 1, 0][k])]
+        w = {"ranks": n, "spawn_and_fit_s": wall,
+             "rank_differing_tensors": len(rank_differ),
+             "repeat_differing_tensors": len(rep_differ) if n == top
+             and n > 1 else None,
+             "per_rank": {r["rank"]: {
+                 f"{run['precision']}_{run['repeat']}_b{run['batch']}":
+                 {k: run[k] for k in ("ms_per_step", "forward_cluster",
+                                      "backward_cluster")}
+                 for run in r["runs"]} for r in ranks},
+             "cards": sorted({r["name"] for r in ranks})}
+        for prec in ("32", "bf16"):
+            w[f"ms_per_step_{prec}"] = max(
+                run["ms_per_step"] for r in ranks for run in r["runs"]
+                if run["precision"] == prec and run["repeat"] == 0
+                and run["batch"] == BT)
+            for run in ranks[0]["runs"]:
+                if run["precision"] == prec and run["batch"] != BT:
+                    w[f"one_card_ms_per_step_{prec}_b{run['batch']}"] = \
+                        run["ms_per_step"]
+        if n == 1:
+            differ = [f"{prec}/{k}" for prec in ("32", "bf16")
+                      for k in plain[prec] if not torch.equal(
+                          plain[prec][k], tensors[prec, 0, 0][k])]
+            w["vs_plain_fit_differing_tensors"] = len(differ)
+            if differ:
+                raise AssertionError(f"fit on one spawned rank differs from "
+                                     f"the plain fit in {differ[:5]}")
+        else:
+            r0 = ranks[0]
+            size = r0["allreduce_bytes"]
+            bound = 2 * (n - 1) / n * size / link_bps * 1e3
+            w.update(allreduce_ms=r0["allreduce_ms"], allreduce_bytes=size,
+                     params=r0["params"], allreduce_bound_ms=bound,
+                     parity=r0["parity"])
+        rec[f"w{n}"] = w
+        say("multi_gpu", train_ranks=n,
+            ms_per_step_32=f"{w['ms_per_step_32']:.2f}",
+            ms_per_step_bf16=f"{w['ms_per_step_bf16']:.2f}",
+            rank_differing_tensors=len(rank_differ),
+            repeat_differing_tensors=w["repeat_differing_tensors"],
+            vs_plain_fit_differing_tensors=w.get(
+                "vs_plain_fit_differing_tensors"),
+            allreduce_ms=f"{w.get('allreduce_ms', 0):.4f}",
+            allreduce_bytes=w.get("allreduce_bytes"),
+            allreduce_bound_ms=f"{w.get('allreduce_bound_ms', 0):.4f}",
+            link=link, parity_grad_rel_l2=(
+                f"{w['parity']['grad_rel_l2']:.3g}" if w.get("parity")
+                else None),
+            launches_per_rank=json.dumps({
+                r: {k: v["forward_cluster"] for k, v in runs_.items()}
+                for r, runs_ in w["per_rank"].items()}).replace(" ", ""),
+            one_card_at_rank_rows=json.dumps({
+                k: round(v, 2) for k, v in w.items()
+                if k.startswith("one_card_ms")}).replace(" ", ""),
+            spawn_and_fit_s=f"{wall:.1f}", cards=w["cards"])
+        if rank_differ or rep_differ:
+            raise AssertionError(f"world {n}: ranks differ in "
+                                 f"{rank_differ[:5]}, repeats in "
+                                 f"{rep_differ[:5]}")
+    if top > 1:  # the largest world against one rank after 12 steps
+        for prec, limit in (("32", 1e-1), ("bf16", 5e-1)):
+            one = torch.load(tmp / "mg_train_w1" / f"w1_{prec}_0_rank0.pt",
+                             weights_only=True)
+            many = torch.load(tmp / f"mg_train_w{top}" /
+                              f"w{top}_{prec}_0_rank0.pt", weights_only=True)
+            start = _net_tensors(_train_model(prec).init_state(0, "cpu"))
+            num = sum(float(torch.sum((many[k] - one[k]) ** 2))
+                      for k in one if k in start)
+            den = sum(float(torch.sum((one[k] - start[k]) ** 2))
+                      for k in one if k in start)
+            rel = (num / den) ** 0.5 if den else 0.0
+            rec[f"w{top}_vs_w1_update_rel_l2_{prec}"] = rel
+            say("multi_gpu", train=f"{top} ranks against 1 after "
+                f"{TRAIN_WARMUP + TRAIN_STEPS} steps", precision=prec,
+                update_rel_l2=f"{rel:.3g}", limit=limit)
+            if rel > limit:
+                raise AssertionError(f"{top} ranks against 1 at {prec}: "
+                                     f"{rel} (limit {limit})")
+    return rec
+
+
+MG_SHARD_SERVICE = r"""
+import json, sys, time
+from pathlib import Path
+import torch
+from patch_toon_tpu_torch.config.defaults import inference_config
+from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+paths, shard, ready, n = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+eng = StyleTransferInference(inference_config(paths=paths, inference={
+    "precision": "bf16", "file_shard": shard}))
+eng.process_directory()
+Path(ready, shard.replace("/", "_")).touch()
+while len(list(Path(ready).iterdir())) < n:
+    time.sleep(0.01)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+written = eng.process_directory()
+torch.cuda.synchronize()
+print(json.dumps({"shard": shard, "written": written,
+                  "seconds": time.perf_counter() - t0,
+                  "device": str(eng.device)}))
+"""
+
+
+def _mg_shard_processes(n: int, scene: Path, out: Path, ref: Path,
+                        tmp: Path, names) -> dict:
+    """``n`` processes with ``file_shard`` k/n, one card each
+    (``CUDA_VISIBLE_DEVICES``), tiled bf16: a set-up run, a start
+    barrier, a timed run; eq-frames/s over the slowest, and the union of
+    their files against the one-process run."""
+    ready = tmp / f"mg_ready_{n}"
+    ready.mkdir()
+    paths = {"checkpoint": str(CKPT), "input_dir": str(scene / "input"),
+             "mask_dir": str(scene / "mask"), "output_dir": str(out),
+             "additional_channels": {"point_vector": {
+                 "path": str(scene / "tracking"), "depth": 3}}}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MG_SHARD_SERVICE, json.dumps(paths),
+         f"{k}/{n}", str(ready), str(n)], cwd=str(REPO),
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": str(k),
+             "PYTHONPATH": str(REPO)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for k in range(n)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"a file_shard process failed: {se[-3000:]}")
+    recs = [json.loads(so.strip().splitlines()[-1]) for so, _ in outs]
+    worst, differ = _compare_dirs(out, ref, names)
+    slowest = max(r["seconds"] for r in recs)
+    rec = {"processes": n, "eq_frames_per_s": DIR_FRAMES / slowest,
+           "seconds_by_shard": {r["shard"]: r["seconds"] for r in recs},
+           "written": sum(r["written"] for r in recs),
+           "vs_one_process_max_abs": worst, "differing_pixels": differ}
+    say("multi_gpu", file_shard_processes=n,
+        eq_frames_per_s=f"{rec['eq_frames_per_s']:.2f}",
+        written=rec["written"], vs_one_process_max_abs=worst,
+        differing_pixels=differ)
+    if rec["written"] != DIR_FRAMES or worst > 1:
+        raise AssertionError(f"file_shard processes: {rec}")
+    return rec
+
+
+def phase_multi_gpu(tmp: Path, plain_fit=None) -> dict:
+    """Several cards through the entry points (see the module's
+    docstring): on any card count, ``process_directory`` at
+    ``inference.devices=-1`` (tiled, bf16 and 32) bitwise the one-device
+    run, two ``file_shard`` engines whose union is bitwise the one-device
+    run, and ``fit`` on ``training.devices=-1`` ranks bitwise the plain
+    ``fit``; with 2+ cards the 2- and 4-card forms."""
+    count = torch.cuda.device_count()
+    cards = card_lines()
+    for line in cards:
+        say("multi_gpu", card=f"'{line}'")
+    say("multi_gpu", cards=count, link=_link_bps()[1],
+        peer_access_0_1=torch.cuda.can_device_access_peer(0, 1)
+        if count > 1 else None)
+    scene = tmp / "scene"
+    if not (scene / "input").exists():
+        write_scene(scene, DIR_FRAMES, H, W)
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    rec = {"cards": count, "card_lines": cards, "serve": {}}
+    launches = {"cluster": 0, "split": 0, "blend": 0}
+    ds = [d for d in (2, 4) if d <= count]
+    modes = ("tiled", "fullframe") if ds else ("tiled",)
+    with _without_pil():
+        for mode in modes:
+            for prec in ("bf16", "32"):
+                ref = tmp / f"mg_{mode}_{prec}_d1"
+                one = _mg_serve(prec, mode, 1, scene, ref, busy=bool(ds))
+                runs = {1: one}
+                for d in ([-1] if not ds else []) + ds:
+                    out = tmp / f"mg_{mode}_{prec}_d{d}"
+                    r = runs[d] = _mg_serve(prec, mode, d, scene, out,
+                                            busy=bool(ds))
+                    worst, differ = _compare_dirs(out, ref, names)
+                    r.update(vs_one_device_max_abs=worst,
+                             differing_pixels=differ)
+                    for k in launches:
+                        launches[k] += sum(r["launches_by_card"][k].values())
+                    say("multi_gpu", mode=mode, precision=prec,
+                        devices=d, cards=r["devices"],
+                        eq_frames_per_s=f"{r['eq_frames_per_s']:.2f}",
+                        one_card_eq_frames_per_s=
+                        f"{one['eq_frames_per_s']:.2f}",
+                        busy_by_card=json.dumps(r.get("busy_by_card"))
+                        .replace(" ", ""),
+                        launches_by_card=json.dumps(r["launches_by_card"])
+                        .replace(" ", ""),
+                        vs_one_device_max_abs=worst,
+                        differing_pixels=differ)
+                    if (d == -1 and worst) or worst > 1:
+                        raise AssertionError(
+                            f"{mode} {prec} devices={d}: {worst} counts "
+                            f"from the one-device run ({differ} pixels; "
+                            "limit 0 on one card, 1 over several)")
+                rec["serve"][f"{mode}_{prec}"] = runs
+        # two file_shard engines on one card: their union is the run
+        out = tmp / "mg_shard"
+        written = 0
+        _zero_by_device()
+        for k in range(2):
+            written += _mg_engine("bf16", "tiled", scene, out,
+                                  shard=f"{k}/2").process_directory()
+        for k in launches:
+            launches[k] += B1_B2[k].launches
+        worst, differ = _compare_dirs(out, tmp / "mg_tiled_bf16_d1", names)
+        rec["file_shard_engines"] = {"written": written, "max_abs": worst,
+                                     "differing_pixels": differ}
+        say("multi_gpu", file_shard_engines="0/2 and 1/2", written=written,
+            vs_one_device_max_abs=worst, differing_pixels=differ)
+        if written != DIR_FRAMES or worst:
+            raise AssertionError(f"file_shard union: {written} frames, "
+                                 f"{worst} counts from the one-device run")
+        if len(ds) and max(ds) == 4:
+            rec["file_shard_processes"] = _mg_shard_processes(
+                4, scene, tmp / "mg_shard4", tmp / "mg_tiled_bf16_d1", tmp,
+                names)
+    if plain_fit is None:  # the train phase's plain fit, when it did not run
+        frames, pres, posts, masks, guides = _keyframes()
+        data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                    patch_size=PS,
+                                    device=torch.device("cuda", 0))
+        plain_fit = {prec: _net_tensors(fit(
+            _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS), data,
+            str(tmp / f"mg_plain_{prec}"), seed=0, progress=False))
+            for prec in ("32", "bf16")}
+    worlds = [1] + ds
+    rec["train"] = _mg_train(tmp, worlds, plain_fit)
+    ranks = [json.loads(f.read_text()) for n in worlds
+             for f in (tmp / f"mg_train_w{n}").glob("rank*_w*.json")]
+    rec["launches"] = {**launches, **{
+        f"train_{k}": sum(run[f"{k}_cluster"] for r in ranks
+                          for run in r["runs"])
+        for k in ("forward", "backward")}}
+    if not ds:
+        say("multi_gpu", skipped="the 2- and 4-card forms (serving at "
+            "devices 2 and 4, full-frame, file_shard processes, fit over 2 "
+            f"and 4 ranks) did not run: this machine has {count} card")
+    return rec
+
+
+def main_multi_gpu(t0: float, card: str) -> int:
+    """``--multi-gpu``: the build and the multi_gpu phase alone."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = phase_multi_gpu(Path(tmp))
+    say("done", seconds=f"{time.perf_counter() - t0:.1f}")
+    print(json.dumps({"multi_gpu": rec}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    signal.alarm(0)
+    return 0
+
+
 def main() -> int:
+    multi_only = "--multi-gpu" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "a CUDA card", file=sys.stderr)
@@ -3153,6 +3720,8 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, card=f"'{card}'")
     phase_build()
+    if multi_only:
+        return main_multi_gpu(t0, card)
     rec_in = phase_instance_norm(dev)
     rec_ff = phase_instance_norm_fullframe(dev)
     rec_bl = phase_blend(dev)
@@ -3172,6 +3741,8 @@ def main() -> int:
         train = phase_train(dev, card, Path(tmp))
         rest = phase_train_rest(dev, card, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
+        mgpu = phase_multi_gpu(Path(tmp), train.pop("final"))
+    with tempfile.TemporaryDirectory() as tmp:
         guides = phase_guides(dev, card, Path(tmp))
     # launches of B1's cluster variant and of B2 by path: the serving
     # paths of every phase, one entry each
@@ -3182,7 +3753,8 @@ def main() -> int:
                "32_fast_serve": fast["launches"]["cluster"],
                "single_image": single["launches"]["cluster"],
                "watch": watch["launches"]["cluster"],
-               "multistream": multi["launches"]["cluster"]}
+               "multistream": multi["launches"]["cluster"],
+               "multi_gpu_serve": mgpu["launches"]["cluster"]}
     blends = {"serve": launches["blend_tiles"],
               "serve_directory": served["launches"]["blend_tiles"],
               "temporal_tiled": chain["launches"]["blend"],
@@ -3190,14 +3762,16 @@ def main() -> int:
               "32_fast_serve": fast["launches"]["blend"],
               "single_image": single["launches"]["blend"],
               "watch": watch["launches"]["blend"],
-              "multistream": multi["launches"]["blend"]}
+              "multistream": multi["launches"]["blend"],
+              "multi_gpu_serve": mgpu["launches"]["blend"]}
     splits = {"fullframe": full["launches"]["split"],
               "temporal_fullframe": chain["launches"]["split"],
               "temporal_device_fullframe": dflow["launches"]["split"],
               "32_fast_serve": fast["launches"]["split"],
               "single_image": single["launches"]["split"],
               "watch": watch["launches"]["split"],
-              "multistream": multi["launches"]["split"]}
+              "multistream": multi["launches"]["split"],
+              "multi_gpu_serve": mgpu["launches"]["split"]}
     rec_in["variants"]["cluster"]["launches"] = sum(cluster.values())
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
@@ -3205,7 +3779,8 @@ def main() -> int:
     train_fwd = {"train": train["launches"]["forward"]
                  - train["launches"]["forward_32_fast"]
                  + rest["launches"]["forward"],
-                 "32_fast_train": train["launches"]["forward_32_fast"]}
+                 "32_fast_train": train["launches"]["forward_32_fast"],
+                 "multi_gpu_train": mgpu["launches"]["train_forward"]}
     rest_bwd = {"cluster": rest["launches"]["backward"],
                 "streaming": rest["launches"]["backward_streaming"]}
     kernels = [
@@ -3229,13 +3804,17 @@ def main() -> int:
                replaces="patch_toon_tpu/ops/pallas_norm.py:52",
                note="backward pass of B1; the Pallas kernel has none (JAX "
                     "differentiates patch_toon_tpu/models/layers.py:29-40)",
-               launches=train["launches"][key] + rest_bwd[v], dtype="bf16",
+               launches=train["launches"][key] + rest_bwd[v]
+               + (mgpu["launches"]["train_backward"] if v == "cluster"
+                  else 0), dtype="bf16",
                variant=v,
                launches_by_path={
                    "train": train["launches"][key] + rest_bwd[v]
                    - (train["launches"]["backward_32_fast"]
                       if v == "cluster" else 0),
                    "32_fast_train": train["launches"]["backward_32_fast"]
+                   if v == "cluster" else 0,
+                   "multi_gpu_train": mgpu["launches"]["train_backward"]
                    if v == "cluster" else 0},
                picked_by_plan_backward=v == "cluster",
                per="the 25 sites of one training step at batch 80",
@@ -3269,7 +3848,8 @@ def main() -> int:
                       "precision_32_fast": fast["rec"],
                       "single_image": single["rec"], "watch": watch["rec"],
                       "multistream": multi["rec"],
-                      "train_rest": rest["rec"], "guides": guides["rec"]}),
+                      "train_rest": rest["rec"], "guides": guides["rec"],
+                      "multi_gpu": mgpu}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -151,6 +151,14 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def count_launch(wrapper, t) -> None:
+    """One launch of ``wrapper``'s kernel on ``t``'s card: ``.launches``
+    counts every launch, ``.by_device`` the launches a card index."""
+    wrapper.launches += 1
+    idx = t.device.index
+    wrapper.by_device[idx] = wrapper.by_device.get(idx, 0) + 1
+
+
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
     import torch

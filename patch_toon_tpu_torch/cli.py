@@ -14,6 +14,13 @@ idle timeout or an interrupt, and SIGTERM takes Ctrl-C's path, so every
 dispatched frame reaches disk (JAX ``generator.py:56-72``).
 ``inference.use_gpu=false`` runs on the CPU; otherwise a CUDA device is
 required.
+
+With ``parallel.dcn.enabled=true`` the process first joins the cluster
+(``coordinator_address``, ``num_processes``, ``process_id``, or torchrun's
+environment when all three are null; JAX ``generator.py:38-52``) over
+gloo: the processes exchange nothing but their rank, and each serves its
+share of the frames (``inference.file_shard`` by rank), of the streams, or
+of the watched names, on its own devices.
 """
 
 from __future__ import annotations
@@ -55,6 +62,13 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
     cfg = load_config(argv)
+    dcn = (cfg.get("parallel") or {}).get("dcn") or {}
+    if bool(dcn.get("enabled", False)):
+        from patch_toon_tpu_torch.parallel import initialize_distributed
+
+        initialize_distributed(dcn.get("coordinator_address"),
+                               dcn.get("num_processes"),
+                               dcn.get("process_id"), backend="gloo")
     from patch_toon_tpu_torch.infer.engine import StyleTransferInference
 
     engine = StyleTransferInference(cfg)

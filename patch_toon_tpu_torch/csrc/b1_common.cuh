@@ -16,6 +16,8 @@
 #include <set>
 #include <tuple>
 
+#include "device_guard.cuh"
+
 namespace b1 {
 
 namespace cg = cooperative_groups;

@@ -19,6 +19,8 @@
 // bit-identical to the ordered per-tile sum of the plain version.
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kBlock = 32;     // canvas block edge, = ops/blend.py BLOCK
@@ -105,8 +107,8 @@ extern "C" int ptt_blend_tiles(const void* gen, const void* wts,
                                int device, void* stream) {
   if (block != kBlock || ps <= 0 || h <= 0 || w <= 0 || n_tiles < 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   const int nby = (h + kBlock - 1) / kBlock;
   const int nbx = (w + kBlock - 1) / kBlock;
   blend_tiles_kernel<<<nby * nbx, kThreads, 0,

@@ -301,8 +301,8 @@ extern "C" int ptt_instance_norm_act_cluster(const void* x, void* y,
                                              void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
   if ((mean == nullptr) != (rstd == nullptr)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_cluster<float>(x, y, mean, rstd, n, hw, c, group, k, act,
@@ -321,8 +321,8 @@ extern "C" int ptt_instance_norm_act_streaming(const void* x, void* y,
                                                void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
   if ((mean == nullptr) != (rstd == nullptr)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_streaming<float>(x, y, mean, rstd, n, hw, c, act, slope, eps,

@@ -305,8 +305,8 @@ extern "C" int ptt_instance_norm_act_backward_cluster(
     void* dx, int n, int hw, int c, int group, int k, int dtype, int act,
     float slope, int device, void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_cluster<float>(x, dy, mean, rstd, dx, n, hw, c, group, k,
@@ -323,8 +323,8 @@ extern "C" int ptt_instance_norm_act_backward_streaming(
     int device, void* stream) {
   if (n <= 0 || hw <= 0 || c <= 0 || (c + kLanes - 1) / kLanes > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_streaming<float>(x, dy, mean, rstd, dx, n, hw, c, act,

@@ -374,8 +374,8 @@ extern "C" int ptt_instance_norm_act_split(const void* x, void* y,
   if (mean == nullptr || rstd == nullptr || part == nullptr ||
       counters == nullptr)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_split<float>(x, y, mean, rstd, part, counters, n, hw, c,

@@ -24,6 +24,8 @@
 // card, which call the same expf.
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kTileX = 32;  // a warp takes one row of 32 pixels
@@ -113,8 +115,8 @@ extern "C" int ptt_splat_points(const void* image, void* out,
                                 float s2, int device, void* stream) {
   if (n < 0 || h <= 0 || w <= 0 || r < 0 || !(s2 > 0.f))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   splat_points_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(

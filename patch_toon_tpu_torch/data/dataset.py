@@ -240,16 +240,19 @@ class StyleTransferDataset:
                                           self._chan_sl[1]]
         return out
 
-    def sample_batch(self, generator: torch.Generator,
-                     batch_size: int) -> Dict[str, torch.Tensor]:
+    def sample_batch(self, generator: torch.Generator, batch_size: int,
+                     rows: slice = slice(None)) -> Dict[str, torch.Tensor]:
         """One training batch. With ``augmentation_factor > 1`` the batch
         also carries ``already`` from a second uniform draw, which the step
-        does not consume (as in the reference, lightning_model.py:201-258)."""
+        does not consume (as in the reference, lightning_model.py:201-258).
+        ``rows``: the draws are those of the whole batch, and only these
+        rows are gathered (a rank's share of a global batch)."""
         img, ctrs = self.sample_centers(generator, batch_size)
         aug_ctrs = None
         if self.augmentation_factor > 1 and self._post_sl:
             _, aug_ctrs = self.sample_centers(generator, batch_size)
-        return self.gather_batch(img, ctrs, aug_ctrs)
+            aug_ctrs = aug_ctrs[rows]
+        return self.gather_batch(img[rows], ctrs[rows], aug_ctrs)
 
     # -- without-replacement (permutation) sampling -------------------------
 
@@ -272,14 +275,16 @@ class StyleTransferDataset:
 
     def sample_batch_permutation(self, state: Dict[str, torch.Tensor],
                                  imgs: torch.Tensor, fresh: torch.Tensor,
-                                 aug_u: Optional[torch.Tensor] = None
+                                 aug_u: Optional[torch.Tensor] = None,
+                                 rows: slice = slice(None)
                                  ) -> Tuple[Dict[str, torch.Tensor],
                                             Dict[str, torch.Tensor]]:
         """One without-replacement draw from explicit random inputs: the
         batch's image indices ``imgs`` (B,), a fresh permutation table
         ``fresh`` (as :meth:`fresh_perms`) that the rows whose cursor wraps
         take for the next batch, and with ``aug_u`` (B,) uniforms the
-        independent uniform ``already`` pick. -> (new state, batch)."""
+        independent uniform ``already`` pick. The state advances by the
+        whole batch; only ``rows`` are gathered. -> (new state, batch)."""
         imgs = imgs.to(torch.int64)
         eq = imgs[:, None] == imgs[None, :]
         occ = torch.tril(eq, diagonal=-1).sum(dim=1)
@@ -302,18 +307,21 @@ class StyleTransferDataset:
                 and self._post_sl:
             aidx = torch.minimum(torch.floor(aug_u * cnt).to(torch.int64),
                                  cnt - 1)
-            aug_ctrs = self.centers[imgs, aidx]
-        return new_state, self.gather_batch(imgs, ctrs, aug_ctrs)
+            aug_ctrs = self.centers[imgs, aidx][rows]
+        return new_state, self.gather_batch(imgs[rows], ctrs[rows], aug_ctrs)
 
-    def make_sampler(self, batch_size: int) -> Callable[[torch.Generator],
-                                                        Batch]:
+    def make_sampler(self, batch_size: int, rows: slice = slice(None)
+                     ) -> Callable[[torch.Generator], Batch]:
         """The train loop's ``sample(generator) -> batch``. Permutation
         mode keeps its state in the closure (``sample.state``), started
         from a generator of its own seeded 11; each draw takes the image
         indices, a fresh permutation table and the augmentation uniforms
-        from the loop's generator."""
+        from the loop's generator. ``batch_size`` is the global batch;
+        ``rows`` the rows this rank gathers (every rank draws the same
+        global batch from the same generator, as one device does)."""
         if self.sampling == "uniform":
-            return lambda generator: self.sample_batch(generator, batch_size)
+            return lambda generator: self.sample_batch(generator, batch_size,
+                                                       rows)
 
         def sample(generator: torch.Generator) -> Batch:
             imgs = torch.randint(0, self.num_images, (batch_size,),
@@ -323,7 +331,7 @@ class StyleTransferDataset:
                                device=self.device) \
                 if self.augmentation_factor > 1 and self._post_sl else None
             sample.state, batch = self.sample_batch_permutation(
-                sample.state, imgs, fresh, aug_u)
+                sample.state, imgs, fresh, aug_u, rows)
             return batch
 
         sample.state = self.init_perm_state(

@@ -1,4 +1,4 @@
-"""Video stylization on one device: tiled, full-frame and temporal.
+"""Video stylization on one device or several: tiled, full-frame, temporal.
 
 Counterpart of ``patch_toon_tpu/infer/engine.py::StyleTransferInference``
 in ``tiled`` mode (the reference's semantics, the default) and
@@ -49,9 +49,34 @@ group of frames goes through :meth:`stylize_group`. Watch mode
 polls the input directory; a subdirectory per video with the temporal
 guide is served as co-batched chains (``infer/multistream.py``).
 
+Several devices (JAX ``engine.py:583-621, 769-777, 837-946``):
+``inference.devices`` N (or -1, every card the process owns,
+``parallel.local_devices``; N CPU entries on the CPU) loads one replica of
+the generator a device, its weights copied. ``process_directory`` then
+groups ``D x fpd`` frames in tiled mode (``fpd`` decided from the first
+frame by the one-device rule) and ``D`` in full-frame mode, and card ``k``
+runs the one-device program on the group's ``k``-th chunk of ``fpd``
+frames (one in full-frame mode) on its own streams: the counterpart of
+``make_pod_multiframe_fn`` (``make_pod_tiled_fn`` is its ``fpd = 1``
+case) and ``make_batched_fullframe_fn``. The last group is padded by
+repeating its last frame, as JAX does, and a chunk of padding alone is
+not run; only the real frames are read back, in frame order. The host
+side scales with D: D times the prefetch and writer threads and the
+frames staged ahead, and two groups in flight (the pipeline's window at
+least ``2 x D x fpd`` frames). Each chunk
+is a one-device group at the same shapes, so the output is the
+one-device run's. A frame is staged on the card its chunk will run on
+(predicted from its position; a frame that lands elsewhere is copied).
+The temporal chain runs on the first device whatever ``devices`` says (it
+is sequential), and multi-stream serving refuses ``devices != 1``, as in
+JAX. ``inference.file_shard: "i/N"`` serves ``files[i::N]``; in a process
+group (``parallel.dcn.enabled``, the CLI joins it) the shard is the rank's
+when none is given, and with the temporal guide only rank 0 serves (an
+explicit shard with the temporal guide raises ``ValueError``).
+
 Not ported yet, and refused by name (``NotImplementedError``):
-``quantize=int8``, ``file_shard``, ``devices`` other than 1; a mode other
-than tiled and fullframe raises ``ValueError``. ``readback_streams`` sets
+``quantize=int8``; a mode other than tiled and fullframe raises
+``ValueError``. ``readback_streams`` sets
 the pipeline's in-flight window (its value plus 2 frames, the JAX rule).
 ``upload`` is validated as JAX does and decides ``temporal.flow_upload:
 auto`` (f16 unless it resolves to f32), which rounds the flows; otherwise
@@ -64,6 +89,8 @@ plane.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -114,6 +141,7 @@ from patch_toon_tpu_torch.models.layers import (
 )
 from patch_toon_tpu_torch.native.frameio import FrameWriter, encode_png
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
+from patch_toon_tpu_torch.parallel import comm
 from patch_toon_tpu_torch.utils.knobs import check_transport_knobs
 from patch_toon_tpu_torch.utils.weights import load_generator_state
 
@@ -128,7 +156,14 @@ PREFETCH, PREFETCH_THREADS = 6, 2
 WRITER_THREADS, WRITER_LEVEL = 2, 1
 
 
-def _resolve_device(device: Optional[str], cfg_inf: Dict[str, Any]):
+def _resolve_devices(device: Optional[str], cfg_inf: Dict[str, Any]
+                     ) -> List[torch.device]:
+    """The devices the engine serves on, each named by its index: the
+    ``device`` asked for (the CPU or a card), else the card or the CPU by
+    ``use_gpu``; ``inference.devices`` of them (-1: every card the process
+    owns, ``parallel.local_devices``). An index-free ``cuda`` is the first
+    card the process owns."""
+    n = int(cfg_inf.get("devices", 1) or 1)
     if device is None:
         device = "cuda" if bool(cfg_inf.get("use_gpu", True)) else "cpu"
     dev = torch.device(device)
@@ -138,7 +173,18 @@ def _resolve_device(device: Optional[str], cfg_inf: Dict[str, Any]):
             "(pass device='cpu' or inference.use_gpu=false for the CPU)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
-    return dev
+    if dev.type == "cpu":
+        return comm.local_devices(n, cpu=True)
+    if n == 1:
+        return [dev if dev.index is not None else comm.local_devices(1)[0]]
+    return comm.local_devices(n)
+
+
+def _on_card(device: torch.device):
+    """The card's context (its current stream and allocations), none for
+    the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 def _resolve_dtype(precision: Any) -> torch.dtype:
@@ -169,14 +215,6 @@ def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
     if q not in ("off", "false", "0", "no", "none"):
         raise ValueError(f"inference.quantize={q!r}: expected int8/w8a8 or "
                          "off/false/0/no/none")
-    if inf.get("file_shard") not in (None, ""):
-        raise NotImplementedError(
-            f"inference.file_shard={inf.get('file_shard')!r} is not ported "
-            "yet (one process writes every frame)")
-    if int(inf.get("devices", 1) or 1) != 1:
-        raise NotImplementedError(
-            f"inference.devices={inf.get('devices')!r} is not ported yet "
-            "(one device)")
     check_transport_knobs(inf)
 
 
@@ -230,7 +268,10 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         inf = cfg.get("inference", {}) or {}
         check_unported_inference_knobs(inf)
         self.mode = str(inf.get("mode", "tiled"))
-        self.device = _resolve_device(device, inf)
+        self.devices_cfg = int(inf.get("devices", 1) or 1)
+        self.cards = _resolve_devices(device, inf)
+        self.device = self.cards[0]
+        self._pod_fpd: Optional[int] = None  # frames a card a dispatch
         self.overlap_percent = float(inf.get("overlap_percent", 30.0))
         self.max_tile_batch = int(inf.get("tile_batch", 512))
         self.frames_per_dispatch = inf.get("frames_per_dispatch", "auto")
@@ -261,13 +302,21 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
             self.total_channels += self.temporal_depth
 
         self.model = self._load_model(str(paths["checkpoint"]))
+        # one replica a device, its weights copied (not aliased)
+        self.models = [self.model] + [copy.deepcopy(self.model).to(card)
+                                      for card in self.cards[1:]]
+        if len(self.cards) > 1:
+            self.logger.info(
+                f"Frames sharded over {len(self.cards)} devices: "
+                f"{', '.join(map(str, self.cards))}")
         self._packs: Dict[Any, Any] = {}  # tile layout -> (plan, weights)
         self.patch_positions: List[Box] = []  # the last single frame's
         self.spans = HostSpans()
-        # staging: pinned host buffers and a copy stream of their own
+        # staging: pinned host buffers and a copy stream a card
         self.upload_pools = PinnedPools()
-        self.copy_stream = (torch.cuda.Stream(self.device)
-                            if self.device.type == "cuda" else None)
+        self.copy_streams = {card: torch.cuda.Stream(card)
+                             for card in self.cards if card.type == "cuda"}
+        self.copy_stream = self.copy_streams.get(self.device)
         self._temporal_init()  # JAX engine.py:350-351, temporal.py:184
 
     def _load_model(self, ckpt_path: str) -> GeneratorJ:
@@ -294,16 +343,17 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
 
     # ------------------------------------------------------------------
 
-    def _pack(self, group_boxes: Sequence[Sequence[Box]], h: int, w: int):
-        key = (tuple(tuple(map(tuple, b)) for b in group_boxes), h, w)
+    def _pack(self, group_boxes: Sequence[Sequence[Box]], h: int, w: int,
+              device: torch.device):
+        key = (tuple(tuple(map(tuple, b)) for b in group_boxes), h, w,
+               device)
         hit = self._packs.get(key)
         if hit is None:
             bucket = bucket_size(max(1, sum(len(b) for b in group_boxes)))
             fboxes, weights, _ = pack_boxes_multi(
                 list(group_boxes), self.patch_size, bucket)
-            hit = (make_tile_plan(fboxes, h, w, self.patch_size,
-                                  self.device),
-                   torch.from_numpy(weights).to(self.device))
+            hit = (make_tile_plan(fboxes, h, w, self.patch_size, device),
+                   torch.from_numpy(weights).to(device))
             if len(self._packs) >= _PACK_CACHE:
                 self._packs.pop(next(iter(self._packs)))
             self._packs[key] = hit
@@ -326,29 +376,31 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         return binary if (binary == m).all() else m.astype(np.float32)
 
     def _run(self, frames: torch.Tensor, masks: torch.Tensor,
-             group_boxes: Sequence[Sequence[Box]]):
+             group_boxes: Sequence[Sequence[Box]], replica: int = 0):
         """The program of the engine's mode on frames and masks already on
-        the device: (F, H, W, C) uint8 or fp32 and (F, H, W, 1) -> (uint8,
-        fp32 composite), each (F, H, W, 3) on the device, queued on the
-        current stream (no synchronisation). Fullframe mode takes no
-        boxes."""
+        device ``replica`` (the first by default): (F, H, W, C) uint8 or
+        fp32 and (F, H, W, 1) -> (uint8, fp32 composite), each (F, H, W,
+        3) on that device, queued on its current stream (no
+        synchronisation). Fullframe mode takes no boxes."""
         f, h, w, _ = frames.shape
         if self.mode == "fullframe":
-            fn = make_fullframe_fn(self.model, h, w, self.dtype)
+            fn = make_fullframe_fn(self.models[replica], h, w, self.dtype)
             with self.spans("host/dispatch"):
                 return fn(frames, masks)
-        return self._stylize_group(frames, masks, group_boxes)
+        return self._stylize_group(frames, masks, group_boxes, replica)
 
     def _stylize_group(self, frames: torch.Tensor, masks: torch.Tensor,
-                       group_boxes: Sequence[Sequence[Box]]):
+                       group_boxes: Sequence[Sequence[Box]],
+                       replica: int = 0):
         """:meth:`_run` through the tiled multiframe program whatever the
         mode, as JAX ``engine.py:951-979`` (the multi-stream cycle of two
         or more streams takes it)."""
         f, h, w, _ = frames.shape
         with self.spans("host/pack"):
-            plan, weights = self._pack(group_boxes, h, w)
-        fn = make_multiframe_fn(self.model, self.patch_size, f, h, w,
-                                self.dtype)
+            plan, weights = self._pack(group_boxes, h, w,
+                                       self.cards[replica])
+        fn = make_multiframe_fn(self.models[replica], self.patch_size, f, h,
+                                w, self.dtype)
         with self.spans("host/dispatch"):
             return fn(frames, plan, weights, masks)
 
@@ -367,23 +419,74 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         return u8[0], out[0], boxes
 
     def _await_staged(self, group: Sequence[Staged]) -> None:
-        """The current (compute) stream waits for each staged frame's
-        upload and is recorded on its tensors, so the copy stream's memory
-        is not reused before the program has read it."""
-        if self.device.type != "cuda":
-            return
-        stream = torch.cuda.current_stream(self.device)
+        """The current (compute) stream of each staged frame's card waits
+        for its upload and is recorded on its tensors, so the copy
+        stream's memory is not reused before the program has read it."""
         for s in group:
+            if s.ready is None:
+                continue
+            stream = torch.cuda.current_stream(s.frame.device)
             stream.wait_event(s.ready)
             for t in (s.frame, s.mask, s.flow, s.fmask):
                 if t is not None:
                     t.record_stream(stream)
 
-    def dispatch_staged(self, group: Sequence[Staged]) -> torch.Tensor:
+    def _to_card(self, s: Staged, card: torch.device) -> Staged:
+        """``s`` on ``card``: itself when it is staged there, else a copy
+        made after its upload (a frame staged on another card than the
+        one its chunk runs on)."""
+        if s.frame.device == card:
+            return s
+        self._await_staged([s])
+        moved = {k: getattr(s, k).to(card) if getattr(s, k) is not None
+                 else None for k in ("frame", "mask", "flow", "fmask")}
+        return Staged(moved["frame"], moved["mask"], None, s.boxes, s.path,
+                      s.position, moved["flow"], moved["fmask"])
+
+    def card_of(self, i: int) -> torch.device:
+        """The card the ``i``-th frame of a stream is staged on: the card
+        whose chunk it falls in when no frame fails and no shape changes
+        (the first card before the chunk size is known)."""
+        per = 1 if self.mode == "fullframe" else (self._pod_fpd or 1)
+        return self.cards[(i // per) % len(self.cards)]
+
+    def _dispatch_sharded(self, group: Sequence[Staged]
+                          ) -> List[torch.Tensor]:
+        """A group over the cards (JAX ``_stylize_group_pod``): padded to
+        ``D x fpd`` frames by repeating its last one, card ``k`` runs the
+        one-device program on the ``k``-th chunk of ``fpd`` frames (one
+        in full-frame mode) on its own current stream; a chunk of padding
+        alone is not run. -> the real frames' (H, W, 3) uint8 outputs, each
+        on its card, in frame order."""
+        per = 1 if self.mode == "fullframe" else (self._pod_fpd or 1)
+        total = len(self.cards) * per
+        if len(group) > total:
+            raise ValueError(f"a group of {len(group)} frames over "
+                             f"{len(self.cards)} devices x {per}")
+        padded = list(group) + [group[-1]] * (total - len(group))
+        outs: List[torch.Tensor] = []
+        for k, card in enumerate(self.cards):
+            if k * per >= len(group):
+                break  # padding alone
+            with _on_card(card):
+                chunk = [self._to_card(s, card)
+                         for s in padded[k * per:(k + 1) * per]]
+                with self.spans("host/stack"):
+                    self._await_staged(chunk)
+                    frames = torch.stack([s.frame for s in chunk])
+                    masks = stack_masks(chunk)
+                u8 = self._run(frames, masks, [s.boxes for s in chunk], k)[0]
+            outs.extend(u8.unbind(0))
+        return outs[:len(group)]
+
+    def dispatch_staged(self, group: Sequence[Staged]):
         """:meth:`dispatch` of frames staged by :meth:`_load_for_dispatch`:
         the current (compute) stream waits for each frame's upload and is
         recorded on its tensors, so the copy stream's memory is not reused
-        before the program has read it."""
+        before the program has read it. Over several devices
+        :meth:`_dispatch_sharded` (a list of per-frame outputs)."""
+        if len(self.cards) > 1:
+            return self._dispatch_sharded(group)
         with self.spans("host/stack"):
             self._await_staged(group)
             frames = torch.stack([s.frame for s in group])
@@ -562,14 +665,16 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         return (load_luma(resolved) > 127).astype(np.uint8)
 
     def _load_for_dispatch(self, input_path: Path, mask_dir: Path,
-                           position: Optional[int] = None) -> Staged:
+                           position: Optional[int] = None,
+                           card: Optional[torch.device] = None) -> Staged:
         """Decode, erode, place tiles (none in fullframe mode) and stage
         one frame for dispatch, on a prefetch thread (JAX
         ``engine.py:623-667`` without the crop window); with a stream
         ``position`` (the temporal chain) its flow file too, or with the
         device flow its raw flow mask. On a CUDA device the frame, its
-        mask and its flow or flow mask go up through pinned buffers on the
-        engine's copy stream; on the CPU they stay host tensors."""
+        mask and its flow or flow mask go up to ``card`` (the first device
+        by default) through pinned buffers on its copy stream; on the CPU
+        they stay host tensors."""
         spans = self.spans
         device_flow = self.temporal_flow_source == "device"
         flow = fmask = None
@@ -586,33 +691,32 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
             boxes = [] if self.mode == "fullframe" \
                 else self.boxes_for(mask, hw)
         return self._stage(parts, mask, boxes, input_path, position, flow,
-                           fmask)
+                           fmask, card)
 
     def _stage(self, parts: List[np.ndarray], mask: Optional[np.ndarray],
                boxes: List[Box], path: Path, position: Optional[int],
-               flow: Optional[np.ndarray], fmask: Optional[np.ndarray]
-               ) -> Staged:
+               flow: Optional[np.ndarray], fmask: Optional[np.ndarray],
+               card: Optional[torch.device] = None) -> Staged:
         """Upload a decoded frame (its parts joined), its mask (None: the
-        whole frame) and its flow or flow mask, through pinned buffers on
-        the copy stream (host tensors on the CPU) -> :class:`Staged`."""
+        whole frame) and its flow or flow mask to ``card`` (the first
+        device by default), through pinned buffers on that card's copy
+        stream (host tensors on the CPU) -> :class:`Staged`."""
         hw = parts[0].shape[:2]
+        card = self.device if card is None else card
+        stream = self.copy_streams.get(card)
         with self.spans("host/upload"):
-            frame_d, _ = stage_upload(parts, self.device, self.upload_pools,
-                                      self.copy_stream)
+            frame_d, _ = stage_upload(parts, card, self.upload_pools, stream)
             # the later copies follow the frame's on the one copy stream,
             # so the last event covers them all
             mask_d, ready = stage_upload([self._mask_tensor(mask, hw)],
-                                         self.device, self.upload_pools,
-                                         self.copy_stream)
+                                         card, self.upload_pools, stream)
             flow_d = fmask_d = None
             if flow is not None:
-                flow_d, ready = stage_upload([flow], self.device,
-                                             self.upload_pools,
-                                             self.copy_stream)
+                flow_d, ready = stage_upload([flow], card, self.upload_pools,
+                                             stream)
             if fmask is not None:
-                fmask_d, ready = stage_upload([fmask], self.device,
-                                              self.upload_pools,
-                                              self.copy_stream)
+                fmask_d, ready = stage_upload([fmask], card,
+                                              self.upload_pools, stream)
         return Staged(frame_d, mask_d, ready, boxes, path, position, flow_d,
                       fmask_d)
 
@@ -655,19 +759,37 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                 return self._process_multistream(streams, input_dir,
                                                  mask_dir, output_dir)
         self._check_channel_dirs()
+        explicit = files is not None
         if files is None:
             files = _image_files(input_dir)
+        files = self._resolve_shard_files(files, explicit)
+        if files is None:
+            return 0  # the temporal guide over processes: rank 0 serves
         self.logger.info(f"Found {len(files)} images to process")
 
-        writer = FrameWriter(num_threads=WRITER_THREADS,
+        # over D devices the host decodes, stages and writes D times the
+        # frames: D times the threads, and two groups of D x fpd frames in
+        # flight and ahead (one device: the JAX engine's numbers)
+        d = 1 if self.temporal_enabled else len(self.cards)
+        writer = FrameWriter(num_threads=WRITER_THREADS * d,
                              compress_level=WRITER_LEVEL)
         pipe = GroupPipeline(self, writer, output_dir)
         if self.temporal_enabled:
+            if len(self.cards) > 1:
+                self.logger.info(
+                    f"The temporal chain is sequential: it runs on "
+                    f"{self.device} alone, not over {len(self.cards)} "
+                    "devices")
             return self._process_directory_temporal(files, mask_dir, pipe,
                                                     writer)
         group: List[Staged] = []
-        # a fullframe group is one frame (JAX engine.py:767-768)
-        group_size = 1 if self.mode == "fullframe" else None
+        # a fullframe group is one frame (JAX engine.py:767-768), one a
+        # device over several
+        group_size = len(self.cards) if self.mode == "fullframe" else None
+        sharded = d > 1
+        if sharded and group_size:
+            pipe.window = max(pipe.window, 2 * group_size)
+        ahead = PREFETCH * d
 
         def flush_group() -> None:
             # hand off and clear before dispatching: a failed dispatch drops
@@ -683,15 +805,19 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                 self.logger.error(
                     f"Dispatch failed; dropping group [{names}]: {e}")
 
-        pool = ThreadPoolExecutor(max_workers=PREFETCH_THREADS)
+        def load(i: int):
+            if sharded:
+                return pool.submit(self._load_for_dispatch, files[i],
+                                   mask_dir, card=self.card_of(i))
+            return pool.submit(self._load_for_dispatch, files[i], mask_dir)
+
+        pool = ThreadPoolExecutor(max_workers=PREFETCH_THREADS * d)
         try:
-            futures = {p: pool.submit(self._load_for_dispatch, p, mask_dir)
-                       for p in files[:PREFETCH]}
+            futures = {files[i]: load(i)
+                       for i in range(min(ahead, len(files)))}
             for i, path in enumerate(files):
-                if i + PREFETCH < len(files):
-                    nxt = files[i + PREFETCH]
-                    futures[nxt] = pool.submit(self._load_for_dispatch, nxt,
-                                               mask_dir)
+                if i + ahead < len(files):
+                    futures[files[i + ahead]] = load(i + ahead)
                 try:
                     with self.spans("host/load_wait"):
                         staged = futures.pop(path).result()
@@ -702,6 +828,8 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                     flush_group()  # a group holds frames of one shape
                 if group_size is None:
                     group_size = self._group_size(len(staged.boxes))
+                    if sharded:
+                        pipe.window = max(pipe.window, 2 * group_size)
                 group.append(staged)
                 if len(group) >= group_size:
                     flush_group()
@@ -813,9 +941,59 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         return pipe.submitted - failed
 
     def _group_size(self, n_boxes: int) -> int:
+        """Frames a group, decided from the first frame's tile count (JAX
+        ``_decide_group_size``): co-batched so the tile bucket stays full,
+        times the devices over several (``fpd`` frames a card)."""
         if self.frames_per_dispatch != "auto":
-            return max(1, int(self.frames_per_dispatch))
-        fpd = frames_per_dispatch(max(1, n_boxes), target=self.max_tile_batch)
+            fpd = max(1, int(self.frames_per_dispatch))
+        else:
+            fpd = frames_per_dispatch(max(1, n_boxes),
+                                      target=self.max_tile_batch)
+        if len(self.cards) > 1:
+            self._pod_fpd = fpd
+            self.logger.info(f"Co-batching {fpd} frames a device x "
+                             f"{len(self.cards)} devices a dispatch "
+                             f"(~{n_boxes} tiles/frame)")
+            return fpd * len(self.cards)
         self.logger.info(f"Co-batching {fpd} frames/dispatch "
                          f"(~{n_boxes} tiles/frame)")
         return fpd
+
+    def _resolve_shard_files(self, files: List[Path],
+                             explicit: bool) -> Optional[List[Path]]:
+        """This process's share of ``files`` (JAX
+        ``_resolve_shard_files``): ``inference.file_shard: "i/N"`` takes
+        ``files[i::N]``; in a process group of several ranks with no
+        shard given, the rank's (``rank/world``), and with the temporal
+        guide only rank 0 serves (-> None elsewhere), frames chaining in
+        order. An explicit shard with the temporal guide raises. ``files``
+        given by the caller (watch mode, which splits by name) are not
+        sharded again."""
+        shard = None if explicit else (self.cfg.get("inference", {}) or {}
+                                       ).get("file_shard")
+        if not explicit and shard in (None, "") and comm.world() > 1:
+            if self.temporal_enabled:
+                self.logger.warning(
+                    "Several processes with the temporal guide: frames "
+                    "chain in order, so only rank 0 stylizes (shard whole "
+                    "videos across processes instead)")
+                if comm.rank() != 0:
+                    return None
+            else:
+                shard = f"{comm.rank()}/{comm.world()}"
+        if shard in (None, ""):
+            return files
+        if self.temporal_enabled:
+            raise ValueError(
+                "inference.file_shard is incompatible with the temporal "
+                "guide (frame i depends on frame i-1); shard videos, not "
+                "frames")
+        try:
+            idx, n = (int(x) for x in str(shard).split("/"))
+        except ValueError:
+            raise ValueError(f"inference.file_shard={shard!r}: expected "
+                             "'i/N'") from None
+        if not 0 <= idx < n:
+            raise ValueError(f"file_shard {shard}: index out of range")
+        self.logger.info(f"File shard {idx}/{n}")
+        return files[idx::n]

@@ -36,6 +36,7 @@ stream's own step; a graph batched across streams is not built.
 from __future__ import annotations
 
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Set
@@ -51,6 +52,7 @@ from patch_toon_tpu_torch.infer.pipeline import (
 from patch_toon_tpu_torch.infer.temporal import _temporal_flow_pairs
 from patch_toon_tpu_torch.infer.watch import watch_settings
 from patch_toon_tpu_torch.native.frameio import FrameWriter
+from patch_toon_tpu_torch.parallel import comm
 
 
 class MultiStreamMixin:
@@ -209,6 +211,12 @@ class MultiStreamMixin:
         finally:
             pipe.drain_all()  # a failed readback is logged, not raised
 
+    def _ms_check_devices(self) -> None:
+        if self.devices_cfg != 1:
+            raise ValueError(
+                "multi-stream temporal serving is per-device (inference."
+                "devices=1); run one process per card and shard streams")
+
     def _ms_pipeline(self, output_dir: Path, n_streams: int):
         writer = FrameWriter(num_threads=2, compress_level=1)
         pipe = GroupPipeline(self, writer, output_dir)
@@ -219,7 +227,14 @@ class MultiStreamMixin:
     def _process_multistream(self, streams, input_dir: Path, mask_dir: Path,
                              output_dir: Path) -> int:
         """Serve N videos, one subdirectory each, as interleaved chains on
-        one device (see the module's docstring). -> frames written."""
+        one device (see the module's docstring); in a process group of
+        several ranks each serves every world-th stream from its rank
+        (JAX ``multistream.py:372-377``). -> frames written."""
+        self._ms_check_devices()
+        if comm.world() > 1:
+            streams = streams[comm.rank()::comm.world()]
+            self.logger.info(f"Rank {comm.rank()} of {comm.world()} serves "
+                             f"streams {streams}")
         flow_root = self.temporal_flow_dir or None
         infos = []
         for s in streams:
@@ -247,9 +262,13 @@ class MultiStreamMixin:
         through the cycles. Chains, flow positions, the resolution pin and
         the warm programs persist across polls; a new stream joins once
         its mask directory exists (when masks are needed); frames already
-        stylized at start keep their stream positions."""
+        stylized at start keep their stream positions. In a process group
+        of several ranks a rank serves the streams whose name's CRC-32
+        modulo the world is its rank (JAX ``multistream.py:447-451``)."""
+        self._ms_check_devices()
         poll, idle_timeout, max_attempts, aux_warn_after = \
             watch_settings(wcfg)
+        world, me = comm.world(), comm.rank()
         paths = self.cfg["paths"]
         input_dir = Path(paths["input_dir"])
         output_dir = Path(paths["output_dir"])
@@ -272,7 +291,8 @@ class MultiStreamMixin:
             while True:
                 now = time.time()
                 for s in self._detect_streams(input_dir):
-                    if s in infos:
+                    if s in infos or (world > 1 and zlib.crc32(s.encode())
+                                      % world != me):
                         continue
                     if mask_needed and not (mask_dir / s).exists():
                         continue  # the producer has not made it yet

@@ -183,24 +183,28 @@ class GroupPipeline:
     def submit(self, group: Sequence[Staged], u8: torch.Tensor,
                paths: Optional[Sequence[Path]] = None) -> None:
         """Queue the readback of a group's (F, H, W, 3) uint8 output on the
-        device, to ``paths`` (``output_dir`` / each input's name when
+        device (or of a list of its frames' (H, W, 3) outputs, each on its
+        own device), to ``paths`` (``output_dir`` / each input's name when
         None); then drain the oldest groups while more than ``window``
         frames are in flight, keeping at least this group (JAX
-        ``engine.py:1092-1099``)."""
+        ``engine.py:1092-1099``). Each copy and its event are queued on
+        the current stream of the frame's own card."""
         e = self.e
         g = _InFlight()
         with e.spans("host/readback_issue"):
             for k, staged in enumerate(group):
-                if u8.device.type == "cuda":
-                    pool = self.out_pools(u8.shape[1:], torch.uint8)
+                out = u8[k]
+                if out.device.type == "cuda":
+                    pool = self.out_pools(out.shape, torch.uint8)
                     buf = pool.acquire()
-                    buf.copy_(u8[k], non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record()
+                    with torch.cuda.device(out.device):
+                        buf.copy_(out, non_blocking=True)
+                        event = torch.cuda.Event()
+                        event.record(torch.cuda.current_stream(out.device))
                     g.outs.append(buf)
                     g.events.append((pool, event))
                 else:
-                    g.outs.append(u8[k])
+                    g.outs.append(out)
                     g.events.append(None)
                 g.paths.append(self.output_dir / staged.path.name
                                if paths is None else Path(paths[k]))

@@ -114,6 +114,11 @@ class _FlowGraph:
     type, scale and mask presence, with static input and output buffers."""
 
     def __init__(self, frame: torch.Tensor, masked: bool, scale: int):
+        dev = self.device = frame.device
+        with torch.cuda.device(dev):  # the capture's streams on its card
+            self._capture(frame, masked, scale)
+
+    def _capture(self, frame: torch.Tensor, masked: bool, scale: int):
         dev = frame.device
         h, w = frame.shape[:2]
         self.rgb = torch.zeros((h, w, 3), dtype=frame.dtype, device=dev)
@@ -139,12 +144,13 @@ class _FlowGraph:
         current stream, so the replay follows whatever the caller queued
         (the frame's upload wait) and the next replay cannot overwrite an
         output or an input that an earlier step still reads."""
-        self.rgb.copy_(frame[..., :3])
-        self.prev.copy_(prev_gray)
-        if self.mask is not None:
-            self.mask.copy_(fmask)
-        self.graph.replay()
-        return self.flow.clone(), self.gray.clone()
+        with torch.cuda.device(self.device):
+            self.rgb.copy_(frame[..., :3])
+            self.prev.copy_(prev_gray)
+            if self.mask is not None:
+                self.mask.copy_(fmask)
+            self.graph.replay()
+            return self.flow.clone(), self.gray.clone()
 
 
 class FlowGraphs:
@@ -163,7 +169,8 @@ class FlowGraphs:
                  fmask: Optional[torch.Tensor], scale: int):
         if frame.device.type != "cuda":
             return _temporal_device_flow(frame, prev_gray, fmask, scale)
-        key = (tuple(frame.shape[:2]), frame.dtype, scale, fmask is not None)
+        key = (frame.device, tuple(frame.shape[:2]), frame.dtype, scale,
+               fmask is not None)
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = _FlowGraph(frame, fmask is not None,

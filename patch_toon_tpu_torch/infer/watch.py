@@ -19,20 +19,26 @@ interrupt (Ctrl-C, or SIGTERM through the CLI) returns once every
 dispatched frame is on disk: ``process_directory`` drains in its
 ``finally``.
 
-One process serves every frame (JAX's name-hash sharding across processes
-runs with one process here). A subdirectory per video with the temporal
-guide is watched by ``infer/multistream.py::_watch_multistream``.
+In a process group of several ranks (``parallel.dcn.enabled``) each rank
+serves the frames whose name's CRC-32 modulo the world is its rank (a
+stable split: a list index would move frames between ranks as the pending
+lists shrink); with the temporal guide rank 0 alone serves, the chain
+being sequential (JAX ``watch.py:49-81, 143``). A subdirectory per video
+with the temporal guide is watched by
+``infer/multistream.py::_watch_multistream``.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import zlib
 from pathlib import Path
 from typing import Dict, Set
 
 from patch_toon_tpu_torch.data.io import find_corresponding_image
 from patch_toon_tpu_torch.infer.common import _image_files
+from patch_toon_tpu_torch.parallel import comm
 
 
 def watch_settings(wcfg) -> tuple:
@@ -61,6 +67,12 @@ class WatchMixin:
         if self.temporal_enabled and self._detect_streams(input_dir):
             # a subdirectory per video, decided once, at watch start
             return self._watch_multistream(wcfg)
+        if self.temporal_enabled and comm.world() > 1 and comm.rank() != 0:
+            self.logger.warning(
+                "Temporal watch is sequential; only rank 0 serves (shard "
+                "whole videos with the subdirectory-per-stream layout "
+                "instead)")
+            return
         poll, idle_timeout, max_attempts, aux_warn = watch_settings(wcfg)
         self.logger.info(f"Watching {input_dir} (poll {poll}s, idle timeout "
                          f"{idle_timeout or 'none'})")
@@ -92,6 +104,7 @@ class WatchMixin:
         attempts: Dict[str, int] = {}
         waiting_since: Dict[str, float] = {}
         aux_warned: Set[str] = set()
+        world, me = comm.world(), comm.rank()
         idle = 0.0
         while True:
             now = time.time()
@@ -103,6 +116,9 @@ class WatchMixin:
                         self._temporal_register(p.name)
                     done.add(p.name)
                     continue
+                if world > 1 and not self.temporal_enabled \
+                        and zlib.crc32(p.name.encode()) % world != me:
+                    continue  # a peer's frame
                 try:
                     settling = p.stat().st_mtime > now - max(0.25, poll / 2)
                 except OSError:

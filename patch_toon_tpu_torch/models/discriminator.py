@@ -17,7 +17,7 @@ logit map, in the input's type.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -60,16 +60,24 @@ class DiscriminatorN_IN(nn.Module):
         self.output = nn.Sequential(conv(nxt, 1, 4, 1, 1, use_bias, cp))
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """x (N, H, W, C). In train mode with ``use_noise``, Gaussian noise
         of ``noise_sigma`` drawn from ``generator`` is added to the input
-        (JAX draws it from the step's ``noise_rng``)."""
+        (JAX draws it from the step's ``noise_rng``). ``shard`` = (rank,
+        world): x is that rank's rows of a global batch of world x N, and
+        the noise is drawn for the global batch and cut to those rows, so
+        the ranks together add the one-device noise."""
         if self.use_noise and self.training:
             if generator is None:
                 raise ValueError("use_noise=True needs a torch.Generator in "
                                  "training")
-            x = x + torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype) * self.noise_sigma
+            r, n = shard
+            noise = torch.randn((n * x.shape[0],) + tuple(x.shape[1:]),
+                                generator=generator, device=x.device,
+                                dtype=x.dtype)
+            x = x + noise[r * x.shape[0]:(r + 1) * x.shape[0]] \
+                * self.noise_sigma
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         out = leaky_relu(self.initial[0](x))
         for block in self.intermediate:

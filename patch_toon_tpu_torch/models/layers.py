@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from patch_toon_tpu_torch.ops.instance_norm import instance_norm_act_autograd
+from patch_toon_tpu_torch.parallel import comm
 
 
 FAST_PRECISIONS = ("32_fast", "tf32", "fp32_fast")
@@ -228,11 +229,29 @@ def batch_norm_train_fp32(x: torch.Tensor, bn: nn.BatchNorm2d,
     ``max(0, E[x^2] - E[x]^2)`` over N, H, W, ``(x - mean) * (rsqrt(var +
     eps) * scale) + bias``, and the running statistics advanced in place
     as ``momentum * running + (1 - momentum) * batch`` with that biased
-    variance (torch's own BatchNorm uses the unbiased one there)."""
+    variance (torch's own BatchNorm uses the unbiased one there).
+
+    In a process group of several ranks (data-parallel training) the
+    statistics are those of the global batch, as GSPMD takes them over
+    every shard: each rank's per-channel fp32 sums of x and x^2 and its
+    element count go through the differentiable all-reduce
+    (``parallel.all_reduce_sum``), so each rank's gradient carries the
+    cross-rank terms, and every rank advances the running statistics
+    alike. At world size 1 the function is the one-device arithmetic
+    (``mean`` over N, H, W), bitwise."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3))
-                          - torch.square(mean), 0.0)
+    if comm.world() > 1:
+        c = x32.shape[1]
+        sums = comm.all_reduce_sum(torch.cat([
+            x32.sum(dim=(0, 2, 3)), torch.square(x32).sum(dim=(0, 2, 3)),
+            x32.new_full((1,), float(x32.numel() // c))]))
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp_min(sums[c:2 * c] / sums[2 * c]
+                              - torch.square(mean), 0.0)
+    else:
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3))
+                              - torch.square(mean), 0.0)
     with torch.no_grad():
         bn.running_mean.copy_(momentum * bn.running_mean
                               + (1 - momentum) * mean)

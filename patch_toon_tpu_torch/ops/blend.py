@@ -135,8 +135,9 @@ def blend_tiles(gen: torch.Tensor, weights: torch.Tensor, positions,
         tid.data_ptr(), canvas.data_ptr(), wcanvas.data_ptr(), n, ps,
         canvas_h, canvas_w, BLOCK, gen.device.index, _build.stream_of(gen))
     _build.check(rc, "blend_tiles")
-    blend_tiles.launches += 1
+    _build.count_launch(blend_tiles, gen)
     return canvas, wcanvas
 
 
 blend_tiles.launches = 0
+blend_tiles.by_device = {}

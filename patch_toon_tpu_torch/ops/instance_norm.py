@@ -308,7 +308,7 @@ def instance_norm_act_cluster(x: torch.Tensor, act: Optional[str] = None,
         _DTYPES[x.dtype], ACTS[act], slope, eps, x.device.index,
         _build.stream_of(x))
     _build.check(rc, "instance_norm_act_cluster")
-    instance_norm_act_cluster.launches += 1
+    _build.count_launch(instance_norm_act_cluster, x)
     return (y, *st) if stats else y
 
 
@@ -330,7 +330,7 @@ def instance_norm_act_streaming(x: torch.Tensor, act: Optional[str] = None,
         x.data_ptr(), y.data_ptr(), mp, rp, n, h * w, c, _DTYPES[x.dtype],
         ACTS[act], slope, eps, x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_streaming")
-    instance_norm_act_streaming.launches += 1
+    _build.count_launch(instance_norm_act_streaming, x)
     return (y, *st) if stats else y
 
 
@@ -412,7 +412,7 @@ def instance_norm_act_split(x: torch.Tensor, act: Optional[str] = None,
         p.ppc, p.chunks, _DTYPES[x.dtype], ACTS[act], slope, eps,
         x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_split")
-    instance_norm_act_split.launches += 1
+    _build.count_launch(instance_norm_act_split, x)
     return (y, mean, rstd) if stats else y
 
 
@@ -477,7 +477,7 @@ def instance_norm_act_backward_cluster(x: torch.Tensor, dy: torch.Tensor,
         dx.data_ptr(), n, h * w, c, p.group, p.k, _DTYPES[x.dtype],
         ACTS[act], slope, x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_backward_cluster")
-    instance_norm_act_backward_cluster.launches += 1
+    _build.count_launch(instance_norm_act_backward_cluster, x)
     return dx
 
 
@@ -499,15 +499,20 @@ def instance_norm_act_backward_streaming(x: torch.Tensor, dy: torch.Tensor,
         dx.data_ptr(), n, h * w, c, _DTYPES[x.dtype], ACTS[act], slope,
         x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_backward_streaming")
-    instance_norm_act_backward_streaming.launches += 1
+    _build.count_launch(instance_norm_act_backward_streaming, x)
     return dx
 
 
 instance_norm_act_cluster.launches = 0
+instance_norm_act_cluster.by_device = {}
 instance_norm_act_split.launches = 0
+instance_norm_act_split.by_device = {}
 instance_norm_act_streaming.launches = 0
+instance_norm_act_streaming.by_device = {}
 instance_norm_act_backward_cluster.launches = 0
+instance_norm_act_backward_cluster.by_device = {}
 instance_norm_act_backward_streaming.launches = 0
+instance_norm_act_backward_streaming.by_device = {}
 
 
 class InstanceNormAct(torch.autograd.Function):

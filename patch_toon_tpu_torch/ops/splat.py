@@ -116,8 +116,9 @@ def splat_points(image: torch.Tensor, points: torch.Tensor,
         float(np.float32(sigma * sigma)), image.device.index,
         _build.stream_of(image))
     _build.check(rc, "splat_points")
-    splat_points.launches += 1
+    _build.count_launch(splat_points, image)
     return out
 
 
 splat_points.launches = 0
+splat_points.by_device = {}

@@ -19,6 +19,14 @@ generator forward with the parameters after the step (JAX
 BatchNorm statistics untouched. ``training.profile_dir`` traces epoch 0
 with ``torch.profiler`` (CPU and, on a card, CUDA activity) and writes it
 there as a Chrome trace (JAX ``loop.py:144-148, 243-247``).
+
+In a process group (``parallel/``, one rank a card) every rank runs this
+loop on its rows of the global ``batch_size`` (the step reduces the
+gradients and metrics): the ranks draw the same global batches from the
+same seeded generator, so they train on the one-device batches. Rank 0
+alone writes the checkpoints, the TensorBoard events and the grid (built
+from the first rows of the global batch, gathered) and prints; the other
+ranks wait for each checkpoint at a barrier. A resume loads on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from patch_toon_tpu_torch.parallel import comm
 from patch_toon_tpu_torch.train.checkpoints import CheckpointManager
 from patch_toon_tpu_torch.train.logging import (
     MetricsLogger,
@@ -53,8 +62,8 @@ def comparison_grid(model, state: GANTrainState, dataset,
     finally:
         gen_net.train()
 
-    def host(t: torch.Tensor) -> np.ndarray:
-        return t.float().cpu().numpy()
+    def host(t: torch.Tensor) -> np.ndarray:  # the global batch's rows
+        return comm.gather_rows(t.float()).cpu().numpy()
 
     return build_comparison_grid(
         host(batch["pre"]), host(generated), host(batch["post"]),
@@ -81,7 +90,8 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
     """Train ``model`` on ``dataset`` (on ``dataset.device`` unless
     ``device`` is given); -> the final state. ``on_step(global_step,
     metrics)`` is called after each step and its logging, with the step's
-    metrics still on the device (a caller may time a window of steps)."""
+    metrics still on the device (a caller may time a window of steps). In
+    a process group, this rank's share (see the module's docstring)."""
     tc = model.training_config
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -99,6 +109,11 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
         raise ValueError(f"training.checkpoint_score={score_mode!r}: "
                          "expected last_step, epoch_mean or epoch_min")
 
+    rank, world = comm.rank(), comm.world()
+    rows = comm.shard_rows(batch_size, rank, world)
+    primary = rank == 0
+    progress = progress and primary
+
     with training_backends(model.dtype):
         state = model.init_state(seed, dev)
         start_epoch = 0
@@ -108,23 +123,27 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
             meta = CheckpointManager.read_meta(resume_from)
             start_epoch = (int(meta["epoch"]) + 1 if "epoch" in meta
                            else state.step // steps_per_epoch)
-            print(f"Resumed from {resume_from} at step {state.step}")
+            if primary:
+                print(f"Resumed from {resume_from} at step {state.step}")
         step_fn = make_train_step(model, bool(tc.get("two_forward", False)))
-        sample = dataset.make_sampler(batch_size)
+        sample = dataset.make_sampler(batch_size, rows)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         ckpt = CheckpointManager(run_dir / "checkpoints", keep_top_k=3, meta={
             "input_channels": model.input_channels,
             "generator_args": model.generator_args,
             "discriminator_args": model.discriminator_args,
-            "patch_size": dataset.patch_size})
-        logger = MetricsLogger(str(run_dir / "tb"))
+            "patch_size": dataset.patch_size}) if primary else None
+        logger = MetricsLogger(str(run_dir / "tb") if primary else None)
         lr = float(model.optimizer_config["generator"].get("lr", 0.0) or 0.0)
-        print(f"Training: {max_epochs} epochs x {steps_per_epoch} steps, "
-              f"batch {batch_size}, {dataset.num_images} keyframes, "
-              f"{len(dataset)} patch centers, on {dev}")
+        if primary:
+            print(f"Training: {max_epochs} epochs x {steps_per_epoch} "
+                  f"steps, batch {batch_size}"
+                  + (f" over {world} ranks" if world > 1 else "")
+                  + f", {dataset.num_images} keyframes, {len(dataset)} "
+                  f"patch centers, on {dev}")
 
         best, stale, global_step = float("inf"), 0, state.step
-        profile_dir = tc.get("profile_dir")
+        profile_dir = tc.get("profile_dir") if primary else None
         prof = _start_profiler(dev) if profile_dir else None
         try:
             for epoch in range(start_epoch, max_epochs):
@@ -149,10 +168,9 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                         logger.log_scalars({**dict(zip(names, vals)),
                                             "lr-Adam": lr}, global_step)
                     if global_step % image_log_freq == 0:
-                        logger.log_image(
-                            "training/comparison_grid",
-                            comparison_grid(model, state, dataset, batch),
-                            global_step)
+                        grid = comparison_grid(model, state, dataset, batch)
+                        logger.log_image("training/comparison_grid", grid,
+                                         global_step)
                     if on_step is not None:
                         on_step(global_step, metrics)
                 if prof is not None:  # the trace covers the first epoch
@@ -177,17 +195,22 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                           f"({dt:.1f}s, {pps:,.0f} patches/s)")
                 logger.log_scalars({"epoch_g_total_loss": mean_loss,
                                     "patches_per_sec": pps}, global_step)
-                ckpt.save(state, epoch, score)
+                if ckpt is not None:
+                    ckpt.save(state, epoch, score)
+                comm.barrier()
                 if max_steps and global_step >= max_steps:
-                    print(f"Reached training.max_steps={max_steps}; stopping")
+                    if primary:
+                        print(f"Reached training.max_steps={max_steps}; "
+                              "stopping")
                     break
                 if score < best - 1e-12:
                     best, stale = score, 0
                 else:
                     stale += 1
                     if early_stopping and stale >= patience:
-                        print(f"Early stopping at epoch {epoch} "
-                              f"(no improvement for {patience} epochs)")
+                        if primary:
+                            print(f"Early stopping at epoch {epoch} (no "
+                                  f"improvement for {patience} epochs)")
                         break
         finally:
             if prof is not None:

@@ -18,8 +18,10 @@ these flags and cuDNN's deterministic mode for the length of a run.
 step validates it.
 
 ``training.accumulate_grad_batches = k > 1`` wraps both optimizers in
-``optim.MultiSteps`` (JAX ``train/model.py:155-165``). Not ported yet, and
-refused by name: several devices and the ``parallel.dcn`` cluster.
+``optim.MultiSteps`` (JAX ``train/model.py:155-165``). Several devices
+(``training.devices``, ``parallel.dcn``) are the launcher's business
+(``train_cli.py``, ``parallel/``); tensor parallelism
+(``parallel.mesh.model != 1``) is refused by name.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from patch_toon_tpu_torch.models.layers import (
     resolve_conv_precision,
 )
 from patch_toon_tpu_torch.models.perception import PerceptualVGG19
+from patch_toon_tpu_torch.parallel.comm import check_mesh
 from patch_toon_tpu_torch.train import optim
 from patch_toon_tpu_torch.train.losses import get_criterion
 from patch_toon_tpu_torch.train.state import GANTrainState
@@ -77,17 +80,12 @@ def check_unported_training_knobs(training: Dict[str, Any],
                                   parallel: Optional[Dict[str, Any]] = None
                                   ) -> None:
     """Raise NotImplementedError naming each training knob that asks for
-    what this port does not do yet; ValueError for a precision or an
-    ``xla_options`` value the JAX step refuses."""
+    what this port does not do (tensor parallelism); ValueError for a
+    precision or an ``xla_options`` value the JAX step refuses."""
     resolve_dtype(training.get("precision", 32))
     check_xla_options(training.get("xla_options", "auto"),
                       "training.xla_options")
-    if int(training.get("devices", 1) or 1) != 1:
-        raise NotImplementedError(
-            "training.devices != 1 is not ported yet (one GPU)")
-    if bool(((parallel or {}).get("dcn") or {}).get("enabled", False)):
-        raise NotImplementedError(
-            "parallel.dcn.enabled=true is not ported yet (one GPU)")
+    check_mesh(parallel)
 
 
 @contextlib.contextmanager

@@ -27,6 +27,18 @@ dropout mask instead (``guide_drop``), as the parity tests do.
 Under bf16 the networks run in bf16; statistics, losses and the optimizer
 stay fp32. InstanceNorm runs through kernel B1 and its backward kernel on
 a card (``ops/instance_norm.InstanceNormAct``).
+
+In a process group (data-parallel training, ``parallel/``) each rank runs
+the step on its rows of the global batch, JAX's GSPMD step: the guide
+dropout mask and the discriminator's noise are drawn for the global batch
+and cut to the rank's rows; the smoother BatchNorm takes global statistics
+(``models/layers.py::batch_norm_train_fp32``); each network's gradients
+are averaged over the ranks in one coalesced all-reduce
+(``parallel.all_reduce_mean_``) before the optimizer clips them, so the
+clip sees the global norm and every rank applies the same update; the
+metrics are averaged too. The gradients come from
+``torch.autograd.grad``, which no ``DistributedDataParallel`` hook sees,
+hence the explicit reduction.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from patch_toon_tpu_torch.models.perception import perceptual_mse
+from patch_toon_tpu_torch.parallel import comm
 from patch_toon_tpu_torch.train.losses import get_criterion
 from patch_toon_tpu_torch.train.state import GANTrainState
 
@@ -54,7 +67,9 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
     on the state's device. ``generator``: the step's ``torch.Generator``
     on that device. ``guide_drop``: an optional (B,) bool mask that
     replaces the guide-dropout draw. The state is updated in place and its
-    ``step`` bumped; the metrics are 0-d fp32 tensors on the device."""
+    ``step`` bumped; the metrics are 0-d fp32 tensors on the device. In a
+    process group ``batch`` is this rank's rows and ``guide_drop``, when
+    given, the global batch's mask."""
     tc = model.training_config
     rec_crit = get_criterion(tc["reconstruction_criterion"])
     adv_crit = get_criterion(tc["adversarial_criterion"])
@@ -65,6 +80,12 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
     gd_depth = int(tc.get("guide_dropout_depth", 3) or 3)
     pw = model.perception_weight
     dt = model.dtype
+    shard = (comm.rank(), comm.world())
+
+    def grads_of(loss, params):
+        grads = list(torch.autograd.grad(loss, params))
+        comm.all_reduce_mean_(grads)
+        return grads
 
     def step(state: GANTrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator,
@@ -76,8 +97,10 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
             x = torch.cat([x, batch["channels"]], dim=-1)
         x = x.to(dt)
         if gd_p > 0.0 and x.shape[-1] > gd_depth:
+            b, (r, n) = x.shape[0], shard
             drop = guide_drop if guide_drop is not None else torch.rand(
-                (x.shape[0],), generator=generator, device=x.device) < gd_p
+                (n * b,), generator=generator, device=x.device) < gd_p
+            drop = drop[r * b:(r + 1) * b]
             x = torch.cat([x[..., :-gd_depth], torch.where(
                 drop.view(-1, 1, 1, 1), x[..., :gd_depth],
                 x[..., -gd_depth:])], dim=-1)
@@ -94,13 +117,12 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
             gen_value = gen.detach()
 
         if D is not None:
-            real = D(post.to(dt), generator)
-            fake = D(gen_value.to(dt), generator)
+            real = D(post.to(dt), generator, shard)
+            fake = D(gen_value.to(dt), generator, shard)
             real_loss = adv_crit(real, torch.ones_like(real))
             fake_loss = adv_crit(fake, torch.zeros_like(fake))
             d_loss = (real_loss + fake_loss) * 0.5
-            state.d_opt.step(torch.autograd.grad(d_loss,
-                                                 state.d_opt.params))
+            state.d_opt.step(grads_of(d_loss, state.d_opt.params))
             metrics.update(d_real_loss=real_loss.detach(),
                            d_fake_loss=fake_loss.detach(),
                            d_total_loss=d_loss.detach())
@@ -120,14 +142,18 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
             losses["g_perception_loss"] = perceptual_mse(
                 P(gen.to(dt)), target) * pw
         if D is not None:
-            logits = D(gen.to(dt), generator)
+            logits = D(gen.to(dt), generator, shard)
             losses["g_adversarial_loss"] = adv_crit(
                 logits, torch.ones_like(logits)) * adv_w
         g_total = sum(losses.values())
-        state.g_opt.step(torch.autograd.grad(g_total, state.g_opt.params))
+        state.g_opt.step(grads_of(g_total, state.g_opt.params))
 
         metrics.update({k: v.detach() for k, v in losses.items()})
         metrics["g_total_loss"] = g_total.detach()
+        if shard[1] > 1:  # global means
+            vals = torch.stack(list(metrics.values()))
+            comm.all_reduce_mean_([vals])
+            metrics = dict(zip(metrics, vals.unbind()))
         state.step += 1
         return metrics
 

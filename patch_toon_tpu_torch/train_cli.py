@@ -10,28 +10,57 @@ the resolved config snapshotted into it, and a synthetic sample scene made
 on first use when the configured scene lies under ``test_dataset/``
 (``tools/make_sample_scene.py``). ``training.accelerator=cpu`` trains on
 the CPU; otherwise on the CUDA card, and a missing card raises. Needs
-PyYAML for the config and Pillow for the keyframes.
+PyYAML for the config.
+
+Several devices (JAX ``train.py:77-144``), one rank a device, each
+training on its rows of the global ``training.batch_size``
+(``train/loop.py``):
+
+- ``training.devices=N`` (or -1, every card this process owns; on the CPU
+  N ranks): the ranks are spawned here (``parallel/launch.py``) and meet
+  on a free localhost port; ``training.devices=1`` trains in this process;
+- ``parallel.dcn.enabled=true`` with ``coordinator_address``,
+  ``num_processes`` and ``process_id``: this process joins the cluster
+  with its ``training.devices`` local ranks (spawned unless that is 1, in
+  which case it is the rank), global rank ``process_id x local +
+  local_rank``;
+- ``parallel.dcn.enabled=true`` with those three null: torchrun started
+  this process as one rank (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+  ``MASTER_PORT``; its card ``cuda:LOCAL_RANK``).
+
+The first process prints and snapshots the config and makes the sample
+scene (the others wait for it); a global batch the world size does not
+divide is refused before any rank starts.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import sys
+import time
 from pathlib import Path
 from typing import Any, Iterator, List
 
 import torch
 
-from patch_toon_tpu_torch.config.compose import compose, save, to_container
+from patch_toon_tpu_torch import parallel
+from patch_toon_tpu_torch.config.compose import (
+    _wrap,
+    compose,
+    save,
+    to_container,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG_DIR = REPO / "config"
 
 
-def ensure_sample_data(cfg: Any) -> None:
+def ensure_sample_data(cfg: Any, primary: bool = True) -> None:
     """Make a synthetic scene where the configured one is missing and lies
     under a ``test_dataset`` directory (JAX ``train.py::_ensure_sample_data``);
-    a missing user path still raises in the dataset."""
+    a missing user path still raises in the dataset. A process that is not
+    ``primary`` waits for the first one to make it."""
     if isinstance(cfg.data.dir_pre, (list, tuple)):
         return
     dir_pre = Path(cfg.data.dir_pre)
@@ -41,6 +70,12 @@ def ensure_sample_data(cfg: Any) -> None:
         return
     if "test_dataset" not in scene.parts:
         return
+    if not primary:
+        for _ in range(600):
+            if sentinel.exists():
+                return
+            time.sleep(0.1)
+        raise TimeoutError(f"waited for process 0 to generate {scene}")
     print(f"Sample scene {scene} not found — generating a synthetic one "
           f"(tools/make_sample_scene.py)")
     sys.path.insert(0, str(REPO / "tools"))
@@ -50,49 +85,100 @@ def ensure_sample_data(cfg: Any) -> None:
     sentinel.touch()
 
 
-def resolve_device(cfg: Any) -> torch.device:
-    if str(cfg.training.get("accelerator", "auto")) == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "training asked for a CUDA device and none is available "
-            "(training.accelerator=cpu trains on the CPU)")
-    return torch.device("cuda", 0)
-
-
-def train(cfg: Any) -> None:
-    import yaml
-
-    from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
-    from patch_toon_tpu_torch.train.loop import fit
+def _model(cfg: Any):
     from patch_toon_tpu_torch.train.model import StyleTransferModel
 
-    model = StyleTransferModel(
+    return StyleTransferModel(
         generator_config=cfg.model.generator,
         discriminator_config=cfg.model.get("discriminator"),
         training_config=cfg.training, optimizer_config=cfg.optimizer,
         data_config=cfg.data,
         perception_loss_config=cfg.model.get("perception_loss"),
         parallel_config=cfg.get("parallel"))
-    device = resolve_device(cfg)
-    run_dir = Path(cfg.get("run", {}).get("dir")
-                   or cfg.training.get("output_dir", "outputs"))
-    run_dir.mkdir(parents=True, exist_ok=True)
-    print("=== Resolved config ===")
-    print(yaml.safe_dump(to_container(cfg), sort_keys=False))
-    save(cfg, run_dir / "config.yaml")
 
-    ensure_sample_data(cfg)
+
+def train_rank(device: torch.device, cfg: Any, run_dir: str) -> None:
+    """One rank's (or the only process's) training on ``device``: the
+    keyframes decoded onto it, then ``fit``."""
+    from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
+    from patch_toon_tpu_torch.train.loop import fit
+
+    cfg = _wrap(cfg)
     dataset = StyleTransferDataset.from_directories(
         cfg.data.dir_pre, cfg.data.dir_post, cfg.data.dir_mask,
         int(cfg.data.patch_size),
         int(cfg.data.get("augmentation_factor", 1)),
         to_container(cfg.data.get("additional_channels") or {}),
         str(cfg.data.get("sampling", "uniform")), device)
-    fit(model, dataset, str(run_dir), seed=int(cfg.training.get("seed", 0)),
+    fit(_model(cfg), dataset, run_dir, seed=int(cfg.training.get("seed", 0)),
         max_epochs=int(cfg.training.get("max_epochs", 50)),
         resume_from=cfg.training.get("resume_from"))
-    print(f"Training complete. Run dir: {run_dir}")
+
+
+def train(cfg: Any) -> None:
+    import yaml
+
+    _model(cfg)  # the knobs are checked before any process starts
+    tc = cfg.training
+    cpu = str(tc.get("accelerator", "auto")) == "cpu"
+    if not cpu and not torch.cuda.is_available():
+        raise RuntimeError(
+            "training asked for a CUDA device and none is available "
+            "(training.accelerator=cpu trains on the CPU)")
+    n = int(tc.get("devices", 1) or 1)
+    dcn = (cfg.get("parallel") or {}).get("dcn") or {}
+    where = [dcn.get(k) for k in ("coordinator_address", "num_processes",
+                                  "process_id")]
+    torchrun = bool(dcn.get("enabled", False)) and all(
+        v is None for v in where)
+    if torchrun:
+        if n not in (1, -1):
+            raise ValueError(
+                f"training.devices={n} under torchrun: each process is one "
+                "rank on its own card (start more with --nproc-per-node)")
+        devices = parallel.local_devices(1, cpu)
+        processes, pid = int(os.environ.get("WORLD_SIZE", "0")), int(
+            os.environ.get("RANK", "0"))
+    elif dcn.get("enabled", False):
+        if any(v is None for v in where):
+            raise ValueError(
+                "parallel.dcn: give coordinator_address, num_processes and "
+                f"process_id together (got {where})")
+        devices = parallel.local_devices(n, cpu)
+        processes, pid = int(where[1]), int(where[2])
+    else:
+        devices = parallel.local_devices(n, cpu)
+        processes, pid = 1, 0
+    world = processes * len(devices)
+    parallel.shard_rows(int(tc["batch_size"]), 0, world)
+
+    run_dir = Path(cfg.get("run", {}).get("dir")
+                   or tc.get("output_dir", "outputs"))
+    primary = pid == 0
+    if primary:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        print("=== Resolved config ===")
+        print(yaml.safe_dump(to_container(cfg), sort_keys=False))
+        save(cfg, run_dir / "config.yaml")
+    ensure_sample_data(cfg, primary)
+    args = (to_container(cfg), str(run_dir))
+    if n == 1 or torchrun:  # this process is the rank
+        if dcn.get("enabled", False):
+            if not cpu:
+                torch.cuda.set_device(devices[0])
+            parallel.initialize_distributed(
+                *where, backend="gloo" if cpu else "nccl",
+                device=devices[0])
+        train_rank(devices[0], *args)
+    else:
+        print(f"Training on {world} ranks: {len(devices)} here "
+              f"({', '.join(map(str, devices))})")
+        parallel.spawn(train_rank, args, devices,
+                       address=str(where[0]) if dcn.get("enabled", False)
+                       else None, offset=pid * len(devices),
+                       world_size=world)
+    if primary:
+        print(f"Training complete. Run dir: {run_dir}")
 
 
 def expand_multirun(overrides: List[str]) -> Iterator[List[str]]:

@@ -9,7 +9,10 @@ file imports no JAX, so it also runs on a machine without it:
 InstanceNorm fp32 1e-5 absolute and relative (sums in other orders); bf16
 one bf16 ulp of the value plus 1e-5, as two fp32 results that differ in the
 last bits may round to neighbouring bf16 values; the blend and the splat
-bit for bit.
+bit for bit. Two tests need two cards (they skip with one): every kernel
+entry keeps the caller's current device, and the engine names its cards
+(replicas, copy streams, a sharded group's outputs bitwise the one-card
+dispatch, the flow graph on its frame's card).
 """
 
 import pathlib
@@ -896,3 +899,126 @@ def test_splat_kernel_refuses_what_it_cannot_take(cuda):
         tsplat.splat_points(img, pts, cols, valid.float(), 2.0)
     with pytest.raises(ValueError):
         tsplat.splat_points(img[..., :2], pts, cols, valid, 2.0)
+
+
+# ------------------------------------------------- several cards (2 or more)
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.cuda
+def test_kernel_launches_keep_the_callers_current_device(two_cards):
+    """Each C entry point launches on its tensor's card and puts the
+    caller's current device back: B1 (cluster, split, backward) and B2
+    interleaved on cards 0 and 1 from either current device, each
+    against its plain version; afterwards an index-free allocation lands
+    on the current device."""
+    gen, wts, pos, H, W = _blend_case(0, 64, 16, 200, 300)
+    offsets, ids = tblend.bin_tiles(pos, H, W, 16)
+    for current in (0, 1):
+        torch.cuda.set_device(current)
+        for card in two_cards * 2:
+            x = _randn((2, 40, 40, 64), torch.float32, card, seed=1)
+            y = instance_norm_act_cluster(x, "relu")
+            assert torch.cuda.current_device() == current
+            xs = _randn((1, 256, 456, 32), torch.float32, card, seed=2)
+            ys = instance_norm_act_split(xs, "leaky_relu")
+            assert torch.cuda.current_device() == current
+            dy = _randn((2, 40, 40, 64), torch.float32, card, seed=3)
+            _, mean, rstd = instance_norm_act_cluster(x, "relu", stats=True)
+            dx = instance_norm_act_backward(x, dy, mean, rstd, "relu")
+            assert torch.cuda.current_device() == current
+            canvas, wcanvas = tblend.blend_tiles(
+                torch.from_numpy(gen).to(card), torch.from_numpy(wts).to(
+                    card), torch.from_numpy(pos).to(card),
+                torch.from_numpy(offsets).to(card),
+                torch.from_numpy(ids).to(card), H, W)
+            assert torch.cuda.current_device() == current
+            assert torch.empty(1, device="cuda").device.index == current
+            for got in (y, ys, dx, canvas):
+                assert got.device == card
+            torch.cuda.synchronize(card)
+            want = instance_norm_act_plain(x.cpu(), "relu")
+            np.testing.assert_allclose(y.cpu().numpy(), want.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+            want_dx = instance_norm_act_backward_plain(
+                x.cpu(), dy.cpu(), mean.cpu(), rstd.cpu(), "relu")
+            np.testing.assert_allclose(dx.cpu().numpy(), want_dx.numpy(),
+                                       rtol=2e-5, atol=2e-5)
+            c_plain, w_plain = tblend.blend_tiles_plain(
+                torch.from_numpy(gen), torch.from_numpy(wts),
+                torch.from_numpy(pos), H, W)
+            assert torch.equal(canvas.cpu(), c_plain)
+            assert torch.equal(wcanvas.cpu(), w_plain)
+            assert torch.isfinite(ys).all()
+    torch.cuda.set_device(0)
+
+
+@pytest.mark.cuda
+def test_engine_names_its_cards(two_cards):
+    """With card 1 current, an engine asked for ``cuda`` serves on card 0
+    (the first it owns) and one at ``inference.devices=2`` on both: every
+    replica, copy stream and staged frame names its card, a sharded
+    group's outputs are each on its card and equal the one-card
+    dispatch's, and the caller's current device is left alone. The flow
+    graph captures and replays on its frame's card."""
+    from patch_toon_tpu_torch.config.defaults import inference_config
+    from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+    from patch_toon_tpu_torch.infer.temporal import (
+        FlowGraphs,
+        _temporal_device_flow,
+    )
+
+    ckpt = pathlib.Path(__file__).resolve().parents[1] / "docs" / \
+        "quality_2000" / "torch_train.ckpt"
+    torch.cuda.set_device(1)
+    try:
+        engines = [StyleTransferInference(inference_config(
+            paths={"checkpoint": str(ckpt)},
+            inference={"precision": "32", "devices": n})) for n in (1, 2)]
+        one, two = engines
+        assert one.cards == [two_cards[0]] and two.cards == two_cards
+        for eng in engines:
+            for card, model in zip(eng.cards, eng.models):
+                assert {p.device for p in model.parameters()} == {card}
+                assert eng.copy_streams[card].device == card
+        assert torch.cuda.current_device() == 1
+        rng = np.random.default_rng(0)
+        h, w = 96, 176
+        staged = []
+        for i in range(4):
+            parts = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                     rng.integers(0, 256, (h, w, 3), dtype=np.uint8)]
+            boxes = two.boxes_for(None, (h, w))
+            staged.append(two._stage(parts, None, boxes,
+                                     pathlib.Path(f"{i}.png"), None, None,
+                                     None, two.card_of(i)))
+        assert [s.frame.device.index for s in staged] == [0, 1, 0, 1]
+        two._pod_fpd = 2
+        outs = two.dispatch_staged(staged)
+        assert [o.device.index for o in outs] == [0, 0, 1, 1]
+        on_0 = [one._to_card(s, two_cards[0]) for s in staged]
+        want = torch.cat([one.dispatch_staged(on_0[:2]),
+                          one.dispatch_staged(on_0[2:])])
+        assert torch.equal(torch.stack([o.to(two_cards[0]) for o in outs]),
+                           want)
+        assert torch.cuda.current_device() == 1
+
+        torch.cuda.set_device(0)
+        frame = torch.from_numpy(rng.integers(0, 256, (h, w, 3),
+                                              dtype=np.uint8)).to(two_cards[1])
+        prev = torch.from_numpy(rng.integers(0, 256, (h, w),
+                                             dtype=np.uint8)).to(two_cards[1])
+        graphs = FlowGraphs()
+        for _ in range(2):
+            flow, gray = graphs(frame, prev, None, 1)
+            assert torch.cuda.current_device() == 0
+        eager_flow, eager_gray = _temporal_device_flow(frame, prev, None, 1)
+        assert flow.device == two_cards[1] and graphs.captures == 1
+        assert torch.equal(flow, eager_flow) and torch.equal(gray, eager_gray)
+    finally:
+        torch.cuda.set_device(0)

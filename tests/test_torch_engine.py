@@ -133,16 +133,25 @@ def test_engine_refusals(scene, tmp_path):
                    "paths.additional_channels={}",
                    "inference.temporal.flow_source=device"
                    ).temporal_flow_source == "device"
-    # knobs the JAX engine acts on and the port does not yet: each is named
-    for override, knob in [
-            ("inference.quantize=int8", "quantize"),
-            ("inference.file_shard=0/2", "file_shard"),
-            ("inference.devices=2", "devices"),
-            ("inference.devices=-1", "devices")]:
-        with pytest.raises(NotImplementedError, match=knob):
-            _engine(scene, tmp_path, override,
-                    "inference.temporal.enabled=true",
-                    "paths.additional_channels={}")
+    # a knob the JAX engine acts on and the port does not yet is named
+    with pytest.raises(NotImplementedError, match="quantize"):
+        _engine(scene, tmp_path, "inference.quantize=int8",
+                "inference.temporal.enabled=true",
+                "paths.additional_channels={}")
+    # several devices are ported: with the temporal guide the chain runs
+    # on the first (JAX engine.py:727-739), and an explicit file_shard
+    # is refused when the directory is served (JAX engine.py:608-612)
+    for override, n in [("inference.devices=2", 2),
+                        ("inference.devices=-1", 1)]:
+        eng = _engine(scene, tmp_path, override,
+                      "inference.temporal.enabled=true",
+                      "paths.additional_channels={}")
+        assert len(eng.cards) == n and eng.device == eng.cards[0]
+    eng = _engine(scene, tmp_path, "inference.file_shard=0/2",
+                  "inference.temporal.enabled=true",
+                  "paths.additional_channels={}")
+    with pytest.raises(ValueError, match="file_shard"):
+        eng.process_directory()
     # watch mode is ported: the engine takes the knob
     assert _engine(scene, tmp_path, "inference.watch.enabled=true",
                    "inference.temporal.enabled=true",

@@ -711,13 +711,19 @@ def test_training_defaults_equal_composed_yaml():
     ("parallel.dcn.enabled=true", "parallel.dcn"),
 ])
 def test_unported_training_knobs_are_refused(scene, tmp_path, override, knob):
+    """Several devices and the cluster are ported (tests/
+    test_torch_parallel*.py); beside each, tensor parallelism is still
+    refused by name, before any rank starts or the cluster is joined."""
     from patch_toon_tpu_torch import train_cli
 
     cfg = compose(REPO / "config", "config", overrides=_scene_overrides(
         scene) + ["training.accelerator=cpu", f"run.dir={tmp_path}",
-                  override])
-    with pytest.raises(NotImplementedError, match=knob):
+                  override, "parallel.mesh.model=2"])
+    assert cfg.get("training", {}).get("devices") == 2 or \
+        cfg["parallel"]["dcn"]["enabled"], knob
+    with pytest.raises(NotImplementedError, match="parallel.mesh.model"):
         train_cli.train(cfg)
+    assert not (tmp_path / "config.yaml").exists()
 
 
 @pytest.fixture
