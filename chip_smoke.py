@@ -5,7 +5,8 @@
 
 Needs one CUDA card; run from the root of a checkout. ``--multi-gpu`` runs
 the build and phase 11 alone (for a machine with several cards). Phases,
-one or more lines each, flushed as they go:
+one or more lines each, flushed as they go (phase 12, ``int8``, runs
+after ``multistream``):
 
 1. ``build``: the nvcc build of ``patch_toon_tpu_torch/csrc/*.cu`` (seconds,
    and each kernel's registers, shared memory and spills as ptxas reports
@@ -184,7 +185,26 @@ one or more lines each, flushed as they go:
    bf16), the gradients' all-reduce timed (two coalesced calls, G's and
    D's) against the ring bound over the link, and one small-width step of
    the ranks held to the fp64 one-device step that takes their branches
-   (``train/parity.py``, 5e-5).
+   (``train/parity.py``, 5e-5). With 2+ cards also int8 serving
+   (``inference.quantize: int8``) over 2 cards, bitwise the one-card int8
+   run, every replica with card 0's scales.
+12. ``int8``: w8a8 serving. Both kernels of ``csrc/quant_conv.cu``
+   (``quantize_act``, ``conv_s8``) bitwise their plain versions (the int8
+   activation, the int32 accumulator, the output with its bias) at the 22
+   sites' shapes on 16 tiles, at one full-frame 512x912 pass and at shapes
+   off the CTA tile, bf16 and fp32; each site at B = 512 in bf16 timed
+   (device time) against its bound (int8 operations at 1,979 TOPS or bytes
+   at 3.35 TB/s), the plain versions and cuDNN's bf16 convolution at the
+   same shape, with ``torch._int_mm`` over an explicit im2col at the
+   residual shape; the serve_directory phase's 36 frames, tiled and
+   full-frame, bf16 with ``quantize: int8``: a set-up run that calibrates
+   once, a timed run with the counters zeroed just before and read just
+   after (22 launches of each kernel a generator call, B1 and B2 as in the
+   bf16 runs), eq-frames/s beside the bf16 run, masked PSNR against it (at
+   least 35 dB); one int8 generator call of 512 tiles against a bf16 call;
+   the card against the CPU at precision 32 on a 256x456 crop, the card's
+   scales copied to the CPU engine (limit 1 count; the share of differing
+   pixels printed). No other phase launches either kernel.
 
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
@@ -229,6 +249,7 @@ from patch_toon_tpu_torch.infer.temporal import (
 )
 from patch_toon_tpu_torch.infer.programs import make_tile_plan
 from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
+from patch_toon_tpu_torch.models import layers
 from patch_toon_tpu_torch.models.generator import GeneratorJ
 from patch_toon_tpu_torch.infer.tiling import (
     bucket_size,
@@ -236,6 +257,7 @@ from patch_toon_tpu_torch.infer.tiling import (
     tile_boxes_from_mask,
 )
 from patch_toon_tpu_torch.ops import blend, instance_norm
+from patch_toon_tpu_torch.ops import quant
 from patch_toon_tpu_torch.ops import splat as ops_splat
 from patch_toon_tpu_torch.ops.flow import dense_flow
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
@@ -247,6 +269,7 @@ from patch_toon_tpu_torch.train.model import (
     StyleTransferModel,
     training_backends,
 )
+from patch_toon_tpu_torch.utils.weights import load_quant_scales
 from patch_toon_tpu_torch.train.parity import (
     Kinks,
     assert_device_step_parity,
@@ -262,6 +285,7 @@ CKPT = REPO / "docs" / "quality_2000" / "torch_train.ckpt"
 ALARM_S = 1100            # the whole run, build included
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12         # H100 SXM, fp32 outside the tensor cores
+INT8_OPS = 1979e12         # H100 SXM, dense int8 tensor-core operations
 L2_BYTES = 50e6            # H100 SXM data sheet
 B = 512                    # tiles per generator call on the main path
 # 512p 16:9 frames, the JAX package's benchmark workload (bench.py): full
@@ -770,13 +794,14 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
 
 
 def _dir_engine(precision: str, scene: Path, out: Path, mode: str = "tiled",
-                device=None):
+                device=None, **inference):
     return StyleTransferInference(inference_config(
         paths={"checkpoint": str(CKPT), "input_dir": str(scene / "input"),
                "mask_dir": str(scene / "mask"), "output_dir": str(out),
                "additional_channels": {"point_vector": {
                    "path": str(scene / "tracking"), "depth": 3}}},
-        inference={"precision": precision, "mode": mode}), device=device)
+        inference={"precision": precision, "mode": mode, **inference}),
+        device=device)
 
 
 def _inline_directory(eng, scene: Path, out: Path, fpd: int) -> float:
@@ -2218,6 +2243,372 @@ def phase_multistream(dev, card: str, tmp: Path) -> dict:
     return {"rec": rec, "launches": launches}
 
 
+# (name, H, W, Cin, Cout, k, stride, sites) of the 22 w8a8 convolutions of
+# one tile call at full width (80x80 tiles, 6 input channels), forward order
+INT8_SITES = [("initial_conv", 80, 80, 6, 32, 7, 1, 1),
+              ("downsample1", 80, 80, 32, 64, 3, 2, 1),
+              ("downsample2", 40, 40, 64, 128, 3, 2, 1),
+              ("resnet", 20, 20, 128, 128, 3, 1, 14),
+              ("upsample2", 40, 40, 256, 128, 3, 1, 1),
+              ("upsample1", 80, 80, 192, 128, 3, 1, 1),
+              ("conv11", 80, 80, 166, 64, 7, 1, 1),
+              ("smoother", 80, 80, 64, 64, 3, 1, 2)]
+# shapes off the CTA tile: Cin 6 and 166, stride 2, odd H and W, Cout < 64
+INT8_ODD = [(13, 17, 6, 32, 7, 1), (11, 9, 166, 64, 7, 1),
+            (15, 21, 32, 64, 3, 2), (9, 7, 64, 128, 3, 2),
+            (7, 5, 40, 8, 3, 1)]
+INT8_CHECK_TILES = 16
+INT8_PSNR_DB = 35.0  # JAX's bar, tests/test_quant.py:152
+QUANT_WRAPPERS = {"conv_s8": quant.conv_s8,
+                  "quantize_act": quant.quantize_act}
+
+
+def _quant_counts() -> dict:
+    return {k: fn.launches for k, fn in QUANT_WRAPPERS.items()}
+
+
+def _int8_inputs(n, h, w, cin, cout, k, dtype, dev, seed):
+    """An activation (N, H, W, Cin) in ``dtype``, its dynamic scale, a
+    quantized and packed seeded weight, its scales and a bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((n, h, w, cin), device=dev, generator=g) * 1.5
+         ).to(dtype)
+    weight = torch.randn((cout, cin, k, k), device=dev, generator=g) * 0.05
+    s = quant.activation_scale(torch.zeros((), device=dev), x)
+    wq, w_s = quant.quantize_weight(weight)
+    wp = quant.pack_weight(wq, quant.padded_channels(cin))
+    bias = (torch.randn((cout,), device=dev, generator=g) * 0.1).to(dtype)
+    return x, s, wp, w_s, bias, weight
+
+
+def _int8_check(n, shape, dtype, dev, seed) -> None:
+    """Both kernels bitwise their plain versions at one shape: the int8
+    activation, the int32 accumulator, the output with its bias."""
+    h, w, cin, cout, k, stride = shape
+    x, s, wp, w_s, bias, _ = _int8_inputs(n, h, w, cin, cout, k, dtype, dev,
+                                          seed)
+    xq = quant.quantize_act(x, s)
+    if not torch.equal(xq, quant.quantize_act_plain(x, s)):
+        raise AssertionError(f"quantize_act differs from its plain version "
+                             f"at {n}x{shape} {dtype}")
+    del x
+    pad = k // 2
+    acc = quant.conv_s8(xq, wp, s, w_s, None, k, stride, pad, torch.int32)
+    want = quant.conv_s8_acc_plain(xq, wp, k, stride, pad)
+    if not torch.equal(acc, want):
+        bad = int((acc != want).sum())
+        raise AssertionError(f"conv_s8's accumulator differs from its plain "
+                             f"version in {bad} values at {n}x{shape}")
+    y = quant.conv_s8(xq, wp, s, w_s, bias, k, stride, pad, dtype)
+    if not torch.equal(y, quant.dequantize_plain(want, s, w_s, bias, dtype)):
+        raise AssertionError(f"conv_s8's output differs from its plain "
+                             f"version at {n}x{shape} {dtype}")
+
+
+def _int8_site_times(dev) -> dict:
+    """Each distinct site at B = 512 in bf16: conv_s8 and quantize_act as
+    device time (``queued_ms``), their plain versions, cuDNN's bf16
+    ``F.conv2d`` at the same shape (the yardstick; the port never calls
+    it for an int8 site), the bounds; per call, each site times its count
+    (22 sites). Beside them ``torch._int_mm`` over an explicit im2col at
+    the residual shape."""
+    rows, tot = [], dict(conv_ms=0.0, quant_ms=0.0, conv_plain_ms=0.0,
+                         quant_plain_ms=0.0, library_ms=0.0,
+                         conv_bound_ms=0.0, quant_bound_ms=0.0,
+                         conv_ops_ms=0.0, conv_bytes_ms=0.0, ops=0)
+    for i, (name, h, w, cin, cout, k, stride, count) in \
+            enumerate(INT8_SITES):
+        x, s, wp, w_s, bias, weight = _int8_inputs(
+            B, h, w, cin, cout, k, torch.bfloat16, dev, 100 + i)
+        pad, cp = k // 2, quant.padded_channels(cin)
+        ho, wo = quant.out_size(h, k, stride, pad), \
+            quant.out_size(w, k, stride, pad)
+        xq = quant.quantize_act(x, s)
+        q_ms = queued_ms([lambda: quant.quantize_act(x, s)], 10)
+        c_ms = queued_ms([lambda: quant.conv_s8(
+            xq, wp, s, w_s, bias, k, stride, pad, torch.bfloat16)], 5)
+        q_plain = time_ms(lambda: quant.quantize_act_plain(x, s), 2)
+        c_plain = time_ms(lambda: quant.conv_s8_plain(
+            xq, wp, s, w_s, bias, k, stride, pad, torch.bfloat16), 1)
+        x_cl = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+        w_cl = weight.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        lib = time_ms(lambda: F.conv2d(x_cl, w_cl, bias, stride, pad), 5)
+        ops = 2 * B * ho * wo * cout * cin * k * k  # over the real channels
+        c_bytes = B * h * w * cp + wp.numel() + B * ho * wo * cout * 2 \
+            + 6 * cout
+        c_ops_ms, c_bytes_ms = ops / INT8_OPS * 1e3, \
+            c_bytes / HBM_BYTES_PER_S * 1e3
+        q_bound = max((B * h * w * (2 * cin + cp)) / HBM_BYTES_PER_S,
+                      4 * B * h * w * cin / FP32_FLOPS) * 1e3
+        r = dict(site=name, sites=count, shape=f"{B}x{h}x{w}x{cin}",
+                 cout=cout, k=k, stride=stride, conv_ms=c_ms,
+                 conv_bound_ms=max(c_ops_ms, c_bytes_ms),
+                 conv_bound_by="operations" if c_ops_ms >= c_bytes_ms
+                 else "bytes", conv_plain_ms=c_plain, library_ms=lib,
+                 quant_ms=q_ms, quant_bound_ms=q_bound,
+                 quant_plain_ms=q_plain, tops=ops / c_ms / 1e9)
+        rows.append(r)
+        for key, v in (("conv_ms", c_ms), ("quant_ms", q_ms),
+                       ("conv_plain_ms", c_plain),
+                       ("quant_plain_ms", q_plain), ("library_ms", lib),
+                       ("conv_bound_ms", r["conv_bound_ms"]),
+                       ("quant_bound_ms", q_bound),
+                       ("conv_ops_ms", c_ops_ms),
+                       ("conv_bytes_ms", c_bytes_ms), ("ops", ops)):
+            tot[key] += v * count
+        say("int8", site=name, shape=r["shape"], cout=cout, k=k,
+            stride=stride, sites=count, conv_ms=f"{c_ms:.4f}",
+            conv_bound_ms=f"{r['conv_bound_ms']:.4f}",
+            conv_share_of_bound=f"{r['conv_bound_ms'] / c_ms:.3f}",
+            int8_tops=f"{r['tops']:.1f}", library_bf16_ms=f"{lib:.4f}",
+            conv_plain_ms=f"{c_plain:.2f}", quantize_ms=f"{q_ms:.4f}",
+            quantize_bound_ms=f"{q_bound:.4f}",
+            quantize_plain_ms=f"{q_plain:.4f}")
+        if name == "resnet":  # torch._int_mm over an explicit im2col
+            xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+
+            def im2col():
+                return torch.cat([xp[:, ky:ky + h, kx:kx + w]
+                                  for ky in range(k) for kx in range(k)],
+                                 dim=-1).reshape(B * h * w, k * k * cp)
+
+            cols = im2col()
+            wt = wp[:, :k * k * cp].contiguous()
+            got = torch._int_mm(cols, wt.t())
+            acc = quant.conv_s8(xq, wp, s, w_s, None, k, stride, pad,
+                                torch.int32)
+            if not torch.equal(got.view(B, h, w, cout), acc):
+                raise AssertionError("torch._int_mm over im2col differs "
+                                     "from conv_s8's accumulator")
+            tot["int_mm_ms"] = time_ms(lambda: torch._int_mm(cols, wt.t()),
+                                       5)
+            tot["im2col_ms"] = time_ms(im2col, 3)
+            tot["im2col_mb"] = cols.numel() / 1e6
+            say("int8", site=name, int_mm_ms=f"{tot['int_mm_ms']:.4f}",
+                im2col_ms=f"{tot['im2col_ms']:.4f}",
+                im2col_mb=f"{tot['im2col_mb']:.1f}",
+                conv_s8_ms=f"{c_ms:.4f}")
+            del cols, xp, got, acc
+        del x, xq, x_cl
+    say("int8", per_call="22 sites, 512 tiles, bf16",
+        conv_ms=f"{tot['conv_ms']:.4f}",
+        conv_bound_ms=f"{tot['conv_bound_ms']:.4f}",
+        conv_share_of_bound=f"{tot['conv_bound_ms'] / tot['conv_ms']:.3f}",
+        t_int8_ops=f"{tot['ops'] / 1e12:.3f}",
+        library_bf16_ms=f"{tot['library_ms']:.4f}",
+        conv_plain_ms=f"{tot['conv_plain_ms']:.2f}",
+        quantize_ms=f"{tot['quant_ms']:.4f}",
+        quantize_bound_ms=f"{tot['quant_bound_ms']:.4f}",
+        quantize_plain_ms=f"{tot['quant_plain_ms']:.4f}")
+    return {"sites": rows, **tot}
+
+
+def _psnr(got: Path, want: Path, names) -> float:
+    """PSNR over every pixel of the files ``names`` of two directories (the
+    masks are full: the masked PSNR)."""
+    se, n = 0.0, 0
+    for name in names:
+        d = decode_png(got / name).astype(np.float64) \
+            - decode_png(want / name).astype(np.float64)
+        se += float((d * d).sum())
+        n += d.size
+    return 10 * np.log10(255.0 ** 2 / max(se / n, 1e-12))
+
+
+def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
+    """w8a8 serving (``inference.quantize: int8``): both int8 kernels
+    bitwise their plain versions at the 22 sites' shapes on 16 tiles, at
+    one full-frame 512x912 pass and at shapes off the CTA tile, fp32 and
+    bf16; their times at B = 512 against the bounds, the plain versions,
+    cuDNN's bf16 convolution and ``torch._int_mm`` over im2col; the
+    serve_directory phase's 36 frames tiled and full-frame at bf16 with
+    int8 (calibrated once; 22 launches of each kernel a generator call;
+    masked PSNR against the bf16 runs at least 35 dB; eq-frames/s beside
+    them); one int8 generator call against one bf16 call; the card
+    against the CPU at precision 32 on a 256x456 crop, the card's scales
+    copied to the CPU engine (limit 1 count)."""
+    before = _quant_counts()
+    if any(before.values()):
+        raise AssertionError(f"int8 kernels launched before the int8 phase: "
+                             f"{before}")
+    t0 = time.perf_counter()
+    ff = [(HP if h == 80 else HP // (80 // h), WP if w == 80
+           else WP // (80 // w), cin, cout, k, stride)
+          for _, h, w, cin, cout, k, stride, _ in INT8_SITES]
+    seed = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for shapes, n in (([r[1:7] for r in INT8_SITES], INT8_CHECK_TILES),
+                          (ff, 1), (INT8_ODD, 3)):
+            for shape in shapes:
+                seed += 1
+                _int8_check(n, shape, dtype, dev, seed)
+    torch.cuda.synchronize()
+    say("int8", bitwise_equal=True,
+        check_seconds=f"{time.perf_counter() - t0:.1f}",
+        site_shapes=len(INT8_SITES), tiles=INT8_CHECK_TILES,
+        fullframe=f"{HP}x{WP}", odd_shapes=len(INT8_ODD),
+        dtypes="bf16,fp32")
+    times = _int8_site_times(dev)
+
+    scene = tmp / "scene"
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    rec, launches, engines = {"sites": times}, {}, {}
+    with _without_pil():
+        for mode, base, ref in (("tiled", served["bf16"], "dir_bf16"),
+                                ("fullframe", full["bf16"], "ff_bf16")):
+            out = tmp / f"int8_{mode}"
+            eng = engines[mode] = _dir_engine("bf16", scene, out, mode=mode,
+                                              quantize="int8")
+            log, level = _LogNames(), eng.logger.level
+            log.setLevel(logging.INFO)
+            eng.logger.setLevel(logging.INFO)
+            eng.logger.addHandler(log)
+            eng.process_directory()  # set-up: calibration, cuDNN, codec
+            _zero_counts()
+            for fn in QUANT_WRAPPERS.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            written = eng.process_directory()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            eng.logger.removeHandler(log)
+            eng.logger.setLevel(level)
+            counts, q = _read_counts(), _quant_counts()
+            calls = DIR_FRAMES if mode == "fullframe" else -(-DIR_FRAMES // (
+                eng._group_size(len(eng.boxes_for(_full_mask(), (H, W))))))
+            calibrations = sum("int8 serving: calibrated 22 activation "
+                               "scales on the first frame" in t
+                               for t in log.text)
+            if written != DIR_FRAMES or calibrations != 1:
+                raise AssertionError(f"int8 {mode}: {written} frames, "
+                                     f"{calibrations} calibrations")
+            _check_counts(f"int8 {mode}", counts, calls, mode == "tiled")
+            if q != {"conv_s8": 22 * calls, "quantize_act": 22 * calls}:
+                raise AssertionError(f"int8 {mode}: launches {q}, expected "
+                                     f"22 of each a call x {calls}")
+            launches[mode] = {**q, **counts}
+            psnr = _psnr(out, tmp / ref, names)
+            rec[mode] = {"eq_frames_per_s": DIR_FRAMES / seconds,
+                         "bf16_eq_frames_per_s": base["eq_frames_per_s"],
+                         "psnr_vs_bf16_db": psnr, "calls": calls}
+            say("int8", mode=mode, frames=written, calls=calls,
+                eq_frames_per_s=f"{DIR_FRAMES / seconds:.2f}",
+                bf16_eq_frames_per_s=f"{base['eq_frames_per_s']:.2f}",
+                psnr_vs_bf16_db=f"{psnr:.2f}", calibrations=calibrations,
+                conv_s8_launches=q["conv_s8"],
+                quantize_act_launches=q["quantize_act"],
+                b1_b2_launches=json.dumps(counts).replace(" ", ""),
+                card=f"'{card}'")
+            if psnr < INT8_PSNR_DB:
+                raise AssertionError(f"int8 {mode}: {psnr:.2f} dB against "
+                                     f"bf16 (limit {INT8_PSNR_DB})")
+
+    # one generator call of 512 tiles: int8 against bf16
+    g = torch.Generator(device=dev).manual_seed(7)
+    tiles = (torch.rand((B, PS, PS, 6), device=dev, generator=g) * 2 - 1
+             ).to(torch.bfloat16)
+    bf16 = _dir_engine("bf16", scene, tmp / "unused", quantize="off").model
+    int8 = engines["tiled"].model
+    with torch.no_grad():
+        n0 = _quant_counts()
+        int8(tiles)
+        one = {k: v - n0[k] for k, v in _quant_counts().items()}
+        if one != {"conv_s8": 22, "quantize_act": 22}:
+            raise AssertionError(f"one int8 call launched {one}")
+        ms_int8 = time_ms(lambda: int8(tiles), 5)
+        ms_bf16 = time_ms(lambda: bf16(tiles), 5)
+        ms_int8_2 = time_ms(lambda: int8(tiles), 5)
+    rec["generator_call"] = {"int8_ms": (ms_int8 + ms_int8_2) / 2,
+                             "int8_runs_ms": [ms_int8, ms_int8_2],
+                             "bf16_ms": ms_bf16}
+    say("int8", generator_call=f"{B} tiles", int8_ms=f"{ms_int8:.2f}/"
+        f"{ms_int8_2:.2f}", bf16_ms=f"{ms_bf16:.2f}",
+        int8_conv_s8_ms=f"{times['conv_ms']:.2f}",
+        int8_quantize_ms=f"{times['quant_ms']:.2f}",
+        bf16_library_conv_ms=f"{times['library_ms']:.2f}")
+    del bf16, int8, tiles
+
+    # the card against the CPU at precision 32, the card's scales copied
+    frame = engines["tiled"].load_frame(scene / "input" / names[0])
+    frame = frame[100:356, 200:656][None]
+    mask = np.zeros((256, 456), np.float32)
+    mask[20:230, 40:400] = 1
+    eroded = erode_full_support_np(mask)
+    eng = _dir_engine("32", scene, tmp / "unused", quantize="int8")
+    sites = eng.model.quant_layers()
+    seen = {}
+
+    def keep(path):
+        def hook(m, inp, out):  # the int8 pass, not calibration's
+            if m.quant_mode == "int8":
+                seen.setdefault(path, (inp[0], out))
+        return hook
+
+    hooks = [layer.register_forward_hook(keep(p))
+             for p, layer in sites.items()]
+    try:
+        got = eng.stylize_group(frame, [eroded])
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu = _dir_engine("32", scene, tmp / "unused", device="cpu",
+                      quantize="int8")
+    load_quant_scales(cpu.model, {p: layer.a_scale for p, layer
+                                  in sites.items()})
+    cpu._quant_ready = True
+    # each site of the card's pass, on the card's own input, bitwise the
+    # CPU's layer (its first 4 tiles: the convs are per tile)
+    cpu_sites = cpu.model.quant_layers()
+    with torch.no_grad():
+        for p, (x, y) in seen.items():
+            want = cpu_sites[p](x[:4].cpu())
+            if not torch.equal(y[:4].cpu(), want):
+                raise AssertionError(f"int8 site {p}: the card's output "
+                                     "differs from the CPU layer's on the "
+                                     "same input")
+    del seen
+    want = cpu.stylize_group(frame, [eroded])
+    dm = np.abs(got.astype(int) - want.astype(int))
+    share = float((dm.max(axis=-1) > 0).mean())
+    psnr = 10 * np.log10(255.0 ** 2 / max(float((dm ** 2).mean()), 1e-12))
+    # the yardstick: the card against itself with 10 % of every
+    # InstanceNorm output moved up by one ulp (seeded)
+    g = torch.Generator(device=dev).manual_seed(3)
+    real_norm = layers.instance_norm_act_autograd
+
+    def one_ulp_up(x, act):
+        y = real_norm(x, act)
+        up = torch.rand(y.shape, device=y.device, generator=g) < 0.1
+        return torch.where(up, torch.nextafter(
+            y, torch.full_like(y, float("inf"))), y)
+
+    layers.instance_norm_act_autograd = one_ulp_up
+    try:
+        nudged = eng.stylize_group(frame, [eroded])
+    finally:
+        layers.instance_norm_act_autograd = real_norm
+    dn = np.abs(got.astype(int) - nudged.astype(int))
+    rec["card_vs_cpu"] = {
+        "max_abs": int(dm.max()), "differing_pixel_share": share,
+        "psnr_db": psnr, "sites_bitwise": len(sites),
+        "one_ulp_nudge_max_abs": int(dn.max()),
+        "one_ulp_nudge_share": float((dn.max(axis=-1) > 0).mean())}
+    say("int8", card_vs_cpu="256x456", precision="32", max_abs=int(dm.max()),
+        differing_pixel_share=f"{share:.6f}", psnr_db=f"{psnr:.2f}",
+        sites_bitwise_on_the_cards_inputs=len(sites),
+        card_one_ulp_nudge_max_abs=int(dn.max()),
+        card_one_ulp_nudge_share=
+        f"{rec['card_vs_cpu']['one_ulp_nudge_share']:.6f}")
+    if psnr < INT8_PSNR_DB or got.std() < 1.0:
+        raise AssertionError(f"int8 card vs CPU: {psnr:.2f} dB (limit "
+                             f"{INT8_PSNR_DB})")
+    rec["seconds"] = time.perf_counter() - t0
+    say("int8", seconds=f"{rec['seconds']:.1f}")
+    return {"rec": rec, "launches": launches, "after": _quant_counts()}
+
+
 def phase_signed_unit(dev) -> None:
     """C4: all 256 bytes through the card's normalization, bitwise against
     the host's IEEE values; the division it replaced, for the record."""
@@ -3593,6 +3984,49 @@ def _mg_shard_processes(n: int, scene: Path, out: Path, ref: Path,
     return rec
 
 
+def _mg_int8(tmp: Path, scene: Path, names) -> dict:
+    """int8 serving over 2 cards (``inference.devices=2``, tiled, bf16)
+    bitwise the one-card int8 run, every replica with card 0's scales;
+    launches of each int8 kernel by card."""
+    runs = {}
+    for d in (1, 2):
+        out = tmp / f"mg_int8_d{d}"
+        eng = _dir_engine("bf16", scene, out, quantize="int8", devices=d)
+        eng.process_directory()  # set-up and calibration
+        for fn in QUANT_WRAPPERS.values():
+            fn.by_device.clear()
+        _sync_all()
+        t0 = time.perf_counter()
+        written = eng.process_directory()
+        _sync_all()
+        seconds = time.perf_counter() - t0
+        by_card = {k: dict(fn.by_device) for k, fn in QUANT_WRAPPERS.items()}
+        scales = [{p: float(layer.a_scale) for p, layer
+                   in m.quant_layers().items()} for m in eng.models]
+        runs[d] = {"eq_frames_per_s": DIR_FRAMES / seconds,
+                   "launches_by_card": by_card, "scales": scales,
+                   "written": written}
+    worst, differ = _compare_dirs(tmp / "mg_int8_d2", tmp / "mg_int8_d1",
+                                  names)
+    same_scales = all(s == runs[1]["scales"][0] for s in runs[2]["scales"])
+    say("multi_gpu", int8="tiled bf16", devices=2,
+        eq_frames_per_s=f"{runs[2]['eq_frames_per_s']:.2f}",
+        one_card_eq_frames_per_s=f"{runs[1]['eq_frames_per_s']:.2f}",
+        launches_by_card=json.dumps(runs[2]["launches_by_card"]).replace(
+            " ", ""), vs_one_device_max_abs=worst, differing_pixels=differ,
+        replicas_share_card0_scales=same_scales)
+    if worst or not same_scales or runs[2]["written"] != DIR_FRAMES \
+            or len(runs[2]["launches_by_card"]["conv_s8"]) != 2:
+        raise AssertionError(f"int8 over 2 cards: {worst} counts from one "
+                             f"card, scales shared {same_scales}, launches "
+                             f"{runs[2]['launches_by_card']}")
+    for r in runs.values():
+        del r["scales"]
+    return {"runs": runs, "launches": {
+        k: sum(sum(r["launches_by_card"][k].values()) for r in runs.values())
+        for k in QUANT_WRAPPERS}}
+
+
 def phase_multi_gpu(tmp: Path, plain_fit=None) -> dict:
     """Several cards through the entry points (see the module's
     docstring): on any card count, ``process_directory`` at
@@ -3664,6 +4098,10 @@ def phase_multi_gpu(tmp: Path, plain_fit=None) -> dict:
         if written != DIR_FRAMES or worst:
             raise AssertionError(f"file_shard union: {written} frames, "
                                  f"{worst} counts from the one-device run")
+        int8_launches = dict.fromkeys(QUANT_WRAPPERS, 0)
+        if ds:
+            rec["int8"] = _mg_int8(tmp, scene, names)
+            int8_launches = rec["int8"]["launches"]
         if len(ds) and max(ds) == 4:
             rec["file_shard_processes"] = _mg_shard_processes(
                 4, scene, tmp / "mg_shard4", tmp / "mg_tiled_bf16_d1", tmp,
@@ -3684,11 +4122,13 @@ def phase_multi_gpu(tmp: Path, plain_fit=None) -> dict:
     rec["launches"] = {**launches, **{
         f"train_{k}": sum(run[f"{k}_cluster"] for r in ranks
                           for run in r["runs"])
-        for k in ("forward", "backward")}}
+        for k in ("forward", "backward")},
+        **{f"int8_{k}": n for k, n in int8_launches.items()}}
     if not ds:
         say("multi_gpu", skipped="the 2- and 4-card forms (serving at "
-            "devices 2 and 4, full-frame, file_shard processes, fit over 2 "
-            f"and 4 ranks) did not run: this machine has {count} card")
+            "devices 2 and 4, full-frame, int8 over 2 cards, file_shard "
+            "processes, fit over 2 and 4 ranks) did not run: this machine "
+            f"has {count} card")
     return rec
 
 
@@ -3736,6 +4176,7 @@ def main() -> int:
         single = phase_single_image(dev, card, Path(tmp))
         watch = phase_watch(dev, card, Path(tmp))
         multi = phase_multistream(dev, card, Path(tmp))
+        int8 = phase_int8(dev, card, Path(tmp), served["rec"], full["rec"])
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
@@ -3744,6 +4185,16 @@ def main() -> int:
         mgpu = phase_multi_gpu(Path(tmp), train.pop("final"))
     with tempfile.TemporaryDirectory() as tmp:
         guides = phase_guides(dev, card, Path(tmp))
+    # no phase but int8 (and multi_gpu's 2-card int8) launches them
+    want = {k: n + mgpu["launches"][f"int8_{k}"]
+            for k, n in int8["after"].items()}
+    if _quant_counts() != want:
+        raise AssertionError(f"int8 kernels launched outside the int8 "
+                             f"runs: {_quant_counts()} against {want}")
+    q_launches = {f"int8_{mode}": n["conv_s8"]
+                  for mode, n in int8["launches"].items()}
+    q_launches["multi_gpu_int8"] = mgpu["launches"]["int8_conv_s8"]
+    i8 = int8["rec"]["sites"]
     # launches of B1's cluster variant and of B2 by path: the serving
     # paths of every phase, one entry each
     cluster = {"serve": launches["instance_norm_act"],
@@ -3754,7 +4205,8 @@ def main() -> int:
                "single_image": single["launches"]["cluster"],
                "watch": watch["launches"]["cluster"],
                "multistream": multi["launches"]["cluster"],
-               "multi_gpu_serve": mgpu["launches"]["cluster"]}
+               "multi_gpu_serve": mgpu["launches"]["cluster"],
+               "int8_serve_directory": int8["launches"]["tiled"]["cluster"]}
     blends = {"serve": launches["blend_tiles"],
               "serve_directory": served["launches"]["blend_tiles"],
               "temporal_tiled": chain["launches"]["blend"],
@@ -3763,7 +4215,8 @@ def main() -> int:
               "single_image": single["launches"]["blend"],
               "watch": watch["launches"]["blend"],
               "multistream": multi["launches"]["blend"],
-              "multi_gpu_serve": mgpu["launches"]["blend"]}
+              "multi_gpu_serve": mgpu["launches"]["blend"],
+              "int8_serve_directory": int8["launches"]["tiled"]["blend"]}
     splits = {"fullframe": full["launches"]["split"],
               "temporal_fullframe": chain["launches"]["split"],
               "temporal_device_fullframe": dflow["launches"]["split"],
@@ -3771,7 +4224,8 @@ def main() -> int:
               "single_image": single["launches"]["split"],
               "watch": watch["launches"]["split"],
               "multistream": multi["launches"]["split"],
-              "multi_gpu_serve": mgpu["launches"]["split"]}
+              "multi_gpu_serve": mgpu["launches"]["split"],
+              "int8_fullframe": int8["launches"]["fullframe"]["split"]}
     rec_in["variants"]["cluster"]["launches"] = sum(cluster.values())
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
@@ -3839,6 +4293,43 @@ def main() -> int:
              **{k: v for k, v in guides["rec"]["splat"].items()
                 if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}),
+        dict(name="conv_s8", route="cuda",
+             source="patch_toon_tpu_torch/csrc/quant_conv.cu",
+             replaces="patch_toon_tpu/models/layers.py:165 (QuantConv: "
+                      "XLA's int8 conv_general_dilated, not a Pallas "
+                      "kernel)",
+             launches=sum(q_launches.values()),
+             launches_by_path=q_launches, max_abs_err=0.0,
+             ms=i8["conv_ms"], plain_ms=i8["conv_plain_ms"],
+             bound_ms=i8["conv_bound_ms"], bound_by="operations"
+             if i8["conv_ops_ms"] >= i8["conv_bytes_ms"] else "bytes",
+             library_ms=i8["library_ms"],
+             library_note="cuDNN's bf16 F.conv2d at each site (no PyTorch "
+                          "call convolves int8 on the card); "
+                          f"torch._int_mm over a {i8['im2col_mb']:.0f} MB "
+                          f"im2col at the residual shape "
+                          f"{i8['int_mm_ms']:.4f} ms",
+             dtype="bf16", per="the 22 sites of one 512-tile generator "
+                               "call"),
+        dict(name="quantize_act", route="cuda",
+             source="patch_toon_tpu_torch/csrc/quant_conv.cu",
+             replaces="patch_toon_tpu/models/layers.py:165 (QuantConv's "
+                      "activation quantization, XLA elementwise)",
+             launches=sum(int8["launches"][m]["quantize_act"]
+                          for m in int8["launches"])
+             + mgpu["launches"]["int8_quantize_act"],
+             launches_by_path={
+                 **{f"int8_{m}": n["quantize_act"]
+                    for m, n in int8["launches"].items()},
+                 "multi_gpu_int8": mgpu["launches"]["int8_quantize_act"]},
+             max_abs_err=0.0, ms=i8["quant_ms"],
+             plain_ms=i8["quant_plain_ms"], bound_ms=i8["quant_bound_ms"],
+             bound_by="bytes", library_ms=None,
+             library_note="no single PyTorch call quantizes to int8 "
+                          "against a scale on the device with the "
+                          "channels padded",
+             dtype="bf16", per="the 22 sites of one 512-tile generator "
+                               "call"),
     ]
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": kernels, "train": train["rec"],
@@ -3847,7 +4338,7 @@ def main() -> int:
                       "temporal_device": dflow["rec"],
                       "precision_32_fast": fast["rec"],
                       "single_image": single["rec"], "watch": watch["rec"],
-                      "multistream": multi["rec"],
+                      "multistream": multi["rec"], "int8": int8["rec"],
                       "train_rest": rest["rec"], "guides": guides["rec"],
                       "multi_gpu": mgpu}),
           flush=True)

@@ -64,6 +64,14 @@ SIGNATURES = {
                         _P],
     # image, out, points, colors, valid (u8), n, h, w, r, s2, device, stream
     "ptt_splat_points": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x (NHWC), xq (NHWC, cp channels, int8), s (one fp32 on the device),
+    # pixels, c, cp, dtype (0 f32, 1 bf16), device, stream
+    "ptt_quantize_act": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xq, wq (cout, kp) packed, s, w_s, bias (or null), out, n, h, w, cp,
+    # cout, kp, k, stride, pad, ho, wo, out_dtype (0 f32, 1 bf16, 2 the
+    # int32 accumulator), device, stream
+    "ptt_conv_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

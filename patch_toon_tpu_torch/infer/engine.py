@@ -74,9 +74,20 @@ group (``parallel.dcn.enabled``, the CLI joins it) the shard is the rank's
 when none is given, and with the temporal guide only rank 0 serves (an
 explicit shard with the temporal guide raises ``ValueError``).
 
-Not ported yet, and refused by name (``NotImplementedError``):
-``quantize=int8``; a mode other than tiled and fullframe raises
-``ValueError``. ``readback_streams`` sets
+``inference.quantize: int8`` (alias ``w8a8``; JAX ``engine.py:162-176,
+372-418``) serves every generator conv but the 1x1 head as w8a8
+(``models/layers.py::QuantConv2d``, the kernels of ``ops/quant.py``):
+the weights quantize per output channel from the fp32 checkpoint at load,
+and the activation scales calibrate once, on the first frame the engine
+serves (:meth:`_ensure_quant`: one calib-mode forward over the whole
+frame on the first device), in every entry point (:meth:`_run`,
+:meth:`_stylize_group`, the multi-stream cycle's, before the card loop
+of :meth:`_dispatch_sharded`); every replica then serves with the first
+device's scales. Each ``file_shard`` process calibrates on its own first
+frame, as in JAX. A throughput knob, not bit parity; off by default.
+
+A mode other than tiled and fullframe raises ``ValueError``.
+``readback_streams`` sets
 the pipeline's in-flight window (its value plus 2 frames, the JAX rule).
 ``upload`` is validated as JAX does and decides ``temporal.flow_upload:
 auto`` (f16 unless it resolves to f32), which rounds the flows; otherwise
@@ -107,7 +118,11 @@ from patch_toon_tpu_torch.data.io import (
     load_luma,
     load_mask,
 )
-from patch_toon_tpu_torch.infer.common import HostSpans, _image_files
+from patch_toon_tpu_torch.infer.common import (
+    HostSpans,
+    _image_files,
+    _to_signed_unit,
+)
 from patch_toon_tpu_torch.infer.multistream import MultiStreamMixin
 from patch_toon_tpu_torch.infer.pipeline import (
     GroupPipeline,
@@ -143,7 +158,10 @@ from patch_toon_tpu_torch.native.frameio import FrameWriter, encode_png
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.parallel import comm
 from patch_toon_tpu_torch.utils.knobs import check_transport_knobs
-from patch_toon_tpu_torch.utils.weights import load_generator_state
+from patch_toon_tpu_torch.utils.weights import (
+    load_generator_state,
+    load_quant_scales,
+)
 
 # distinct tile layouts whose device-resident plan and weights are kept:
 # boxes recur exactly for static masks and for maskless frames
@@ -200,21 +218,26 @@ def _resolve_dtype(precision: Any) -> torch.dtype:
 MODES = ("tiled", "fullframe")
 
 
-def check_unported_inference_knobs(inf: Dict[str, Any]) -> None:
-    """Raise NotImplementedError naming each inference knob that asks for
-    what this port does not do yet (the JAX engine acts on all of them),
-    ValueError for a mode that does not exist."""
+def parse_quantize(inf: Dict[str, Any]) -> Optional[str]:
+    """``inference.quantize`` as JAX ``engine.py:168-176`` reads it: None
+    (off) or "int8" (alias w8a8); anything else raises ValueError."""
+    q = str(inf.get("quantize", "off")).lower()
+    if q in ("off", "false", "0", "no", "none"):
+        return None
+    if q in ("int8", "w8a8"):
+        return "int8"
+    raise ValueError(f"inference.quantize={q!r}: expected int8/w8a8 or "
+                     "off/false/0/no/none")
+
+
+def check_inference_knobs(inf: Dict[str, Any]) -> None:
+    """Raise ValueError for a mode that does not exist, a quantize value
+    JAX refuses, or a transport knob JAX refuses (``utils/knobs.py``)."""
     mode = str(inf.get("mode", "tiled"))
     if mode not in MODES:
         raise ValueError(f"inference.mode={mode!r}: expected tiled or "
                          "fullframe")
-    q = str(inf.get("quantize", "off")).lower()
-    if q in ("int8", "w8a8"):
-        raise NotImplementedError(f"inference.quantize={q!r} is not ported "
-                                  "yet")
-    if q not in ("off", "false", "0", "no", "none"):
-        raise ValueError(f"inference.quantize={q!r}: expected int8/w8a8 or "
-                         "off/false/0/no/none")
+    parse_quantize(inf)
     check_transport_knobs(inf)
 
 
@@ -266,8 +289,10 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
     def __init__(self, cfg: Any, device: Optional[str] = None):
         self.cfg = cfg
         inf = cfg.get("inference", {}) or {}
-        check_unported_inference_knobs(inf)
+        check_inference_knobs(inf)
         self.mode = str(inf.get("mode", "tiled"))
+        self.quantize = parse_quantize(inf)
+        self._quant_ready = False  # first-frame calibration done
         self.devices_cfg = int(inf.get("devices", 1) or 1)
         self.cards = _resolve_devices(device, inf)
         self.device = self.cards[0]
@@ -334,12 +359,46 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         model.load_state_dict(sd, strict=True)
         model = model.eval().to(self.device,
                                 memory_format=torch.channels_last)
+        if self.quantize:
+            # JAX quantizes the fp32 kernel: before the cast below
+            for layer in model.quant_layers().values():
+                layer.quantize_weights()
+            model.quant_mode = "int8"
         for m in model.modules():
             if isinstance(m, torch.nn.Conv2d):
                 m.to(self.dtype)  # the smoother BatchNorm stays fp32
         self.logger.info(f"Model ready: {ckpt_channels} input channels from "
                          f"{ckpt_path} on {self.device}, {self.dtype}")
         return model
+
+    def _ensure_quant(self, frame: torch.Tensor) -> None:
+        """First-frame w8a8 calibration (JAX ``engine.py:390-418``), once:
+        one calib-mode forward of the generator on the first device over
+        the whole frame ((H, W, C) uint8 or fp32 on a device; uint8 goes
+        through ``_to_signed_unit``, the host's IEEE values), trimmed to
+        ``h//4*4 x w//4*4``, at the engine's type; each site's fp32
+        ``max|x|`` becomes its activation scale, copied to every replica,
+        so every device serves with the first device's scales. Afterwards
+        the int8 path takes the stored scales: no reduction, no sync."""
+        if not self.quantize or self._quant_ready:
+            return
+        with _on_card(self.device):
+            x = _to_signed_unit(frame.to(self.device))
+            h, w = x.shape[0], x.shape[1]
+            x = x[None, :h // 4 * 4, :w // 4 * 4, :].to(self.dtype)
+            self.model.quant_mode = "calib"
+            try:
+                with torch.no_grad():
+                    self.model(x)
+            finally:
+                self.model.quant_mode = "int8"
+            scales = {p: layer.a_scale for p, layer
+                      in self.model.quant_layers().items()}
+            for model in self.models:
+                load_quant_scales(model, scales)
+        self._quant_ready = True
+        self.logger.info(f"int8 serving: calibrated {len(scales)} "
+                         "activation scales on the first frame")
 
     # ------------------------------------------------------------------
 
@@ -382,6 +441,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         fp32 and (F, H, W, 1) -> (uint8, fp32 composite), each (F, H, W,
         3) on that device, queued on its current stream (no
         synchronisation). Fullframe mode takes no boxes."""
+        self._ensure_quant(frames[0])
         f, h, w, _ = frames.shape
         if self.mode == "fullframe":
             fn = make_fullframe_fn(self.models[replica], h, w, self.dtype)
@@ -395,6 +455,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         """:meth:`_run` through the tiled multiframe program whatever the
         mode, as JAX ``engine.py:951-979`` (the multi-stream cycle of two
         or more streams takes it)."""
+        self._ensure_quant(frames[0])
         f, h, w, _ = frames.shape
         with self.spans("host/pack"):
             plan, weights = self._pack(group_boxes, h, w,
@@ -463,6 +524,9 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         if len(group) > total:
             raise ValueError(f"a group of {len(group)} frames over "
                              f"{len(self.cards)} devices x {per}")
+        if self.quantize and not self._quant_ready:
+            self._await_staged(group[:1])
+            self._ensure_quant(group[0].frame)
         padded = list(group) + [group[-1]] * (total - len(group))
         outs: List[torch.Tensor] = []
         for k, card in enumerate(self.cards):

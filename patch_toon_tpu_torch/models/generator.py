@@ -4,7 +4,10 @@
 bilinear-upsample + conv blocks with skip concats, a 7x7 conv over
 (decoded, stem, raw input), optional conv/BN smoothers, and a 1x1 head with
 tanh (reference src/models/generator.py:60-238). All 19 InstanceNorm sites
-go through ``ops.instance_norm.instance_norm_act``.
+go through ``ops.instance_norm.instance_norm_act``. Every conv but the 1x1
+head is a ``layers.QuantConv2d`` (22 at 7 residual blocks): ``quant_mode``
+None is the fp conv, "calib" and "int8" are JAX's w8a8 serving modes
+(``GeneratorJ.clone(quant_mode=...)``; ``quant_layers`` names the sites).
 
 Module names are the reference's (table in
 ``patch_toon_tpu/utils/torch_compat.py:13-30``), so a reference state dict
@@ -22,13 +25,15 @@ statistics and advances its running statistics once
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from patch_toon_tpu_torch.models.layers import (
+    QUANT_MODES,
+    QuantConv2d,
     batch_norm_eval_fp32,
     batch_norm_train_fp32,
     conv,
@@ -46,9 +51,10 @@ class ResNetBlock(nn.Module):
         super().__init__()
         cp = conv_precision
         self.block = nn.Sequential(
-            nn.ReLU(), conv(channels, channels, 3, 1, 1, use_bias, cp),
+            nn.ReLU(), conv(channels, channels, 3, 1, 1, use_bias, cp, True),
             nn.Identity(), nn.ReLU(),
-            conv(channels, channels, 3, 1, 1, use_bias, cp), nn.Identity())
+            conv(channels, channels, 3, 1, 1, use_bias, cp, True),
+            nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.block[1](F.relu(x))
@@ -77,26 +83,60 @@ class GeneratorJ(nn.Module):
         c = int(input_channels)
         cp = conv_precision
         self.tanh = bool(tanh)
+        q = True  # every conv but the 1x1 head takes w8a8 (JAX :100-155)
         self.initial_conv = nn.Sequential(
-            conv(c, f[0], 7, 1, 3, use_bias, cp))
+            conv(c, f[0], 7, 1, 3, use_bias, cp, q))
         self.downsample1 = nn.Sequential(
-            conv(f[0], f[1], 3, 2, 1, use_bias, cp))
+            conv(f[0], f[1], 3, 2, 1, use_bias, cp, q))
         self.downsample2 = nn.Sequential(
-            conv(f[1], f[2], 3, 2, 1, use_bias, cp))
+            conv(f[1], f[2], 3, 2, 1, use_bias, cp, q))
         self.resnet_blocks = nn.Sequential(
             *[ResNetBlock(f[2], use_bias, cp) for _ in range(resnet_blocks)])
         self.upsample2 = nn.Sequential(
-            nn.Identity(), conv(2 * f[2], f[4], 3, 1, 1, use_bias, cp))
+            nn.Identity(), conv(2 * f[2], f[4], 3, 1, 1, use_bias, cp, q))
         self.upsample1 = nn.Sequential(
-            nn.Identity(), conv(f[4] + f[1], f[4], 3, 1, 1, use_bias, cp))
+            nn.Identity(), conv(f[4] + f[1], f[4], 3, 1, 1, use_bias, cp, q))
         self.conv11 = nn.Sequential(
-            conv(f[4] + f[0] + c, f[5], 7, 1, 3, use_bias, cp))
+            conv(f[4] + f[0] + c, f[5], 7, 1, 3, use_bias, cp, q))
         self.smoothers = nn.Sequential(
-            conv(f[5], f[5], 3, 1, 1, use_bias, cp), nn.ReLU(),
+            conv(f[5], f[5], 3, 1, 1, use_bias, cp, q), nn.ReLU(),
             nn.BatchNorm2d(f[5]),
-            conv(f[5], f[5], 3, 1, 1, use_bias, cp), nn.ReLU(),
+            conv(f[5], f[5], 3, 1, 1, use_bias, cp, q), nn.ReLU(),
         ) if append_smoothers else None
+        # the head stays fp for output fidelity (JAX :159)
         self.output = nn.Sequential(conv(f[5], 3, 1, 1, 0, True, cp))
+
+    def quant_layers(self) -> Dict[str, QuantConv2d]:
+        """The w8a8 sites in forward order, by their module path in the
+        JAX generator's ``quant`` collection ("initial_conv/conv", ...,
+        "resnet_0/conv1", ..., "conv11", "smoother_conv2")."""
+        out = {"initial_conv/conv": self.initial_conv[0],
+               "downsample1/conv": self.downsample1[0],
+               "downsample2/conv": self.downsample2[0]}
+        for i, blk in enumerate(self.resnet_blocks):
+            out[f"resnet_{i}/conv1"] = blk.block[1]
+            out[f"resnet_{i}/conv2"] = blk.block[4]
+        out["upsample2/conv"] = self.upsample2[1]
+        out["upsample1/conv"] = self.upsample1[1]
+        out["conv11"] = self.conv11[0]
+        if self.smoothers is not None:
+            out["smoother_conv1"] = self.smoothers[0]
+            out["smoother_conv2"] = self.smoothers[3]
+        return out
+
+    @property
+    def quant_mode(self) -> Optional[str]:
+        return self.initial_conv[0].quant_mode
+
+    @quant_mode.setter
+    def quant_mode(self, mode: Optional[str]) -> None:
+        """JAX ``GeneratorJ.clone(quant_mode=...)``: None, "calib" or
+        "int8" at every w8a8 site. "int8" needs :meth:`QuantConv2d.
+        quantize_weights` on the fp32 weights first."""
+        if mode not in QUANT_MODES:
+            raise ValueError(f"Unknown quant mode: {mode!r}")
+        for layer in self.quant_layers().values():
+            layer.quant_mode = mode
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

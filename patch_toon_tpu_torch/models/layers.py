@@ -28,6 +28,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from patch_toon_tpu_torch.ops.instance_norm import instance_norm_act_autograd
+from patch_toon_tpu_torch.ops.quant import (
+    activation_scale,
+    conv_s8,
+    pack_weight,
+    padded_channels,
+    quantize_act,
+    quantize_weight,
+)
 from patch_toon_tpu_torch.parallel import comm
 
 
@@ -139,14 +147,91 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, w, b)
 
 
+QUANT_MODES = (None, "calib", "int8")
+_QUANT_BUFFERS = ("a_scale", "wq", "w_s")
+
+
+class QuantConv2d(Conv2d):
+    """:class:`Conv2d` with JAX's w8a8 serving modes (``QuantConv``,
+    patch_toon_tpu/models/layers.py:165-251): the same parameters and
+    state-dict keys, so every checkpoint loads unchanged, and
+    ``quant_mode``:
+
+    - None: :class:`Conv2d`, bit for bit;
+    - ``"calib"``: :class:`Conv2d`'s forward, folding the input's fp32
+      ``max|x|`` into ``a_scale`` (repeated calls take the max);
+    - ``"int8"``: ``ops.quant.quantize_act`` against the scale
+      (``ops.quant.activation_scale``: the stored one where positive, else
+      the dynamic ``max|x|``; ``calibrated``, a host flag, takes the stored
+      one without the reduction), then ``ops.quant.conv_s8`` over ``wq``
+      and ``w_s``, the weight quantized by :meth:`quantize_weights`.
+
+    ``a_scale``, ``wq`` and ``w_s`` are non-persistent buffers (JAX keeps
+    them in a ``quant`` collection apart from the params): they never
+    enter ``state_dict()``, and ``.to(dtype)`` leaves their types alone
+    (they follow the weight's device), so the engine's cast of every conv
+    to the serving type keeps the fp32 scales and the int8 weight."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.quant_mode: Optional[str] = None
+        self.calibrated = False
+        self.register_buffer("a_scale", torch.zeros((), dtype=torch.float32,
+                                                    device=self.weight.device),
+                             persistent=False)
+        self.register_buffer("wq", None, persistent=False)
+        self.register_buffer("w_s", None, persistent=False)
+
+    def _apply(self, fn, recurse=True):
+        keep = {k: self._buffers.pop(k) for k in _QUANT_BUFFERS}
+        super()._apply(fn, recurse)
+        for k, t in keep.items():
+            self._buffers[k] = None if t is None else t.to(self.weight.device)
+        return self
+
+    def quantize_weights(self) -> None:
+        """``wq`` (packed for ``conv_s8``) and ``w_s`` from the fp32 weight,
+        as JAX quantizes the fp32 kernel: call it before the weight is cast
+        to the serving type."""
+        if self.weight.dtype != torch.float32:
+            raise ValueError("quantize_weights needs the fp32 weight, got "
+                             f"{self.weight.dtype}")
+        wq, w_s = quantize_weight(self.weight.detach())
+        self.wq = pack_weight(wq, padded_channels(self.in_channels))
+        self.w_s = w_s
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = self.quant_mode
+        if mode is None:
+            return super().forward(x)
+        if mode == "calib":
+            with torch.no_grad():
+                self.a_scale = torch.maximum(
+                    self.a_scale, x.detach().float().abs().amax())
+            return super().forward(x)
+        if mode != "int8":
+            raise ValueError(f"Unknown quant mode: {mode!r}")
+        if self.wq is None:
+            raise RuntimeError("int8 mode before quantize_weights()")
+        s = activation_scale(self.a_scale, x, self.calibrated)
+        xq = quantize_act(x.permute(0, 2, 3, 1).contiguous(), s)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = conv_s8(xq, self.wq, s, self.w_s, b, self.kernel_size[0],
+                    self.stride[0], self.padding[0], x.dtype)
+        return y.permute(0, 3, 1, 2)
+
+
 def conv(cin: int, cout: int, k: int, stride: int = 1, padding: int = 0,
-         bias: bool = True, conv_precision: Optional[str] = None) -> Conv2d:
+         bias: bool = True, conv_precision: Optional[str] = None,
+         quantizable: bool = False) -> Conv2d:
     """Torch-compatible conv: explicit zero padding, N(0, 0.02) weights and
     zero bias as at reference generator.py:149-154; ``conv_precision``
-    None or "high" (JAX ``models/layers.py::resolve_mxu_precision``)."""
+    None or "high" (JAX ``models/layers.py::resolve_mxu_precision``);
+    ``quantizable``: a :class:`QuantConv2d` (the generator's w8a8 sites)."""
     if conv_precision not in (None, "high"):
         raise ValueError(f"Unknown conv_precision: {conv_precision!r}")
-    layer = Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
+    cls = QuantConv2d if quantizable else Conv2d
+    layer = cls(cin, cout, k, stride=stride, padding=padding, bias=bias)
     layer.conv_precision = conv_precision
     nn.init.normal_(layer.weight, 0.0, 0.02)
     if bias:

@@ -65,6 +65,42 @@ def generator_state_from_jax(params: Mapping[str, Any],
     return out
 
 
+def generator_scales_from_jax(quant: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """flax GeneratorJ's ``quant`` collection (``a_scale`` under each
+    QuantConv's module path) as numpy -> {path: 0-d fp32 tensor}, the
+    paths of ``GeneratorJ.quant_layers`` ("initial_conv/conv", ...,
+    "conv11", ...)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for k, v in tree.items():
+            if k == "a_scale":
+                out[prefix] = _t(np.asarray(v, np.float32)).reshape(())
+            elif isinstance(v, Mapping):
+                walk(v, f"{prefix}/{k}" if prefix else k)
+
+    walk(quant, "")
+    return out
+
+
+def load_quant_scales(generator, scales: Mapping[str, torch.Tensor]) -> None:
+    """Set each w8a8 site's ``a_scale`` (a copy on its weight's device) and
+    its ``calibrated`` flag (the scale is positive) from ``scales`` by
+    module path; the paths must be the generator's own."""
+    layers = generator.quant_layers()
+    if set(scales) != set(layers):
+        raise ValueError(f"scales for {sorted(scales)}, the generator's "
+                         f"sites are {sorted(layers)}")
+    positive = (torch.stack([torch.as_tensor(scales[p]).detach().reshape(())
+                             .to("cpu", torch.float32) for p in layers])
+                > 0).tolist()
+    for (path, layer), pos in zip(layers.items(), positive):
+        layer.a_scale = torch.as_tensor(scales[path]).detach().to(
+            layer.weight.device, torch.float32).reshape(()).clone()
+        layer.calibrated = bool(pos)
+
+
 def discriminator_state_from_jax(params: Mapping[str, Any],
                                  n_layers: int = 3
                                  ) -> Dict[str, torch.Tensor]:

@@ -9,7 +9,9 @@ file imports no JAX, so it also runs on a machine without it:
 InstanceNorm fp32 1e-5 absolute and relative (sums in other orders); bf16
 one bf16 ulp of the value plus 1e-5, as two fp32 results that differ in the
 last bits may round to neighbouring bf16 values; the blend and the splat
-bit for bit. Two tests need two cards (they skip with one): every kernel
+bit for bit; the int8 kernels (activation quantization, the w8a8
+convolution's accumulator and output) bit for bit. Three tests need two
+cards (they skip with one): every kernel
 entry keeps the caller's current device, and the engine names its cards
 (replicas, copy streams, a sharded group's outputs bitwise the one-card
 dispatch, the flow graph on its frame's card).
@@ -25,6 +27,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from patch_toon_tpu_torch.ops import blend as tblend  # noqa: E402
+from patch_toon_tpu_torch.ops import quant as tquant  # noqa: E402
 from patch_toon_tpu_torch.ops import splat as tsplat  # noqa: E402
 from patch_toon_tpu_torch import _build  # noqa: E402
 from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
@@ -901,6 +904,103 @@ def test_splat_kernel_refuses_what_it_cannot_take(cuda):
         tsplat.splat_points(img[..., :2], pts, cols, valid, 2.0)
 
 
+# ------------------------------------------------------- int8 (w8a8) kernels
+
+# (H, W, Cin, Cout, k, stride) of the 22 w8a8 sites of a tile call at full
+# width (80x80 tiles, 6 input channels), then shapes off the CTA tile: Cin
+# 6 and 166, stride 2, H and W odd, Cout below a CTA's 64 columns
+QUANT_SITES = [(80, 80, 6, 32, 7, 1), (80, 80, 32, 64, 3, 2),
+               (40, 40, 64, 128, 3, 2), (20, 20, 128, 128, 3, 1),
+               (40, 40, 256, 128, 3, 1), (80, 80, 192, 128, 3, 1),
+               (80, 80, 166, 64, 7, 1), (80, 80, 64, 64, 3, 1)]
+QUANT_ODD = [(13, 17, 6, 32, 7, 1), (11, 9, 166, 64, 7, 1),
+             (15, 21, 32, 64, 3, 2), (9, 7, 64, 128, 3, 2),
+             (7, 5, 40, 8, 3, 1)]
+
+
+def _quant_case(h, w, cin, cout, k, n, dtype, card, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn((n, h, w, cin), generator=g) * 1.5).to(dtype)
+    weight = torch.randn((cout, cin, k, k), generator=g) * 0.05
+    bias = torch.randn((cout,), generator=g) * 0.1
+    s = tquant.activation_scale(torch.zeros(()), x)
+    wq, w_s = tquant.quantize_weight(weight)
+    wp = tquant.pack_weight(wq, tquant.padded_channels(cin))
+    return [t.to(card) for t in (x, s, wp, w_s, bias.to(dtype))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SITES + QUANT_ODD)
+def test_quantize_act_kernel_bitwise_equals_plain(cuda, dtype, shape):
+    h, w, cin, cout, k, stride = shape
+    x, s, *_ = _quant_case(h, w, cin, cout, k, 3, dtype, cuda, seed=cin)
+    n0 = tquant.quantize_act.launches
+    got = tquant.quantize_act(x, s)
+    assert tquant.quantize_act.launches == n0 + 1
+    want = tquant.quantize_act_plain(x, s)
+    assert got.shape == want.shape == (3, h, w, tquant.padded_channels(cin))
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), tquant.quantize_act_plain(x.cpu(),
+                                                             s.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SITES + QUANT_ODD)
+def test_conv_s8_kernel_bitwise_equals_plain(cuda, dtype, shape):
+    """The accumulator and the output (with and without bias) bit for
+    bit against the plain version on the card, and the card's
+    accumulator against the CPU's."""
+    h, w, cin, cout, k, stride = shape
+    x, s, wp, w_s, bias = _quant_case(h, w, cin, cout, k, 2, dtype, cuda,
+                                      seed=cout + k)
+    xq = tquant.quantize_act(x, s)
+    pad = k // 2
+    acc = tquant.conv_s8(xq, wp, s, w_s, None, k, stride, pad, torch.int32)
+    want = tquant.conv_s8_acc_plain(xq, wp, k, stride, pad)
+    assert torch.equal(acc, want)
+    assert torch.equal(acc.cpu(), tquant.conv_s8_acc_plain(
+        xq.cpu(), wp.cpu(), k, stride, pad))
+    for b in (bias, None):
+        n0 = tquant.conv_s8.launches
+        y = tquant.conv_s8(xq, wp, s, w_s, b, k, stride, pad, dtype)
+        assert tquant.conv_s8.launches == n0 + 1
+        y_plain = tquant.conv_s8_plain(xq, wp, s, w_s, b, k, stride, pad,
+                                       dtype)
+        assert y.dtype == dtype and y.shape == y_plain.shape
+        assert torch.equal(y, y_plain)
+
+
+@pytest.mark.cuda
+def test_quant_kernels_refuse_what_they_cannot_take(cuda):
+    x, s, wp, w_s, bias = _quant_case(9, 7, 32, 64, 3, 2, torch.float32,
+                                      cuda, seed=0)
+    with pytest.raises(ValueError):  # a type the kernel does not read
+        tquant.quantize_act(x.double(), s)
+    with pytest.raises(ValueError):  # not NHWC-contiguous
+        tquant.quantize_act(x.permute(0, 2, 1, 3), s)
+    with pytest.raises(ValueError):  # the scale elsewhere
+        tquant.quantize_act(x, s.cpu())
+    xq = tquant.quantize_act(x, s)
+    args = (s, w_s, None, 3, 1, 1, torch.float32)
+    with pytest.raises(ValueError):  # Cp not a multiple of 16
+        tquant.conv_s8(xq[..., :24].contiguous(), wp, *args)
+    with pytest.raises(ValueError):  # not contiguous
+        tquant.conv_s8(xq.permute(0, 2, 1, 3), wp, *args)
+    with pytest.raises(ValueError):  # not int8
+        tquant.conv_s8(xq.float(), wp, *args)
+    with pytest.raises(ValueError):  # a packed weight of another K
+        tquant.conv_s8(xq, wp[:, :-32].contiguous(), *args)
+    with pytest.raises(ValueError):  # a window the kernel does not take
+        tquant.conv_s8(xq, wp, s, w_s, None, 5, 1, 2, torch.float32)
+    with pytest.raises(ValueError):  # bias of another type
+        tquant.conv_s8(xq, wp, s, w_s, bias.double(), 3, 1, 1,
+                       torch.float32)
+    with pytest.raises(ValueError):  # an output type it does not write
+        tquant.conv_s8(xq, wp, s, w_s, None, 3, 1, 1, torch.float16)
+
+
 # ------------------------------------------------- several cards (2 or more)
 
 @pytest.fixture
@@ -955,6 +1055,29 @@ def test_kernel_launches_keep_the_callers_current_device(two_cards):
             assert torch.equal(canvas.cpu(), c_plain)
             assert torch.equal(wcanvas.cpu(), w_plain)
             assert torch.isfinite(ys).all()
+    torch.cuda.set_device(0)
+
+
+@pytest.mark.cuda
+def test_quant_kernels_keep_the_callers_current_device(two_cards):
+    """The int8 kernels launch on their tensors' card from either current
+    device and put the caller's current device back, bitwise their plain
+    versions."""
+    for current in (0, 1):
+        torch.cuda.set_device(current)
+        for card in two_cards * 2:
+            x, s, wp, w_s, bias = _quant_case(20, 20, 128, 128, 3, 2,
+                                              torch.bfloat16, card, seed=1)
+            xq = tquant.quantize_act(x, s)
+            assert torch.cuda.current_device() == current
+            y = tquant.conv_s8(xq, wp, s, w_s, bias, 3, 1, 1,
+                               torch.bfloat16)
+            assert torch.cuda.current_device() == current
+            assert torch.empty(1, device="cuda").device.index == current
+            assert xq.device == card and y.device == card
+            assert torch.equal(xq, tquant.quantize_act_plain(x, s))
+            assert torch.equal(y, tquant.conv_s8_plain(
+                xq, wp, s, w_s, bias, 3, 1, 1, torch.bfloat16))
     torch.cuda.set_device(0)
 
 

@@ -133,11 +133,26 @@ def test_engine_refusals(scene, tmp_path):
                    "paths.additional_channels={}",
                    "inference.temporal.flow_source=device"
                    ).temporal_flow_source == "device"
-    # a knob the JAX engine acts on and the port does not yet is named
-    with pytest.raises(NotImplementedError, match="quantize"):
-        _engine(scene, tmp_path, "inference.quantize=int8",
-                "inference.temporal.enabled=true",
-                "paths.additional_channels={}")
+    # int8 serving is ported: quantize=int8 (alias w8a8) builds an engine
+    # whose 22 convs at 7 residual blocks (all but the 1x1 head) take
+    # w8a8, with the temporal guide too; calibration waits for a frame
+    torch.manual_seed(6)
+    deep = GeneratorJ(input_channels=6, filters=(4, 8, 8, 8, 8, 4),
+                      use_bias=True, resnet_blocks=7)
+    torch.save({"state_dict": {f"generator.{k}": v for k, v
+                               in deep.state_dict().items()}},
+               tmp_path / "deep.ckpt")
+    for q in ("int8", "w8a8"):
+        eng = _engine(scene, tmp_path, f"inference.quantize={q}",
+                      "inference.temporal.enabled=true",
+                      "paths.additional_channels={}",
+                      f"paths.checkpoint={tmp_path / 'deep.ckpt'}",
+                      "model.generator.args.resnet_blocks=7")
+        layers = eng.model.quant_layers()
+        assert eng.quantize == "int8" and len(layers) == 22
+        assert all(m.quant_mode == "int8" and m.wq is not None
+                   and not m.calibrated for m in layers.values())
+        assert not eng._quant_ready
     # several devices are ported: with the temporal guide the chain runs
     # on the first (JAX engine.py:727-739), and an explicit file_shard
     # is refused when the directory is served (JAX engine.py:608-612)
