@@ -188,19 +188,23 @@ after ``multistream``):
    (``train/parity.py``, 5e-5). With 2+ cards also int8 serving
    (``inference.quantize: int8``) over 2 cards, bitwise the one-card int8
    run, every replica with card 0's scales.
-12. ``int8``: w8a8 serving. Both kernels of ``csrc/quant_conv.cu``
-   (``quantize_act``, ``conv_s8``) bitwise their plain versions (the int8
-   activation, the int32 accumulator, the output with its bias) at the 22
-   sites' shapes on 16 tiles, at one full-frame 512x912 pass and at shapes
-   off the CTA tile, bf16 and fp32; each site at B = 512 in bf16 timed
+12. ``int8``: w8a8 serving. The kernels of ``csrc/quant_conv.cu``
+   (``quantize_act``; ``conv_s8``, whose plan takes the gather kernel or,
+   at conv11 and the smoothers, the halo kernel) bitwise their plain
+   versions (the int8 activation, the int32 accumulator, the output with
+   its bias) at the 22 sites' shapes on 16 tiles, at one full-frame
+   512x912 pass and at shapes
+   off the tile, bf16 and fp32; each site at B = 512 in bf16 timed
    (device time) against its bound (int8 operations at 1,979 TOPS or bytes
-   at 3.35 TB/s), the plain versions and cuDNN's bf16 convolution at the
-   same shape, with ``torch._int_mm`` over an explicit im2col at the
-   residual shape; the serve_directory phase's 36 frames, tiled and
+   at 3.35 TB/s), the plain versions, cuDNN's bf16 convolution at the
+   same shape and ``torch._int_mm`` over the site's explicit im2col (at
+   most 2 GB of it, scaled to B = 512; checked against ``conv_s8``'s
+   accumulator); the serve_directory phase's 36 frames, tiled and
    full-frame, bf16 with ``quantize: int8``: a set-up run that calibrates
    once, a timed run with the counters zeroed just before and read just
-   after (22 launches of each kernel a generator call, B1 and B2 as in the
-   bf16 runs), eq-frames/s beside the bf16 run, masked PSNR against it (at
+   after (22 launches of each int8 wrapper a generator call, conv_s8's 19
+   on the gather kernel and 3 on the halo kernel; B1 and B2 as in the bf16
+   runs), eq-frames/s beside the bf16 run, masked PSNR against it (at
    least 35 dB); one int8 generator call of 512 tiles against a bf16 call;
    the card against the CPU at precision 32 on a 256x456 crop, the card's
    scales copied to the CPU engine (limit 1 count; the share of differing
@@ -2253,10 +2257,11 @@ INT8_SITES = [("initial_conv", 80, 80, 6, 32, 7, 1, 1),
               ("upsample1", 80, 80, 192, 128, 3, 1, 1),
               ("conv11", 80, 80, 166, 64, 7, 1, 1),
               ("smoother", 80, 80, 64, 64, 3, 1, 2)]
-# shapes off the CTA tile: Cin 6 and 166, stride 2, odd H and W, Cout < 64
+# shapes off the tile: Cin 6 and 166, stride 2, odd H and W, Cout 8 and 40
+# (N padded to 16 and 64)
 INT8_ODD = [(13, 17, 6, 32, 7, 1), (11, 9, 166, 64, 7, 1),
             (15, 21, 32, 64, 3, 2), (9, 7, 64, 128, 3, 2),
-            (7, 5, 40, 8, 3, 1)]
+            (7, 5, 40, 8, 3, 1), (9, 11, 32, 40, 3, 1)]
 INT8_CHECK_TILES = 16
 INT8_PSNR_DB = 35.0  # JAX's bar, tests/test_quant.py:152
 QUANT_WRAPPERS = {"conv_s8": quant.conv_s8,
@@ -2265,6 +2270,19 @@ QUANT_WRAPPERS = {"conv_s8": quant.conv_s8,
 
 def _quant_counts() -> dict:
     return {k: fn.launches for k, fn in QUANT_WRAPPERS.items()}
+
+
+def _conv_s8_kernels() -> dict:
+    """conv_s8's launches by kernel in one generator call: the plan of each
+    of the 22 sites, times its count (a plan does not depend on the
+    image's size, so tiles and full frames alike)."""
+    n = dict.fromkeys(quant.VARIANTS, 0)
+    for _, h, w, cin, cout, k, stride, count in INT8_SITES:
+        kp = -(-k * k * quant.padded_channels(cin) // quant.KP_ALIGN) \
+            * quant.KP_ALIGN
+        p = quant.conv_plan(cout, kp, torch.bfloat16, k, stride)
+        n[quant.VARIANTS[p.variant]] += count
+    return n
 
 
 def _int8_inputs(n, h, w, cin, cout, k, dtype, dev, seed):
@@ -2305,17 +2323,60 @@ def _int8_check(n, shape, dtype, dev, seed) -> None:
                              f"version at {n}x{shape} {dtype}")
 
 
+INT_MM_BYTES = 2e9  # the largest im2col the yardstick builds
+
+
+def _plan_text(p) -> str:
+    return (f"{quant.VARIANTS[p.variant]}/N{p.bn}x{p.n_tiles}/"
+            f"{p.stages}st/{'resident' if p.resident else 'streamed'}/"
+            f"{p.smem_bytes // 1024}KB")
+
+
+def _int8_int_mm(xq, wp, s, w_s, k, stride, pad, ho, wo) -> dict:
+    """``torch._int_mm`` over an explicit im2col of the site, the int8
+    yardstick (the port never calls it): on the first images whose im2col
+    stays within ``INT_MM_BYTES``, checked against ``conv_s8``'s
+    accumulator there, timed, and scaled to all ``B`` images; the im2col's
+    own time is excluded (timed apart on the same slice)."""
+    n, cp = xq.shape[0], xq.shape[-1]
+    kdim = k * k * cp
+    nb = max(1, min(n, int(INT_MM_BYTES // (ho * wo * kdim))))
+    xp = F.pad(xq[:nb], (0, 0, pad, pad, pad, pad))
+    span_y, span_x = stride * (ho - 1) + 1, stride * (wo - 1) + 1
+
+    def im2col():
+        return torch.cat([xp[:, ky:ky + span_y:stride, kx:kx + span_x:stride]
+                          for ky in range(k) for kx in range(k)],
+                         dim=-1).reshape(nb * ho * wo, kdim)
+
+    cols = im2col()
+    wt = wp[:, :kdim].contiguous()
+    got = torch._int_mm(cols, wt.t())
+    acc = quant.conv_s8(xq[:nb], wp, s, w_s, None, k, stride, pad,
+                        torch.int32)
+    if not torch.equal(got.view(nb, ho, wo, -1), acc):
+        raise AssertionError("torch._int_mm over im2col differs from "
+                             "conv_s8's accumulator")
+    slice_ms = time_ms(lambda: torch._int_mm(cols, wt.t()), 3)
+    rec = dict(int_mm_images=nb, int_mm_slice_ms=slice_ms,
+               int_mm_ms=slice_ms * n / nb, im2col_ms=time_ms(im2col, 2),
+               im2col_mb=cols.numel() / 1e6)
+    del cols, xp, got, acc
+    return rec
+
+
 def _int8_site_times(dev) -> dict:
     """Each distinct site at B = 512 in bf16: conv_s8 and quantize_act as
     device time (``queued_ms``), their plain versions, cuDNN's bf16
     ``F.conv2d`` at the same shape (the yardstick; the port never calls
     it for an int8 site), the bounds; per call, each site times its count
-    (22 sites). Beside them ``torch._int_mm`` over an explicit im2col at
-    the residual shape."""
+    (22 sites). Beside them the int8 yardstick at each site,
+    ``torch._int_mm`` over an explicit im2col (``_int8_int_mm``)."""
     rows, tot = [], dict(conv_ms=0.0, quant_ms=0.0, conv_plain_ms=0.0,
                          quant_plain_ms=0.0, library_ms=0.0,
                          conv_bound_ms=0.0, quant_bound_ms=0.0,
-                         conv_ops_ms=0.0, conv_bytes_ms=0.0, ops=0)
+                         conv_ops_ms=0.0, conv_bytes_ms=0.0, ops=0,
+                         int_mm_ms=0.0, int_mm_slice_ms=0.0)
     for i, (name, h, w, cin, cout, k, stride, count) in \
             enumerate(INT8_SITES):
         x, s, wp, w_s, bias, weight = _int8_inputs(
@@ -2359,37 +2420,23 @@ def _int8_site_times(dev) -> dict:
             tot[key] += v * count
         say("int8", site=name, shape=r["shape"], cout=cout, k=k,
             stride=stride, sites=count, conv_ms=f"{c_ms:.4f}",
+            plan=_plan_text(quant.conv_plan(cout, wp.shape[1],
+                                            torch.bfloat16, k, stride)),
             conv_bound_ms=f"{r['conv_bound_ms']:.4f}",
             conv_share_of_bound=f"{r['conv_bound_ms'] / c_ms:.3f}",
             int8_tops=f"{r['tops']:.1f}", library_bf16_ms=f"{lib:.4f}",
             conv_plain_ms=f"{c_plain:.2f}", quantize_ms=f"{q_ms:.4f}",
             quantize_bound_ms=f"{q_bound:.4f}",
             quantize_plain_ms=f"{q_plain:.4f}")
-        if name == "resnet":  # torch._int_mm over an explicit im2col
-            xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
-
-            def im2col():
-                return torch.cat([xp[:, ky:ky + h, kx:kx + w]
-                                  for ky in range(k) for kx in range(k)],
-                                 dim=-1).reshape(B * h * w, k * k * cp)
-
-            cols = im2col()
-            wt = wp[:, :k * k * cp].contiguous()
-            got = torch._int_mm(cols, wt.t())
-            acc = quant.conv_s8(xq, wp, s, w_s, None, k, stride, pad,
-                                torch.int32)
-            if not torch.equal(got.view(B, h, w, cout), acc):
-                raise AssertionError("torch._int_mm over im2col differs "
-                                     "from conv_s8's accumulator")
-            tot["int_mm_ms"] = time_ms(lambda: torch._int_mm(cols, wt.t()),
-                                       5)
-            tot["im2col_ms"] = time_ms(im2col, 3)
-            tot["im2col_mb"] = cols.numel() / 1e6
-            say("int8", site=name, int_mm_ms=f"{tot['int_mm_ms']:.4f}",
-                im2col_ms=f"{tot['im2col_ms']:.4f}",
-                im2col_mb=f"{tot['im2col_mb']:.1f}",
-                conv_s8_ms=f"{c_ms:.4f}")
-            del cols, xp, got, acc
+        r.update(_int8_int_mm(xq, wp, s, w_s, k, stride, pad, ho, wo))
+        tot["int_mm_ms"] += r["int_mm_ms"] * count
+        tot["int_mm_slice_ms"] += r["int_mm_slice_ms"] * count
+        say("int8", site=name, int_mm_ms=f"{r['int_mm_ms']:.4f}",
+            int_mm_images=r["int_mm_images"],
+            int_mm_slice_ms=f"{r['int_mm_slice_ms']:.4f}",
+            im2col_ms=f"{r['im2col_ms']:.4f}",
+            im2col_mb=f"{r['im2col_mb']:.1f}", conv_s8_ms=f"{c_ms:.4f}",
+            conv_s8_vs_int_mm=f"{r['int_mm_ms'] / c_ms:.2f}")
         del x, xq, x_cl
     say("int8", per_call="22 sites, 512 tiles, bf16",
         conv_ms=f"{tot['conv_ms']:.4f}",
@@ -2400,7 +2447,8 @@ def _int8_site_times(dev) -> dict:
         conv_plain_ms=f"{tot['conv_plain_ms']:.2f}",
         quantize_ms=f"{tot['quant_ms']:.4f}",
         quantize_bound_ms=f"{tot['quant_bound_ms']:.4f}",
-        quantize_plain_ms=f"{tot['quant_plain_ms']:.4f}")
+        quantize_plain_ms=f"{tot['quant_plain_ms']:.4f}",
+        int_mm_ms=f"{tot['int_mm_ms']:.4f}")
     return {"sites": rows, **tot}
 
 
@@ -2468,6 +2516,7 @@ def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
             _zero_counts()
             for fn in QUANT_WRAPPERS.values():
                 fn.launches = 0
+            quant.conv_s8.by_variant = dict.fromkeys(quant.VARIANTS, 0)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             written = eng.process_directory()
@@ -2488,7 +2537,17 @@ def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
             if q != {"conv_s8": 22 * calls, "quantize_act": 22 * calls}:
                 raise AssertionError(f"int8 {mode}: launches {q}, expected "
                                      f"22 of each a call x {calls}")
-            launches[mode] = {**q, **counts}
+            # each site on the kernel its plan names (the halo kernel at
+            # conv11 and the smoothers)
+            by_variant = dict(quant.conv_s8.by_variant)
+            want = {v: n * calls for v, n in
+                    _conv_s8_kernels().items()}
+            if by_variant != want or not all(want.values()):
+                raise AssertionError(f"int8 {mode}: conv_s8 launches by "
+                                     f"kernel {by_variant}, expected {want}")
+            launches[mode] = {**q, **counts,
+                              **{f"conv_s8_{v}": n
+                                 for v, n in by_variant.items()}}
             psnr = _psnr(out, tmp / ref, names)
             rec[mode] = {"eq_frames_per_s": DIR_FRAMES / seconds,
                          "bf16_eq_frames_per_s": base["eq_frames_per_s"],
@@ -2498,6 +2557,8 @@ def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
                 bf16_eq_frames_per_s=f"{base['eq_frames_per_s']:.2f}",
                 psnr_vs_bf16_db=f"{psnr:.2f}", calibrations=calibrations,
                 conv_s8_launches=q["conv_s8"],
+                conv_s8_gather_launches=by_variant["gather"],
+                conv_s8_halo_launches=by_variant["halo"],
                 quantize_act_launches=q["quantize_act"],
                 b1_b2_launches=json.dumps(counts).replace(" ", ""),
                 card=f"'{card}'")
@@ -2512,10 +2573,13 @@ def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
     bf16 = _dir_engine("bf16", scene, tmp / "unused", quantize="off").model
     int8 = engines["tiled"].model
     with torch.no_grad():
-        n0 = _quant_counts()
+        n0, v0 = _quant_counts(), dict(quant.conv_s8.by_variant)
         int8(tiles)
         one = {k: v - n0[k] for k, v in _quant_counts().items()}
-        if one != {"conv_s8": 22, "quantize_act": 22}:
+        one.update({v: n - v0[v] for v, n in
+                    quant.conv_s8.by_variant.items()})
+        if one != {"conv_s8": 22, "quantize_act": 22,
+                   **_conv_s8_kernels()}:
             raise AssertionError(f"one int8 call launched {one}")
         ms_int8 = time_ms(lambda: int8(tiles), 5)
         ms_bf16 = time_ms(lambda: bf16(tiles), 5)
@@ -4299,16 +4363,25 @@ def main() -> int:
                       "XLA's int8 conv_general_dilated, not a Pallas "
                       "kernel)",
              launches=sum(q_launches.values()),
-             launches_by_path=q_launches, max_abs_err=0.0,
+             launches_by_path=q_launches,
+             launches_by_kernel={
+                 v: sum(n[f"conv_s8_{v}"] for n in int8["launches"].values())
+                 for v in quant.VARIANTS},
+             kernels_note="ops/quant.py::conv_plan picks the kernel a site: "
+                          "the halo kernel at conv11 and the smoothers, the "
+                          "gather kernel at the other 19; launches_by_kernel "
+                          "counts the int8 serving runs",
+             max_abs_err=0.0,
              ms=i8["conv_ms"], plain_ms=i8["conv_plain_ms"],
              bound_ms=i8["conv_bound_ms"], bound_by="operations"
              if i8["conv_ops_ms"] >= i8["conv_bytes_ms"] else "bytes",
-             library_ms=i8["library_ms"],
-             library_note="cuDNN's bf16 F.conv2d at each site (no PyTorch "
-                          "call convolves int8 on the card); "
-                          f"torch._int_mm over a {i8['im2col_mb']:.0f} MB "
-                          f"im2col at the residual shape "
-                          f"{i8['int_mm_ms']:.4f} ms",
+             library_ms=i8["int_mm_ms"],
+             library_note="torch._int_mm over each site's explicit im2col "
+                          "(no PyTorch call convolves int8 on the card), "
+                          "timed on at most 2 GB of im2col and scaled to "
+                          "512 tiles, the im2col's own time excluded; "
+                          "cuDNN's bf16 F.conv2d at the same sites "
+                          f"{i8['library_ms']:.4f} ms",
              dtype="bf16", per="the 22 sites of one 512-tile generator "
                                "call"),
         dict(name="quantize_act", route="cuda",

@@ -1,13 +1,15 @@
 """Build the CUDA kernels of ``csrc/`` with plain nvcc; load them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface. Nothing includes PyTorch's
-headers, so the build takes seconds, not the minutes that
+Each ``csrc/*.cu`` compiles for Hopper (``sm_90a``) in its own ``nvcc -c``
+process, all started together, and one more ``nvcc`` links the objects
+into one shared library with a plain C interface. Nothing includes
+PyTorch's headers, so the build takes seconds, not the minutes that
 ``torch.utils.cpp_extension`` needs. The library is named by a hash of the
 sources and flags and written into ``_build/`` beside this file (listed in
 ``.gitignore``): a changed source builds a new file, an unchanged one is
-reused. nvcc writes to a temporary name that ``os.replace`` moves into
-place, so a build that is killed leaves no lock and no half-written library.
+reused. The objects go to a temporary directory and the library to a
+temporary name that ``os.replace`` moves into place, so a build that is
+killed leaves no lock and no half-written library.
 
 Each C entry point takes pointers, sizes, the device index and the CUDA
 stream, launches on that stream without synchronising, and returns
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -28,7 +31,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -69,9 +72,14 @@ SIGNATURES = {
     "ptt_quantize_act": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # xq, wq (cout, kp) packed, s, w_s, bias (or null), out, n, h, w, cp,
     # cout, kp, k, stride, pad, ho, wo, out_dtype (0 f32, 1 bf16, 2 the
-    # int32 accumulator), device, stream
+    # int32 accumulator), the plan's variant, bn, stages and resident,
+    # device, stream
     "ptt_conv_s8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # cout, kp, k, stride, out_dtype, variant (-1: conv_s8's own choice),
+    # resident, stages (0: as deep as fits), plan (6 ints out): a conv_s8
+    # layer's launch plan
+    "ptt_conv_s8_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -106,8 +114,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds, what: str) -> str:
+    """Run the commands side by side; their output, or raise naming the
+    first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], None
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            logs.append(out)
+            if proc.returncode != 0 and failed is None:
+                failed = (cmd, proc.returncode, out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({what}) with code {rc}: "
+                           f"{' '.join(cmd)}\n{out}")
+    return "".join(logs)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists."""
+    """Compile csrc/*.cu into the hashed library unless it exists: one
+    ``nvcc -c`` a source, all at once, then one link."""
     global last_build_seconds, last_build_log
     out = library_path()
     log = out.with_suffix(".log")
@@ -117,23 +151,23 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
-        log.write_text(proc.stderr + proc.stdout)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            cus = [s for s in sources() if s.suffix == ".cu"]
+            objs = [str(Path(objdir) / f"{s.stem}.o") for s in cus]
+            text = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                         for s, o in zip(cus, objs)], "compile")
+            text += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                           *objs]], "link")
+        log.write_text(text)
         os.replace(tmp, out)
     finally:
         if tmp.exists():
             tmp.unlink()
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stderr + proc.stdout
+    last_build_log = text
     return out
 
 

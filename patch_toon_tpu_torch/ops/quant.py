@@ -16,12 +16,22 @@ QuantConv`` (:165-251), in the same order:
 
 JAX runs the int8 product as XLA's ``conv_general_dilated`` with
 ``preferred_element_type=int32``, not as a Pallas kernel. No PyTorch call
-convolves int8 on the card, so the port has two kernels of its own in
+convolves int8 on the card, so the port has kernels of its own in
 ``csrc/quant_conv.cu``: ``quantize_act_kernel`` (NHWC bf16 or fp32 in,
-NHWC int8 out with the channels zero-padded to ``Cp``, a multiple of 16)
-and ``conv_s8_kernel``, an implicit GEMM on ``mma.sync`` s8 tensor-core
-products. The quantization is symmetric, so zero padding (of the image
-and of the channels) is exact.
+NHWC int8 out with the channels zero-padded to ``Cp``, a multiple of 16;
+bound by bytes) and, for :func:`conv_s8`, two implicit GEMMs bound by int8
+operations (1,979 TOPS on an H100): ``wgmma`` s8 products from 128-byte
+swizzled shared memory fed by mbarrier rings (a producer warpgroup, two
+consumer warpgroups, B by TMA), a persistent grid whose tiles cover Cout
+up to 128, and an epilogue staged in shared memory and written with
+16-byte stores. The gather kernel gathers A with cp.async, a 128-pixel
+tile at a time; the halo kernel (stride-1 windows of Cout 33-64: conv11
+and the smoothers) loads each 16 x 16 tile's input patch once and reads A
+out of it at every tap. ``csrc/quant_conv.cu::conv_plan`` picks the kernel
+and sizes the launch (N, the stages, whether the whole weight stays
+resident) from the shared-memory layout that only the kernels' source
+knows; :func:`conv_plan` asks it. The quantization is symmetric, so zero
+padding (of the image, the channels, K and N) is exact.
 
 Layouts: ``xq`` is (N, H, W, Cp) int8; the packed weight is (Cout, Kp)
 int8 with row ``(ky, kx, c)`` flattened K-contiguous (K = k * k * Cp) and
@@ -38,6 +48,9 @@ reciprocal, which is not IEEE division.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,7 +59,7 @@ import torch.nn.functional as F
 from patch_toon_tpu_torch import _build
 
 CP_ALIGN = 16  # channels of xq: whole 16-byte vectors, never across taps
-KP_ALIGN = 32  # K of the packed weight: whole mma k-steps
+KP_ALIGN = 32  # K of the packed weight: whole k32 steps, TMA's 16-byte rows
 KERNEL_SIZES = (3, 7)
 STRIDES = (1, 2)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -62,6 +75,50 @@ def _const(v: float, device: torch.device) -> torch.Tensor:
         t = _CONSTS[key] = torch.tensor(v, dtype=torch.float32,
                                         device=device)
     return t
+
+
+VARIANTS = ("gather", "halo")  # conv_s8's kernels, by a plan's variant
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    variant: int     # 0 the gather kernel, 1 the halo kernel
+    bn: int          # output channels a tile (wgmma's N)
+    n_tiles: int     # tiles across Cout (1 up to Cout 128)
+    stages: int      # depth of the ring (of B, in the halo kernel)
+    resident: bool   # the whole packed weight stays in shared memory
+    smem_bytes: int  # dynamic shared memory a CTA
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(cout: int, kp: int, out_dtype: torch.dtype, k: int, stride: int,
+          variant: int, resident: bool, stages: int) -> Optional[ConvPlan]:
+    """``ptt_conv_s8_plan``: ``variant`` -1 is conv_s8's own plan; 0 or 1
+    forces that kernel, ``resident`` and ``stages`` too (0: as deep as
+    fits), None where it does not take the layer (the card's tests and
+    tools/conv_s8_plans_torch.py time and check plans the main path
+    does not take)."""
+    out = (ctypes.c_int * 6)()
+    rc = _build.library().ptt_conv_s8_plan(
+        cout, kp, k, stride, _DTYPE_CODE[out_dtype], variant, int(resident),
+        stages, ctypes.addressof(out))
+    if rc:
+        return None
+    return ConvPlan(out[0], out[1], out[2], out[3], bool(out[4]), out[5])
+
+
+def conv_plan(cout: int, kp: int, out_dtype: torch.dtype, k: int = 3,
+              stride: int = 1) -> ConvPlan:
+    """The kernel and its tiling that :func:`conv_s8` launches for a layer
+    (``csrc/quant_conv.cu::conv_plan``; needs the kernels' library): the
+    halo kernel for a stride-1 window of Cout 33-64, else the gather
+    kernel with N the least tile width that covers Cout (128 past it, in
+    several tiles) and the weight resident where it fits."""
+    p = _plan(cout, kp, out_dtype, k, stride, -1, False, 0)
+    if p is None:
+        raise ValueError(f"conv_s8: no plan for Cout={cout}, Kp={kp}, "
+                         f"k={k}, stride={stride}")
+    return p
 
 
 def padded_channels(c: int) -> int:
@@ -206,15 +263,23 @@ def conv_s8_plain(xq: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
 
 def conv_s8(xq: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
             w_s: torch.Tensor, bias: Optional[torch.Tensor], k: int,
-            stride: int, padding: int,
-            out_dtype: torch.dtype) -> torch.Tensor:
+            stride: int, padding: int, out_dtype: torch.dtype) -> torch.Tensor:
     """The w8a8 convolution: ``xq`` (N, H, W, Cp) int8, the packed weight
     ``wp`` (Cout, Kp) int8, the activation scale ``s`` (0-d fp32), the
     weight scales ``w_s`` (Cout,) fp32, ``bias`` (Cout,) in ``out_dtype``
     or None, a k x k window (3 or 7) at ``stride`` (1 or 2) over zero
     ``padding`` -> (N, Ho, Wo, Cout) in ``out_dtype`` (bf16, fp32, or
-    int32 for the raw accumulator). CUDA: one launch of
-    ``conv_s8_kernel``; CPU: the plain version."""
+    int32 for the raw accumulator). CUDA: one launch of the kernel of
+    :func:`conv_plan`'s plan, counted in ``.launches``, ``.by_device`` and
+    ``.by_variant``; CPU: the plain version."""
+    return _conv_s8(xq, wp, s, w_s, bias, k, stride, padding, out_dtype,
+                    None)
+
+
+def _conv_s8(xq, wp, s, w_s, bias, k, stride, padding, out_dtype,
+             plan: Optional[ConvPlan]) -> torch.Tensor:
+    """:func:`conv_s8` under ``plan`` (None: :func:`conv_plan`'s), for the
+    card's tests and tools/conv_s8_plans_torch.py."""
     if xq.device.type == "cpu":
         return conv_s8_plain(xq, wp, s, w_s, bias, k, stride, padding,
                              out_dtype)
@@ -260,15 +325,19 @@ def conv_s8(xq: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
     out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=dev)
     if n == 0:
         return out
+    p = plan or conv_plan(cout, kp, out_dtype, k, stride)
     rc = _build.library().ptt_conv_s8(
         xq.data_ptr(), wp.data_ptr(), s.data_ptr(), w_s.data_ptr(),
         0 if bias is None else bias.data_ptr(), out.data_ptr(), n, h, w,
         cp, cout, kp, k, stride, padding, ho, wo, _DTYPE_CODE[out_dtype],
-        dev.index, _build.stream_of(xq))
+        p.variant, p.bn, p.stages, int(p.resident), dev.index,
+        _build.stream_of(xq))
     _build.check(rc, "conv_s8")
     _build.count_launch(conv_s8, xq)
+    conv_s8.by_variant[VARIANTS[p.variant]] += 1
     return out
 
 
 conv_s8.launches = 0
 conv_s8.by_device = {}
+conv_s8.by_variant = {"gather": 0, "halo": 0}  # launches of each kernel

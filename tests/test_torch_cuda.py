@@ -908,14 +908,14 @@ def test_splat_kernel_refuses_what_it_cannot_take(cuda):
 
 # (H, W, Cin, Cout, k, stride) of the 22 w8a8 sites of a tile call at full
 # width (80x80 tiles, 6 input channels), then shapes off the CTA tile: Cin
-# 6 and 166, stride 2, H and W odd, Cout below a CTA's 64 columns
+# 6 and 166, stride 2, H and W odd, Cout 8 and 40 (N padded to 16 and 64)
 QUANT_SITES = [(80, 80, 6, 32, 7, 1), (80, 80, 32, 64, 3, 2),
                (40, 40, 64, 128, 3, 2), (20, 20, 128, 128, 3, 1),
                (40, 40, 256, 128, 3, 1), (80, 80, 192, 128, 3, 1),
                (80, 80, 166, 64, 7, 1), (80, 80, 64, 64, 3, 1)]
 QUANT_ODD = [(13, 17, 6, 32, 7, 1), (11, 9, 166, 64, 7, 1),
              (15, 21, 32, 64, 3, 2), (9, 7, 64, 128, 3, 2),
-             (7, 5, 40, 8, 3, 1)]
+             (7, 5, 40, 8, 3, 1), (9, 11, 32, 40, 3, 1)]
 
 
 def _quant_case(h, w, cin, cout, k, n, dtype, card, seed):
@@ -972,6 +972,181 @@ def test_conv_s8_kernel_bitwise_equals_plain(cuda, dtype, shape):
         assert torch.equal(y, y_plain)
 
 
+def _conv_s8_against_plain(xq, wp, s, w_s, bias, k, stride, plans=None):
+    """conv_s8 bitwise its plain version: the accumulator, and fp32 and
+    bf16 out with and without the bias; one launch a call. ``plans``: the
+    plan for an output type, launched through ``_conv_s8`` (None: the
+    wrapper with its own plan; a type it maps to None is left out)."""
+    pad = k // 2
+    want = tquant.conv_s8_acc_plain(xq, wp, k, stride, pad)
+    ran = 0
+    for dtype in (torch.int32, torch.float32, torch.bfloat16):
+        plan = None if plans is None else plans(dtype)
+        if plans is not None and plan is None:
+            continue
+        for b in ((None,) if dtype == torch.int32
+                  else (bias.to(dtype), None)):
+            n0 = tquant.conv_s8.launches
+            y = (tquant.conv_s8(xq, wp, s, w_s, b, k, stride, pad, dtype)
+                 if plan is None else tquant._conv_s8(
+                     xq, wp, s, w_s, b, k, stride, pad, dtype, plan))
+            assert tquant.conv_s8.launches == n0 + 1
+            assert y.dtype == dtype
+            if dtype == torch.int32:
+                assert torch.equal(y, want)
+            else:
+                assert torch.equal(y, tquant.dequantize_plain(want, s, w_s,
+                                                              b, dtype))
+            ran += 1
+    assert ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", [
+    (3, 97, 131, 32, 32, 3, 1),   # 298 tiles (> 2 x 132), 105 in the last
+    (5, 97, 131, 32, 64, 3, 1),   # the halo kernel: 315 tiles of 16 x 16
+    (2, 83, 77, 6, 32, 7, 1),     # 100 tiles, the last 110 rows
+    (5, 41, 39, 64, 128, 3, 2),   # 16 tiles of the stride-2 site
+])
+def test_conv_s8_persistent_tiles_and_a_ragged_end(cuda, n, h, w, cin, cout,
+                                                   k, stride):
+    """More tiles than twice the SM count, so each CTA's loop turns, and an
+    M that is not a multiple of the 128-pixel tile (of the 16 x 16 tile
+    on both edges, for the halo kernel)."""
+    x, s, wp, w_s, bias = _quant_case(h, w, cin, cout, k, n, torch.float32,
+                                      cuda, seed=h)
+    _conv_s8_against_plain(tquant.quantize_act(x, s), wp, s, w_s, bias, k,
+                           stride)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,k", [(40, 8, 3), (32, 40, 3), (6, 40, 7),
+                                        (64, 2, 3), (64, 192, 3),
+                                        (32, 256, 3)])
+def test_conv_s8_pads_and_walks_the_output_channels(cuda, cin, cout, k):
+    """Cout below its tile (8 in 16, 40 in 64, 2 in 16: rows of B past
+    Cout zero-filled, never stored; 4-byte stores where a row is not 16
+    bytes) and above 128 (tiles of 128 channels)."""
+    x, s, wp, w_s, bias = _quant_case(11, 13, cin, cout, k, 3,
+                                      torch.bfloat16, cuda, seed=cout)
+    _conv_s8_against_plain(tquant.quantize_act(x, s), wp, s, w_s, bias, k, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k", [
+    (3, 80, 80, 166, 64, 7),   # conv11: two channel chunks, 128 + 48
+    (2, 80, 80, 64, 64, 3),    # a smoother
+    (3, 37, 45, 192, 64, 3),   # ragged tiles on both edges, 128 + 64
+    (2, 29, 21, 6, 32, 7),     # Cp 16: one k32 step a tap, Cout 32 of 64
+    (2, 19, 23, 32, 40, 3),    # Cout 40 of 64
+    (1, 9, 7, 128, 2, 3),      # 4-byte rows, one tile past both edges
+])
+def test_conv_s8_halo_kernel_bitwise_equals_plain(cuda, n, h, w, cin, cout,
+                                                  k):
+    """The halo kernel (stride 1, 16 x 16 tiles, N = 64, the input patch in
+    shared memory) bitwise its plain version."""
+    x, s, wp, w_s, bias = _quant_case(h, w, cin, cout, k, n, torch.float32,
+                                      cuda, seed=h + k)
+
+    def plans(dtype):
+        return tquant._plan(cout, wp.shape[1], dtype, k, 1, 1, False, 0)
+
+    _conv_s8_against_plain(tquant.quantize_act(x, s), wp, s, w_s, bias, k,
+                           1, plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", [
+    (3, 80, 80, 166, 64, 7, 1),   # conv11: two channel chunks, 128 + 48
+    (3, 80, 80, 6, 32, 7, 1),     # the stem: Cp 16, weight resident
+    (3, 20, 20, 128, 128, 3, 1),  # a residual conv: weight streamed
+    (2, 40, 40, 256, 128, 3, 1),  # upsample2: two whole chunks
+    (2, 80, 80, 32, 64, 3, 2),    # downsample1, stride 2
+    (3, 40, 40, 64, 128, 3, 2),   # downsample2, stride 2
+    (2, 37, 45, 192, 96, 3, 1),   # ragged rows and tile, Cout 96 of 128
+    (2, 29, 21, 6, 40, 7, 1),     # Cp 16, Cout 40 of 64
+    (1, 9, 7, 64, 64, 3, 2),      # odd sizes at stride 2, one tile
+])
+@pytest.mark.parametrize("variant", ["gather resident", "gather streamed",
+                                     "halo"])
+def test_conv_s8_each_kernel_bitwise_equals_plain(cuda, n, h, w, cin, cout,
+                                                  k, stride, variant):
+    """Each kernel that takes a shape (the gather kernel with the weight
+    loaded once a CTA and kept, or streamed through the ring; the halo
+    kernel at stride 1) bitwise its plain version; a kernel that does not
+    take the shape is passed over."""
+    x, s, wp, w_s, bias = _quant_case(h, w, cin, cout, k, n, torch.float32,
+                                      cuda, seed=w + k)
+    v = tquant.VARIANTS.index(variant.split()[0])
+
+    def plans(dtype):
+        return tquant._plan(cout, wp.shape[1], dtype, k, stride, v,
+                            variant == "gather resident", 0)
+
+    if plans(torch.bfloat16) is None:
+        return  # this kernel does not take the layer
+
+    _conv_s8_against_plain(tquant.quantize_act(x, s), wp, s, w_s, bias, k,
+                           stride, plans)
+
+
+def _generator_sites(filters, resnet_blocks):
+    """(Cin, Cout, k, stride) of every w8a8 site of GeneratorJ."""
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+    from patch_toon_tpu_torch.models.layers import QuantConv2d
+    gen = GeneratorJ(input_channels=6, filters=filters,
+                     resnet_blocks=resnet_blocks, use_bias=True)
+    return [(m.in_channels, m.out_channels, m.kernel_size[0], m.stride[0])
+            for m in gen.modules() if isinstance(m, QuantConv2d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", ["shipped", "small"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.int32])
+def test_conv_plan_fits_every_generator_site(cuda, widths, dtype):
+    """Every int8 site of GeneratorJ, at the shipped widths and the CPU
+    tests' widths, gets a launch plan that fits in the card's 227 KB of
+    shared memory and covers Cout in one N tile; the halo kernel only at
+    stride 1 and Cout 33-64, the resident weight only in the gather
+    kernel. A plan does not depend on the image's size."""
+    filters, blocks = (((32, 64, 128, 128, 128, 64), 7) if widths ==
+                       "shipped" else ((8, 16, 32, 32, 32, 16), 2))
+    sites = _generator_sites(filters, blocks)
+    assert len(sites) == 3 + 2 * blocks + 5
+    for cin, cout, k, stride in sites:
+        cp = tquant.padded_channels(cin)
+        kp = -(-k * k * cp // tquant.KP_ALIGN) * tquant.KP_ALIGN
+        p = tquant.conv_plan(cout, kp, dtype, k, stride)
+        assert p.n_tiles == 1 and cout <= p.bn <= 128
+        assert p.bn in (16, 32, 64, 128) and 2 <= p.stages <= 6
+        assert 0 < p.smem_bytes <= 232448
+        assert (p.variant == 1) == (stride == 1 and 32 < cout <= 64)
+        if p.resident:
+            assert p.variant == 0 and p.stages >= 3
+
+
+@pytest.mark.cuda
+def test_conv_plan_past_one_tile_and_odd_widths(cuda):
+    """Cout past 128 walks tiles of 128 channels with the weight streamed;
+    Cout below a tile takes the smallest N that covers it; a kernel that
+    cannot take a layer has no plan for it."""
+    kp = 9 * 64
+    wide = tquant.conv_plan(256, kp, torch.bfloat16)
+    assert (wide.bn, wide.n_tiles, wide.resident) == (128, 2, False)
+    assert tquant.conv_plan(8, kp, torch.bfloat16).bn == 16
+    assert tquant.conv_plan(40, kp, torch.float32).bn == 64
+    assert tquant.conv_plan(2, kp, torch.int32).bn == 16
+    assert tquant.conv_plan(40, kp, torch.float32, 3, 2).variant == 0
+    for cout in (2, 8, 40, 64, 128, 192, 256):
+        for dtype in (torch.bfloat16, torch.float32, torch.int32):
+            assert tquant.conv_plan(cout, kp, dtype).smem_bytes <= 232448
+    assert tquant._plan(64, kp, torch.float32, 3, 2, 1, False, 0) is None
+    assert tquant._plan(128, kp, torch.float32, 3, 1, 1, False, 0) is None
+    assert tquant._plan(256, kp, torch.float32, 3, 1, 0, True, 0) is None
+    assert tquant._plan(64, kp, torch.float32, 3, 1, 0, False, 7) is None
+
+
 @pytest.mark.cuda
 def test_quant_kernels_refuse_what_they_cannot_take(cuda):
     x, s, wp, w_s, bias = _quant_case(9, 7, 32, 64, 3, 2, torch.float32,
@@ -999,6 +1174,9 @@ def test_quant_kernels_refuse_what_they_cannot_take(cuda):
                        torch.float32)
     with pytest.raises(ValueError):  # an output type it does not write
         tquant.conv_s8(xq, wp, s, w_s, None, 3, 1, 1, torch.float16)
+    halo = tquant._plan(64, wp.shape[1], torch.float32, 3, 1, 1, False, 0)
+    with pytest.raises(RuntimeError):  # a plan its kernel does not take
+        tquant._conv_s8(xq, wp, s, w_s, None, 3, 2, 1, torch.float32, halo)
 
 
 # ------------------------------------------------- several cards (2 or more)

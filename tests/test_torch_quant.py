@@ -369,3 +369,46 @@ def test_engine_int8_single_image_and_group(scene, tmp_path):
     assert eng._quant_ready and one.shape == (96, 128, 3)
     group = eng.stylize_group(frame[None], [None])
     assert np.array_equal(group[0], one)
+
+
+
+# (Cin, Cout, k, stride, H, W) at which tests/test_torch_cuda.py holds the
+# card's conv_s8 to the plain version: Cout padded to its N tile (2, 8, 40,
+# 96), past one tile (192, 256), Cin 6 and 166, stride 2, odd H and W
+CARD_SHAPES = [(40, 8, 3, 1, 7, 5), (32, 40, 3, 1, 9, 11),
+               (6, 40, 7, 1, 13, 9), (64, 2, 3, 1, 9, 7),
+               (64, 192, 3, 1, 6, 5), (32, 256, 3, 1, 5, 6),
+               (192, 96, 3, 1, 7, 9), (64, 128, 3, 2, 9, 7),
+               (166, 64, 7, 1, 11, 9), (32, 64, 3, 2, 15, 21)]
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,h,w", CARD_SHAPES)
+def test_plain_accumulator_matches_jax_at_the_card_shapes(cin, cout, k,
+                                                          stride, h, w):
+    """The plain version that the card's kernel is held to: the packed
+    weight unpacks to JAX's int8 weight with zeros past Cin and K, and the
+    plain int32 accumulator over it is JAX's int8 convolution bit for
+    bit."""
+    rng = np.random.default_rng(cin * cout + k)
+    x = rng.normal(0.0, 1.0, (2, h, w, cin)).astype(np.float32)
+    kernel = rng.normal(0.0, 0.05, (k, k, cin, cout)).astype(np.float32)
+    _, xq_j, wq_j, acc_j = _jax_int8(jnp.asarray(x), kernel,
+                                     np.zeros(cout, np.float32),
+                                     jnp.asarray(np.float32(0.0)), k,
+                                     stride, jnp.float32)
+    wq, _ = quant.quantize_weight(torch.from_numpy(
+        np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1)))))
+    cp = quant.padded_channels(cin)
+    wp = quant.pack_weight(wq, cp)
+    assert wp.shape == (cout, -(-k * k * cp // quant.KP_ALIGN)
+                        * quant.KP_ALIGN)
+    assert not wp[:, k * k * cp:].any()
+    unpacked = quant.unpack_weight(wp, k, cp)
+    assert not unpacked[:, cin:].any()
+    np.testing.assert_array_equal(
+        unpacked[:, :cin].permute(2, 3, 1, 0).numpy(), wq_j)
+    xq = torch.zeros((2, h, w, cp), dtype=torch.int8)
+    xq[..., :cin] = torch.from_numpy(xq_j)
+    acc = quant.conv_s8_acc_plain(xq, wp, k, stride, k // 2)
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.numpy(), acc_j)
