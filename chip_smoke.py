@@ -19,15 +19,19 @@ after ``multistream``):
    (streaming, cluster, cluster, streaming), the plain version and the
    library call (``F.instance_norm`` + activation), the bound and the
    share of it; per-call totals over the 19 sites.
-   ``instance_norm_fullframe``: the split variant of B1 (``plan``'s pick
-   for the planes of a full frame) at the 19 sites of one full-frame pass
-   over a 512x910 frame (512x912 after padding), bf16 and fp32, against
+   ``instance_norm_fullframe``: B1 at the 19 sites of one full-frame pass
+   over a 512x910 frame (512x912 after padding), bf16 and fp32: the
+   variant ``plan`` picks (the resident variant where the plane's chunks
+   fit the SMs' shared memory: 18 sites at bf16, 16 at fp32; the split
+   variant at the rest) and the split variant at every site, each against
    the plain version with the tolerance above, its statistics within 1e-5,
    and bitwise equal to a second call; at the quarter-resolution sites
    also the cluster variant at the largest G whose unit fits 8 CTAs. Timed
    as device time (``queued_ms``, over input copies beyond twice the L2
-   cache): split and streaming in turns, the cluster alternative, the plain
-   version and the library; per-frame totals against the bound.
+   cache): resident and split A B B A where the plan picks the resident
+   variant, split and streaming A B B A elsewhere, streaming, the cluster
+   alternative, the plain version and the library; per-frame totals and
+   per-variant totals against the bound.
 3. ``blend``: kernel B2 against its plain version on the real tile layout of
    three 512x910 frames (510 tiles in a bucket of 512). Bitwise equal.
    Timed three times over.
@@ -57,8 +61,9 @@ after ``multistream``):
    the log.
    ``fullframe``: ``process_directory`` in full-frame mode over the same 36
    frames, precision bf16 and 32: a timed run with the counters zeroed just
-   before and read just after (19 split launches a frame, none of the
-   other B1 variants, no B2), ms a frame beside the tiled run; its files
+   before and read just after (19 B1 launches a frame, in the resident and
+   split variants as ``plan`` gives the sites, none of the other B1
+   variants, no B2), ms a frame beside the tiled run; its files
    against ``stylize_group`` on 3 frames (limit 1 count); the card against
    the CPU at precision 32 on a 256x456 crop (limit 1 count).
    ``temporal``: the temporal chain, flows from files, over the first 12
@@ -154,9 +159,9 @@ after ``multistream``):
    keyframes 1, 11, 21, 24 of frames 1-24, process_pipeline's pick) on the
    card, one splat launch a frame, and with the CPU asked for, every frame
    within 1 count, the differing pixels printed, ms a frame split into
-   flow reads, advection, splat and PNG; the splat kernel against its
-   plain version on keyframe 11's points (within 1e-6; bitwise expected),
-   timed at sigma 15 against its bound; ``tools/temporal_guide_torch.py``
+   flow reads, advection, splat and PNG; the splat kernel bitwise its
+   plain version on keyframe 11's points at each sigma, timed at sigma 15
+   (device time, ``queued_ms``) against its bound; ``tools/temporal_guide_torch.py``
    over the scene, card against CPU within 1 count.
 
 11. ``multi_gpu``: several cards through the entry points, on whatever
@@ -244,7 +249,10 @@ from patch_toon_tpu_torch.config.defaults import (
 from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
 from patch_toon_tpu_torch.data.io import decode_rgb_uint8
 from patch_toon_tpu_torch.infer.common import SIGNED_UNIT, _to_signed_unit
-from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+from patch_toon_tpu_torch.infer.engine import (
+    StyleTransferInference,
+    _resolve_dtype,
+)
 from patch_toon_tpu_torch.infer.pipeline import GroupPipeline
 from patch_toon_tpu_torch.infer.temporal import (
     FlowGraphs,
@@ -303,15 +311,24 @@ SITES = ([((80, 80, 32), "leaky_relu"), ((40, 40, 64), "leaky_relu"),
          + [((20, 20, 128), "relu"), ((20, 20, 128), None)] * 7
          + [((40, 40, 128), "relu"), ((80, 80, 128), "relu")])
 DIR_FRAMES = 36  # PNG frames of the serve_directory phase: 12 groups
-# the InstanceNorm sites of one full-frame generator pass over a 512x910
-# frame, padded to 512x912 (infer/programs.py::make_fullframe_fn)
 HP, WP = 512, 912
-FF_SITES = ([((HP, WP, 32), "leaky_relu"),
-             ((HP // 2, WP // 2, 64), "leaky_relu"),
-             ((HP // 4, WP // 4, 128), "leaky_relu")]
-            + [((HP // 4, WP // 4, 128), "relu"),
-               ((HP // 4, WP // 4, 128), None)] * 7
-            + [((HP // 2, WP // 2, 128), "relu"), ((HP, WP, 128), "relu")])
+
+
+def _ff_sites(hp: int, wp: int) -> list:
+    """((H, W, C), activation) of each InstanceNorm site of one full-frame
+    generator pass over a frame padded to hp x wp
+    (infer/programs.py::make_fullframe_fn): stem, 2 downsamples, 7 residual
+    blocks x 2, 2 upsamples."""
+    return ([((hp, wp, 32), "leaky_relu"),
+             ((hp // 2, wp // 2, 64), "leaky_relu"),
+             ((hp // 4, wp // 4, 128), "leaky_relu")]
+            + [((hp // 4, wp // 4, 128), "relu"),
+               ((hp // 4, wp // 4, 128), None)] * 7
+            + [((hp // 2, wp // 2, 128), "relu"), ((hp, wp, 128), "relu")])
+
+
+# the sites of a 512x910 frame, padded to 512x912
+FF_SITES = _ff_sites(HP, WP)
 BT = 80  # patches per training step (config/training/default.yaml)
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # the InstanceNorm sites of one training step, forward and backward alike:
@@ -395,6 +412,10 @@ def phase_build() -> None:
     if lib.ptt_instance_norm_slice_bytes() != instance_norm.CTA_BYTES:
         raise AssertionError("csrc/instance_norm.cu and ops/instance_norm.py "
                              "disagree on a CTA's slice budget")
+    if lib.ptt_instance_norm_resident_bytes() != \
+            instance_norm.RESIDENT_CTA_BYTES:
+        raise AssertionError("csrc/b1_common.cuh and ops/instance_norm.py "
+                             "disagree on a resident CTA's chunk budget")
 
 
 def _library_in(x: torch.Tensor, act):
@@ -517,19 +538,39 @@ def _fitting_cluster(shape, dtype):
     return None
 
 
+def _ff_runs(fns: dict, copies: list, picked: str) -> dict:
+    """Device ms (``queued_ms`` over the input copies) of the variants in
+    turns: the resident variant and the split variant A B B A, then the
+    streaming variant, where the plan picks the resident one; else split
+    and streaming A B B A. -> runs by variant."""
+    order = ((picked, "split", "split", picked, "streaming")
+             if picked == "resident" else
+             ("split", "streaming", "streaming", "split"))
+    reps = max(4, 2 * len(copies))
+    ms = {v: [] for v in order}
+    for v in order:
+        ms[v].append(queued_ms([fns[v](xc) for xc in copies], reps))
+    return ms
+
+
 def phase_instance_norm_fullframe(dev) -> dict:
     """B1 at the 19 sites of one full-frame generator pass over a 512x910
-    frame (padded to 512x912), bf16 and fp32: the variant ``plan`` picks
-    (the split variant; at the quarter-resolution sites the cluster variant
-    at the least G that fits 8 CTAs as well, which ``plan`` does not take)
-    against the plain version (``_in_check``), its statistics against the
-    plain version's, and two calls bitwise equal. Then timed as device time
-    (``queued_ms``, over input copies beyond twice the L2 cache): the split
-    variant and the streaming variant in turns (split, streaming,
-    streaming, split), the quarter-resolution cluster alternative, the
-    plain version and the library (``F.instance_norm`` + activation);
-    per-frame totals over the 19 sites against the bound (one read and one
-    write of each site's tensor)."""
+    frame (padded to 512x912), bf16 and fp32. At each site the variant
+    ``plan`` picks (the resident variant where the plane's chunks fit the
+    SMs' shared memory, the split variant where they do not) and, where it
+    picks the resident one, the split variant too (at the plan
+    ``split_plan`` gives), each against the plain version (``_in_check``),
+    its statistics against the plain version's, and two calls bitwise
+    equal; at the quarter-resolution sites the cluster variant at the least
+    G that fits 8 CTAs as well, which ``plan`` does not take. Then timed as
+    device time (``queued_ms``, over input copies beyond twice the L2
+    cache): the plan's variant and the split variant A B B A where the plan
+    picks the resident one (then the streaming variant), else split and
+    streaming A B B A; the quarter-resolution cluster alternative, the
+    plain version and the library (``F.instance_norm`` + activation).
+    Per-frame totals over the 19 sites against the bound (one read and one
+    write of each site's tensor), and per variant over the sites the plan
+    gives it."""
     gen = torch.Generator(device=dev).manual_seed(4)
     per = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -537,23 +578,33 @@ def phase_instance_norm_fullframe(dev) -> dict:
             x = (torch.randn((1,) + shape, device=dev, generator=gen) * 2.0
                  + 0.5).to(dtype)
             p = instance_norm.plan_for(x)
-            if p.variant != "split":
+            if p.variant not in ("resident", "split"):
                 raise AssertionError(f"{shape} {dtype}: plan {p}")
+            sp = instance_norm.split_plan(1, *shape, dtype)
+            fns = {"resident": lambda xc: lambda: instance_norm.
+                   instance_norm_act_resident(xc, act),
+                   "split": lambda xc: lambda: instance_norm.
+                   instance_norm_act_split(xc, act, p=sp),
+                   "streaming": lambda xc: lambda: instance_norm.
+                   instance_norm_act_streaming(xc, act)}
             want, pmean, prstd = instance_norm._plain_forward(x, act, 0.2,
                                                               1e-5)
-            got, mean, rstd = instance_norm.instance_norm_act_split(
-                x, act, stats=True)
-            r = {"err": _in_check(got, want, dtype),
-                 "stats_err": max(float((mean - pmean).abs().max()),
-                                  float(((rstd - prstd) / prstd)
-                                        .abs().max()))}
-            if r["stats_err"] > 1e-5:
-                raise AssertionError(f"{shape} {dtype}: statistics "
-                                     f"{r['stats_err']}")
-            if not torch.equal(got, instance_norm.instance_norm_act_split(
-                    x, act)):
-                raise AssertionError(f"{shape} {dtype}: the split variant "
-                                     "is not repeatable")
+            r = {"variant": p.variant}
+            for v in dict.fromkeys((p.variant, "split")):
+                kw = {"p": sp} if v == "split" else {}
+                got, mean, rstd = B1_WRAPPERS[v](x, act, stats=True, **kw)
+                err = _in_check(got, want, dtype)
+                stats_err = max(float((mean - pmean).abs().max()),
+                                float(((rstd - prstd) / prstd).abs().max()))
+                if stats_err > 1e-5:
+                    raise AssertionError(f"{shape} {dtype} {v}: statistics "
+                                         f"{stats_err}")
+                if not torch.equal(got, B1_WRAPPERS[v](x, act, **kw)):
+                    raise AssertionError(f"{shape} {dtype}: the {v} variant "
+                                         "is not repeatable")
+                r[f"err_{v}"], r[f"stats_err_{v}"] = err, stats_err
+            r["err"], r["stats_err"] = r[f"err_{p.variant}"], \
+                r[f"stats_err_{p.variant}"]
             small = _fitting_cluster(shape, dtype)
             if small is not None:
                 r["err_cluster"] = _in_check(
@@ -561,20 +612,14 @@ def phase_instance_norm_fullframe(dev) -> dict:
                     want, dtype)
             del want, got
             copies = _input_copies(x)
-            reps = max(4, 2 * len(copies))
-            fns = {
-                "split": lambda xc: lambda: instance_norm.
-                instance_norm_act_split(xc, act),
-                "streaming": lambda xc: lambda: instance_norm.
-                instance_norm_act_streaming(xc, act)}
-            ms = {v: [] for v in fns}
-            for v in ("split", "streaming", "streaming", "split"):
-                ms[v].append(queued_ms([fns[v](xc) for xc in copies], reps))
+            ms = _ff_runs(fns, copies, p.variant)
             r.update({f"ms_{v}": sum(t) / len(t) for v, t in ms.items()})
+            r["ms"] = r[f"ms_{p.variant}"]
             if small is not None:
                 r["ms_cluster"] = queued_ms(
                     [lambda xc=xc: instance_norm.instance_norm_act_cluster(
-                        xc, act, p=small) for xc in copies], reps)
+                        xc, act, p=small) for xc in copies],
+                    max(4, 2 * len(copies)))
             r["plain_ms"] = queued_ms(
                 [lambda xc=xc: instance_norm.instance_norm_act_plain(xc, act)
                  for xc in copies], len(copies))
@@ -586,13 +631,14 @@ def phase_instance_norm_fullframe(dev) -> dict:
             del copies, x
             say("instance_norm_fullframe", dtype=str(dtype).split(".")[1],
                 shape=f"1x{shape[0]}x{shape[1]}x{shape[2]}", act=act,
-                G=p.group, chunks=p.chunks, pixels_a_chunk=p.ppc,
-                chunk_kb=f"{p.cta_bytes / 1024:.1f}",
-                split_ms=f"{r['ms_split']:.4f}",
-                split_runs="/".join(f"{t:.4f}" for t in ms["split"]),
-                streaming_ms=f"{r['ms_streaming']:.4f}",
-                streaming_runs="/".join(f"{t:.4f}" for t in ms["streaming"]),
+                variant=p.variant, G=p.group, chunks=p.chunks,
+                pixels_a_chunk=p.ppc, chunk_kb=f"{p.cta_bytes / 1024:.1f}",
+                ms=f"{r['ms']:.4f}",
+                **{f"{v}_ms": f"{r[f'ms_{v}']:.4f}" for v in ms},
+                **{f"{v}_runs": "/".join(f"{t:.4f}" for t in ms[v])
+                   for v in ms},
                 bound_ms=f"{r['bound_ms']:.4f}",
+                share_of_bound=f"{r['bound_ms'] / r['ms']:.3f}",
                 split_share_of_bound=f"{r['bound_ms'] / r['ms_split']:.3f}",
                 cluster_small_g=(f"G{small.group}k{small.k}"
                                  if small else None),
@@ -600,43 +646,69 @@ def phase_instance_norm_fullframe(dev) -> dict:
                 plain_ms=f"{r['plain_ms']:.4f}",
                 library_ms=f"{r['library_ms']:.4f}",
                 max_abs_err=f"{r['err']:.3g}",
+                max_abs_err_split=f"{r['err_split']:.3g}",
                 max_abs_err_cluster=(f"{r['err_cluster']:.3g}"
                                      if small else None),
                 stats_err=f"{r['stats_err']:.3g}")
-    rec = {}
+    rec = {"resident": {}, "split": {}}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
-        rows = [per[(dtype, s, a)] for s, a in FF_SITES]
+        sites = [(s, a, per[(dtype, s, a)]) for s, a in FF_SITES]
+        rows = [r for _, _, r in sites]
         elems = sum(s[0] * s[1] * s[2] for s, _ in FF_SITES)
         bytes_ms = 2 * elems * dtype.itemsize / HBM_BYTES_PER_S * 1e3
         ops_ms = 8 * elems / FP32_FLOPS * 1e3
         rec.update({
-            f"ms{tag}": sum(r["ms_split"] for r in rows),
+            f"ms{tag}": sum(r["ms"] for r in rows),
+            f"split_ms{tag}": sum(r["ms_split"] for r in rows),
             f"streaming_ms{tag}": sum(r["ms_streaming"] for r in rows),
             f"plain_ms{tag}": sum(r["plain_ms"] for r in rows),
             f"library_ms{tag}": sum(r["library_ms"] for r in rows),
             f"bound_ms{tag}": max(bytes_ms, ops_ms),
             f"bound_by{tag}": "bytes" if bytes_ms >= ops_ms else "operations",
             f"max_abs_err{tag}": max(r["err"] for r in rows),
-            f"quarter_sites_split_ms{tag}": sum(
-                r["ms_split"] for r in rows if "ms_cluster" in r),
+            f"quarter_sites_ms{tag}": sum(
+                r["ms"] for r in rows if "ms_cluster" in r),
             f"quarter_sites_cluster_ms{tag}": sum(
                 r["ms_cluster"] for r in rows if "ms_cluster" in r)})
+        # each variant over the sites the plan gives it, for the kernels
+        # line (bound: its sites' bytes; 8 operations an element beside)
+        for v in ("resident", "split"):
+            mine = [(s, r) for s, _, r in sites if r["variant"] == v]
+            e = sum(s[0] * s[1] * s[2] for s, _ in mine)
+            b_ms = 2 * e * dtype.itemsize / HBM_BYTES_PER_S * 1e3
+            o_ms = 8 * e / FP32_FLOPS * 1e3
+            rec[v].update({
+                f"sites{tag}": len(mine),
+                f"ms{tag}": sum(r["ms"] for _, r in mine),
+                f"split_ms{tag}": sum(r["ms_split"] for _, r in mine),
+                f"plain_ms{tag}": sum(r["plain_ms"] for _, r in mine),
+                f"library_ms{tag}": sum(r["library_ms"] for _, r in mine),
+                f"bound_ms{tag}": max(b_ms, o_ms),
+                f"bound_by{tag}": "bytes" if b_ms >= o_ms else "operations",
+                f"max_abs_err{tag}": max((r["err"] for _, r in mine),
+                                         default=0.0)})
         say("instance_norm_fullframe", per_frame=str(dtype).split(".")[1],
             sites=len(FF_SITES), elements=elems,
-            split_ms=f"{rec['ms' + tag]:.4f}",
+            resident_sites=rec["resident"]["sites" + tag],
+            split_sites=rec["split"]["sites" + tag],
+            ms=f"{rec['ms' + tag]:.4f}",
             bound_ms=f"{rec['bound_ms' + tag]:.4f}",
+            share_of_bound=f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
+            split_at_every_site_ms=f"{rec['split_ms' + tag]:.4f}",
             split_share_of_bound=
-            f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
+            f"{rec['bound_ms' + tag] / rec['split_ms' + tag]:.3f}",
+            resident_sites_ms=f"{rec['resident']['ms' + tag]:.4f}",
+            resident_sites_split_ms=
+            f"{rec['resident']['split_ms' + tag]:.4f}",
             streaming_ms=f"{rec['streaming_ms' + tag]:.4f}",
-            quarter_sites_split_ms=
-            f"{rec['quarter_sites_split_ms' + tag]:.4f}",
+            quarter_sites_ms=f"{rec['quarter_sites_ms' + tag]:.4f}",
             quarter_sites_cluster_ms=
             f"{rec['quarter_sites_cluster_ms' + tag]:.4f}",
             plain_ms=f"{rec['plain_ms' + tag]:.4f}",
             library_ms=f"{rec['library_ms' + tag]:.4f}",
             below_half_of_bound=[
                 f"{s[0]}x{s[1]}x{s[2]}:{a}" for (d, s, a), r in per.items()
-                if d == dtype and r["bound_ms"] / r["ms_split"] < 0.5])
+                if d == dtype and r["bound_ms"] / r["ms"] < 0.5])
     return rec
 
 
@@ -981,8 +1053,13 @@ def _without_pil():
 
 
 B1_WRAPPERS = {"cluster": instance_norm.instance_norm_act_cluster,
+               "resident": instance_norm.instance_norm_act_resident,
                "split": instance_norm.instance_norm_act_split,
                "streaming": instance_norm.instance_norm_act_streaming}
+
+
+# the launch counts a serving phase sums over its runs, for the kernels line
+LAUNCH_KINDS = ("cluster", "resident", "split", "blend")
 
 
 def _zero_counts() -> None:
@@ -996,13 +1073,35 @@ def _read_counts() -> dict:
     return out
 
 
-def _check_counts(what: str, got: dict, frames: int, tiled: bool) -> None:
+def _ff_launches(prec: str, h: int = H, w: int = W) -> dict:
+    """B1 launches of one full-frame pass at precision ``prec`` over an
+    h x w frame (zero-padded to multiples of 4), by variant, as ``plan``
+    gives the 19 sites: the resident variant where a site's plane fits the
+    SMs' shared memory, the split variant where it does not."""
+    dtype = _resolve_dtype(prec)
+    out = {"resident": 0, "split": 0}
+    for (sh, sw, c), _ in _ff_sites(-(-h // 4) * 4, -(-w // 4) * 4):
+        out[instance_norm.plan(1, sh, sw, c, dtype, True).variant] += 1
+    return out
+
+
+def _want_counts(frames: int, tiled: bool, prec: str,
+                 hw: tuple = (H, W)) -> dict:
     """19 B1 launches a generator call, in the cluster variant and with one
     B2 launch a call when tiled (one call a frame in these phases), in the
-    split variant and no B2 launch in full-frame mode; never streaming."""
-    want = {"cluster": 19 * frames if tiled else 0,
-            "split": 0 if tiled else 19 * frames, "streaming": 0,
+    resident and split variants as ``_ff_launches`` gives them and no B2
+    launch in full-frame mode; never streaming."""
+    ff = dict.fromkeys(("resident", "split"), 0) if tiled \
+        else _ff_launches(prec, *hw)
+    return {"cluster": 19 * frames if tiled else 0,
+            **{k: n * frames for k, n in ff.items()}, "streaming": 0,
             "blend": frames if tiled else 0}
+
+
+def _check_counts(what: str, got: dict, frames: int, tiled: bool,
+                  prec: str, hw: tuple = (H, W)) -> None:
+    """The launches ``_want_counts`` gives, or raise."""
+    want = _want_counts(frames, tiled, prec, hw)
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -1012,14 +1111,15 @@ def phase_fullframe(dev, card: str, tmp: Path, tiled: dict) -> dict:
     phase's 36 frames of 512x910 (one generator pass a frame, 512x912 after
     padding), PIL unimportable, precision bf16 and 32: a set-up run, then a
     timed run with the counters zeroed just before and read just after (19
-    split launches a frame, none of the other variants, no B2), beside the
+    B1 launches a frame, resident and split as ``_ff_launches`` gives them,
+    none of the other variants, no B2), beside the
     tiled run on the same frames (``tiled``: the serve_directory records).
     Its files against ``stylize_group`` frame by frame on 3 frames (limit 1
     count). Then at precision 32 the card against the CPU engine on a
     256x456 crop of a frame with a partial mask (limit 1 count)."""
     scene = tmp / "scene"
     names = sorted(p.name for p in (scene / "input").glob("*.png"))
-    rec, launches = {}, 0
+    rec, launches = {}, {"resident": 0, "split": 0}
     with _without_pil():
         for prec in ("bf16", "32"):
             out = tmp / f"ff_{prec}"
@@ -1034,8 +1134,10 @@ def phase_fullframe(dev, card: str, tmp: Path, tiled: dict) -> dict:
             counts = _read_counts()
             if written != DIR_FRAMES:
                 raise AssertionError(f"fullframe {prec}: {written} frames")
-            _check_counts(f"fullframe {prec}", counts, DIR_FRAMES, False)
-            launches += counts["split"]
+            _check_counts(f"fullframe {prec}", counts, DIR_FRAMES, False,
+                          prec)
+            for k in launches:
+                launches[k] += counts[k]
             worst = 0
             for name in names[:3]:
                 frame = eng.load_frame(scene / "input" / name)
@@ -1056,6 +1158,7 @@ def phase_fullframe(dev, card: str, tmp: Path, tiled: dict) -> dict:
                 tiled_ms_per_frame=f"{tiled_ms:.2f}",
                 tiled_eq_frames_per_s=
                 f"{tiled[prec]['eq_frames_per_s']:.2f}",
+                resident_launches=counts["resident"],
                 split_launches=counts["split"],
                 cluster_launches=counts["cluster"],
                 streaming_launches=counts["streaming"],
@@ -1082,7 +1185,7 @@ def phase_fullframe(dev, card: str, tmp: Path, tiled: dict) -> dict:
                     raise AssertionError(f"fullframe card vs CPU: {dm.max()}"
                                          " counts apart (limit 1)")
             del eng
-    return {"rec": rec, "launches": {"split": launches}}
+    return {"rec": rec, "launches": launches}
 
 
 TEMPORAL_FRAMES, TEMPORAL_MISSING = 12, 5  # chain length, missing flow
@@ -1163,7 +1266,7 @@ def phase_temporal(dev, card: str, tmp: Path) -> dict:
     ckpt = _temporal_ckpt(tmp)
     scene = _temporal_scene(tmp / "scene", tmp / "tscene", TEMPORAL_FRAMES)
     names = sorted(p.name for p in (scene / "input").glob("*.png"))
-    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    rec, launches = {}, dict.fromkeys(LAUNCH_KINDS, 0)
     with _without_pil():
         for mode in ("tiled", "fullframe"):
             for prec in ("bf16", "32"):
@@ -1181,7 +1284,7 @@ def phase_temporal(dev, card: str, tmp: Path) -> dict:
                 if written != TEMPORAL_FRAMES:
                     raise AssertionError(f"temporal {mode} {prec}: {written}")
                 _check_counts(f"temporal {mode} {prec}", counts,
-                              TEMPORAL_FRAMES, mode == "tiled")
+                              TEMPORAL_FRAMES, mode == "tiled", prec)
                 for k in launches:
                     launches[k] += counts[k]
                 carry, differ = (None, None), []
@@ -1428,7 +1531,7 @@ def phase_temporal_device(dev, card: str, tmp: Path) -> dict:
         raise AssertionError(f"the flow tool failed ({rc})")
     device = dict(mask="mask_ignore", flow_source="device",
                   file_format=FLOW_FMT)
-    launches = {"cluster": 0, "split": 0, "blend": 0}
+    launches = dict.fromkeys(LAUNCH_KINDS, 0)
     with _without_pil():
         for mode, prec, scale in DEVICE_FLOW_RUNS:
             tag = f"{mode}_{prec}_s{scale}"
@@ -1449,7 +1552,7 @@ def phase_temporal_device(dev, card: str, tmp: Path) -> dict:
             if written != TEMPORAL_FRAMES:
                 raise AssertionError(f"temporal_device {tag}: {written}")
             _check_counts(f"temporal_device {tag}", counts, TEMPORAL_FRAMES,
-                          mode == "tiled")
+                          mode == "tiled", prec)
             # one graph with the mask, one without (frame 5), both made
             # in the set-up run
             if graphs.captures != 2 or \
@@ -1675,7 +1778,7 @@ def phase_precision_32_fast(dev, card: str, tmp: Path) -> dict:
     read just after, each file within 1 count of the precision-32 run's
     (the differing pixels printed); (c) a precision-32 engine built after
     them finds TF32 off in cuDNN and matmuls."""
-    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    rec, launches = {}, dict.fromkeys(LAUNCH_KINDS, 0)
     engines = {p: _engine(p) for p in ("32", "32_fast", "bf16")}
     g = torch.Generator(device=dev).manual_seed(4)
     inputs = {"tiles": torch.rand((B, PS, PS, 6), device=dev, generator=g)
@@ -1743,7 +1846,8 @@ def phase_precision_32_fast(dev, card: str, tmp: Path) -> dict:
                 eng._group_size(len(eng.boxes_for(_full_mask(), (H, W))))))
             if written != DIR_FRAMES:
                 raise AssertionError(f"32_fast {mode}: {written} frames")
-            _check_counts(f"32_fast {mode}", counts, calls, mode == "tiled")
+            _check_counts(f"32_fast {mode}", counts, calls, mode == "tiled",
+                          "32_fast")
             for k in launches:
                 launches[k] += counts[k]
             worst, differ = _compare_dirs(out, tmp / ref, names)
@@ -1802,7 +1906,7 @@ def phase_single_image(dev, card: str, tmp: Path) -> dict:
                np.where(ell < 1.0, 255, 0).astype(np.uint8), compress_level=1)
     inp, mask_path = root / "input" / "0000.png", root / "mask" / "0000.png"
     rec = {}
-    launches = {"cluster": 0, "split": 0, "blend": 0}
+    launches = dict.fromkeys(LAUNCH_KINDS, 0)
     with _without_pil():
         for mode in ("tiled", "fullframe"):
             for prec in ("bf16", "32"):
@@ -1822,7 +1926,7 @@ def phase_single_image(dev, card: str, tmp: Path) -> dict:
                 ms = 1e3 * (time.perf_counter() - t0)
                 counts = _read_counts()
                 _check_counts(f"single_image {tag}", counts, 1,
-                              mode == "tiled")
+                              mode == "tiled", prec, (SINGLE_H, SINGLE_W))
                 for k in launches:
                     launches[k] += counts[k]
                 frame = eng.load_frame(inp)
@@ -1885,6 +1989,7 @@ finally:
     from patch_toon_tpu_torch.ops import blend, instance_norm as b1
     print("LAUNCHES " + json.dumps({
         "cluster": b1.instance_norm_act_cluster.launches,
+        "resident": b1.instance_norm_act_resident.launches,
         "split": b1.instance_norm_act_split.launches,
         "streaming": b1.instance_norm_act_streaming.launches,
         "blend": blend.blend_tiles.launches}), flush=True)
@@ -1974,7 +2079,7 @@ def phase_watch(dev, card: str, tmp: Path) -> dict:
     disk: exit 0, every output a whole PNG equal to the one-shot run's."""
     scene = tmp / "scene"
     names = sorted(p.name for p in (scene / "input").glob("*.png"))[:12]
-    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    rec, launches = {}, dict.fromkeys(LAUNCH_KINDS, 0)
     # (1) flat
     root = tmp / "watch_flat"
     dirs = [root / d for d in ("input", "mask", "tracking", "out")]
@@ -2114,7 +2219,7 @@ def phase_multistream(dev, card: str, tmp: Path) -> dict:
     ckpt = _temporal_ckpt(tmp)
     views = {False: _ms_scene(tmp / "scene", tmp / "ms_full"),
              True: _ms_scene(tmp / "scene", tmp / "ms_part", partial=True)}
-    rec, launches = {}, {"cluster": 0, "split": 0, "blend": 0}
+    rec, launches = {}, dict.fromkeys(LAUNCH_KINDS, 0)
     with _without_pil():
         for source, prec, partial in MS_RUNS:
             tag = f"{source}_{prec}" + ("_partial" if partial else "")
@@ -2134,7 +2239,8 @@ def phase_multistream(dev, card: str, tmp: Path) -> dict:
             counts = _read_counts()
             if written != len(MS_STREAMS) * MS_FRAMES:
                 raise AssertionError(f"multistream {tag}: {written}")
-            _check_counts(f"multistream {tag}", counts, MS_FRAMES, True)
+            _check_counts(f"multistream {tag}", counts, MS_FRAMES, True,
+                          prec)
             for k in launches:
                 launches[k] += counts[k]
             tr = _traced(eng.process_directory)
@@ -2229,7 +2335,7 @@ def phase_multistream(dev, card: str, tmp: Path) -> dict:
         thread.join()
         if errors:
             raise errors[0]
-        _check_counts("multistream watch", counts, MS_FRAMES, True)
+        _check_counts("multistream watch", counts, MS_FRAMES, True, "bf16")
         for k in launches:
             launches[k] += counts[k]
         differ = sum(_compare_dirs(tmp / "ms_watch_out" / s,
@@ -2533,7 +2639,8 @@ def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
             if written != DIR_FRAMES or calibrations != 1:
                 raise AssertionError(f"int8 {mode}: {written} frames, "
                                      f"{calibrations} calibrations")
-            _check_counts(f"int8 {mode}", counts, calls, mode == "tiled")
+            _check_counts(f"int8 {mode}", counts, calls, mode == "tiled",
+                          "bf16")
             if q != {"conv_s8": 22 * calls, "quantize_act": 22 * calls}:
                 raise AssertionError(f"int8 {mode}: launches {q}, expected "
                                      f"22 of each a call x {calls}")
@@ -3590,11 +3697,13 @@ def phase_guides(dev, card: str, tmp: Path) -> dict:
             say("guides", kernel="splat_points", sigma=sigma, points=n,
                 bitwise_equal=bool(torch.equal(got, want)),
                 max_abs_err=f"{err:.3g}", covered_pairs=pairs)
-            if err > 1e-6:
+            if not torch.equal(got, want):
                 raise AssertionError(f"splat_points differs from its plain "
-                                     f"version by {err}")
-        ms = time_ms(lambda: ops_splat.splat_points(base, pts, cols, valid,
-                                                    15.0), 20)
+                                     f"version by {err} (bitwise expected)")
+        # device time: at tens of microseconds a launch, back-to-back calls
+        # would time the host's ctypes dispatch
+        ms = queued_ms([lambda: ops_splat.splat_points(base, pts, cols, valid,
+                                                       15.0)], 20)
         plain = time_ms(lambda: ops_splat.splat_points_plain(
             base, pts, cols, valid, 15.0), 2)
         ops_splat.splat_points.launches = saved
@@ -3742,9 +3851,7 @@ def _mg_serve(prec: str, mode: str, devices: int, scene: Path, out: Path,
     d = len(eng.cards)
     per_card = DIR_FRAMES // d  # frames a card: 36 over 1, 2 or 4
     calls = per_card // 3 if mode == "tiled" else per_card  # fpd 3
-    want = {"cluster": 19 * calls if mode == "tiled" else 0,
-            "split": 0 if mode == "tiled" else 19 * calls, "streaming": 0,
-            "blend": calls if mode == "tiled" else 0}
+    want = _want_counts(calls, mode == "tiled", prec)
     for kind, n in want.items():
         for card in eng.cards:
             if by_card[kind].get(card.index, 0) != n:
@@ -4110,7 +4217,7 @@ def phase_multi_gpu(tmp: Path, plain_fit=None) -> dict:
         write_scene(scene, DIR_FRAMES, H, W)
     names = sorted(p.name for p in (scene / "input").glob("*.png"))
     rec = {"cards": count, "card_lines": cards, "serve": {}}
-    launches = {"cluster": 0, "split": 0, "blend": 0}
+    launches = dict.fromkeys(LAUNCH_KINDS, 0)
     ds = [d for d in (2, 4) if d <= count]
     modes = ("tiled", "fullframe") if ds else ("tiled",)
     with _without_pil():
@@ -4281,15 +4388,19 @@ def main() -> int:
               "multistream": multi["launches"]["blend"],
               "multi_gpu_serve": mgpu["launches"]["blend"],
               "int8_serve_directory": int8["launches"]["tiled"]["blend"]}
-    splits = {"fullframe": full["launches"]["split"],
-              "temporal_fullframe": chain["launches"]["split"],
-              "temporal_device_fullframe": dflow["launches"]["split"],
-              "32_fast_serve": fast["launches"]["split"],
-              "single_image": single["launches"]["split"],
-              "watch": watch["launches"]["split"],
-              "multistream": multi["launches"]["split"],
-              "multi_gpu_serve": mgpu["launches"]["split"],
-              "int8_fullframe": int8["launches"]["fullframe"]["split"]}
+    # launches of B1's resident and split variants by full-frame path
+    full_frame = {v: {"fullframe": full["launches"][v],
+                      "temporal_fullframe": chain["launches"][v],
+                      "temporal_device_fullframe": dflow["launches"][v],
+                      "32_fast_serve": fast["launches"][v],
+                      "single_image": single["launches"][v],
+                      "watch": watch["launches"][v],
+                      "multistream": multi["launches"][v],
+                      "multi_gpu_serve": mgpu["launches"][v],
+                      "int8_fullframe": int8["launches"]["fullframe"][v]}
+                  for v in ("resident", "split")}
+    ff_frame = {k: v for k, v in rec_ff.items()
+                if k not in ("resident", "split")}
     rec_in["variants"]["cluster"]["launches"] = sum(cluster.values())
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
@@ -4309,14 +4420,29 @@ def main() -> int:
              launches_by_path={**cluster, **train_fwd},
              dtype="bf16", variant="cluster",
              per="19 sites of one 512-tile generator call", **rec_in),
+        dict(name="instance_norm_act_resident", route="cuda",
+             source="patch_toon_tpu_torch/csrc/instance_norm_resident.cu",
+             replaces="patch_toon_tpu/ops/pallas_norm.py:52",
+             launches=sum(full_frame["resident"].values()),
+             launches_by_path=full_frame["resident"],
+             dtype="bf16", variant="resident",
+             note="one cooperative launch; split_ms is the split variant "
+                  "at the same sites, timed in turns with it",
+             per=f"the {rec_ff['resident']['sites']} sites of a 512x912 "
+                 "full-frame pass that plan gives it at bf16 "
+                 f"({rec_ff['resident']['sites_fp32']} at fp32)",
+             fullframe_pass=ff_frame, **rec_ff["resident"]),
         dict(name="instance_norm_act_split", route="cuda",
              source="patch_toon_tpu_torch/csrc/instance_norm_split.cu",
              replaces="patch_toon_tpu/ops/pallas_norm.py:52",
-             launches=sum(splits.values()), launches_by_path=splits,
+             launches=sum(full_frame["split"].values()),
+             launches_by_path=full_frame["split"],
              dtype="bf16", variant="split",
              note="two launches (statistics, normalize) counted as one",
-             per="the 19 sites of one full-frame pass over a 512x912 frame",
-             **rec_ff),
+             per=f"the {rec_ff['split']['sites']} site(s) of a 512x912 "
+                 "full-frame pass that plan gives it at bf16 "
+                 f"({rec_ff['split']['sites_fp32']} at fp32)",
+             **rec_ff["split"]),
         *[dict(name=f"instance_norm_act_backward_{v}", route="cuda",
                source="patch_toon_tpu_torch/csrc/instance_norm_bwd.cu",
                replaces="patch_toon_tpu/ops/pallas_norm.py:52",

@@ -59,8 +59,15 @@ SIGNATURES = {
     # device, stream
     "ptt_instance_norm_act_split": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _I, _F, _F, _I, _P],
+    # x, y, mean, rstd (null, or (n, c) fp32 outputs), part (workspace of
+    # 2 * n * c * round_up(chunks, 4) fp32), n, hw, c, group, ppc (pixels a
+    # chunk), chunks, dtype, act, slope, eps, device, stream
+    "ptt_instance_norm_act_resident": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _I, _I, _F, _F, _I, _P],
     # the cluster variant's shared-memory budget a CTA, in bytes
     "ptt_instance_norm_slice_bytes": [],
+    # the resident variant's shared-memory budget a CTA, in bytes
+    "ptt_instance_norm_resident_bytes": [],
     # gen, weights, positions, offsets, ids, canvas, wcanvas, n_tiles, ps,
     # canvas_h, canvas_w, block, device, stream
     "ptt_blend_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -32,23 +32,28 @@
 // with Chan's formula in fp64,
 //   mean = sum n_s m_s / N,  M2 = sum M2_s + sum n_s (m_s - mean)^2,
 // writes the unit's fp32 mean and rstd = 1/sqrt(M2/N + eps), and sets the
-// counter back to 0 for the next launch. Each channel's sums are taken by
-// 8 to 32 threads, each over every 8th to 32nd float4 of the channel's
-// row of partials (four loads in flight), then a fixed xor butterfly: the same order on every
-// run, whichever CTA comes last, so the result is deterministic. Combining
-// once a unit, rather than in every CTA of launch 2, reads the workspace
-// once.
+// counter back to 0 for the next launch. The combine (b1_common.cuh
+// combine_unit) sums in the same fixed order on every run, whichever CTA
+// comes last, so the result is deterministic. Combining once a unit,
+// rather than in every CTA of launch 2, reads the workspace once.
 //
 // Launch 2 (normalize). Each CTA reads its unit's mean and rstd and
-// normalizes its chunk: one read (from L2 where the plane still lies
-// there, as the 7.5 MB quarter-resolution planes do) and one write, with
-// 16-byte loads and stores, four in flight a thread.
+// normalizes its chunk: one read and one write, with 16-byte loads and
+// stores, four in flight a thread. It walks the chunk's pixels from the
+// last: launch 1 ran in one wave and read each chunk from its first pixel,
+// so what L2 still holds of the plane is the chunks' ends (3 % faster at
+// upsample1's 119.5 MB bf16 plane, 4 % at the 59.8 MB fp32 stem, on an
+// NVIDIA H100 80GB HBM3 at 700.00 W).
 //
 // So three transfers of the tensor against the bound's two: at most 67 %
-// of the bound. ops/instance_norm.py::plan picks G (the largest of 32, 16,
-// 8, 4 that takes C in whole 16-byte vectors) and the chunking (two CTAs
-// an SM over the whole launch, so one wave); the entry point checks
-// what it is given again and returns an error code, never falls back.
+// of the bound. A plane that fits the SMs' shared memory goes to the
+// resident variant instead (instance_norm_resident.cu: one launch, one
+// read); this one takes the rest (upsample1's 119.5 MB plane at bf16, and
+// at fp32 also the stem's and upsample2's). ops/instance_norm.py::plan
+// picks G (the largest of 32, 16, 8, 4 that takes C in whole 16-byte
+// vectors) and the chunking (two CTAs an SM over the whole launch, so one
+// wave); the entry point checks what it is given again and returns an
+// error code, never falls back.
 #include "b1_common.cuh"
 
 namespace {
@@ -56,7 +61,6 @@ namespace {
 using namespace b1;
 
 constexpr int kUnroll = 4;  // 16-byte loads in flight a thread
-constexpr int kBatch = 4;   // float4 loads of partials in flight, combine
 
 // Chan's merge of the statistics (nb, mb[], qb[]) of other pixels into
 // (na, ma[], qa[]): counts, means and sums of squared deviations, in fp32.
@@ -181,72 +185,14 @@ instance_norm_split_stats_kernel(const T* __restrict__ x,
   }
   __syncthreads();
   if (!last) return;
-  // tpc threads a channel (a power of 2 that divides 32), each over float4s
-  // r = sub, sub + tpc, ... of the channel's row, kBatch loads in flight,
-  // then a fixed xor butterfly within the tpc lanes
-  const int tpc = min(32, kThreads / group);
-  const int ch = threadIdx.x / tpc, sub = threadIdx.x & (tpc - 1);
-  if (ch < group) {
-    const size_t row = (static_cast<size_t>(unit) * group + ch) * stride;
-    const float4* pm = reinterpret_cast<const float4*>(part_mean + row);
-    const float4* pq = reinterpret_cast<const float4*>(part_m2 + row);
-    const int nv = stride >> 2;
-    double t = 0.0;
-    for (int r0 = sub; r0 < nv; r0 += tpc * kBatch) {
-      float4 a[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (r0 + k * tpc < nv) a[k] = __ldcg(pm + r0 + k * tpc);
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int r = r0 + k * tpc;
-        const float mv[4] = {a[k].x, a[k].y, a[k].z, a[k].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = 4 * r + e;
-          if (r < nv && j < chunks)
-            t += static_cast<double>(min(ppc, hw - j * ppc)) *
-                 static_cast<double>(mv[e]);
-        }
-      }
-    }
-    for (int off = tpc >> 1; off >= 1; off >>= 1)
-      t += __shfl_xor_sync(0xffffffffu, t, off);
-    const double mu = t / static_cast<double>(hw);
-    double m2 = 0.0;
-    for (int r0 = sub; r0 < nv; r0 += tpc * kBatch) {
-      float4 a[kBatch], b[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (r0 + k * tpc < nv) {
-          a[k] = __ldcg(pm + r0 + k * tpc);
-          b[k] = __ldcg(pq + r0 + k * tpc);
-        }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int r = r0 + k * tpc;
-        const float mv[4] = {a[k].x, a[k].y, a[k].z, a[k].w};
-        const float qv[4] = {b[k].x, b[k].y, b[k].z, b[k].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = 4 * r + e;
-          if (r < nv && j < chunks) {
-            const double d = static_cast<double>(mv[e]) - mu;
-            m2 += static_cast<double>(qv[e]) +
-                  static_cast<double>(min(ppc, hw - j * ppc)) * d * d;
-          }
-        }
-      }
-    }
-    for (int off = tpc >> 1; off >= 1; off >>= 1)
-      m2 += __shfl_xor_sync(0xffffffffu, m2, off);
-    if (sub == 0) {
-      const float var = static_cast<float>(m2 / static_cast<double>(hw));
-      const size_t o = static_cast<size_t>(n) * c +
-                       static_cast<size_t>(g) * group + ch;
-      mean_out[o] = static_cast<float>(mu);
-      rstd_out[o] = 1.0f / sqrtf(var + eps);
-    }
+  int ch;
+  float mu, rs;
+  if (combine_unit(part_mean, part_m2, unit, group, chunks, ppc, hw, eps, &ch,
+                   &mu, &rs)) {
+    const size_t o =
+        static_cast<size_t>(n) * c + static_cast<size_t>(g) * group + ch;
+    mean_out[o] = mu;
+    rstd_out[o] = rs;
   }
   if (threadIdx.x == 0) counters[unit] = 0u;
 }
@@ -288,7 +234,7 @@ instance_norm_split_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
       const int i = i0 + r * kThreads;
       if (i < nvec)
         u[r] = __ldg(reinterpret_cast<const uint4*>(
-            x + base + static_cast<size_t>(i >> vshift) * c));
+            x + base + static_cast<size_t>(np - 1 - (i >> vshift)) * c));
     }
 #pragma unroll
     for (int r = 0; r < kUnroll; ++r) {
@@ -299,7 +245,8 @@ instance_norm_split_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
         for (int e = 0; e < kVec; ++e)
           f[e] = activate<kAct>((f[e] - mean[e]) * rstd[e], slope);
         *reinterpret_cast<uint4*>(
-            y + base + static_cast<size_t>(i >> vshift) * c) = Vec<T>::pack(f);
+            y + base + static_cast<size_t>(np - 1 - (i >> vshift)) * c) =
+            Vec<T>::pack(f);
       }
     }
   }

@@ -9,11 +9,20 @@
 // Replaces patch_toon_tpu/ops/splat.py::splat_points, a sequential lax.scan
 // on the device (not a Pallas kernel): each scan step read and wrote one
 // point's (2r + 2)^2 window of the canvas. The scan's result is, per pixel,
-// the blobs that cover it applied in point order, so here one thread owns a
-// pixel and walks the points: nothing synchronizes between points and
-// nothing races. A block stages the points in chunks in shared memory, with
-// each point's window computed once a block (an invalid point gets an empty
-// window and leaves the canvas bitwise as it was).
+// the blobs that cover it applied in point order, so here each thread owns
+// kRows pixels of a column of its block and walks the points in order:
+// nothing synchronizes between points and nothing races. An invalid point
+// gets an empty window and leaves the canvas bitwise as it was.
+//
+// Per-block point lists. A block stages the points in chunks of kChunk,
+// one point a thread: the thread computes the point's window and tests it
+// against the block's pixel rectangle. A warp's passing points are counted
+// by __ballot_sync / __popc, the warps' counts summed in warp order, and
+// each passing point written at its rank into a list in shared memory, so
+// the list keeps ascending point order. The pixel loop walks only that
+// list: at r = 45 a 32x16 block meets about 30 of a frame's 1,000 points,
+// not 1,000. A point left out covers no pixel of the block, so every pixel
+// sees the same blobs in the same order as the full walk.
 //
 // Bound: bytes. The canvas is read once and written once (12 bytes a pixel
 // each way); the window arithmetic is some 20 flops and one expf a covered
@@ -29,9 +38,11 @@
 namespace {
 
 constexpr int kTileX = 32;  // a warp takes one row of 32 pixels
-constexpr int kTileY = 8;
-constexpr int kThreads = kTileX * kTileY;
-constexpr int kChunk = 256;  // points staged in shared memory at a time
+constexpr int kWarps = 8;
+constexpr int kRows = 2;    // pixels a thread, kWarps rows apart
+constexpr int kTileY = kWarps * kRows;
+constexpr int kThreads = kTileX * kWarps;
+constexpr int kChunk = kThreads;  // points staged at a time, one a thread
 
 __global__ void __launch_bounds__(kThreads)
 splat_points_kernel(const float* __restrict__ image, float* __restrict__ out,
@@ -39,38 +50,63 @@ splat_points_kernel(const float* __restrict__ image, float* __restrict__ out,
                     const float* __restrict__ cols,
                     const unsigned char* __restrict__ valid, int n, int h,
                     int w, int r, float s2) {
+  // the block's list of the chunk's points that meet it, in point order
   __shared__ float s_x[kChunk], s_y[kChunk];
   __shared__ float s_c[kChunk][3];
   __shared__ int s_win[kChunk][4];  // y_lo, y_hi, x_lo, x_hi (inclusive)
-  const int px = blockIdx.x * kTileX + threadIdx.x % kTileX;
-  const int py = blockIdx.y * kTileY + threadIdx.x / kTileX;
-  const bool inside = px < w && py < h;
-  const size_t o = inside ? (static_cast<size_t>(py) * w + px) * 3 : 0;
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f;
-  if (inside) {
-    c0 = image[o];
-    c1 = image[o + 1];
-    c2 = image[o + 2];
-  }
-  const float xi = static_cast<float>(px), yi = static_cast<float>(py);
+  __shared__ int s_count[kWarps];
+  const int lane = threadIdx.x % kTileX, warp = threadIdx.x / kTileX;
+  const int bx0 = blockIdx.x * kTileX, by0 = blockIdx.y * kTileY;
+  const int px = bx0 + lane;
+  const float xi = static_cast<float>(px);
   const float fr = static_cast<float>(r);
+  int py[kRows];
+  bool inside[kRows];
+  size_t o[kRows];
+  float c0[kRows], c1[kRows], c2[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    py[k] = by0 + warp + k * kWarps;
+    inside[k] = px < w && py[k] < h;
+    o[k] = inside[k] ? (static_cast<size_t>(py[k]) * w + px) * 3 : 0;
+    c0[k] = c1[k] = c2[k] = 0.f;
+    if (inside[k]) {
+      c0[k] = image[o[k]];
+      c1[k] = image[o[k] + 1];
+      c2[k] = image[o[k] + 2];
+    }
+  }
 
   for (int k0 = 0; k0 < n; k0 += kChunk) {
-    const int m = min(kChunk, n - k0);
-    __syncthreads();  // the previous chunk has been consumed
-    for (int i = threadIdx.x; i < m; i += kThreads) {
-      const int p = k0 + i;
-      const float x = pts[2 * p], y = pts[2 * p + 1];
-      int ylo = 1, yhi = 0, xlo = 1, xhi = 0;  // empty
-      if (valid[p]) {
-        const int fy = static_cast<int>(floorf(y));
-        const int fx = static_cast<int>(floorf(x));
-        // C truncation toward zero of the fp32 sums, as the reference
-        ylo = max(fy - r, static_cast<int>(__fsub_rn(y, fr)));
-        yhi = min(fy + r + 1, static_cast<int>(__fadd_rn(y, fr)));
-        xlo = max(fx - r, static_cast<int>(__fsub_rn(x, fr)));
-        xhi = min(fx + r + 1, static_cast<int>(__fadd_rn(x, fr)));
-      }
+    // this thread's point: its window, and whether it meets the block
+    const int p = k0 + threadIdx.x;
+    float x = 0.f, y = 0.f;
+    int ylo = 1, yhi = 0, xlo = 1, xhi = 0;  // empty
+    if (p < n && valid[p]) {
+      x = pts[2 * p];
+      y = pts[2 * p + 1];
+      const int fy = static_cast<int>(floorf(y));
+      const int fx = static_cast<int>(floorf(x));
+      // C truncation toward zero of the fp32 sums, as the reference
+      ylo = max(fy - r, static_cast<int>(__fsub_rn(y, fr)));
+      yhi = min(fy + r + 1, static_cast<int>(__fadd_rn(y, fr)));
+      xlo = max(fx - r, static_cast<int>(__fsub_rn(x, fr)));
+      xhi = min(fx + r + 1, static_cast<int>(__fadd_rn(x, fr)));
+    }
+    const bool meets = ylo <= yhi && xlo <= xhi && ylo < by0 + kTileY &&
+                       yhi >= by0 && xlo < bx0 + kTileX && xhi >= bx0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, meets);
+    __syncthreads();  // the previous chunk's list has been consumed
+    if (lane == 0) s_count[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, m = 0;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) {
+      base += wi < warp ? s_count[wi] : 0;
+      m += s_count[wi];
+    }
+    if (meets) {
+      const int i = base + __popc(ballot & ((1u << lane) - 1u));
       s_x[i] = x;
       s_y[i] = y;
       s_c[i][0] = cols[3 * p];
@@ -82,25 +118,30 @@ splat_points_kernel(const float* __restrict__ image, float* __restrict__ out,
       s_win[i][3] = xhi;
     }
     __syncthreads();
-    if (!inside) continue;
     for (int i = 0; i < m; ++i) {
-      if (py < s_win[i][0] || py > s_win[i][1] || px < s_win[i][2] ||
-          px > s_win[i][3])
-        continue;
+      if (px < s_win[i][2] || px > s_win[i][3]) continue;
       const float dx = __fsub_rn(xi, s_x[i]);
-      const float dy = __fsub_rn(yi, s_y[i]);
-      const float d = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      const float wt = expf(__fdiv_rn(-d, s2));
-      const float keep = __fsub_rn(1.f, wt);
-      c0 = __fadd_rn(__fmul_rn(c0, keep), __fmul_rn(s_c[i][0], wt));
-      c1 = __fadd_rn(__fmul_rn(c1, keep), __fmul_rn(s_c[i][1], wt));
-      c2 = __fadd_rn(__fmul_rn(c2, keep), __fmul_rn(s_c[i][2], wt));
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if (!inside[k] || py[k] < s_win[i][0] || py[k] > s_win[i][1])
+          continue;
+        const float dy = __fsub_rn(static_cast<float>(py[k]), s_y[i]);
+        const float d = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        const float wt = expf(__fdiv_rn(-d, s2));
+        const float keep = __fsub_rn(1.f, wt);
+        c0[k] = __fadd_rn(__fmul_rn(c0[k], keep), __fmul_rn(s_c[i][0], wt));
+        c1[k] = __fadd_rn(__fmul_rn(c1[k], keep), __fmul_rn(s_c[i][1], wt));
+        c2[k] = __fadd_rn(__fmul_rn(c2[k], keep), __fmul_rn(s_c[i][2], wt));
+      }
     }
   }
-  if (inside) {
-    out[o] = c0;
-    out[o + 1] = c1;
-    out[o + 2] = c2;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    if (inside[k]) {
+      out[o[k]] = c0[k];
+      out[o[k] + 1] = c1[k];
+      out[o[k] + 2] = c2[k];
+    }
   }
 }
 

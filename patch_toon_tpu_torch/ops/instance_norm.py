@@ -1,17 +1,22 @@
 """Fused InstanceNorm + activation over NHWC (kernel B1).
 
 Replaces ``patch_toon_tpu/ops/pallas_norm.py::instance_norm_act``. On a CUDA
-tensor :func:`instance_norm_act` launches one of three variants (the head
-notes of ``csrc/instance_norm.cu`` and ``csrc/instance_norm_split.cu`` say
-what bounds them and how they are laid out), as :func:`plan` picks from the
-shape, type and alignment:
+tensor :func:`instance_norm_act` launches one of four variants (the head
+notes of ``csrc/instance_norm.cu``, ``csrc/instance_norm_resident.cu`` and
+``csrc/instance_norm_split.cu`` say what bounds them and how they are laid
+out), as :func:`plan` picks from the shape, type and alignment:
 
 - the cluster variant (:func:`instance_norm_act_cluster`): one (sample,
   group of G channels) a thread-block cluster of k CTAs, each element read
   from HBM once; the tiles of the tiled program and every training site;
+- the resident variant (:func:`instance_norm_act_resident`): one
+  cooperative launch whose CTAs, all resident at once, each hold a chunk of
+  a unit in shared memory and meet at a grid barrier, for units larger than
+  8 CTAs' slices whose chunks fit the whole grid (the planes of a full
+  frame but the largest); one read and one write;
 - the split variant (:func:`instance_norm_act_split`): the reduction split
-  across the CTAs of two launches, for units larger than 8 CTAs' slices
-  (the planes of a full frame); two reads and one write;
+  across the CTAs of two launches, for the planes the resident variant
+  cannot hold (upsample1's at a full frame); two reads and one write;
 - the streaming variant (:func:`instance_norm_act_streaming`): three reads,
   for what neither takes (C times the item size not a multiple of 16
   bytes, or a pointer not 16-byte aligned).
@@ -59,14 +64,17 @@ _MAX_GRID = 2 ** 31 - 1
 SMS = 132  # streaming multiprocessors of one H100
 # the split variant's CTAs over a whole launch: two an SM, one wave
 SPLIT_CTAS = 2 * SMS
+# the resident variant's chunk a CTA, one CTA an SM: the 227 KB a block may
+# use less 2 KB of static shared memory (csrc/b1_common.cuh kResidentBytes)
+RESIDENT_CTA_BYTES = 225 * 1024
 
 
 class Plan(NamedTuple):
     """What runs an (N, H, W, C) tensor: the variant; for the cluster
     variant G (channels a unit), k (CTAs a cluster) and a CTA's bytes; for
-    the split variant G, a CTA's bytes (its chunk), the chunks a unit (CTAs
-    a unit in each launch) and the pixels a chunk."""
-    variant: str  # "cluster", "split" or "streaming"
+    the split and resident variants G, a CTA's bytes (its chunk), the
+    chunks a unit (CTAs a unit in a launch) and the pixels a chunk."""
+    variant: str  # "cluster", "resident", "split" or "streaming"
     group: int = 0
     k: int = 0
     cta_bytes: int = 0
@@ -114,34 +122,68 @@ def split_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     return Plan("split", group, 0, ppc * group * item, chunks, ppc)
 
 
+def resident_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+                  sms: int = SMS) -> Optional[Plan]:
+    """The resident variant at the largest G that takes C, one CTA an SM:
+    each unit cut into as many chunks as ``sms`` CTAs allow (at most one a
+    pixel), if a chunk fits ``RESIDENT_CTA_BYTES``; or None when C does not
+    come in whole 16-byte vectors or the chunks do not fit (a plane beyond
+    about 30 MB on 132 SMs, or more units than SMs)."""
+    item = dtype.itemsize
+    groups = _whole_groups(c, item)
+    if not groups or h * w == 0:
+        return None
+    group = groups[0]
+    hw, units = h * w, n * (c // group)
+    chunks = min(hw, sms // units)
+    if chunks == 0:
+        return None
+    ppc = -(-hw // chunks)
+    if ppc * group * item > RESIDENT_CTA_BYTES:
+        return None
+    return Plan("resident", group, 0, ppc * group * item, -(-hw // ppc), ppc)
+
+
 def plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
-         aligned: bool) -> Plan:
+         aligned: bool, sms: int = SMS) -> Plan:
     """C times the item size a multiple of 16 bytes and an aligned data
     pointer (``aligned``): the cluster variant at the largest G of
     ``GROUPS`` that divides C in whole 16-byte vectors, with the least k of
     ``CLUSTER_SIZES`` that keeps a CTA's slice within ``CTA_BYTES``; else
-    (a unit larger than 8 CTAs' slices: a full frame's planes) the split
-    variant. No smaller G is tried for the cluster variant: at the
-    quarter-resolution planes of a full frame, where one fits (G 8 at bf16,
-    4 at fp32, half of each 32-byte sector read), the split variant is the
-    faster (``chip_smoke.py`` times both; ``PERF.md``). Otherwise the
-    streaming variant."""
+    (a unit larger than 8 CTAs' slices: a full frame's planes) the resident
+    variant where the tensor's chunks fit ``sms`` SMs' shared memory
+    (:func:`resident_plan`), and the split variant where they do not. No
+    smaller G is tried for the cluster variant: at the quarter-resolution
+    planes of a full frame, where one fits (G 8 at bf16, 4 at fp32, half of
+    each 32-byte sector read), the resident variant is the faster
+    (``chip_smoke.py`` times both; ``PERF.md``). Otherwise the streaming
+    variant."""
     if dtype not in _DTYPES:
         raise TypeError(f"instance_norm_act: dtype {dtype} not supported "
                         "(float32 or bfloat16)")
     item = dtype.itemsize
     if aligned and (c * item) % 16 == 0:
         p = cluster_plan(n, h, w, c, dtype, _whole_groups(c, item)[0]) \
+            or resident_plan(n, h, w, c, dtype, sms) \
             or split_plan(n, h, w, c, dtype)
         if p is not None:
             return p
     return Plan("streaming")
 
 
+def _sms_of(x: torch.Tensor) -> int:
+    """The SMs of a CUDA tensor's card (the resident variant's grid must
+    fit them), ``SMS`` for a CPU tensor."""
+    if x.device.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def plan_for(x: torch.Tensor) -> Plan:
-    """:func:`plan` for an (N, H, W, C) tensor and its data pointer."""
+    """:func:`plan` for an (N, H, W, C) tensor, its data pointer and its
+    card's SMs."""
     n, h, w, c = x.shape
-    return plan(n, h, w, c, x.dtype, x.data_ptr() % 16 == 0)
+    return plan(n, h, w, c, x.dtype, x.data_ptr() % 16 == 0, _sms_of(x))
 
 
 def plan_backward(n: int, h: int, w: int, c: int, dtype: torch.dtype,
@@ -255,6 +297,7 @@ def _forward_kernel(x: torch.Tensor, act: Optional[str], slope: float,
     """The variant :func:`plan` picks for a CUDA tensor x."""
     variant = plan_for(x).variant if x.numel() else "streaming"
     fn = {"cluster": instance_norm_act_cluster,
+          "resident": instance_norm_act_resident,
           "split": instance_norm_act_split}.get(
               variant, instance_norm_act_streaming)
     return fn(x, act, slope, eps, stats)
@@ -335,7 +378,7 @@ def instance_norm_act_streaming(x: torch.Tensor, act: Optional[str] = None,
 
 
 def _split_forward_plain(x: torch.Tensor, act: Optional[str], slope: float,
-                        eps: float, p: Plan):
+                         eps: float, p: Plan):
     """The split variant's arithmetic in plain PyTorch: per chunk of
     ``p.ppc`` pixels an fp32 mean and sum of squared deviations, combined
     in chunk order with Chan's formula in fp64, then fp32 mean and
@@ -361,6 +404,55 @@ def _split_forward_plain(x: torch.Tensor, act: Optional[str], slope: float,
     rstd = torch.rsqrt((m2 / hw).float() + eps)
     y = _activate((x32 - mean[:, None]) * rstd[:, None], act, slope)
     return y.reshape(x.shape).to(x.dtype), mean, rstd
+
+
+def _resident_forward_plain(x: torch.Tensor, act: Optional[str],
+                            slope: float, eps: float, p: Plan):
+    """The resident variant's arithmetic in plain PyTorch, at its chunks of
+    ``p.ppc`` pixels: each chunk's fp32 mean, then its sum of squared
+    deviations from that mean (the kernel's two passes over shared
+    memory), then the fixed-order fp64 combine. It is the split variant's
+    plain arithmetic (:func:`_split_forward_plain`), whose kernel takes a
+    chunk's statistics by Welford's update instead."""
+    return _split_forward_plain(x, act, slope, eps, p)
+
+
+def instance_norm_act_resident(x: torch.Tensor, act: Optional[str] = None,
+                               slope: float = 0.2, eps: float = 1e-5,
+                               stats: bool = False,
+                               p: Optional[Plan] = None):
+    """The resident variant, one cooperative launch counted in
+    ``.launches``, at the plan ``p`` (:func:`resident_plan`) or
+    :func:`plan`'s; raises for a CUDA tensor that :func:`plan` gives to
+    another variant, and (from the kernel's entry) for a plan whose grid
+    cannot be resident on the card at once. CPU: its arithmetic in plain
+    PyTorch (:func:`_resident_forward_plain`). With ``stats`` -> (y, mean,
+    rstd), else y."""
+    if not _cuda_input(x, act):
+        n, h, w, c = x.shape
+        q = p or resident_plan(n, h, w, c, x.dtype) \
+            or Plan("resident", ppc=max(1, h * w))
+        out = _resident_forward_plain(x, act, slope, eps, q)
+        return out if stats else out[0]
+    y = torch.empty_like(x)
+    st, mp, rp = _stats_out(x, stats)
+    if x.numel() == 0:
+        return (y, *st) if stats else y
+    p = plan_for(x) if p is None else p
+    if p.variant != "resident" or x.data_ptr() % 16:
+        raise ValueError(f"instance_norm_act_resident does not take "
+                         f"{tuple(x.shape)} {x.dtype} at data_ptr % 16 = "
+                         f"{x.data_ptr() % 16} (plan {p})")
+    n, h, w, c = x.shape
+    part = torch.empty(2 * n * c * -(-p.chunks // 4) * 4,
+                       dtype=torch.float32, device=x.device)
+    rc = _build.library().ptt_instance_norm_act_resident(
+        x.data_ptr(), y.data_ptr(), mp, rp, part.data_ptr(), n, h * w, c,
+        p.group, p.ppc, p.chunks, _DTYPES[x.dtype], ACTS[act], slope, eps,
+        x.device.index, _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_resident")
+    _build.count_launch(instance_norm_act_resident, x)
+    return (y, *st) if stats else y
 
 
 # zeroed counters of the split variant a (device, stream), left zero by
@@ -507,6 +599,8 @@ instance_norm_act_cluster.launches = 0
 instance_norm_act_cluster.by_device = {}
 instance_norm_act_split.launches = 0
 instance_norm_act_split.by_device = {}
+instance_norm_act_resident.launches = 0
+instance_norm_act_resident.by_device = {}
 instance_norm_act_streaming.launches = 0
 instance_norm_act_streaming.by_device = {}
 instance_norm_act_backward_cluster.launches = 0

@@ -15,7 +15,8 @@ tools/gaussian_filter.py:122-141; JAX runs it as a sequential
 
 The scan's result over the canvas is, per pixel, the blobs that cover the
 pixel applied in point order. So on a CUDA tensor :func:`splat_points`
-launches ``csrc/splat.cu``, one thread a pixel walking the points; on a CPU
+launches ``csrc/splat.cu``, where each block of pixels walks, in order, the
+list of the points whose window meets it; on a CPU
 tensor it runs :func:`splat_points_plain`, the per-point loop. Both round
 each operation in the same order, so on the card they agree bit for bit.
 JAX's ``dynamic_slice`` clamps a window that leaves the padded canvas; that

@@ -32,6 +32,8 @@ from patch_toon_tpu_torch.ops import splat as tsplat  # noqa: E402
 from patch_toon_tpu_torch import _build  # noqa: E402
 from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
     CTA_BYTES,
+    RESIDENT_CTA_BYTES,
+    Plan,
     instance_norm_act,
     instance_norm_act_backward,
     instance_norm_act_backward_cluster,
@@ -39,10 +41,12 @@ from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
     instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
+    instance_norm_act_resident,
     instance_norm_act_split,
     instance_norm_act_streaming,
     plan_backward_for,
     plan_for,
+    resident_plan,
     split_plan,
 )
 
@@ -203,29 +207,138 @@ FULLFRAME_SITES = [((512, 912, 32), "leaky_relu"),
                    ((512, 912, 128), "relu")]
 
 
+FULL_FRAME_VARIANTS = dict(VARIANTS, split=instance_norm_act_split,
+                           resident=instance_norm_act_resident)
+# the variant the plan picks at each distinct full-frame site: the resident
+# one where the plane's chunks fit 132 SMs' shared memory
+FULLFRAME_PICK = {
+    torch.bfloat16: {(512, 912, 32): "resident", (256, 456, 64): "resident",
+                     (128, 228, 128): "resident",
+                     (256, 456, 128): "resident", (512, 912, 128): "split"},
+    torch.float32: {(512, 912, 32): "split", (256, 456, 64): "resident",
+                    (128, 228, 128): "resident", (256, 456, 128): "split",
+                    (512, 912, 128): "split"},
+}
+
+
+def _check_fullframe_variant(x, act, variant, **kw):
+    """One launch of ``variant`` with its statistics, counted once, against
+    the plain version and its statistics, and bitwise equal to a second
+    call."""
+    fn = FULL_FRAME_VARIANTS[variant]
+    before = {k: f.launches for k, f in FULL_FRAME_VARIANTS.items()}
+    y, mean, rstd = fn(x, act, stats=True, **kw)
+    torch.cuda.synchronize()
+    after = {k: f.launches for k, f in FULL_FRAME_VARIANTS.items()}
+    assert after == {k: v + (k == variant) for k, v in before.items()}
+    _assert_in_close(y, instance_norm_act_plain(x, act), x.dtype)
+    want_mean, want_rstd = _stats(x)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=1e-6)
+    assert torch.equal(y, fn(x, act, **kw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hwc,act", FULLFRAME_SITES)
 def test_instance_norm_split_matches_plain_at_fullframe_shapes(cuda, dtype,
                                                                 hwc, act):
-    """The split variant, which the plan picks at every full-frame site,
-    against the plain version (one launch counted), its statistics against
-    the plain version's, and bitwise equal to a second call (the combine
-    runs in a fixed order whichever CTA finishes last)."""
+    """The split variant at every full-frame site (at ``split_plan``'s plan
+    where the plan picks the resident variant) against the plain version
+    (one launch counted), its statistics against the plain version's, and
+    bitwise equal to a second call (the combine runs in a fixed order
+    whichever CTA finishes last)."""
     x = _randn((1,) + hwc, dtype, cuda, seed=12)
-    assert plan_for(x).variant == "split"
-    before = {k: f.launches for k, f in
-              dict(VARIANTS, split=instance_norm_act_split).items()}
-    y, mean, rstd = instance_norm_act_split(x, act, stats=True)
+    assert plan_for(x).variant == FULLFRAME_PICK[dtype][hwc]
+    _check_fullframe_variant(x, act, "split", p=split_plan(1, *hwc, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hwc,act", FULLFRAME_SITES)
+def test_instance_norm_resident_matches_plain_at_fullframe_shapes(
+        cuda, dtype, hwc, act):
+    """The resident variant at every full-frame site the plan gives it,
+    through the dispatching wrapper and alone: one launch counted, within
+    the plain version's tolerance, its statistics within 1e-5, two calls
+    bitwise equal (every CTA combines its unit's partials in one fixed
+    order). At the sites it does not take, its wrapper raises."""
+    x = _randn((1,) + hwc, dtype, cuda, seed=12)
+    if FULLFRAME_PICK[dtype][hwc] != "resident":
+        assert resident_plan(1, *hwc, dtype) is None
+        with pytest.raises(ValueError):
+            instance_norm_act_resident(x, act)
+        return
+    p = plan_for(x)
+    assert p.variant == "resident"
+    assert p.cta_bytes <= RESIDENT_CTA_BYTES
+    before = instance_norm_act_resident.launches
+    got = instance_norm_act(x, act)
     torch.cuda.synchronize()
-    after = {k: f.launches for k, f in
-             dict(VARIANTS, split=instance_norm_act_split).items()}
-    assert after == {k: v + (k == "split") for k, v in before.items()}
-    _assert_in_close(y, instance_norm_act_plain(x, act), dtype)
-    want_mean, want_rstd = _stats(x)
-    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=1e-6)
-    assert torch.equal(y, instance_norm_act_split(x, act))
+    assert instance_norm_act_resident.launches == before + 1
+    _assert_in_close(got, instance_norm_act_plain(x, act), dtype)
+    _check_fullframe_variant(x, act, "resident")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 79, 81, 32),   # ragged chunks, two samples
+    (3, 9, 7, 40),     # G = 8, units of a few pixels
+    (1, 3, 5, 128),    # more CTAs than pixels allow: a pixel a chunk
+    (1, 300, 301, 64),  # ragged, two units
+])
+def test_instance_norm_resident_variant_at_odd_sizes(cuda, dtype, shape):
+    """The resident variant on aligned tensors at the plan
+    ``resident_plan`` gives them (which ``plan`` would give the cluster
+    variant), against the plain version and its statistics, bitwise
+    repeatable; then at a forced plan of one CTA a unit."""
+    x = _randn(shape, dtype, cuda, seed=14)
+    p = resident_plan(*shape, dtype)
+    assert p is not None and p.variant == "resident"
+    for act in ACTS:
+        _check_fullframe_variant(x, act, "resident", p=p)
+    hw = shape[1] * shape[2]
+    if hw * p.group * dtype.itemsize <= RESIDENT_CTA_BYTES:
+        one = p._replace(chunks=1, ppc=hw,
+                         cta_bytes=hw * p.group * dtype.itemsize)
+        _check_fullframe_variant(x, "relu", "resident", p=one)
+
+
+@pytest.mark.cuda
+def test_instance_norm_resident_variant_refuses_what_it_cannot_hold(cuda):
+    """A chunk beyond the budget, a grid that cannot be resident at once,
+    another variant's plan and an unaligned tensor raise: nothing falls
+    back, and nothing is counted."""
+    lib = _build.library()
+    assert lib.ptt_instance_norm_resident_bytes() == RESIDENT_CTA_BYTES
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    x = _randn((1, 512, 912, 32), torch.bfloat16, cuda, seed=15)
+    p = plan_for(x)
+    assert p.variant == "resident" and p.chunks == sms
+    before = instance_norm_act_resident.launches
+    too_big = p._replace(chunks=p.chunks // 2, ppc=2 * p.ppc,
+                         cta_bytes=2 * p.cta_bytes)  # 442 KB a CTA
+    # 8 CTAs an SM of 28 KB each: more than the SMs hold at once
+    ppc = -(-512 * 912 // (8 * sms))
+    too_many = p._replace(chunks=-(-512 * 912 // ppc), ppc=ppc,
+                          cta_bytes=ppc * 64)
+    for q in (too_big, too_many):
+        with pytest.raises(RuntimeError):
+            instance_norm_act_resident(x, "relu", p=q)
+    with pytest.raises(ValueError):  # the split variant's plane
+        instance_norm_act_resident(
+            _randn((1, 512, 912, 128), torch.bfloat16, cuda), "relu")
+    with pytest.raises(ValueError):
+        instance_norm_act_resident(x, "relu", p=Plan("split", 32, 0, 0, 1,
+                                                       512 * 912))
+    base = _randn((1 * 128 * 228 * 128 + 1,), torch.bfloat16, cuda)
+    misaligned = base[1:].view(1, 128, 228, 128)
+    assert plan_for(misaligned).variant == "streaming"
+    with pytest.raises(ValueError):
+        instance_norm_act_resident(misaligned, "relu")
+    torch.cuda.synchronize()
+    assert instance_norm_act_resident.launches == before
 
 
 @pytest.mark.cuda
@@ -253,7 +366,7 @@ def test_instance_norm_split_variant_at_odd_sizes(cuda, dtype, shape, ctas):
 def test_instance_norm_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.randn(2, 8, 8, 32, device=cuda)
     for fn in (instance_norm_act, *VARIANTS.values(),
-               instance_norm_act_split):
+               instance_norm_act_split, instance_norm_act_resident):
         with pytest.raises(ValueError):
             fn(x.permute(0, 2, 1, 3), None)  # not contiguous
         with pytest.raises(TypeError):
@@ -423,18 +536,20 @@ def test_instance_norm_backward_kernel_refuses_what_it_cannot_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 20, 20, 24), (2, 540, 960, 32)])
+@pytest.mark.parametrize("shape", [(3, 20, 20, 24), (2, 540, 960, 32),
+                                   (1, 128, 228, 128)])
 def test_instance_norm_forward_writes_the_statistics(cuda, dtype, shape):
     """Every forward variant that takes the shape (the second shape goes to
-    the split one, and the streaming one takes both) gives the plain
-    version's mean and rstd with ``stats=True``: within 1e-5 relative,
-    5e-5 for rstd of the 518,400-pixel plane, whose streaming sums add
-    32,400 values a thread in sequence."""
+    the split one, the third to the resident one, and the streaming one
+    takes all) gives the plain version's mean and rstd with
+    ``stats=True``: within 1e-5 relative, 5e-5 for rstd of the
+    518,400-pixel plane, whose streaming sums add 32,400 values a thread
+    in sequence."""
     rtol = 5e-5 if shape[1] * shape[2] > 100_000 else 1e-5
     x = _randn(shape, dtype, cuda, seed=8)
     want_mean, want_rstd = _stats(x)
     picked = plan_for(x).variant
-    for variant, fn in dict(VARIANTS, split=instance_norm_act_split).items():
+    for variant, fn in FULL_FRAME_VARIANTS.items():
         if variant != "streaming" and variant != picked:
             continue
         y, mean, rstd = fn(x, "relu", stats=True)
@@ -623,8 +738,9 @@ def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
     temporal chain with flows from files (one missing) in both modes, and
     with the device flow (one graph captured, replayed each frame). One
     B1 launch a site and frame (7 sites at one residual block), never the
-    streaming variant; in full-frame mode the 192x256 stem plane goes to
-    the split variant and no B2 runs, tiled one B2 launch a frame."""
+    streaming variant; in full-frame mode the two 192x256 planes (stem,
+    upsample1) go to the resident variant and no B2 runs, tiled one B2
+    launch a frame."""
     from chip_smoke import _temporal_scene, write_scene
     from patch_toon_tpu_torch.config.defaults import inference_config
     from patch_toon_tpu_torch.infer.engine import StyleTransferInference
@@ -667,8 +783,7 @@ def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
         cfg["model"]["generator"]["args"].update(
             filters=[8, 16, 16, 16, 16, 8], resnet_blocks=1)
         cfg["data"]["patch_size"] = 32
-        fns = {**VARIANTS, "split": instance_norm_act_split,
-               "blend": blend.blend_tiles}
+        fns = {**FULL_FRAME_VARIANTS, "blend": blend.blend_tiles}
         before = {k: f.launches for k, f in fns.items()}
         eng = StyleTransferInference(cfg, device=device)
         assert eng.process_directory() == 6
@@ -681,11 +796,12 @@ def test_fullframe_and_temporal_serving_on_cuda_match_the_cpu(
     assert graphs["cpu"] == (0, 0)
     assert graphs["cuda"] == ((1, 5) if temporal == "device" else (0, 0))
     got = counts["cuda"]
-    assert got["cluster"] + got["split"] == 7 * 6 and got["streaming"] == 0
+    assert got["cluster"] + got["resident"] + got["split"] == 7 * 6
+    assert got["streaming"] == 0 and got["split"] == 0
     if mode == "tiled":
-        assert got["split"] == 0 and got["blend"] == 6
+        assert got["resident"] == 0 and got["blend"] == 6
     else:
-        assert got["split"] >= 6 and got["blend"] == 0
+        assert got["resident"] == 2 * 6 and got["blend"] == 0
     assert outs["cuda"].keys() == outs["cpu"].keys() and len(outs["cpu"]) == 6
     for name, want in outs["cpu"].items():
         assert np.abs(outs["cuda"][name] - want).max() <= 1, name
@@ -888,6 +1004,45 @@ def test_splat_kernel_bitwise_equals_plain(cuda, sigma, h, w, n):
     # invalid points only: the canvas as it was
     none = torch.zeros_like(args[3])
     assert torch.equal(tsplat.splat_points(*args[:3], none, sigma), args[0])
+
+
+def _splat_block_case(h, w, n, seed):
+    """Points that stress the per-block lists: a cluster inside one 32x16
+    block, points on block edges and corners (x a multiple of 32, y of 16,
+    and half a pixel off them), points whose window only touches a block,
+    far more points than a chunk of 256, and every fifth point invalid."""
+    rng = np.random.default_rng(seed)
+    img = rng.random((h, w, 3)).astype(np.float32)
+    clustered = np.stack([rng.uniform(64, 96, 300), rng.uniform(32, 48, 300)],
+                         1)
+    gx, gy = np.meshgrid(np.arange(0, w + 1, 32), np.arange(0, h + 1, 16))
+    edges = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float64)
+    edges = np.concatenate([edges, edges + 0.5, edges - 0.5, edges + 1e-3])
+    rest = np.stack([rng.uniform(-5, w + 5, n), rng.uniform(-5, h + 5, n)],
+                    1)
+    pts = np.concatenate([clustered, edges, rest]).astype(np.float32)
+    pts = pts[rng.permutation(len(pts))]
+    cols = rng.random((len(pts), 3)).astype(np.float32)
+    valid = np.arange(len(pts)) % 5 != 3
+    return [torch.from_numpy(a) for a in (img, pts, cols, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 10.0, 15.0])
+def test_splat_kernel_bitwise_equals_plain_on_block_edges(cuda, sigma):
+    """The per-block point lists keep each pixel's blobs and their order:
+    bitwise the plain version with points clustered in one block, on the
+    blocks' edges and corners, off the canvas by less than a radius,
+    crossing several chunks of 256, and some invalid."""
+    args = [t.to(cuda) for t in _splat_block_case(150, 230, 700, seed=5)]
+    assert args[1].shape[0] > 3 * 256
+    before = tsplat.splat_points.launches
+    got = tsplat.splat_points(*args, sigma)
+    assert tsplat.splat_points.launches == before + 1
+    want = tsplat.splat_points_plain(*args, sigma)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert not torch.equal(got, args[0])
 
 
 @pytest.mark.cuda
@@ -1191,7 +1346,8 @@ def two_cards():
 @pytest.mark.cuda
 def test_kernel_launches_keep_the_callers_current_device(two_cards):
     """Each C entry point launches on its tensor's card and puts the
-    caller's current device back: B1 (cluster, split, backward) and B2
+    caller's current device back: B1 (cluster, split, resident, backward)
+    and B2
     interleaved on cards 0 and 1 from either current device, each
     against its plain version; afterwards an index-free allocation lands
     on the current device."""
@@ -1204,7 +1360,11 @@ def test_kernel_launches_keep_the_callers_current_device(two_cards):
             y = instance_norm_act_cluster(x, "relu")
             assert torch.cuda.current_device() == current
             xs = _randn((1, 256, 456, 32), torch.float32, card, seed=2)
-            ys = instance_norm_act_split(xs, "leaky_relu")
+            ys = instance_norm_act_split(
+                xs, "leaky_relu", p=split_plan(1, 256, 456, 32,
+                                               torch.float32))
+            assert torch.cuda.current_device() == current
+            yr = instance_norm_act_resident(xs, "leaky_relu")
             assert torch.cuda.current_device() == current
             dy = _randn((2, 40, 40, 64), torch.float32, card, seed=3)
             _, mean, rstd = instance_norm_act_cluster(x, "relu", stats=True)
@@ -1217,7 +1377,7 @@ def test_kernel_launches_keep_the_callers_current_device(two_cards):
                 torch.from_numpy(ids).to(card), H, W)
             assert torch.cuda.current_device() == current
             assert torch.empty(1, device="cuda").device.index == current
-            for got in (y, ys, dx, canvas):
+            for got in (y, ys, yr, dx, canvas):
                 assert got.device == card
             torch.cuda.synchronize(card)
             want = instance_norm_act_plain(x.cpu(), "relu")
@@ -1233,6 +1393,10 @@ def test_kernel_launches_keep_the_callers_current_device(two_cards):
             assert torch.equal(canvas.cpu(), c_plain)
             assert torch.equal(wcanvas.cpu(), w_plain)
             assert torch.isfinite(ys).all()
+            np.testing.assert_allclose(
+                yr.cpu().numpy(),
+                instance_norm_act_plain(xs.cpu(), "leaky_relu").numpy(),
+                rtol=1e-5, atol=1e-5)
     torch.cuda.set_device(0)
 
 

@@ -37,8 +37,12 @@ from patch_toon_tpu_torch.ops.instance_norm import (
     CLUSTER_SIZES,
     CTA_BYTES,
     GROUPS,
+    RESIDENT_CTA_BYTES,
+    SMS,
     SPLIT_CTAS,
     Plan,
+    _plain_forward,
+    _resident_forward_plain,
     _split_forward_plain,
     instance_norm_act,
     instance_norm_act_backward,
@@ -47,10 +51,12 @@ from patch_toon_tpu_torch.ops.instance_norm import (
     instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
+    instance_norm_act_resident,
     instance_norm_act_split,
     instance_norm_act_streaming,
     plan,
     plan_backward,
+    resident_plan,
     split_plan,
 )
 
@@ -179,8 +185,10 @@ def test_instance_norm_plan_gives_the_streaming_variant_what_clusters_cannot_tak
 def test_instance_norm_plan_stays_within_its_limits(dtype):
     """k is a portable cluster size of at most 8, a CTA's slice stays within
     the budget, G is the largest that takes C in whole 16-byte vectors; the
-    split variant takes a unit that no such cluster fits, in whole chunks;
-    the streaming variant gets only what takes no whole 16-byte vectors."""
+    resident variant takes a unit that no such cluster fits where its
+    chunks fit the SMs' shared memory, the split variant the rest, both in
+    whole chunks; the streaming variant gets only what takes no whole
+    16-byte vectors."""
     item = dtype.itemsize
     for c in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
         whole = [g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0]
@@ -191,11 +199,16 @@ def test_instance_norm_plan_stays_within_its_limits(dtype):
                 assert p.k in CLUSTER_SIZES and p.k <= 8
                 assert 0 < p.cta_bytes <= CTA_BYTES
                 assert p.group == max(whole)
-            elif p.variant == "split":
+            elif p.variant in ("resident", "split"):
                 assert p.group == max(whole)
                 assert -(-h * w // 8) * max(whole) * item > CTA_BYTES
                 assert 0 < p.cta_bytes == p.ppc * p.group * item
                 assert (p.chunks - 1) * p.ppc < h * w <= p.chunks * p.ppc
+                if p.variant == "resident":
+                    assert p.cta_bytes <= RESIDENT_CTA_BYTES
+                    assert 3 * (c // p.group) * p.chunks <= SMS
+                else:
+                    assert resident_plan(3, h, w, c, dtype) is None
             else:
                 assert p == Plan("streaming") and not whole
 
@@ -210,25 +223,163 @@ FULLFRAME_SITES = ([(512, 912, 32), (256, 456, 64), (128, 228, 128)]
 FULLFRAME_CHUNKS = {(512, 912, 32): (264, 1769), (256, 456, 64): (132, 885),
                     (128, 228, 128): (66, 443), (256, 456, 128): (66, 1769),
                     (512, 912, 128): (66, 7075)}
+# the plan at each full-frame site shape, by type: the resident variant
+# (chunks a unit, pixels a chunk: a CTA on each of 132 SMs) where the
+# plane fits their shared memory, else the split variant (None)
+FULLFRAME_RESIDENT = {
+    torch.bfloat16: {(512, 912, 32): (132, 3538), (256, 456, 64): (66, 1769),
+                     (128, 228, 128): (33, 885), (256, 456, 128): (33, 3538),
+                     (512, 912, 128): None},
+    torch.float32: {(512, 912, 32): None, (256, 456, 64): (66, 1769),
+                    (128, 228, 128): (33, 885), (256, 456, 128): None,
+                    (512, 912, 128): None},
+}
+# sites of a 512x912 pass the resident variant takes: all but upsample1 at
+# bf16; the 15 quarter-resolution sites and downsample1 at fp32
+FULLFRAME_RESIDENT_SITES = {torch.bfloat16: 18, torch.float32: 16}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_instance_norm_plan_takes_every_fullframe_site_to_the_split(dtype):
-    """Every site of a full-frame pass goes to the split variant at G = 32,
-    in about ``SPLIT_CTAS`` CTAs a launch; 540x960 frames too."""
+    """Every site of a full-frame pass goes, at G = 32, to the resident
+    variant where its plane's chunks fit the SMs' shared memory (18 sites
+    at bf16, 16 at fp32), else to the split variant in about
+    ``SPLIT_CTAS`` CTAs a launch; on 540x960 frames the resident variant
+    takes downsample1 (bf16) and the quarter-resolution sites."""
     item = dtype.itemsize
     assert len(FULLFRAME_SITES) == 19
+    resident = 0
     for h, w, c in FULLFRAME_SITES:
         p = plan(1, h, w, c, dtype, aligned=True)
-        assert p.variant == "split" and p.group == 32, (h, w, c, p)
-        assert (p.chunks, p.ppc) == FULLFRAME_CHUNKS[(h, w, c)], p
-        assert p.cta_bytes == p.ppc * 32 * item
+        want = FULLFRAME_RESIDENT[dtype][(h, w, c)]
+        assert p.group == 32 and p.cta_bytes == p.ppc * 32 * item, p
         assert (p.chunks - 1) * p.ppc < h * w <= p.chunks * p.ppc
-        assert SPLIT_CTAS <= c // 32 * p.chunks < SPLIT_CTAS + c // 32
-    for h, w, c in ((540, 960, 32), (270, 480, 64), (135, 240, 128),
-                    (270, 480, 128), (540, 960, 128)):
-        assert plan(1, h, w, c, dtype, True).variant == "split"
+        if want is None:
+            assert p.variant == "split", (h, w, c, p)
+            assert (p.chunks, p.ppc) == FULLFRAME_CHUNKS[(h, w, c)], p
+            assert SPLIT_CTAS <= c // 32 * p.chunks < SPLIT_CTAS + c // 32
+        else:
+            assert p.variant == "resident", (h, w, c, p)
+            assert (p.chunks, p.ppc) == want, p
+            resident += 1
+    assert resident == FULLFRAME_RESIDENT_SITES[dtype]
+    for (h, w, c), bf16, fp32 in (((540, 960, 32), "split", "split"),
+                                  ((270, 480, 64), "resident", "split"),
+                                  ((135, 240, 128), "resident", "resident"),
+                                  ((270, 480, 128), "split", "split"),
+                                  ((540, 960, 128), "split", "split")):
+        assert plan(1, h, w, c, dtype, True).variant == (
+            bf16 if dtype == torch.bfloat16 else fp32), (h, w, c)
     assert plan(1, 512, 912, 128, dtype, False).variant == "streaming"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sms", [SMS, 114, 16])
+def test_instance_norm_resident_plan_respects_the_co_resident_budget(
+        dtype, sms):
+    """A resident plan's grid fits one CTA on each of ``sms`` SMs, each
+    unit in as many chunks as that allows, and a CTA's chunk fits
+    ``RESIDENT_CTA_BYTES`` (within the 227 KB a block may use); a unit no
+    such chunking fits gets none."""
+    item = dtype.itemsize
+    assert RESIDENT_CTA_BYTES <= 227 * 1024 - 1024
+    for n, h, w, c in ((1, 512, 912, 32), (1, 256, 456, 128),
+                       (2, 128, 228, 128), (1, 1, 1, 32), (1, 7, 5, 16),
+                       (40, 128, 228, 128), (1, 1000, 1000, 32)):
+        p = resident_plan(n, h, w, c, dtype, sms)
+        g = max(x for x in GROUPS if c % x == 0 and (x * item) % 16 == 0)
+        hw, units = h * w, n * c // g
+        most = min(hw, sms // units)  # chunks a unit, at most one a pixel
+        if p is None:
+            assert most == 0 or -(-hw // most) * g * item > \
+                RESIDENT_CTA_BYTES
+            continue
+        assert p.variant == "resident" and p.group == g
+        assert units * p.chunks <= sms and p.ppc == -(-hw // most)
+        assert p.cta_bytes == p.ppc * g * item <= RESIDENT_CTA_BYTES
+        assert (p.chunks - 1) * p.ppc < hw <= p.chunks * p.ppc
+    assert resident_plan(1, 512, 912, 128, torch.bfloat16, SMS) is None
+    assert resident_plan(1, 20, 20, 12, torch.bfloat16) is None  # C = 12
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("mean,std", [(100.0, 1e-2), (0.5, 2.0)])
+def test_resident_combine_matches_jax_at_a_large_mean(act, mean, std):
+    """The resident variant's arithmetic (each chunk's fp32 mean, then its
+    fp32 sum of squared deviations, Chan's combine in fp64) on planes of
+    mean 100 and deviation 1e-2, and of an ordinary spread, against JAX's
+    ``instance_norm`` (two-pass fp32 over the whole plane) and activation.
+    The bound is the problem's own conditioning, as for the split
+    variant: 16 ulps of the largest |x|, times rstd."""
+    rng = np.random.default_rng(12)
+    x = (mean + std * rng.standard_normal((2, 41, 47, 64))).astype(
+        np.float32)
+    want = np.asarray(_jax_plain(jnp.asarray(x), act))
+    p = resident_plan(2, 41, 47, 64, torch.float32, sms=40)
+    assert p.chunks > 5 and p.ppc * p.chunks > 41 * 47  # a ragged chunk
+    got, m, rstd = _resident_forward_plain(torch.from_numpy(x), act, 0.2,
+                                           1e-5, p)
+    tol = 16 * 2.0 ** -24 * float(np.abs(x).max()) * float(rstd.max())
+    assert tol < 0.02
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    ref_std = x.astype(np.float64).std(axis=(1, 2))
+    np.testing.assert_allclose(1.0 / rstd.numpy(),
+                               np.sqrt(ref_std ** 2 + 1e-5), rtol=1e-3)
+    np.testing.assert_allclose(m.numpy(), x.astype(np.float64).mean(
+        axis=(1, 2)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,ppc", [
+    ((1, 37, 53, 32), 97),     # 1,961 pixels: 20 full chunks and 21
+    ((3, 9, 7, 40), 1),        # a pixel a chunk
+    ((2, 11, 13, 16), 143),    # one chunk a unit
+    ((1, 30, 31, 128), 929),   # one pixel in the last chunk
+    ((2, 5, 200, 8), 333),     # ragged, a short last chunk
+])
+def test_resident_forward_plain_matches_plain_at_ragged_chunks(dtype, shape,
+                                                               ppc):
+    """Chunked statistics combined in fp64 give the two-pass plain
+    version's mean and rstd within fp32 roundoff and its output within
+    the kernels' tolerance, whatever the chunking."""
+    rng = np.random.default_rng(13)
+    x32 = (rng.standard_normal(shape) * 1.7 - 0.3).astype(np.float32)
+    x = torch.from_numpy(x32).to(dtype)
+    hw = shape[1] * shape[2]
+    p = Plan("resident", 8, 1, 0, -(-hw // ppc), ppc)
+    for act in ACTS:
+        got, mean, rstd = _resident_forward_plain(x, act, 0.2, 1e-5, p)
+        want, wmean, wrstd = _plain_forward(x, act, 0.2, 1e-5)
+        assert got.dtype == dtype and got.shape == x.shape
+        torch.testing.assert_close(mean, wmean, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(rstd, wrstd, rtol=1e-5, atol=1e-6)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            _assert_bf16_close(got.float().numpy(), want.float().numpy())
+
+
+def test_resident_wrapper_runs_its_arithmetic_on_cpu():
+    """On a CPU tensor the resident wrapper runs its plain arithmetic at
+    ``resident_plan``'s chunks (or one chunk where none fits), launches
+    nothing, and refuses an unknown activation."""
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 40, 60, 64)).astype(np.float32))
+    before = instance_norm_act_resident.launches
+    got, mean, rstd = instance_norm_act_resident(x, "relu", stats=True)
+    p = resident_plan(1, 40, 60, 64, torch.float32)
+    assert p is not None and p.chunks > 1
+    want = _resident_forward_plain(x, "relu", 0.2, 1e-5, p)
+    for a, b in zip((got, mean, rstd), want):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got, instance_norm_act_plain(x, "relu"),
+                               rtol=1e-5, atol=1e-5)
+    big = torch.zeros((1, 4, 4, 12))  # C = 12 at fp32: no whole G of 32
+    torch.testing.assert_close(instance_norm_act_resident(big, None),
+                               instance_norm_act_plain(big, None))
+    with pytest.raises(ValueError):
+        instance_norm_act_resident(x, "gelu")
+    assert instance_norm_act_resident.launches == before
 
 
 def test_split_combine_matches_jax_at_a_large_mean():

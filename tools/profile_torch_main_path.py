@@ -50,7 +50,7 @@ and the pipeline's waits) per group, from every thread. Beside it, the same
 split of ``stylize_group`` on three frames already in memory (tile
 placement included, as ``stylize_group`` places tiles itself when it is
 given no boxes). ``--fullframe`` serves the same directory in full-frame
-mode (a group is one frame; B1's split variant).
+mode (a group is one frame; B1's resident and split variants).
 
 With ``--temporal`` it serves the temporal chain with flows from files:
 ``chip_smoke.py``'s temporal scene (12 frames, one flow missing) and a
@@ -113,6 +113,8 @@ def _category(name: str) -> str:
     n = name.lower()
     if "instance_norm_split_" in n and "_kernel" in n:  # its 2 launches
         return "B1 instance_norm (split)"
+    if "instance_norm_resident_kernel" in n:
+        return "B1 instance_norm (resident)"
     if "instance_norm_act_" in n and "_kernel" in n:  # both variants
         return "B1 instance_norm"
     if "blend_tiles_kernel" in n:
