@@ -6,7 +6,7 @@
 Needs one CUDA card; run from the root of a checkout. ``--multi-gpu`` runs
 the build and phase 11 alone (for a machine with several cards). Phases,
 one or more lines each, flushed as they go (phase 12, ``int8``, runs
-after ``multistream``):
+after ``multistream``, and phase 13, ``transport``, after it):
 
 1. ``build``: the nvcc build of ``patch_toon_tpu_torch/csrc/*.cu`` (seconds,
    and each kernel's registers, shared memory and spills as ptxas reports
@@ -213,7 +213,27 @@ after ``multistream``):
    least 35 dB); one int8 generator call of 512 tiles against a bf16 call;
    the card against the CPU at precision 32 on a 256x456 crop, the card's
    scales copied to the CPU engine (limit 1 count; the share of differing
-   pixels printed). No other phase launches either kernel.
+   pixels printed). No other phase launches either kernel but
+   ``transport``'s int8 run.
+13. ``transport``: the transport knobs at JAX's defaults
+   (``crop_upload`` and ``crop_readback`` on, ``mask_upload: packed``)
+   over 12 frames of 512x910 (``write_scene``'s frames, an ellipse mask
+   of about a quarter of the frame drifting 3 px down and 5 px right a
+   frame), full width with the trained checkpoint: tiled bf16 (timed
+   defaults, off, off, defaults) and 32, full-frame bf16 (the readback
+   crop alone) and the device-flow chain (tiled bf16, the
+   ``temporal_device`` masks: readback crop and packed flow masks), each
+   with the defaults and with ``crop_readback=off crop_upload=off
+   mask_upload=plane``, the two runs' files bitwise equal; each timed run
+   with the counters zeroed just before and read just after (19 B1
+   launches and one B2 launch a group, full-frame as ``_ff_launches``);
+   bytes up and down a frame through the pinned buffers, eq-frames/s, the
+   host split (upload, readback wait, writer drain), the upload windows
+   and readback boxes, both ways. B1 (each InstanceNorm site of one bf16
+   generator call on the first cropped group's tiles, ``_in_check``'s
+   tolerance) and B2 (that group's window canvas, bitwise) against their
+   plain versions. int8 with the defaults (calibrated on the first
+   window), masked PSNR against the bf16 default run at least 35 dB.
 
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
@@ -259,7 +279,7 @@ from patch_toon_tpu_torch.infer.temporal import (
     _device_gray,
     _temporal_device_flow,
 )
-from patch_toon_tpu_torch.infer.programs import make_tile_plan
+from patch_toon_tpu_torch.infer.programs import gather_tiles, make_tile_plan
 from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
 from patch_toon_tpu_torch.models import layers
 from patch_toon_tpu_torch.models.generator import GeneratorJ
@@ -1236,7 +1256,7 @@ def _temporal_ckpt(tmp: Path) -> Path:
 
 
 def _temporal_engine(prec: str, scene: Path, out: Path, ckpt: Path, mode: str,
-                     device=None, mask: str = "mask",
+                     device=None, mask: str = "mask", knobs=None,
                      **temporal) -> StyleTransferInference:
     cfg = inference_config(
         paths={"checkpoint": str(ckpt), "input_dir": str(scene / "input"),
@@ -1248,7 +1268,8 @@ def _temporal_engine(prec: str, scene: Path, out: Path, ckpt: Path, mode: str,
                                 "flow_dir": str(scene / "flow_bwd"),
                                 "file_format": "%03d", "flow_source": "files",
                                 "flow_scale": 1, "flow_batch": "auto",
-                                "flow_upload": "auto", **temporal}})
+                                "flow_upload": "auto", **temporal},
+                   **(knobs or {})})
     return StyleTransferInference(cfg, device=device)
 
 
@@ -1376,8 +1397,10 @@ def _device_flow_scene(base: Path, root: Path, n: int, crop=None) -> Path:
 
 def _traced(fn) -> dict:
     """``fn()`` under ``torch.profiler``: wall ms, device ms (the sum of the
-    kernels' and copies' times), device operations, and the host's launch
-    calls (kernels, graphs, asynchronous copies and sets)."""
+    kernels' and copies' times), device operations, the host's launch
+    calls (kernels, graphs, asynchronous copies and sets), the eight
+    device operations of most device time and the eight ``aten::`` calls
+    whose kernels took most of it (name, ms)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1387,7 +1410,13 @@ def _traced(fn) -> dict:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     device_us = ops = calls = 0
+    per, aten = [], []
     for ev in prof.key_averages():
+        if ev.key.startswith("aten::"):
+            us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0))
+            if us > 0:
+                aten.append((ev.key, us / 1e3))
         if ev.key in LAUNCH_CALLS:
             calls += ev.count
         elif ev.device_type == torch.autograd.DeviceType.CUDA \
@@ -1397,8 +1426,11 @@ def _traced(fn) -> dict:
             if us > 0:
                 device_us += us
                 ops += ev.count
+                per.append((ev.key, us / 1e3))
     return {"wall_ms": wall, "device_ms": device_us / 1e3,
-            "device_ops": ops, "launch_calls": calls}
+            "device_ops": ops, "launch_calls": calls,
+            "top": sorted(per, key=lambda kv: -kv[1])[:8],
+            "top_aten": sorted(aten, key=lambda kv: -kv[1])[:8]}
 
 
 def _ulp_spread(g1, g2, scale: int) -> tuple:
@@ -2778,6 +2810,370 @@ def phase_int8(dev, card: str, tmp: Path, served: dict, full: dict) -> dict:
     rec["seconds"] = time.perf_counter() - t0
     say("int8", seconds=f"{rec['seconds']:.1f}")
     return {"rec": rec, "launches": launches, "after": _quant_counts()}
+
+
+TRANSPORT_FRAMES = 12
+TRANSPORT_OFF = {"crop_readback": "off", "crop_upload": "off",
+                 "mask_upload": "plane"}
+UP_SPANS = ("host/upload", "host/readback_wait", "host/writer_drain")
+
+
+def _transport_scene(root: Path, n: int = TRANSPORT_FRAMES) -> Path:
+    """``write_scene``'s frames (RGB and a 3-band guide, 10x10 blocks of
+    seeded colour) with partial masks: an ellipse of about a quarter of
+    the 512x910 frame, drifting 3 px down and 5 px right a frame."""
+    write_scene(root, n, H, W, seed=5)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for i, name in enumerate(sorted(p.name for p in
+                                    (root / "input").glob("*.png"))):
+        r = ((yy - (0.45 * H + 3 * i)) / (0.3 * H)) ** 2 \
+            + ((xx - (0.4 * W + 5 * i)) / (0.27 * W)) ** 2
+        encode_png(root / "mask" / name,
+                   np.where(r <= 1.0, 255, 0).astype(np.uint8),
+                   compress_level=1)
+    return root
+
+
+class _Wire:
+    """Bytes through the pinned buffers while installed: ``up`` through
+    ``eng``'s upload pools (frames, masks, flows), ``down`` through every
+    other pool (the pipeline's readbacks), with the distinct readback
+    shapes (one pinned pool each); and each dispatched group, kept."""
+
+    def __init__(self, eng):
+        self.eng, self.up, self.down, self.shapes = eng, 0, 0, set()
+        self.up_shapes = set()
+        self.groups = []
+
+    def __enter__(self):
+        from patch_toon_tpu_torch.infer.pipeline import PinnedPools
+
+        self._call, wire = PinnedPools.__call__, self
+
+        def counted(pools, shape, dtype):
+            n = int(np.prod(shape)) * torch.empty((), dtype=dtype
+                                                  ).element_size()
+            if pools is wire.eng.upload_pools:
+                wire.up += n
+                wire.up_shapes.add((tuple(shape), dtype))
+            else:
+                wire.down += n
+                wire.shapes.add(tuple(shape))
+            return wire._call(pools, shape, dtype)
+
+        PinnedPools.__call__ = counted
+        real = self.eng.dispatch_staged
+
+        def noted(group):
+            self.groups.append(list(group))
+            return real(group)
+
+        self.eng.dispatch_staged = noted
+        return self
+
+    def __exit__(self, *exc):
+        from patch_toon_tpu_torch.infer.pipeline import PinnedPools
+
+        PinnedPools.__call__ = self._call
+        del self.eng.dispatch_staged
+        return False
+
+
+def _transport_run(eng, frames: int) -> dict:
+    """One timed ``process_directory`` with the counters and the host
+    spans zeroed just before and read just after, and the bytes over the
+    bus counted. -> seconds, launches, bytes a frame, spans, groups."""
+    _zero_counts()
+    eng.spans.reset()
+    with _Wire(eng) as wire:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = eng.process_directory()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if written != frames:
+        raise AssertionError(f"transport: {written} of {frames} frames")
+    spans = eng.spans.snapshot()
+    return {"seconds": seconds, "counts": _read_counts(),
+            "up": wire.up / frames, "down": wire.down / frames,
+            "readback_shapes": sorted(f"{s[0]}x{s[1]}" for s in wire.shapes),
+            "upload_pools": len(wire.up_shapes), "groups": wire.groups,
+            "spans": {k: spans.get(k, {"ms": 0.0})["ms"] / frames
+                      for k in UP_SPANS}}
+
+
+def _masked_psnr(got: Path, want: Path, masks: Path, names) -> float:
+    """PSNR over the pixels inside each frame's mask (> 128)."""
+    se, n = 0.0, 0
+    for name in names:
+        sel = decode_png(masks / name)[..., 0] > 128
+        d = decode_png(got / name)[sel].astype(np.float64) \
+            - decode_png(want / name)[sel].astype(np.float64)
+        se += float((d * d).sum())
+        n += d.size
+    return 10 * np.log10(255.0 ** 2 / max(se / n, 1e-12))
+
+
+def _window_kernels(eng, group, dev) -> dict:
+    """B1 and B2 at the first upload-cropped group's shapes: the group's
+    tiles gathered from its windows through one bf16 generator call, each
+    InstanceNorm site's output (B1's cluster variant) against the plain
+    version with ``_in_check``'s tolerance; its canvas (F x (bh + 80)) x
+    (bw + 80) blended by B2 and by the plain version, bitwise."""
+    frames = torch.stack([s.frame for s in group])
+    f, bh, bw, _ = frames.shape
+    plan, weights = eng._pack([s.boxes for s in group], bh, bw, dev)
+    tiles = gather_tiles(frames, plan.fboxes, PS).to(torch.bfloat16)
+    sites, real = [], layers.instance_norm_act_autograd
+
+    def keep(x, act):
+        y = real(x, act)
+        sites.append((x, act, y))
+        return y
+
+    layers.instance_norm_act_autograd = keep
+    try:
+        with torch.no_grad():
+            gen = eng.model(tiles).float().contiguous()
+    finally:
+        layers.instance_norm_act_autograd = real
+    worst = 0.0
+    for x, act, y in sites:
+        if instance_norm.plan_for(x).variant != "cluster":
+            raise AssertionError(f"window site {tuple(x.shape)}: plan "
+                                 f"{instance_norm.plan_for(x)}")
+        worst = max(worst, _in_check(
+            y, instance_norm.instance_norm_act_plain(x, act), x.dtype))
+    ch, cw = f * (bh + PS), bw + PS
+    got = blend.blend_tiles(gen, weights, plan.positions, plan.offsets,
+                            plan.ids, ch, cw)
+    want = blend.blend_tiles_plain(gen, weights, plan.positions, ch, cw)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("blend_tiles differs from its plain version on "
+                             f"the {ch}x{cw} window canvas")
+    return {"window": f"{bh}x{bw}", "frames": f, "tiles": int(
+        (plan.positions[:, 0] >= 0).sum()), "bucket": len(plan.fboxes),
+        "canvas": f"{ch}x{cw}", "b1_sites": len(sites),
+        "b1_max_abs_err": worst, "b2_bitwise": True}
+
+
+def phase_transport(dev, card: str, tmp: Path) -> dict:
+    """The transport knobs on the card (``crop_upload``, ``crop_readback``,
+    ``mask_upload: packed``; JAX's defaults) over 12 frames of 512x910 with
+    a drifting quarter-frame ellipse mask, full width: tiled bf16 and 32,
+    full-frame bf16 (readback crop only) and the device-flow chain (tiled
+    bf16, ``phase_temporal_device``'s masks), each with the defaults and
+    with every knob off, the two runs' files bitwise equal; bytes up and
+    down a frame, eq-frames/s, the host split and the window and box sizes
+    of each; B1 and B2 at the first cropped group's shapes against their
+    plain versions; int8 with the defaults, 35 dB masked PSNR against the
+    bf16 default run."""
+    t0 = time.perf_counter()
+    scene = _transport_scene(tmp / "tscene")
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    n = TRANSPORT_FRAMES
+    rec, launches = {}, dict.fromkeys(LAUNCH_KINDS, 0)
+    q_launches = dict.fromkeys(QUANT_WRAPPERS, 0)
+    kernels = None
+    with _without_pil():
+        for tag, prec, mode, runs in (("tiled_bf16", "bf16", "tiled", 2),
+                                      ("tiled_32", "32", "tiled", 1),
+                                      ("fullframe_bf16", "bf16", "fullframe",
+                                       1)):
+            engs = {k: _dir_engine(prec, scene, tmp / f"tr_{tag}_{k}",
+                                   mode=mode, **knobs)
+                    for k, knobs in (("defaults", {}),
+                                     ("off", TRANSPORT_OFF))}
+            for eng in engs.values():
+                eng.process_directory()  # set-up: cuDNN, codec, pools
+            res = {k: [] for k in engs}
+            order = ["defaults", "off", "off", "defaults"][:2 * runs]
+            for k in order:
+                res[k].append(_transport_run(engs[k], n))
+            r = rec[tag] = {}
+            for k, rs in res.items():
+                last = rs[-1]
+                groups = len(last["groups"])
+                want = _want_counts(n if mode == "fullframe" else groups,
+                                    mode == "tiled", prec)
+                for run in rs:
+                    if run["counts"] != want:
+                        raise AssertionError(
+                            f"transport {tag} {k}: launches "
+                            f"{run['counts']}, expected {want}")
+                    for c in LAUNCH_KINDS:
+                        launches[c] += run["counts"][c]
+                wins = sorted({(s.cropwin[1] - s.cropwin[0],
+                                s.cropwin[3] - s.cropwin[2])
+                               for g in last["groups"] for s in g
+                               if s.cropwin is not None})
+                r[k] = {"eq_frames_per_s": n * len(rs)
+                        / sum(x["seconds"] for x in rs),
+                        "bytes_up_per_frame": last["up"],
+                        "bytes_down_per_frame": last["down"],
+                        "groups": groups,
+                        "readback_boxes": last["readback_shapes"],
+                        "upload_pools": last["upload_pools"],
+                        "upload_windows": [f"{a}x{b}" for a, b in wins],
+                        "host_ms_per_frame": last["spans"]}
+                if k == "defaults" and mode == "tiled" and kernels is None:
+                    first = next(g for g in last["groups"]
+                                 if g[0].cropwin is not None)
+                    kernels = _window_kernels(engs[k], first, dev)
+            # JAX's claim is per dispatch: the knobs-off engine re-serves
+            # the defaults' groups one call each (a window shape change
+            # closes a group, and a batch of another size may round
+            # otherwise on the card), and must be bitwise equal
+            groups = {k: [[s.path.name for s in g]
+                          for g in res[k][-1]["groups"]] for k in res}
+            same = [n_ for g in groups["defaults"] if g in groups["off"]
+                    for n_ in g]
+            eng = engs["off"]
+            eng.cfg["paths"]["output_dir"] = str(tmp / f"tr_{tag}_regrouped")
+            for g in groups["defaults"]:
+                eng.process_directory(files=[scene / "input" / x for x in g])
+            if tag == "tiled_bf16":  # where the card's time goes, masked
+                tr = _traced(engs["defaults"].process_directory)
+                r["traced"] = {
+                    "device_ms_per_frame": tr["device_ms"] / n,
+                    "busy_share": tr["device_ms"] / tr["wall_ms"],
+                    "top_device_ms": tr["top"], "top_aten_ms": tr["top_aten"]}
+                say("transport", run=tag, traced="defaults",
+                    device_ms_per_frame=f"{tr['device_ms'] / n:.3f}",
+                    busy_share=f"{tr['device_ms'] / tr['wall_ms']:.3f}",
+                    top=json.dumps([(k[:60], round(v, 3))
+                                    for k, v in tr["top"]]),
+                    top_aten=json.dumps([(k, round(v, 3))
+                                         for k, v in tr["top_aten"]]))
+            worst, differ = _compare_dirs(tmp / f"tr_{tag}_defaults",
+                                          tmp / f"tr_{tag}_regrouped", names)
+            nat = {x: _compare_dirs(tmp / f"tr_{tag}_defaults",
+                                    tmp / f"tr_{tag}_off", [x])
+                   for x in names}
+            r["defaults_vs_off_max_abs"] = worst
+            r["natural_groups_max_abs"] = max(v[0] for v in nat.values())
+            r["natural_differing_frames"] = [x for x, v in nat.items()
+                                             if v[0]]
+            d, o = r["defaults"], r["off"]
+            say("transport", run=tag, frames=n, bitwise_equal=worst == 0,
+                differing_pixels=differ,
+                group_sizes="/".join(",".join(str(len(g)) for g in groups[k])
+                                     for k in ("defaults", "off")),
+                natural_max_abs=r["natural_groups_max_abs"],
+                natural_differing_frames=",".join(
+                    r["natural_differing_frames"]) or "none",
+                bytes_up_per_frame=f"{d['bytes_up_per_frame']:.0f}/"
+                f"{o['bytes_up_per_frame']:.0f}",
+                bytes_down_per_frame=f"{d['bytes_down_per_frame']:.0f}/"
+                f"{o['bytes_down_per_frame']:.0f}",
+                eq_frames_per_s=f"{d['eq_frames_per_s']:.2f}/"
+                f"{o['eq_frames_per_s']:.2f}",
+                groups=f"{d['groups']}/{o['groups']}",
+                upload_windows=",".join(d["upload_windows"]) or "none",
+                readback_boxes=",".join(d["readback_boxes"]) + "/"
+                + ",".join(o["readback_boxes"]),
+                pinned_pools=f"{len(d['readback_boxes']) + d['upload_pools']}"
+                f"/{len(o['readback_boxes']) + o['upload_pools']}",
+                **{f"{s.split('/')[1]}_ms_per_frame":
+                   f"{d['host_ms_per_frame'][s]:.3f}/"
+                   f"{o['host_ms_per_frame'][s]:.3f}" for s in UP_SPANS},
+                ways="defaults/off", card=f"'{card}'")
+            bad = [x for x in same if nat[x][0]]
+            if worst != 0 or bad:
+                raise AssertionError(f"transport {tag}: the defaults' files "
+                                     f"differ from the knobs-off run's by "
+                                     f"{worst} counts ({differ} pixels) in "
+                                     f"the same dispatches; {bad} differ "
+                                     f"in groups the two runs share")
+        say("transport", check="B1 and B2 at the first cropped group",
+            **{k: (f"{v:.3g}" if isinstance(v, float) else v)
+               for k, v in kernels.items()})
+        rec["window_kernels"] = kernels
+
+        # the device-flow chain: readback crop and packed flow masks
+        ckpt = _temporal_ckpt(tmp)
+        cscene = _device_flow_scene(scene, tmp / "tchain", n)
+        chain = {}
+        for k, knobs in (("defaults", {}), ("off", TRANSPORT_OFF)):
+            eng = _temporal_engine("bf16", cscene, tmp / f"tr_chain_{k}",
+                                   ckpt, "tiled", mask="mask_ignore",
+                                   flow_source="device",
+                                   file_format=FLOW_FMT, knobs=knobs)
+            eng.process_directory()  # set-up: cuDNN, the flow graphs
+            eng._temporal_prev = eng._temporal_prev_gray = None
+            run = _transport_run(eng, n)
+            if run["counts"] != _want_counts(n, True, "bf16"):
+                raise AssertionError(f"transport chain {k}: launches "
+                                     f"{run['counts']}")
+            for c in LAUNCH_KINDS:
+                launches[c] += run["counts"][c]
+            chain[k] = {"eq_frames_per_s": n / run["seconds"],
+                        "bytes_up_per_frame": run["up"],
+                        "bytes_down_per_frame": run["down"],
+                        "readback_boxes": run["readback_shapes"],
+                        "graphs": eng.flow_graphs.captures,
+                        "host_ms_per_frame": run["spans"]}
+        worst, differ = _compare_dirs(tmp / "tr_chain_defaults",
+                                      tmp / "tr_chain_off", names)
+        chain["defaults_vs_off_max_abs"] = worst
+        rec["chain_bf16"] = chain
+        d, o = chain["defaults"], chain["off"]
+        say("transport", run="device_flow_chain_tiled_bf16", frames=n,
+            bitwise_equal=worst == 0, differing_pixels=differ,
+            bytes_up_per_frame=f"{d['bytes_up_per_frame']:.0f}/"
+            f"{o['bytes_up_per_frame']:.0f}",
+            bytes_down_per_frame=f"{d['bytes_down_per_frame']:.0f}/"
+            f"{o['bytes_down_per_frame']:.0f}",
+            eq_frames_per_s=f"{d['eq_frames_per_s']:.2f}/"
+            f"{o['eq_frames_per_s']:.2f}",
+            flow_graphs=f"{d['graphs']}/{o['graphs']}",
+            readback_boxes=",".join(d["readback_boxes"]) + "/"
+            + ",".join(o["readback_boxes"]),
+            ways="defaults/off", card=f"'{card}'")
+        if worst != 0:
+            raise AssertionError(f"transport chain: the defaults' files "
+                                 f"differ from the knobs-off run's by "
+                                 f"{worst} counts ({differ} pixels)")
+
+        # int8 with the defaults: calibrated on the first window; the int8
+        # counters zeroed around the timed run, then given back their sum
+        q_start = _quant_counts()
+        eng = _dir_engine("bf16", scene, tmp / "tr_int8", quantize="int8")
+        eng.process_directory()  # set-up: calibration, cuDNN, codec
+        saved = _quant_counts()
+        for fn in QUANT_WRAPPERS.values():
+            fn.launches = 0
+        run = _transport_run(eng, n)
+        calls = len(run["groups"])
+        q = _quant_counts()
+        for k, fn in QUANT_WRAPPERS.items():
+            fn.launches = saved[k] + q[k]
+        if q != {"conv_s8": 22 * calls, "quantize_act": 22 * calls} \
+                or run["counts"] != _want_counts(calls, True, "bf16"):
+            raise AssertionError(f"transport int8: launches {q}, "
+                                 f"{run['counts']} over {calls} calls")
+        for c in LAUNCH_KINDS:
+            launches[c] += run["counts"][c]
+        for c in q_launches:
+            q_launches[c] += q[c]
+        psnr = _masked_psnr(tmp / "tr_int8", tmp / "tr_tiled_bf16_defaults",
+                            scene / "mask", names)
+        rec["int8"] = {"eq_frames_per_s": n / run["seconds"],
+                       "masked_psnr_vs_bf16_db": psnr, "calls": calls,
+                       "bytes_up_per_frame": run["up"],
+                       "bytes_down_per_frame": run["down"]}
+        say("transport", run="int8_tiled_bf16", frames=n, calls=calls,
+            masked_psnr_vs_bf16_db=f"{psnr:.2f}",
+            eq_frames_per_s=f"{n / run['seconds']:.2f}",
+            conv_s8_launches=q["conv_s8"], card=f"'{card}'")
+        if psnr < INT8_PSNR_DB:
+            raise AssertionError(f"transport int8: {psnr:.2f} dB against "
+                                 f"bf16 (limit {INT8_PSNR_DB})")
+    rec["seconds"] = time.perf_counter() - t0
+    say("transport", seconds=f"{rec['seconds']:.1f}")
+    return {"rec": rec, "launches": launches, "int8": q_launches,
+            "int8_total": {k: v - q_start[k]
+                           for k, v in _quant_counts().items()}}
 
 
 def phase_signed_unit(dev) -> None:
@@ -4348,6 +4744,7 @@ def main() -> int:
         watch = phase_watch(dev, card, Path(tmp))
         multi = phase_multistream(dev, card, Path(tmp))
         int8 = phase_int8(dev, card, Path(tmp), served["rec"], full["rec"])
+        transport = phase_transport(dev, card, Path(tmp))
     rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
@@ -4358,13 +4755,14 @@ def main() -> int:
         guides = phase_guides(dev, card, Path(tmp))
     # no phase but int8 (and multi_gpu's 2-card int8) launches them
     want = {k: n + mgpu["launches"][f"int8_{k}"]
-            for k, n in int8["after"].items()}
+            + transport["int8_total"][k] for k, n in int8["after"].items()}
     if _quant_counts() != want:
         raise AssertionError(f"int8 kernels launched outside the int8 "
                              f"runs: {_quant_counts()} against {want}")
     q_launches = {f"int8_{mode}": n["conv_s8"]
                   for mode, n in int8["launches"].items()}
     q_launches["multi_gpu_int8"] = mgpu["launches"]["int8_conv_s8"]
+    q_launches["transport_int8"] = transport["int8"]["conv_s8"]
     i8 = int8["rec"]["sites"]
     # launches of B1's cluster variant and of B2 by path: the serving
     # paths of every phase, one entry each
@@ -4377,7 +4775,8 @@ def main() -> int:
                "watch": watch["launches"]["cluster"],
                "multistream": multi["launches"]["cluster"],
                "multi_gpu_serve": mgpu["launches"]["cluster"],
-               "int8_serve_directory": int8["launches"]["tiled"]["cluster"]}
+               "int8_serve_directory": int8["launches"]["tiled"]["cluster"],
+               "transport": transport["launches"]["cluster"]}
     blends = {"serve": launches["blend_tiles"],
               "serve_directory": served["launches"]["blend_tiles"],
               "temporal_tiled": chain["launches"]["blend"],
@@ -4387,7 +4786,8 @@ def main() -> int:
               "watch": watch["launches"]["blend"],
               "multistream": multi["launches"]["blend"],
               "multi_gpu_serve": mgpu["launches"]["blend"],
-              "int8_serve_directory": int8["launches"]["tiled"]["blend"]}
+              "int8_serve_directory": int8["launches"]["tiled"]["blend"],
+              "transport": transport["launches"]["blend"]}
     # launches of B1's resident and split variants by full-frame path
     full_frame = {v: {"fullframe": full["launches"][v],
                       "temporal_fullframe": chain["launches"][v],
@@ -4397,7 +4797,8 @@ def main() -> int:
                       "watch": watch["launches"][v],
                       "multistream": multi["launches"][v],
                       "multi_gpu_serve": mgpu["launches"][v],
-                      "int8_fullframe": int8["launches"]["fullframe"][v]}
+                      "int8_fullframe": int8["launches"]["fullframe"][v],
+                      "transport": transport["launches"][v]}
                   for v in ("resident", "split")}
     ff_frame = {k: v for k, v in rec_ff.items()
                 if k not in ("resident", "split")}
@@ -4516,11 +4917,13 @@ def main() -> int:
                       "activation quantization, XLA elementwise)",
              launches=sum(int8["launches"][m]["quantize_act"]
                           for m in int8["launches"])
-             + mgpu["launches"]["int8_quantize_act"],
+             + mgpu["launches"]["int8_quantize_act"]
+             + transport["int8"]["quantize_act"],
              launches_by_path={
                  **{f"int8_{m}": n["quantize_act"]
                     for m, n in int8["launches"].items()},
-                 "multi_gpu_int8": mgpu["launches"]["int8_quantize_act"]},
+                 "multi_gpu_int8": mgpu["launches"]["int8_quantize_act"],
+                 "transport_int8": transport["int8"]["quantize_act"]},
              max_abs_err=0.0, ms=i8["quant_ms"],
              plain_ms=i8["quant_plain_ms"], bound_ms=i8["quant_bound_ms"],
              bound_by="bytes", library_ms=None,
@@ -4538,6 +4941,7 @@ def main() -> int:
                       "precision_32_fast": fast["rec"],
                       "single_image": single["rec"], "watch": watch["rec"],
                       "multistream": multi["rec"], "int8": int8["rec"],
+                      "transport": transport["rec"],
                       "train_rest": rest["rec"], "guides": guides["rec"],
                       "multi_gpu": mgpu}),
           flush=True)

@@ -78,30 +78,52 @@ explicit shard with the temporal guide raises ``ValueError``).
 372-418``) serves every generator conv but the 1x1 head as w8a8
 (``models/layers.py::QuantConv2d``, the kernels of ``ops/quant.py``):
 the weights quantize per output channel from the fp32 checkpoint at load,
-and the activation scales calibrate once, on the first frame the engine
-serves (:meth:`_ensure_quant`: one calib-mode forward over the whole
-frame on the first device), in every entry point (:meth:`_run`,
+and the activation scales calibrate once, on the frame the engine's first
+dispatch sees (:meth:`_ensure_quant`: one calib-mode forward over it on
+the first device; under ``crop_upload`` that is the first frame's upload
+window, as in JAX), in every entry point (:meth:`_run`,
 :meth:`_stylize_group`, the multi-stream cycle's, before the card loop
 of :meth:`_dispatch_sharded`); every replica then serves with the first
 device's scales. Each ``file_shard`` process calibrates on its own first
 frame, as in JAX. A throughput knob, not bit parity; off by default.
 
+The transport knobs (JAX ``engine.py:180-233``, ``utils/knobs.py``) change
+no output, as in JAX; they cut the bytes that cross the bus:
+
+- ``mask_upload: packed`` (the default): a {0, 1} mask goes up bit-packed
+  (``infer/common.py::pack_mask``, 8x fewer bytes than the uint8 plane)
+  and the programs unpack it on the device (``mask_f32``); so does the
+  device flow's raw mask, unpacked inside its CUDA graph. A fractional mask
+  goes up as an fp32 plane. ``plane``: every mask as a plane.
+- ``crop_upload`` (``auto``, the default, follows ``crop_readback``): a
+  masked frame served tiled by :meth:`process_directory` without the
+  temporal guide goes up as ``upload_crop_window`` of its tiles and mask
+  support (sides in 128-multiples), its tile boxes shifted into the
+  window; the program runs on the window, and the window's output is read
+  back whole and pasted into the input's RGB bytes. A group holds frames
+  of one shape and one croppedness (JAX ``engine.py:801-812``).
+- ``crop_readback`` (``auto``, on): otherwise only ``compute_crop_bbox``
+  of the group's mask supports (64-aligned) is read back and pasted: in
+  tiled and full-frame directories, the temporal chain (its carry stays
+  whole on the device) and each multi-stream frame (its own box).
+  ``_last_crop`` keeps the last group's window or box.
+
+:meth:`process_large_image` and :meth:`process_image` crop nothing, as in
+JAX; their binary masks go up packed. ``xla_options`` is validated and
+inert (no XLA compiler here). ``upload`` is validated as JAX does and
+decides ``temporal.flow_upload: auto`` (f16 unless it resolves to f32),
+which rounds the flows.
+
 A mode other than tiled and fullframe raises ``ValueError``.
 ``readback_streams`` sets
 the pipeline's in-flight window (its value plus 2 frames, the JAX rule).
-``upload`` is validated as JAX does and decides ``temporal.flow_upload:
-auto`` (f16 unless it resolves to f32), which rounds the flows; otherwise
-it and the other transport knobs (``crop_readback``, ``crop_upload``,
-``mask_upload``, ``xla_options``) change no output in the JAX package and
-are no-ops here, validated as the JAX engine validates them
-(``utils/knobs.py``): the device flow's mask goes up as a dense uint8
-plane.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -119,9 +141,13 @@ from patch_toon_tpu_torch.data.io import (
     load_mask,
 )
 from patch_toon_tpu_torch.infer.common import (
+    Bbox,
     HostSpans,
     _image_files,
     _to_signed_unit,
+    mask_support_bbox,
+    pack_mask,
+    upload_crop_window,
 )
 from patch_toon_tpu_torch.infer.multistream import MultiStreamMixin
 from patch_toon_tpu_torch.infer.pipeline import (
@@ -157,7 +183,7 @@ from patch_toon_tpu_torch.models.layers import (
 from patch_toon_tpu_torch.native.frameio import FrameWriter, encode_png
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.parallel import comm
-from patch_toon_tpu_torch.utils.knobs import check_transport_knobs
+from patch_toon_tpu_torch.utils.knobs import resolve_transport_knobs
 from patch_toon_tpu_torch.utils.weights import (
     load_generator_state,
     load_quant_scales,
@@ -238,7 +264,7 @@ def check_inference_knobs(inf: Dict[str, Any]) -> None:
         raise ValueError(f"inference.mode={mode!r}: expected tiled or "
                          "fullframe")
     parse_quantize(inf)
-    check_transport_knobs(inf)
+    resolve_transport_knobs(inf)
 
 
 def _parse_temporal(eng, inf: Dict[str, Any]) -> None:
@@ -301,6 +327,10 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         self.max_tile_batch = int(inf.get("tile_batch", 512))
         self.frames_per_dispatch = inf.get("frames_per_dispatch", "auto")
         self.readback_streams = max(1, int(inf.get("readback_streams", 6)))
+        # crop_readback, crop_upload, mask_packed (JAX engine.py:180-233)
+        for k, v in resolve_transport_knobs(inf).items():
+            setattr(self, k, v)
+        self._last_crop = None  # the last group's upload window or box
         self.debug_mode = bool(inf.get("debug_mode", False))
         self.precision = inf.get("precision", "bf16")
         self.dtype = _resolve_dtype(self.precision)
@@ -374,7 +404,9 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
     def _ensure_quant(self, frame: torch.Tensor) -> None:
         """First-frame w8a8 calibration (JAX ``engine.py:390-418``), once:
         one calib-mode forward of the generator on the first device over
-        the whole frame ((H, W, C) uint8 or fp32 on a device; uint8 goes
+        the frame the first dispatch sees (its callers pass their first
+        frame: the upload window of a cropped frame, as JAX's do; (H, W,
+        C) uint8 or fp32 on a device; uint8 goes
         through ``_to_signed_unit``, the host's IEEE values), trimmed to
         ``h//4*4 x w//4*4``, at the engine's type; each site's fp32
         ``max|x|`` becomes its activation scale, copied to every replica,
@@ -433,6 +465,18 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         m = np.asarray(mask)[..., None]
         binary = m.astype(np.uint8)
         return binary if (binary == m).all() else m.astype(np.float32)
+
+    def _mask_wire(self, mask: Optional[np.ndarray],
+                   hw: Tuple[int, int]) -> np.ndarray:
+        """The form a mask goes up in (JAX ``_mask_wire``): bit-packed
+        (ceil(H*W/8),) uint8 under ``mask_upload: packed`` when it is {0,
+        1} (None is all ones), else :meth:`_mask_tensor`'s plane."""
+        if self.mask_packed:
+            packed = pack_mask(np.ones(hw, np.uint8) if mask is None
+                               else mask)
+            if packed is not None:
+                return packed
+        return self._mask_tensor(mask, hw)
 
     def _run(self, frames: torch.Tensor, masks: torch.Tensor,
              group_boxes: Sequence[Sequence[Box]], replica: int = 0):
@@ -501,8 +545,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         self._await_staged([s])
         moved = {k: getattr(s, k).to(card) if getattr(s, k) is not None
                  else None for k in ("frame", "mask", "flow", "fmask")}
-        return Staged(moved["frame"], moved["mask"], None, s.boxes, s.path,
-                      s.position, moved["flow"], moved["fmask"])
+        return dataclasses.replace(s, ready=None, **moved)
 
     def card_of(self, i: int) -> torch.device:
         """The card the ``i``-th frame of a stream is staged on: the card
@@ -566,8 +609,8 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
 
         frames_u8 (F, H, W, C) uint8 (RGB then guide channels); eroded
         masks (H, W) in [0, 1] or None for full-frame stylization; {0, 1}
-        masks upload as uint8, any other as fp32, which composites in part.
-        -> (F, H, W, 3) uint8."""
+        masks upload bit-packed (``mask_upload: packed``) or as uint8, any
+        other as fp32, which composites in part. -> (F, H, W, 3) uint8."""
         frames_u8 = np.asarray(frames_u8)
         f, h, w, c = frames_u8.shape
         if c != self.total_channels:
@@ -585,6 +628,8 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
             if len({m.dtype for m in masks}) > 1:
                 masks = [m.astype(np.float32) for m in masks]
             masks = np.stack(masks)
+            if self.mask_packed and masks.dtype == np.uint8:
+                masks = pack_mask(masks[..., 0])
         with spans("host/upload"):
             frames_d = torch.from_numpy(frames_u8).to(self.device)
             masks_d = torch.from_numpy(masks).to(self.device)
@@ -598,8 +643,9 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                             ) -> np.ndarray:
         """Stylize one frame in line (JAX ``engine.py:472-481``): (H, W, C)
         fp32 in [-1, 1] or uint8 (RGB then guide channels), an eroded mask
-        (H, W) in [0, 1] or None for the whole frame ({0, 1} uploads as
-        uint8, any other as fp32 and composites in part), the tile overlap
+        (H, W) in [0, 1] or None for the whole frame ({0, 1} uploads
+        bit-packed or as uint8, any other as fp32 and composites in part;
+        nothing is cropped, as in JAX), the tile overlap
         (the engine's when None) -> (H, W, 3) uint8. Full-frame mode takes
         the full-frame program; tiled mode the multiframe program at F = 1,
         as :meth:`stylize_group` does. The tile boxes are kept in
@@ -616,7 +662,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                 m, self.patch_size, self.overlap_percent
                 if overlap_percent is None else float(overlap_percent))
         frame_d = torch.from_numpy(frame).to(self.device)
-        mask_d = torch.from_numpy(self._mask_tensor(mask, (h, w))).to(
+        mask_d = torch.from_numpy(self._mask_wire(mask, (h, w))).to(
             self.device)
         u8, _, boxes = self._stylize_device(frame_d, mask_d, boxes)
         self.patch_positions = boxes
@@ -719,26 +765,37 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
 
     def load_flow_mask(self, input_path: Path,
                        mask_dir: Path) -> Optional[np.ndarray]:
-        """The device flow's mask of a frame, (H, W) uint8 {0, 1}: the
-        flow tool's rule (luma > 127; JAX ``temporal.py:327-344``), apart
-        from the composite mask's > 128; None when the frame has no mask
-        file (unmasked flow)."""
+        """The device flow's mask of a frame: the flow tool's rule (luma >
+        127; JAX ``temporal.py:327-344``), apart from the composite mask's
+        > 128; bit-packed, (ceil(H*W/8),) uint8, under ``mask_upload:
+        packed``, else an (H, W) uint8 {0, 1} plane; None when the frame
+        has no mask file (unmasked flow)."""
         resolved = find_corresponding_image(mask_dir, input_path.name)
         if not os.path.exists(resolved):
             return None
-        return (load_luma(resolved) > 127).astype(np.uint8)
+        plane = (load_luma(resolved) > 127).astype(np.uint8)
+        return np.packbits(plane.reshape(-1)) if self.mask_packed else plane
+
+    def _crop_up(self) -> bool:
+        """Whether :meth:`process_directory` crops uploads: under
+        ``crop_upload``, tiled and without the temporal guide (full-frame
+        mode needs the whole frame's statistics, the chain warps whole
+        frames; JAX ``engine.py:716-720``)."""
+        return self.crop_upload and self.mode != "fullframe" \
+            and not self.temporal_enabled
 
     def _load_for_dispatch(self, input_path: Path, mask_dir: Path,
                            position: Optional[int] = None,
                            card: Optional[torch.device] = None) -> Staged:
         """Decode, erode, place tiles (none in fullframe mode) and stage
         one frame for dispatch, on a prefetch thread (JAX
-        ``engine.py:623-667`` without the crop window); with a stream
+        ``engine.py:623-667``): its mask's support box and, for a masked
+        frame under :meth:`_crop_up`, its upload window; with a stream
         ``position`` (the temporal chain) its flow file too, or with the
-        device flow its raw flow mask. On a CUDA device the frame, its
-        mask and its flow or flow mask go up to ``card`` (the first device
-        by default) through pinned buffers on its copy stream; on the CPU
-        they stay host tensors."""
+        device flow its raw flow mask. On a CUDA device the frame (or its
+        window), its mask and its flow or flow mask go up to ``card`` (the
+        first device by default) through pinned buffers on its copy
+        stream; on the CPU they stay host tensors."""
         spans = self.spans
         device_flow = self.temporal_flow_source == "device"
         flow = fmask = None
@@ -754,17 +811,36 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         with spans("host/tile_placement"):
             boxes = [] if self.mode == "fullframe" \
                 else self.boxes_for(mask, hw)
+            # the support box comes from the mask itself: stride-sampled
+            # tiles can miss a speckle pixel, and full-frame mode has none
+            mbox = mask_support_bbox(mask) if mask is not None else None
+            cropwin = upload_crop_window(boxes, *hw, self.patch_size,
+                                         support_bbox=mbox) \
+                if mask is not None and self._crop_up() else None
         return self._stage(parts, mask, boxes, input_path, position, flow,
-                           fmask, card)
+                           fmask, card, mbox, cropwin)
 
     def _stage(self, parts: List[np.ndarray], mask: Optional[np.ndarray],
                boxes: List[Box], path: Path, position: Optional[int],
                flow: Optional[np.ndarray], fmask: Optional[np.ndarray],
-               card: Optional[torch.device] = None) -> Staged:
+               card: Optional[torch.device] = None,
+               mbox: Optional[Bbox] = None,
+               cropwin: Optional[Bbox] = None) -> Staged:
         """Upload a decoded frame (its parts joined), its mask (None: the
-        whole frame) and its flow or flow mask to ``card`` (the first
-        device by default), through pinned buffers on that card's copy
-        stream (host tensors on the CPU) -> :class:`Staged`."""
+        whole frame) in its wire form (:meth:`_mask_wire`) and its flow or
+        flow mask to ``card`` (the first device by default), through
+        pinned buffers on that card's copy stream (host tensors on the
+        CPU) -> :class:`Staged`, which keeps the host RGB and ``mbox`` for
+        the cropped readback. With an upload window ``cropwin`` (y0, y1,
+        x0, x1) only the window of the frame and its mask goes up, and the
+        tile boxes are shifted into it (JAX ``engine.py:650-660``)."""
+        rgb = parts[0]
+        if cropwin is not None:
+            y0, y1, x0, x1 = cropwin
+            parts = [p[y0:y1, x0:x1] for p in parts]
+            mask = mask[y0:y1, x0:x1]
+            boxes = [(b[0] - y0, b[1] - y0, b[2] - x0, b[3] - x0)
+                     for b in boxes]
         hw = parts[0].shape[:2]
         card = self.device if card is None else card
         stream = self.copy_streams.get(card)
@@ -772,7 +848,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
             frame_d, _ = stage_upload(parts, card, self.upload_pools, stream)
             # the later copies follow the frame's on the one copy stream,
             # so the last event covers them all
-            mask_d, ready = stage_upload([self._mask_tensor(mask, hw)],
+            mask_d, ready = stage_upload([self._mask_wire(mask, hw)],
                                          card, self.upload_pools, stream)
             flow_d = fmask_d = None
             if flow is not None:
@@ -782,7 +858,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                 fmask_d, ready = stage_upload([fmask], card,
                                               self.upload_pools, stream)
         return Staged(frame_d, mask_d, ready, boxes, path, position, flow_d,
-                      fmask_d)
+                      fmask_d, rgb, mbox, cropwin)
 
     def _detect_streams(self, input_dir: Path) -> List[str]:
         """The multi-stream temporal layout (JAX ``multistream.py:42-52``):
@@ -888,8 +964,13 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                 except Exception as e:
                     self.logger.error(f"Failed to process {path.name}: {e}")
                     continue
-                if group and group[0].frame.shape != staged.frame.shape:
-                    flush_group()  # a group holds frames of one shape
+                # a group holds frames of one shape and one croppedness: a
+                # window and a whole frame of equal sides must not share
+                # one (their pastes differ; JAX engine.py:801-812)
+                if group and (group[0].frame.shape != staged.frame.shape
+                              or (group[0].cropwin is None)
+                              != (staged.cropwin is None)):
+                    flush_group()
                 if group_size is None:
                     group_size = self._group_size(len(staged.boxes))
                     if sharded:

@@ -27,6 +27,12 @@ tiled multiframe program whatever ``inference.mode`` says; a cycle with one
 live stream goes through :meth:`_stylize_device`, which honours
 ``fullframe``.
 
+The transport knobs act as in JAX (``multistream.py:97, 272-278``): each
+frame's readback is cropped to its own mask's support box under
+``crop_readback`` and pasted into its input bytes (the carries stay whole
+on the device), and the device flow's raw masks go up bit-packed under
+``mask_upload: packed``. Uploads are never cropped here.
+
 ``flow_batch`` > 1 computes a cycle's device flows first, one graph replay
 a stream (``infer/temporal.py::_temporal_flow_pairs``), bitwise each
 stream's own step; a graph batched across streams is not built.
@@ -43,7 +49,7 @@ from typing import Dict, List, Set
 
 import torch
 
-from patch_toon_tpu_torch.infer.common import _image_files
+from patch_toon_tpu_torch.infer.common import _image_files, mask_support_bbox
 from patch_toon_tpu_torch.infer.pipeline import (
     GroupPipeline,
     Staged,
@@ -97,7 +103,9 @@ class MultiStreamMixin:
                 fmask = self.load_flow_mask(p, info["mdir"])
         with spans("host/tile_placement"):
             boxes = self.boxes_for(mask, hw)  # a 2+ stream cycle is tiled
-        return self._stage(parts, mask, boxes, p, None, flow, fmask)
+            mbox = mask_support_bbox(mask) if mask is not None else None
+        return self._stage(parts, mask, boxes, p, None, flow, fmask,
+                           mbox=mbox)
 
     def _ms_resolve_loads(self, subs, shape_ref) -> List[tuple]:
         """Cycle pass 1: each stream's staged frame, its upload awaited; a
@@ -165,7 +173,8 @@ class MultiStreamMixin:
                            output_dir: Path) -> None:
         """Cycle pass 4: every prepared frame in ONE dispatch (the mode
         rule in the module's docstring), each chain's carry advanced, the
-        readbacks queued on the pipeline."""
+        readbacks queued on the pipeline, each cropped to its own frame's
+        box."""
         if len(batch) == 1:
             _, st, full, _ = batch[0]
             u8, out, _ = self._stylize_device(full, st.mask, st.boxes)
@@ -182,7 +191,7 @@ class MultiStreamMixin:
                 info["prev_gray"] = gray
         pipe.submit([b[1] for b in batch], u8s,
                     paths=[output_dir / b[0]["name"] / b[1].path.name
-                           for b in batch])
+                           for b in batch], per_frame=True)
 
     def _ms_run_cycles(self, infos, pipe: GroupPipeline, pool, output_dir,
                        shape_ref) -> None:

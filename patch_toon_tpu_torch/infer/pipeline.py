@@ -1,9 +1,8 @@
 """The host<->device pipeline of directory serving.
 
 Counterpart of the JAX engine's ``_GroupPipeline``
-(``patch_toon_tpu/infer/engine.py:981-1122``) without its pod and crop
-branches, and of the staging half of its ``_load_for_dispatch``
-(``:623-667``):
+(``patch_toon_tpu/infer/engine.py:981-1122``) and of the staging half of
+its ``_load_for_dispatch`` (``:623-667``):
 
 - :class:`PinnedPool` stages frames for upload, on a prefetch thread: a
   buffer of pinned host memory, allocated once per shape and reused, copied
@@ -15,6 +14,14 @@ branches, and of the staging half of its ``_load_for_dispatch``
   waited on, the frame handed to the asynchronous writer) only when more
   than ``inference.readback_streams + 2`` frames are in flight, so the card
   runs one group while the host dispatches the next.
+- The readback is cropped as in JAX (``engine.py:1050-1075``): a group
+  uploaded as windows (``crop_upload``) reads back each whole window and
+  pastes it at its frame's own origin; otherwise, with ``crop_readback``,
+  only ``compute_crop_bbox`` of the group's mask supports (or, for the
+  multi-stream cycle, of each frame's own) is read back and pasted into
+  the input's RGB bytes, which outside the mask's support are the
+  composite's output exactly. The boxes are 64-aligned, so a drifting mask
+  gives few readback shapes, one pinned pool each.
 
 On the CPU (a device the caller asked for) nothing is pinned or copied:
 frames stay host tensors and outputs are read as they are.
@@ -31,17 +38,27 @@ from typing import Any, Deque, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from patch_toon_tpu_torch.infer.common import (
+    Bbox,
+    compute_crop_bbox,
+    unpack_mask,
+)
 from patch_toon_tpu_torch.infer.tiling import Box, draw_tile_boxes
 
 
 @dataclass
 class Staged:
-    """One frame ready for dispatch: (H, W, C) uint8 and its (H, W, 1)
-    mask (uint8 when it is {0, 1}, else fp32) on the engine's device, the
-    copies' event (None on the CPU), its tile boxes, its input path and,
-    in a temporal chain, its stream position and either its (H, W, 2)
-    backward flow (flows from files) or its (H, W) uint8 raw flow mask (the
-    device flow); None when missing."""
+    """One frame ready for dispatch: (H, W, C) uint8 and its mask on the
+    engine's device (bit-packed (ceil(H*W/8),) uint8 under
+    ``mask_upload: packed``, else an (H, W, 1) plane: uint8 when it is {0,
+    1}, fp32 when not), the copies' event (None on the CPU), its tile
+    boxes, its input path and, in a temporal chain, its stream position and
+    either its (H, W, 2) backward flow (flows from files) or its raw flow
+    mask (the device flow: packed, or an (H, W) uint8 plane); None when
+    missing. For the cropped readback: the input's (H, W, 3) uint8 RGB on
+    the host, the mask's support box (None: no mask) and the upload window
+    (None: the whole frame went up; else ``frame``, ``mask`` and ``boxes``
+    are the window's)."""
 
     frame: torch.Tensor
     mask: torch.Tensor
@@ -51,15 +68,68 @@ class Staged:
     position: Optional[int] = None
     flow: Optional[torch.Tensor] = None
     fmask: Optional[torch.Tensor] = None
+    rgb: Optional[np.ndarray] = None
+    mbox: Optional[Bbox] = None
+    cropwin: Optional[Bbox] = None
 
 
 def stack_masks(group: Sequence[Staged]) -> torch.Tensor:
-    """The staged frames' masks as one (F, H, W, 1) tensor: fp32 when any
-    is fractional (uint8 otherwise)."""
+    """The staged frames' masks as one tensor: (F, ceil(H*W/8)) packed when
+    every one is, else (F, H, W, 1) planes (a packed one unpacked on the
+    device), fp32 when any is fractional (uint8 otherwise)."""
     masks = [s.mask for s in group]
+    if len({m.dim() for m in masks}) > 1:
+        masks = [unpack_mask(m, *s.frame.shape[:2])[..., None]
+                 if m.dim() == 1 else m for m, s in zip(masks, group)]
     if len({m.dtype for m in masks}) > 1:
         masks = [m.float() for m in masks]
     return torch.stack(masks)
+
+
+def readback_boxes(engine, group: Sequence[Staged], h: int, w: int,
+                   per_frame: bool = False) -> List[Optional[Bbox]]:
+    """Each frame's readback box in its (h, w) output, None for the whole
+    output: None for an upload-cropped group (the window is read whole);
+    with ``crop_readback``, ``compute_crop_bbox`` of the group's mask
+    supports, or of each frame's own with ``per_frame`` (the multi-stream
+    cycle, JAX ``multistream.py:272-278``). The group's box (or None) is
+    kept in ``engine._last_crop``, the upload window for a cropped group
+    (JAX ``engine.py:1050-1068``)."""
+    if group[0].cropwin is not None:
+        engine._last_crop = group[0].cropwin
+        return [None] * len(group)
+    if not engine.crop_readback:
+        if not per_frame:
+            engine._last_crop = None
+        return [None] * len(group)
+    if per_frame:
+        return [compute_crop_bbox([s.mbox], h, w) if s.mbox is not None
+                else None for s in group]
+    bbox = compute_crop_bbox([s.mbox for s in group], h, w)
+    engine._last_crop = bbox
+    return [bbox] * len(group)
+
+
+def _paste(s: Staged, img: np.ndarray, box: Optional[Bbox]) -> np.ndarray:
+    """A frame's output from what was read back: ``img`` itself when it is
+    the whole frame, else the input's RGB bytes with ``img`` pasted at the
+    upload window's origin or at the readback box."""
+    at = s.cropwin if s.cropwin is not None else box
+    if at is None:
+        return img
+    full = s.rgb.copy()
+    full[at[0]:at[1], at[2]:at[3]] = img
+    return full
+
+
+def _frame_boxes(s: Staged) -> List[Box]:
+    """The staged frame's tile boxes in full-frame coordinates (the debug
+    overlay's)."""
+    cw = s.cropwin
+    if cw is None:
+        return s.boxes
+    return [(b[0] + cw[0], b[1] + cw[0], b[2] + cw[2], b[3] + cw[2])
+            for b in s.boxes]
 
 
 class PinnedPool:
@@ -154,7 +224,8 @@ class _InFlight:
         self.outs: List[torch.Tensor] = []
         self.events: List[Any] = []
         self.paths: List[Path] = []
-        self.boxes: List[List[Box]] = []
+        self.staged: List[Staged] = []
+        self.crops: List[Optional[Bbox]] = []
 
 
 class GroupPipeline:
@@ -181,19 +252,26 @@ class GroupPipeline:
         self.submit(group, self.e.dispatch_staged(group))
 
     def submit(self, group: Sequence[Staged], u8: torch.Tensor,
-               paths: Optional[Sequence[Path]] = None) -> None:
+               paths: Optional[Sequence[Path]] = None,
+               per_frame: bool = False) -> None:
         """Queue the readback of a group's (F, H, W, 3) uint8 output on the
         device (or of a list of its frames' (H, W, 3) outputs, each on its
         own device), to ``paths`` (``output_dir`` / each input's name when
-        None); then drain the oldest groups while more than ``window``
-        frames are in flight, keeping at least this group (JAX
+        None), cropped by :func:`readback_boxes` (``per_frame``: each
+        frame's own box); then drain the oldest groups while more than
+        ``window`` frames are in flight, keeping at least this group (JAX
         ``engine.py:1092-1099``). Each copy and its event are queued on
         the current stream of the frame's own card."""
         e = self.e
         g = _InFlight()
         with e.spans("host/readback_issue"):
+            h, w = u8[0].shape[:2]
+            crops = readback_boxes(e, group, h, w, per_frame)
             for k, staged in enumerate(group):
                 out = u8[k]
+                box = crops[k]
+                if box is not None:
+                    out = out[box[0]:box[1], box[2]:box[3]].contiguous()
                 if out.device.type == "cuda":
                     pool = self.out_pools(out.shape, torch.uint8)
                     buf = pool.acquire()
@@ -208,7 +286,8 @@ class GroupPipeline:
                     g.events.append(None)
                 g.paths.append(self.output_dir / staged.path.name
                                if paths is None else Path(paths[k]))
-                g.boxes.append(staged.boxes)
+                g.staged.append(staged)
+                g.crops.append(box)
         self.in_flight.append(g)
         while self.frames_in_flight() > self.window \
                 and len(self.in_flight) > 1:
@@ -226,19 +305,20 @@ class GroupPipeline:
         e = self.e
         g = self.in_flight.popleft()
         failed = []
-        for out, ev, path, boxes in zip(g.outs, g.events, g.paths, g.boxes):
+        for out, ev, path, staged, box in zip(g.outs, g.events, g.paths,
+                                              g.staged, g.crops):
             try:
                 with e.spans("host/readback_wait"):
                     if ev is not None:
                         ev[1].synchronize()
-                img = out.numpy()
+                img = _paste(staged, out.numpy(), box)
                 with e.spans("host/encode_submit"):
                     self.writer.submit(path, img)
                     self.submitted += 1
                     if e.debug_mode:
                         self.writer.submit(
                             path.with_name(f"debug_{path.name}"),
-                            draw_tile_boxes(img, boxes))
+                            draw_tile_boxes(img, _frame_boxes(staged)))
             except Exception as err:
                 failed.append((path.name, err))
             finally:

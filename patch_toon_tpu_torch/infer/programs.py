@@ -12,10 +12,14 @@
    tile placed at its box START ``(f*(H+ps) + y0, x0)`` although the gather
    centred it: the reference does exactly this (generator.py:541-547);
 5. divide by the summed weights where they exceed 1e-8;
-6. composite through the mask and round to uint8 (``_composite_u8``).
+6. composite through the mask and round to uint8 (``_composite_u8``); a
+   bit-packed mask is unpacked on the device first (``mask_f32``).
 
 The host builds a :class:`TilePlan` once per tile layout (the engine caches
 it): the boxes, the blend positions and their CSR binning, on the device.
+An upload-cropped frame (``inference.crop_upload``) is a frame like any
+other here: the window, its mask and its boxes in window coordinates, so
+B1 and B2 run on window-sized tiles and canvases.
 
 ``make_fullframe_fn`` is the counterpart of ``make_fullframe_fn``
 (:26-50), ``inference.mode: fullframe``: one generator pass over each whole
@@ -32,7 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from patch_toon_tpu_torch.infer.common import _composite_u8, _to_signed_unit
+from patch_toon_tpu_torch.infer.common import (
+    _composite_u8,
+    _to_signed_unit,
+    mask_f32,
+)
 from patch_toon_tpu_torch.ops.blend import bin_tiles, blend_tiles
 
 
@@ -84,7 +92,8 @@ def gather_tiles(frames: torch.Tensor, fboxes: torch.Tensor,
 def make_multiframe_fn(generator: Callable, patch_size: int, n_frames: int,
                        h: int, w: int, dtype: torch.dtype) -> Callable:
     """-> fn(frames (F,H,W,C) u8 or f32, plan, weights (B,ps,ps) f32,
-    masks (F,H,W,1)) -> (uint8 (F,H,W,3), composite fp32 (F,H,W,3))."""
+    masks (F,H,W,1) or packed (F,ceil(H*W/8))) -> (uint8 (F,H,W,3),
+    composite fp32 (F,H,W,3))."""
     ps = patch_size
 
     def fn(frames: torch.Tensor, plan: TilePlan, weights: torch.Tensor,
@@ -99,14 +108,15 @@ def make_multiframe_fn(generator: Callable, patch_size: int, n_frames: int,
         wsum = wcanvas.view(n_frames, h + ps, w + ps, 1)[:, :h, :w]
         out = out / torch.where(wsum > 1e-8, wsum, torch.ones_like(wsum))
         rgb = _to_signed_unit(frames[..., :3])
-        return _composite_u8(rgb, out, masks.float())
+        return _composite_u8(rgb, out, mask_f32(masks, frames))
 
     return fn
 
 
 def make_fullframe_fn(generator: Callable, h: int, w: int,
                       dtype: torch.dtype) -> Callable:
-    """-> fn(frames (F,H,W,C) u8 or f32, masks (F,H,W,1)) -> (uint8
+    """-> fn(frames (F,H,W,C) u8 or f32, masks (F,H,W,1) or packed
+    (F,ceil(H*W/8))) -> (uint8
     (F,H,W,3), composite fp32 (F,H,W,3)): [-1, 1], zero padding of H and W
     up to multiples of 4 (the generator's two stride-2 stages and two
     upsamples) after the normalization, so that the padded pixels enter
@@ -122,6 +132,6 @@ def make_fullframe_fn(generator: Callable, h: int, w: int,
         xp = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
         with torch.no_grad():
             out = generator(xp.to(dtype))[:, :h, :w].float()
-        return _composite_u8(x[..., :3], out, masks.float())
+        return _composite_u8(x[..., :3], out, mask_f32(masks, frames))
 
     return fn

@@ -21,11 +21,17 @@ frame warped by the backward flow i -> i-1. That flow comes
   (``ops/flow.py::dense_flow``, ``flow_scale`` 1, 2 or 4) between this
   frame's PIL-exact luma and the previous frame's, which stays on the
   device as the chain's second carry, zeroed outside the frame's raw flow
-  mask (> 127; none when the mask is missing): the flow tool's
-  ``masked_flow`` on the same bytes. On the card the whole flow step is one
-  CUDA graph a frame shape (:class:`FlowGraphs`), the counterpart of JAX's
-  one jitted dispatch; ``flow_batch`` > 1 computes the next frames' flows
-  ahead by the same graph, bitwise equal to one at a time.
+  mask (> 127; none when the mask is missing; bit-packed on the host under
+  ``mask_upload: packed`` and unpacked on the device, JAX :86-89): the flow
+  tool's ``masked_flow`` on the same bytes. On the card the whole flow
+  step, the unpack included, is one CUDA graph a frame shape
+  (:class:`FlowGraphs`), the counterpart of JAX's one jitted dispatch;
+  ``flow_batch`` > 1 computes the next frames' flows ahead by the same
+  graph, bitwise equal to one at a time.
+
+The chain's readback is cropped to the mask's support box under
+``crop_readback`` (the pipeline's, JAX :489-498); the carry stays the
+whole frame on the device.
 
 Frame 0 and a restarted chain take the frame's own RGB. The chain is
 sequential only on the device: frame i+1's input needs frame i's fp32
@@ -45,7 +51,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-from patch_toon_tpu_torch.infer.common import _to_signed_unit
+from patch_toon_tpu_torch.infer.common import _to_signed_unit, unpack_mask
 from patch_toon_tpu_torch.ops.flow import dense_flow, pil_gray, warp_image
 
 
@@ -77,13 +83,16 @@ def _temporal_device_flow(frame: torch.Tensor, prev_gray: torch.Tensor,
                           fmask: Optional[torch.Tensor], scale: int = 1):
     """The flow step: this frame's luma and its backward flow against the
     previous frame's luma ``prev_gray`` -> ((H, W, 2) fp32 flow, (H, W)
-    uint8 luma). ``fmask`` (H, W) uint8 {0, 1} zeroes the flow outside it;
-    None leaves it whole. At ``scale`` 1 this is what the flow tool writes
-    to ``flow_bwd/{i}.npy``."""
+    uint8 luma). ``fmask`` (H, W) uint8 {0, 1}, or its bit-packed
+    (ceil(H*W/8),) form, zeroes the flow outside it; None leaves it whole.
+    At ``scale`` 1 this is what the flow tool writes to
+    ``flow_bwd/{i}.npy``."""
     gray = pil_gray(frame[..., :3])
     flow = dense_flow(gray.to(torch.float32) / 255.0,
                       prev_gray.to(torch.float32) / 255.0, scale=scale)
     if fmask is not None:
+        if fmask.dim() == 1:  # the packed wire form
+            fmask = unpack_mask(fmask, *gray.shape)
         flow = flow * (fmask.to(torch.float32) > 0.5)[..., None]
     return flow, gray
 
@@ -111,20 +120,26 @@ def _temporal_flow_pairs(frames: Sequence[torch.Tensor],
 
 class _FlowGraph:
     """:func:`_temporal_device_flow` captured once for one frame shape and
-    type, scale and mask presence, with static input and output buffers."""
+    type, scale and mask form (none, a plane or packed), with static input
+    and output buffers."""
 
-    def __init__(self, frame: torch.Tensor, masked: bool, scale: int):
+    def __init__(self, frame: torch.Tensor, fmask: Optional[torch.Tensor],
+                 scale: int):
         dev = self.device = frame.device
         with torch.cuda.device(dev):  # the capture's streams on its card
-            self._capture(frame, masked, scale)
+            self._capture(frame, fmask, scale)
 
-    def _capture(self, frame: torch.Tensor, masked: bool, scale: int):
+    def _capture(self, frame: torch.Tensor, fmask: Optional[torch.Tensor],
+                 scale: int):
         dev = frame.device
         h, w = frame.shape[:2]
         self.rgb = torch.zeros((h, w, 3), dtype=frame.dtype, device=dev)
         self.prev = torch.zeros((h, w), dtype=torch.uint8, device=dev)
-        self.mask = torch.ones((h, w), dtype=torch.uint8, device=dev) \
-            if masked else None
+        # the mask in its wire form: the unpack of a packed one is part of
+        # the graph (its shift table is made by the warm-up below)
+        self.mask = None if fmask is None else torch.full(
+            fmask.shape, 255 if fmask.dim() == 1 else 1, dtype=torch.uint8,
+            device=dev)
         # a warm-up on a side stream before the capture, as
         # torch.cuda.graphs asks
         side = torch.cuda.Stream(dev)
@@ -155,8 +170,9 @@ class _FlowGraph:
 
 class FlowGraphs:
     """The flow step as the chain runs it. On a CUDA device: one captured
-    :class:`_FlowGraph` per (H, W, frame type, scale, masked or not),
-    replayed each frame; a failed capture raises. On the CPU:
+    :class:`_FlowGraph` per (H, W, frame type, scale, mask form: none,
+    packed or a plane), replayed each frame; a failed capture raises. On
+    the CPU:
     :func:`_temporal_device_flow`, eagerly. ``captures`` and ``replays``
     count the graphs made and run."""
 
@@ -170,11 +186,10 @@ class FlowGraphs:
         if frame.device.type != "cuda":
             return _temporal_device_flow(frame, prev_gray, fmask, scale)
         key = (frame.device, tuple(frame.shape[:2]), frame.dtype, scale,
-               fmask is not None)
+               None if fmask is None else fmask.dim())
         graph = self._graphs.get(key)
         if graph is None:
-            graph = self._graphs[key] = _FlowGraph(frame, fmask is not None,
-                                                   scale)
+            graph = self._graphs[key] = _FlowGraph(frame, fmask, scale)
             self.captures += 1
         self.replays += 1
         return graph.replay(frame, prev_gray, fmask)

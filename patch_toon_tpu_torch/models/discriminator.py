@@ -6,7 +6,8 @@ PatchGAN: a 4x4 stride-2 conv stem with LeakyReLU(0.2) and no norm, then
 a stride-1 pre-output block, each conv -> InstanceNorm -> LeakyReLU, and a
 4x4 conv to one channel (reference src/models/discriminator.py:42-93).
 Both InstanceNorm sites go through ``layers.norm_act`` (kernel B1 and, under
-autograd, its backward kernel).
+autograd, its backward kernel). Every ``norm_layer`` but "instance_norm"
+builds no norm there (JAX ``discriminator.py:54``): the LeakyReLU alone.
 
 Module names are the reference's (``initial.0``, ``intermediate.{i}.0``,
 ``pre_output.0``, ``output.0``), so its state dict reads through JAX
@@ -35,9 +36,7 @@ class DiscriminatorN_IN(nn.Module):
         is accepted and unused, as there. ``conv_precision`` as the
         generator's (JAX ``models/discriminator.py:39``)."""
         super().__init__()
-        if norm_layer != "instance_norm":
-            raise NotImplementedError(
-                f"discriminator norm_layer={norm_layer!r} is not ported yet")
+        self.norm = norm_layer == "instance_norm"
         self.use_noise = bool(use_noise)
         self.noise_sigma = float(noise_sigma)
         nf = int(num_filters)
@@ -81,6 +80,6 @@ class DiscriminatorN_IN(nn.Module):
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         out = leaky_relu(self.initial[0](x))
         for block in self.intermediate:
-            out = norm_act(block[0](out), "leaky_relu")
-        out = norm_act(self.pre_output[0](out), "leaky_relu")
+            out = norm_act(block[0](out), "leaky_relu", self.norm)
+        out = norm_act(self.pre_output[0](out), "leaky_relu", self.norm)
         return self.output[0](out).permute(0, 2, 3, 1)

@@ -4,7 +4,12 @@
 bilinear-upsample + conv blocks with skip concats, a 7x7 conv over
 (decoded, stem, raw input), optional conv/BN smoothers, and a 1x1 head with
 tanh (reference src/models/generator.py:60-238). All 19 InstanceNorm sites
-go through ``ops.instance_norm.instance_norm_act``. Every conv but the 1x1
+go through ``ops.instance_norm.instance_norm_act``; ``norm_layer`` null or
+"none" (any value but "instance_norm"; "batch_norm" is refused, as JAX's
+``ConvBlock`` refuses it) builds no norm at any site, as in JAX, each site
+then its activation alone (``layers.norm_act(..., norm=False)``), and each
+residual block's second conv moves to ``block.3`` (the reference's
+Sequential without its norms). Every conv but the 1x1
 head is a ``layers.QuantConv2d`` (22 at 7 residual blocks): ``quant_mode``
 None is the fp conv, "calib" and "int8" are JAX's w8a8 serving modes
 (``GeneratorJ.clone(quant_mode=...)``; ``quant_layers`` names the sites).
@@ -36,6 +41,7 @@ from patch_toon_tpu_torch.models.layers import (
     QuantConv2d,
     batch_norm_eval_fp32,
     batch_norm_train_fp32,
+    check_norm_layer,
     conv,
     norm_act,
     upsample2x,
@@ -44,22 +50,28 @@ from patch_toon_tpu_torch.models.layers import (
 
 class ResNetBlock(nn.Module):
     """x + (ReLU -> Conv3x3 -> IN -> ReLU -> Conv3x3 -> IN)(x)
-    (reference src/models/generator.py:18-58)."""
+    (reference src/models/generator.py:18-58); without ``norm`` the INs
+    go, and the second conv is ``block.3``."""
 
     def __init__(self, channels: int, use_bias: bool,
-                 conv_precision: Optional[str] = None):
+                 conv_precision: Optional[str] = None, norm: bool = True):
         super().__init__()
         cp = conv_precision
+        self.norm = norm
+        n = [nn.Identity()] if norm else []
         self.block = nn.Sequential(
             nn.ReLU(), conv(channels, channels, 3, 1, 1, use_bias, cp, True),
-            nn.Identity(), nn.ReLU(),
-            conv(channels, channels, 3, 1, 1, use_bias, cp, True),
-            nn.Identity())
+            *n, nn.ReLU(),
+            conv(channels, channels, 3, 1, 1, use_bias, cp, True), *n)
+
+    @property
+    def conv2(self) -> QuantConv2d:
+        return self.block[4 if self.norm else 3]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.block[1](F.relu(x))
-        y = norm_act(y, "relu")  # IN, then the block's second ReLU
-        y = norm_act(self.block[4](y), None)
+        y = norm_act(y, "relu", self.norm)  # IN, then the second ReLU
+        y = norm_act(self.conv2(y), None, self.norm)
         return x + y
 
 
@@ -76,9 +88,8 @@ class GeneratorJ(nn.Module):
         ``models/generator.py:85``): every conv of an fp32 forward runs as
         ``layers.conv2d_3xtf32``."""
         super().__init__()
-        if norm_layer != "instance_norm":
-            raise NotImplementedError(
-                f"norm_layer={norm_layer!r} is not ported yet")
+        check_norm_layer(norm_layer)
+        self.norm = norm_layer == "instance_norm"
         f = list(filters)
         c = int(input_channels)
         cp = conv_precision
@@ -91,7 +102,8 @@ class GeneratorJ(nn.Module):
         self.downsample2 = nn.Sequential(
             conv(f[1], f[2], 3, 2, 1, use_bias, cp, q))
         self.resnet_blocks = nn.Sequential(
-            *[ResNetBlock(f[2], use_bias, cp) for _ in range(resnet_blocks)])
+            *[ResNetBlock(f[2], use_bias, cp, self.norm)
+              for _ in range(resnet_blocks)])
         self.upsample2 = nn.Sequential(
             nn.Identity(), conv(2 * f[2], f[4], 3, 1, 1, use_bias, cp, q))
         self.upsample1 = nn.Sequential(
@@ -115,7 +127,7 @@ class GeneratorJ(nn.Module):
                "downsample2/conv": self.downsample2[0]}
         for i, blk in enumerate(self.resnet_blocks):
             out[f"resnet_{i}/conv1"] = blk.block[1]
-            out[f"resnet_{i}/conv2"] = blk.block[4]
+            out[f"resnet_{i}/conv2"] = blk.conv2
         out["upsample2/conv"] = self.upsample2[1]
         out["upsample1/conv"] = self.upsample1[1]
         out["conv11"] = self.conv11[0]
@@ -140,14 +152,15 @@ class GeneratorJ(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        conv0 = norm_act(self.initial_conv[0](x), "leaky_relu")
-        conv1 = norm_act(self.downsample1[0](conv0), "leaky_relu")
-        conv2 = norm_act(self.downsample2[0](conv1), "leaky_relu")
+        nm = self.norm
+        conv0 = norm_act(self.initial_conv[0](x), "leaky_relu", nm)
+        conv1 = norm_act(self.downsample1[0](conv0), "leaky_relu", nm)
+        conv2 = norm_act(self.downsample2[0](conv1), "leaky_relu", nm)
         out = self.resnet_blocks(conv2)
         out = norm_act(self.upsample2[1](upsample2x(
-            torch.cat([out, conv2], dim=1))), "relu")
+            torch.cat([out, conv2], dim=1))), "relu", nm)
         out = norm_act(self.upsample1[1](upsample2x(
-            torch.cat([out, conv1], dim=1))), "relu")
+            torch.cat([out, conv1], dim=1))), "relu", nm)
         out = F.relu(self.conv11[0](torch.cat([out, conv0, x], dim=1)))
         if self.smoothers is not None:
             out = F.relu(self.smoothers[0](out))

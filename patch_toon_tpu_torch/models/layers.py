@@ -245,10 +245,27 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, x * slope)
 
 
-def norm_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+def check_norm_layer(norm_layer: Any) -> None:
+    """Raise where JAX's ``ConvBlock`` raises (``models/layers.py:289-292``):
+    BatchNorm inside a conv block is used by no shipped configuration.
+    Otherwise only ``"instance_norm"`` normalizes; any other value
+    (``None``, ``"none"``) builds no norm (JAX :285-292, 321-324,
+    ``generator.py:47-48``)."""
+    if norm_layer == "batch_norm":
+        raise NotImplementedError(
+            "batch_norm inside ConvBlock is not used by any shipped config")
+
+
+def norm_act(y: torch.Tensor, act: Optional[str],
+             norm: bool = True) -> torch.Tensor:
     """InstanceNorm + activation of an NCHW tensor through the NHWC kernel
     entry point (a free view for channels_last memory); differentiable
-    through the backward kernel when autograd records."""
+    through the backward kernel when autograd records. ``norm`` False: the
+    activation alone (``norm_layer`` none), ``leaky_relu`` or ``F.relu``."""
+    if not norm:
+        if act == "leaky_relu":
+            return leaky_relu(y)
+        return F.relu(y) if act == "relu" else y
     nhwc = y.permute(0, 2, 3, 1).contiguous()
     return instance_norm_act_autograd(nhwc, act).permute(0, 3, 1, 2)
 

@@ -3,8 +3,12 @@
 ``generator_state_from_jax``, ``discriminator_state_from_jax`` and
 ``vgg_state_from_jax`` are the port's own copies of the name mappings in
 ``patch_toon_tpu/utils/torch_compat.py`` (flax HWIO kernels -> torch OIHW
-weights). They copy every array: ``np.asarray`` of a tensor aliases its
-storage, and converted weights must never share memory with their source.
+weights); ``generator_state_to_jax`` goes the other way (its
+``generator_params_from_torch``). A generator built with ``norm_layer``
+other than "instance_norm" has each residual block's second conv at
+``block.3`` (no norm modules before it). They copy every array:
+``np.asarray`` of a tensor aliases its storage, and converted weights must
+never share memory with their source.
 
 ``load_generator_state`` reads the two torch layouts that exist: the
 reference Lightning ``.ckpt`` (``state_dict`` with a ``generator.`` prefix)
@@ -18,7 +22,7 @@ the command that exports it to a ``.ckpt``.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -37,19 +41,28 @@ def _conv(out: Dict[str, torch.Tensor], name: str,
         out[f"{name}.bias"] = _t(p["bias"])
 
 
+def _conv2_index(norm_layer: Any) -> int:
+    """A residual block's second conv: ``block.4`` after a norm module,
+    ``block.3`` without (JAX ``torch_compat.py:70``)."""
+    return 4 if norm_layer in ("instance_norm", "batch_norm") else 3
+
+
 def generator_state_from_jax(params: Mapping[str, Any],
                              batch_stats: Mapping[str, Any],
                              resnet_blocks: int = 7,
                              append_smoothers: bool = True,
+                             norm_layer: Any = "instance_norm",
                              ) -> Dict[str, torch.Tensor]:
     """flax GeneratorJ (params, batch_stats) as numpy -> torch state dict."""
     out: Dict[str, torch.Tensor] = {}
+    c2 = _conv2_index(norm_layer)
     _conv(out, "initial_conv.0", params["initial_conv"]["conv"])
     _conv(out, "downsample1.0", params["downsample1"]["conv"])
     _conv(out, "downsample2.0", params["downsample2"]["conv"])
     for i in range(resnet_blocks):
         _conv(out, f"resnet_blocks.{i}.block.1", params[f"resnet_{i}"]["conv1"])
-        _conv(out, f"resnet_blocks.{i}.block.4", params[f"resnet_{i}"]["conv2"])
+        _conv(out, f"resnet_blocks.{i}.block.{c2}",
+              params[f"resnet_{i}"]["conv2"])
     _conv(out, "upsample2.1", params["upsample2"]["conv"])
     _conv(out, "upsample1.1", params["upsample1"]["conv"])
     _conv(out, "conv11.0", params["conv11"])
@@ -63,6 +76,50 @@ def generator_state_from_jax(params: Mapping[str, Any],
         _conv(out, "smoothers.3", params["smoother_conv2"])
     _conv(out, "output.0", params["output"])
     return out
+
+
+def _kernel(sd: Mapping[str, Any], name: str) -> Dict[str, np.ndarray]:
+    w = np.array(sd[f"{name}.weight"], copy=True)
+    out = {"kernel": np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))}
+    if f"{name}.bias" in sd:
+        out["bias"] = np.array(sd[f"{name}.bias"], copy=True)
+    return out
+
+
+def generator_state_to_jax(sd: Mapping[str, Any], resnet_blocks: int = 7,
+                           append_smoothers: bool = True,
+                           norm_layer: Any = "instance_norm"
+                           ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Torch GeneratorJ state dict -> flax (params, batch_stats) as numpy
+    (torch OIHW weights -> HWIO kernels), the inverse of
+    :func:`generator_state_from_jax`."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+          for k, v in sd.items()}
+    c2 = _conv2_index(norm_layer)
+    params: Dict[str, Any] = {
+        "initial_conv": {"conv": _kernel(sd, "initial_conv.0")},
+        "downsample1": {"conv": _kernel(sd, "downsample1.0")},
+        "downsample2": {"conv": _kernel(sd, "downsample2.0")},
+        "upsample2": {"conv": _kernel(sd, "upsample2.1")},
+        "upsample1": {"conv": _kernel(sd, "upsample1.1")},
+        "conv11": _kernel(sd, "conv11.0"),
+        "output": _kernel(sd, "output.0"),
+    }
+    for i in range(resnet_blocks):
+        params[f"resnet_{i}"] = {
+            "conv1": _kernel(sd, f"resnet_blocks.{i}.block.1"),
+            "conv2": _kernel(sd, f"resnet_blocks.{i}.block.{c2}")}
+    stats: Dict[str, Any] = {}
+    if append_smoothers:
+        params["smoother_conv1"] = _kernel(sd, "smoothers.0")
+        params["smoother_conv2"] = _kernel(sd, "smoothers.3")
+        params["smoother_bn"] = {
+            "scale": np.array(sd["smoothers.2.weight"], copy=True),
+            "bias": np.array(sd["smoothers.2.bias"], copy=True)}
+        stats["smoother_bn"] = {
+            "mean": np.array(sd["smoothers.2.running_mean"], copy=True),
+            "var": np.array(sd["smoothers.2.running_var"], copy=True)}
+    return params, stats
 
 
 def generator_scales_from_jax(quant: Mapping[str, Any]

@@ -412,6 +412,87 @@ def test_blend_kernel_on_the_engine_layout(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _window_case(seed: int):
+    """A 512x910 frame's upload window (``crop_upload``): an ellipse mask
+    near the right edge, its tiles at patch 80, the window of their
+    footprints and the mask's support, the boxes shifted into it."""
+    from patch_toon_tpu_torch.infer.common import (
+        mask_support_bbox, upload_crop_window)
+    from patch_toon_tpu_torch.infer.tiling import tile_boxes_from_mask
+
+    h, w, ps = 512, 910, 80
+    yy, xx = np.mgrid[0:h, 0:w]
+    cy, cx = 300 + 7 * seed, 760 + 5 * seed
+    mask = (((yy - cy) / 110.0) ** 2 + ((xx - cx) / 150.0) ** 2
+            <= 1).astype(np.float32)
+    boxes = tile_boxes_from_mask(mask, ps, 30.0)
+    win = upload_crop_window(boxes, h, w, ps,
+                             support_bbox=mask_support_bbox(mask))
+    y0, y1, x0, x1 = win
+    return ([(b[0] - y0, b[1] - y0, b[2] - x0, b[3] - x0) for b in boxes],
+            y1 - y0, x1 - x0, ps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_blend_kernel_on_an_upload_window(cuda, seed):
+    """B2 on the canvas of three co-batched upload windows, whose sides
+    (window + patch) are not multiples of its 32-pixel block, bitwise its
+    plain version."""
+    from patch_toon_tpu_torch.infer.programs import make_tile_plan
+    from patch_toon_tpu_torch.infer.tiling import (
+        bucket_size, pack_boxes_multi)
+
+    boxes, bh, bw, ps = _window_case(seed)
+    ch, cw = 3 * (bh + ps), bw + ps
+    assert bh < 512 and ch % 32 and cw % 32
+    fb, wts, _ = pack_boxes_multi([boxes] * 3, ps,
+                                  bucket_size(3 * len(boxes)))
+    plan = make_tile_plan(fb, bh, bw, ps, cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    gen = torch.rand((len(fb), ps, ps, 3), device=cuda, generator=g) * 2 - 1
+    wt = torch.from_numpy(wts).to(cuda)
+    got = tblend.blend_tiles(gen, wt, plan.positions, plan.offsets,
+                             plan.ids, ch, cw)
+    want = tblend.blend_tiles_plain(gen, wt, plan.positions, ch, cw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 910), (3, 7, 9), (1, 1)])
+def test_unpack_mask_on_the_card_is_numpy_unpackbits(cuda, shape):
+    """``unpack_mask`` on the card against ``np.unpackbits(..., count=H*W)``
+    (its plain version), bitwise, pad bits dropped; and the flow step's
+    graph with a packed mask is bitwise the eager step with the plane."""
+    from patch_toon_tpu_torch.infer.common import pack_mask, unpack_mask
+
+    rng = np.random.default_rng(len(shape))
+    m = (rng.random(shape) > 0.4).astype(np.uint8)
+    packed = pack_mask(m)
+    h, w = shape[-2:]
+    got = unpack_mask(torch.from_numpy(packed).to(cuda), h, w)
+    want = np.unpackbits(packed, axis=-1, count=h * w).reshape(shape)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if shape != (512, 910):
+        return
+    from patch_toon_tpu_torch.infer.temporal import (
+        FlowGraphs, _device_gray, _temporal_device_flow)
+
+    f1, f2, fm = _flow_pair(256, 456, 4)
+    f1, f2 = (torch.from_numpy(a).to(cuda) for a in (f1, f2))
+    prev = _device_gray(f2)
+    plane = torch.from_numpy(fm).to(cuda)
+    bits = torch.from_numpy(pack_mask(fm)).to(cuda)
+    graphs = FlowGraphs()
+    got = [graphs(f1, prev, bits, 1) for _ in range(2)]
+    want = _temporal_device_flow(f1, prev, plane, 1)
+    torch.cuda.synchronize()
+    assert graphs.captures == 1
+    for flow, gray in got:
+        assert torch.equal(flow, want[0]) and torch.equal(gray, want[1])
+
+
 # ------------------------------------------------------- B1 under autograd
 
 # (H, W, C) of every InstanceNorm site of a training step at the default

@@ -189,8 +189,8 @@ def test_engine_refusals(scene, tmp_path):
         _engine(scene, tmp_path, "inference.quantize=int4")
     # debug_mode is ported: the tile-box overlays
     assert _engine(scene, tmp_path, "inference.debug_mode=true").debug_mode
-    # the transport knobs change no output in the JAX package: no-ops
-    # here, validated as JAX validates them
+    # the transport knobs change no output, in the JAX package as here
+    # (tests/test_torch_transport.py); validated as JAX validates them
     _engine(scene, tmp_path, "inference.crop_readback=off",
             "inference.upload=f32", "inference.mask_upload=plane")
     with pytest.raises(ValueError, match="Channel count mismatch"):
@@ -215,8 +215,8 @@ def test_engine_refusals(scene, tmp_path):
     ("inference.xla_options={a: 1}", False)])
 def test_transport_knobs_are_validated_as_jax(scene, tmp_path, override,
                                               refused):
-    """Fault C5: each transport knob (a no-op here) raises ValueError for a
-    value the JAX engine refuses, and takes each value it takes."""
+    """Fault C5: each transport knob raises ValueError for a value the
+    JAX engine refuses, and takes each value it takes."""
     from patch_toon_tpu.config import compose as jax_compose
     from patch_toon_tpu.infer import StyleTransferInference as JaxEngine
 

@@ -60,7 +60,8 @@ def _port(g_vars, c, **kw):
     sd = generator_state_from_jax(
         g_vars["params"], g_vars.get("batch_stats", {}),
         resnet_blocks=kw.get("resnet_blocks", 7),
-        append_smoothers=kw.get("append_smoothers", True))
+        append_smoothers=kw.get("append_smoothers", True),
+        norm_layer=kw.get("norm_layer", "instance_norm"))
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -200,6 +201,196 @@ def test_trained_checkpoint_matches_jax_at_full_width():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
 
 
-def test_unported_norm_layer_raises():
-    with pytest.raises(NotImplementedError):
-        GeneratorJ(input_channels=3, norm_layer="batch_norm")
+NO_NORM = [None, "none"]
+
+
+@pytest.mark.parametrize("norm_layer", ["instance_norm", None, "none",
+                                        "batch_norm", "group_norm"])
+def test_norm_layer_accept_and_refuse_rules_match_jax(norm_layer):
+    """The generator refuses what JAX's ``ConvBlock`` refuses (BatchNorm
+    inside a conv block) and builds no norm for every value but
+    "instance_norm"; the discriminator takes every value, normalizing only
+    for "instance_norm" (JAX ``discriminator.py:54``)."""
+    from patch_toon_tpu.models import DiscriminatorN_IN as JaxD
+
+    from patch_toon_tpu_torch.models.discriminator import DiscriminatorN_IN
+
+    gen = JaxGeneratorJ(input_channels=3, norm_layer=norm_layer, **SMALL)
+    try:
+        jax.eval_shape(gen.init, jax.random.PRNGKey(0),
+                       jnp.zeros((1, 16, 16, 3)))
+        jax_refuses = False
+    except NotImplementedError:
+        jax_refuses = True
+    assert jax_refuses == (norm_layer == "batch_norm")
+    if jax_refuses:
+        with pytest.raises(NotImplementedError, match="batch_norm"):
+            GeneratorJ(input_channels=3, norm_layer=norm_layer, **SMALL)
+    else:
+        port = GeneratorJ(input_channels=3, norm_layer=norm_layer, **SMALL)
+        assert port.norm == (norm_layer == "instance_norm")
+    jd = JaxD(num_filters=8, n_layers=2, norm_layer=norm_layer)
+    jax.eval_shape(jd.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    disc = DiscriminatorN_IN(num_filters=8, n_layers=2,
+                             norm_layer=norm_layer)
+    assert disc.norm == (norm_layer == "instance_norm")
+
+
+@pytest.mark.parametrize("norm_layer", NO_NORM)
+def test_no_norm_networks_match_jax(norm_layer):
+    """``norm_layer`` null / "none": the generator (forward and the
+    gradient of its inputs and weights) and the discriminator against
+    JAX's on the same converted weights, fp32 roundoff; the weights cross
+    both ways (the residual blocks' second conv is ``block.3``)."""
+    from patch_toon_tpu.models import DiscriminatorN_IN as JaxD
+
+    from patch_toon_tpu_torch.models.discriminator import DiscriminatorN_IN
+    from patch_toon_tpu_torch.utils.weights import (
+        discriminator_state_from_jax,
+        generator_state_to_jax,
+    )
+
+    kw = dict(SMALL, norm_layer=norm_layer)
+    gen, g_vars = _jax_vars(6, seed=11, **kw)
+    x = np.random.default_rng(12).uniform(-1, 1, (2, 24, 32, 6)).astype(
+        np.float32)
+    want = np.asarray(_apply(gen, g_vars, x))
+    model = _port(g_vars, 6, **kw)
+    assert "resnet_blocks.0.block.3.weight" in model.state_dict()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = model(xt)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=2e-5)
+    # the gradient of sum(out) by the input and by the stem's kernel
+    got.sum().backward()
+    gx, gp = jax.jit(jax.grad(lambda a, v: gen.apply(v, a, train=False).sum(),
+                              argnums=(0, 1)))(jnp.asarray(x), g_vars)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=0,
+                               atol=2e-4)
+    stem = np.asarray(gp["params"]["initial_conv"]["conv"]["kernel"])
+    np.testing.assert_allclose(
+        model.initial_conv[0].weight.grad.numpy().transpose(2, 3, 1, 0),
+        stem, rtol=1e-4, atol=1e-4 * np.abs(stem).max())
+    params, stats = generator_state_to_jax(model.state_dict(), 2,
+                                           norm_layer=norm_layer)
+    ref = generator_params_from_torch(
+        {k: v.numpy() for k, v in model.state_dict().items()},
+        resnet_blocks=2, norm_layer=norm_layer)
+    jax.tree.map(np.testing.assert_array_equal, (params, stats), ref)
+
+    jd = JaxD(num_filters=8, n_layers=2, norm_layer=norm_layer)
+    xd = np.random.default_rng(13).uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32)
+    rng = np.random.default_rng(14)
+    d_params = jax.tree.map(
+        lambda a: (rng.standard_normal(np.shape(a)) * 0.1).astype(np.float32),
+        jd.init(jax.random.PRNGKey(0), jnp.asarray(xd))["params"])
+    want = np.asarray(jd.apply({"params": d_params}, jnp.asarray(xd),
+                               train=True))
+    disc = DiscriminatorN_IN(num_filters=8, n_layers=2,
+                             norm_layer=norm_layer).train()
+    disc.load_state_dict(discriminator_state_from_jax(d_params, 2),
+                         strict=True)
+    with torch.no_grad():
+        got = disc(torch.from_numpy(xd)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("norm_layer", NO_NORM)
+def test_no_norm_int8_generator_matches_jax(norm_layer):
+    """The w8a8 sites of a generator without norms take a conv's or an
+    activation's output: the port calibrates JAX's scales (within 1e-5
+    relative) and its int8 forward on JAX's scales is JAX's int8 generator
+    within fp32 roundoff, while int8 moves the output visibly from the fp
+    one."""
+    from patch_toon_tpu_torch.utils.weights import (
+        generator_scales_from_jax,
+        load_quant_scales,
+    )
+
+    kw = dict(SMALL, norm_layer=norm_layer)
+    gen, g_vars = _jax_vars(6, seed=15, **kw)
+    x = np.random.default_rng(16).uniform(-1, 1, (2, 24, 32, 6)).astype(
+        np.float32)
+    _, mut = jax.jit(lambda a: gen.clone(quant_mode="calib").apply(
+        g_vars, a, train=False, mutable=["quant"]))(x)
+    want = np.asarray(jax.jit(lambda a: gen.clone(quant_mode="int8").apply(
+        {**g_vars, "quant": mut["quant"]}, a, train=False))(x))
+    model = _port(g_vars, 6, **kw).to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        model.quant_mode = "calib"
+        model(torch.from_numpy(x))
+    scales = generator_scales_from_jax(
+        jax.tree_util.tree_map(np.asarray, mut["quant"]))
+    for path, layer in model.quant_layers().items():
+        np.testing.assert_allclose(float(layer.a_scale), float(scales[path]),
+                                   rtol=1e-5)
+        layer.quantize_weights()
+    load_quant_scales(model, scales)
+    model.quant_mode = "int8"
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    fp = np.asarray(_apply(gen, g_vars, x))
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    assert np.abs(fp - want).max() > 1e-3
+
+
+@pytest.mark.parametrize("norm_layer", NO_NORM)
+def test_no_norm_trains_through_fit_and_serves(norm_layer, tmp_path):
+    """One training step through ``fit`` with neither network normalizing,
+    then its checkpoint served full-frame by the engine: the frame the
+    trained generator gives, within 1 count."""
+    from patch_toon_tpu_torch.config.compose import compose
+    from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
+    from patch_toon_tpu_torch.infer.common import _composite_u8
+    from patch_toon_tpu_torch.infer.engine import StyleTransferInference
+    from patch_toon_tpu_torch.train import loop
+    from patch_toon_tpu_torch.train.model import StyleTransferModel
+
+    rng = np.random.default_rng(8)
+    frames = [rng.uniform(-1, 1, (24, 24, 3)).astype(np.float32)
+              for _ in range(4)]
+    mask = np.zeros((24, 24), np.float32)
+    mask[12, 12] = 1
+    data = StyleTransferDataset(frames[:2], frames[2:], [mask, mask],
+                                [f[..., :3] for f in frames[:2]], [3],
+                                patch_size=32, device="cpu")
+    opt = dict(lr=4e-4, betas=[0.9, 0.999], weight_decay=1e-5)
+    model = StyleTransferModel(
+        generator_config={"type": "GeneratorJ", "args": dict(
+            use_bias=True, resnet_blocks=1, filters=[4, 8, 8, 8, 8, 4],
+            norm_layer=norm_layer, input_channels="auto")},
+        discriminator_config={"type": "DiscriminatorN_IN", "args": dict(
+            num_filters=8, n_layers=2, norm_layer=norm_layer,
+            use_bias=True, input_channels=3)},
+        training_config=dict(
+            batch_size=4, reconstruction_weight=4.0, adversarial_weight=0.5,
+            use_image_loss=True, reconstruction_criterion="MSELoss",
+            adversarial_criterion="MSELoss", precision="32", max_steps=1,
+            log_every_n_steps=1),
+        optimizer_config=dict(generator=opt, discriminator=opt),
+        data_config=dict(patch_size=32, additional_channels={
+            "guide": {"path": "unused", "depth": 3}}))
+    seen = []
+    state = loop.fit(model, data, str(tmp_path / "run"), seed=0,
+                     progress=False, on_step=lambda s, m: seen.append(
+                         {k: float(v) for k, v in m.items()}))
+    assert state.step == 1 and len(seen) == 1
+    assert all(np.isfinite(v) for v in seen[0].values())
+    assert not state.generator.norm and not state.discriminator.norm
+    ckpt = tmp_path / "run" / "checkpoints" / "last.ckpt"
+    over = [f"paths.checkpoint={ckpt}", "inference.use_gpu=false",
+            "inference.precision=32", "inference.mode=fullframe",
+            "paths.additional_channels.point_vector.path=unused",
+            "model.generator.args.filters=[4,8,8,8,8,4]",
+            "model.generator.args.resnet_blocks=1",
+            f"model.generator.args.norm_layer={norm_layer or 'null'}"]
+    eng = StyleTransferInference(compose(REPO / "config", "inference",
+                                         overrides=over))
+    frame = (rng.random((20, 28, 6)) * 255).astype(np.uint8)
+    got = eng.process_large_image(frame)
+    x = torch.from_numpy(frame.astype(np.float32) / 255 * 2 - 1)[None]
+    with torch.no_grad():
+        out = state.generator.eval()(x)
+    want = _composite_u8(x[..., :3], out, torch.ones(1, 20, 28, 1))[0][0]
+    d = np.abs(got.astype(int) - want.numpy().astype(int))
+    assert got.shape == (20, 28, 3) and d.max() <= 1

@@ -329,9 +329,11 @@ def test_device_flow_loop_windows_and_split_calls(scene, tmp_path):
         st = direct._load_for_dispatch(p, scene / "mask_ignore",
                                        direct._temporal_position(p.name))
         assert st.flow is None and (st.fmask is None) == (i == NO_MASK)
-        if st.fmask is not None:
+        if st.fmask is not None:  # bit-packed (mask_upload: packed)
             luma = np.asarray(Image.open(scene / "mask_ignore" / p.name))
-            np.testing.assert_array_equal(st.fmask.numpy(), luma > 127)
+            np.testing.assert_array_equal(
+                np.unpackbits(st.fmask.numpy(), count=H * W).reshape(H, W),
+                luma > 127)
         if i == NO_MASK:
             ones = torch.ones((H, W), dtype=torch.uint8)
             with_ones = direct._chain_step(st.frame, st.mask, st.boxes,
