@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--multi-gpu]
 
 Needs one CUDA card; run from the root of a checkout. ``--multi-gpu`` runs
-the build and phase 11 alone (for a machine with several cards). Phases,
-one or more lines each, flushed as they go (phase 12, ``int8``, runs
-after ``multistream``, and phase 13, ``transport``, after it):
+the build, phase 11 and phase 14's NCCL forms alone (for a machine with
+several cards). Phases, one or more lines each, flushed as they go (phase
+12, ``int8``, runs after ``multistream``, phase 13, ``transport``, after
+it, and phase 14, ``tensor_parallel``, after ``train_rest``):
 
 1. ``build``: the nvcc build of ``patch_toon_tpu_torch/csrc/*.cu`` (seconds,
    and each kernel's registers, shared memory and spills as ptxas reports
@@ -235,6 +236,47 @@ after ``multistream``, and phase 13, ``transport``, after it):
    plain versions. int8 with the defaults (calibrated on the first
    window), masked PSNR against the bf16 default run at least 35 dB.
 
+14. ``tensor_parallel``: conv-channel tensor parallelism
+   (``parallel/tp.py``, ``parallel.mesh.model``) at the shipped widths (G
+   with 6 input channels and 7 blocks, D with 12 filters and 2 layers,
+   seeded weights), batch 80 of 80x80 patches of the train phase's
+   keyframes, bf16 and 32. On any card count: each rank's share of the
+   sharded eval forward of G and D in turn on the one card
+   (``TurnGroup``), at model 2 and 4: every site's conv slice and B1 on
+   its channel slice, the assembled B1 outputs within ``_in_check``'s
+   tolerance of the plain version on the assembled input, the launches by
+   variant and card as ``plan`` gives each slice (the streaming variant
+   where C/m x the item size is not a multiple of 16 bytes), the
+   generator within 1 count of the one-card forward at 32 (bf16's
+   distance printed); ``fit`` at ``training.devices=1
+   parallel.mesh.model=2`` bitwise the train phase's plain ``fit`` (JAX
+   builds no mesh at one device). One line says what did not run for want
+   of cards. Then B1's forward and backward at each (slice shape,
+   activation, dtype) those forwards gave a rank, the variant ``plan_for``
+   and ``plan_backward_for`` pick against the plain version (the
+   tolerances of instance_norm and instance_norm_backward), each timed
+   beside its bound, the plain version and the library's. With 2+ cards (``--multi-gpu``, after the multi_gpu phase,
+   whose data-parallel runs are the yardsticks), NCCL ranks that
+   ``parallel.spawn`` starts: the sharded forward at model 2 (and 4 with
+   4 cards) against the one-card forward as above, the ranks of a model
+   group bitwise equal; ``fit`` at data 1 x model 2, data 2 x model 2 and
+   data 1 x model 4 (those that fit): ms a step beside data parallelism on
+   the same cards and one card, every rank's whole parameters (gathered
+   over the model group) bitwise equal, two runs of data 2 x model 2
+   bitwise equal, the update after 12 steps within 1e-1 (32) / 5e-1 (bf16)
+   in relative L2 of the d-rank data-parallel run's, B1's launches by
+   variant and card and the dy copies; one step's collectives (recorded
+   in ``fit``, then replayed alone with the ranks in step, CUDA events):
+   the activation gathers with and without their interleave copy, the
+   input-gradient all-reduces, the small ones, the data group's gradient
+   all-reduce, against the ring bound of their bytes over the link; one
+   small-width step held to the fp64 one-device step that takes the ranks'
+   branches (5e-5); the precision-32 checkpoint of a one-step ``fit`` at
+   full width served on one card within 1 count of the same-data
+   data-parallel run's (d ranks) served the same way; the 12-step
+   checkpoints' served distance printed beside data parallelism's own 2-
+   and 4-rank against 1-rank distance.
+
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero before the last line; nothing falls back
@@ -244,7 +286,9 @@ to the CPU or to a plain version. A process alarm ends a run that hangs.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import math
 import logging
 import os
 import re
@@ -281,7 +325,10 @@ from patch_toon_tpu_torch.infer.temporal import (
 )
 from patch_toon_tpu_torch.infer.programs import gather_tiles, make_tile_plan
 from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
+from patch_toon_tpu_torch.models import discriminator as disc_module
+from patch_toon_tpu_torch.models import generator as gen_module
 from patch_toon_tpu_torch.models import layers
+from patch_toon_tpu_torch.models.discriminator import DiscriminatorN_IN
 from patch_toon_tpu_torch.models.generator import GeneratorJ
 from patch_toon_tpu_torch.infer.tiling import (
     bucket_size,
@@ -294,8 +341,17 @@ from patch_toon_tpu_torch.ops import splat as ops_splat
 from patch_toon_tpu_torch.ops.flow import dense_flow
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.parallel import comm
+from patch_toon_tpu_torch.parallel.tp import (
+    ModelShard,
+    TurnGroup,
+    gather_from_model,
+    model_shard,
+    shard_module_,
+)
 from patch_toon_tpu_torch.train import optim
+from patch_toon_tpu_torch.train.checkpoints import whole_state
 from patch_toon_tpu_torch.train.logging import build_comparison_grid
+from patch_toon_tpu_torch.train import loop as loop_module
 from patch_toon_tpu_torch.train.loop import fit
 from patch_toon_tpu_torch.train.model import (
     StyleTransferModel,
@@ -3396,9 +3452,10 @@ def _keyframes(n: int = 4, h: int = 270, w: int = 480):
 
 
 def _train_model(precision: str, small: bool = False, batch: int = BT,
-                 max_steps: int = 0):
+                 max_steps: int = 0, model: int = 1):
     over = {"training": {"precision": precision, "batch_size": batch,
-                         "max_steps": max_steps}}
+                         "max_steps": max_steps},
+            "parallel": {"mesh": {"data": -1, "model": model}}}
     if small:  # the CPU tests' widths (tests/test_torch_train.py)
         over["model"] = training_config()["model"]
         over["model"]["generator"]["args"].update(
@@ -4699,12 +4756,831 @@ def phase_multi_gpu(tmp: Path, plain_fit=None) -> dict:
     return rec
 
 
+# ------------------------------------------------------- tensor_parallel
+
+TP_SIZES = (2, 4)  # model groups of the one-card forms
+# (data, model) layouts of the NCCL forms; the first of the largest world
+# is the one run twice
+TP_LAYOUTS = ((1, 2), (2, 2), (1, 4))
+B1_BWD = {"cluster": instance_norm.instance_norm_act_backward_cluster,
+          "streaming": instance_norm.instance_norm_act_backward_streaming}
+
+
+def _u8(t: torch.Tensor) -> torch.Tensor:
+    """A [-1, 1] output as the 0-255 counts of a served frame."""
+    return ((t.float() + 1) * 127.5).round().clamp(0, 255)
+
+
+def _tp_batch(dev):
+    """80 patches of the train phase's keyframes (the sampler's first draw
+    from seed 0): G's input (RGB and the 3-band guide) and D's (the
+    target), fp32 on ``dev``."""
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=dev)
+    batch = data.sample_batch(torch.Generator(device=dev).manual_seed(0), BT)
+    return data.model_input(batch), batch["post"]
+
+
+def _tp_nets(prec: str, dev):
+    """The shipped G and D (config/model/default.yaml; weights from seed
+    0, fp32 parameters) in eval mode on ``dev``, and the compute type."""
+    model = _train_model(prec)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g = GeneratorJ(**model.generator_args,
+                       conv_precision=model.conv_precision)
+        d = DiscriminatorN_IN(**model.discriminator_args,
+                              conv_precision=model.conv_precision)
+    return [n.to(dev, memory_format=torch.channels_last).eval()
+            for n in (g, d)], model.dtype
+
+
+class _B1Calls:
+    """Within ``with``: every InstanceNorm site call of G and D
+    (``layers.norm_act``), as (input, activation, output), in call
+    order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _tap(self, y, act, norm=True):
+        out = self._real(y, act, norm)
+        if norm:
+            self.calls.append((y, act, out))
+        return out
+
+    def __enter__(self):
+        self._real = layers.norm_act
+        self._saved = (gen_module.norm_act, disc_module.norm_act)
+        gen_module.norm_act = disc_module.norm_act = self._tap
+        return self
+
+    def __exit__(self, *exc):
+        gen_module.norm_act, disc_module.norm_act = self._saved
+        return False
+
+
+def _b1_by_card() -> dict:
+    """B1's launches so far by variant (forward; ``backward_*``) and card,
+    and its backward's dy copies."""
+    out = {k: dict(fn.by_device) for k, fn in B1_WRAPPERS.items()}
+    out.update({f"backward_{k}": dict(fn.by_device)
+                for k, fn in B1_BWD.items()})
+    out["dy_copies"] = {"all": instance_norm.InstanceNormAct.dy_copies}
+    return out
+
+
+def _b1_delta(before: dict, after: dict) -> dict:
+    """The launches between two ``_b1_by_card`` readings, the variants
+    that launched."""
+    out = {}
+    for k, cards in after.items():
+        d = {c: n - before.get(k, {}).get(c, 0) for c, n in cards.items()}
+        d = {c: n for c, n in d.items() if n}
+        if d:
+            out[k] = d
+    return out
+
+
+def _tp_turns(G, D, x, post, m: int, dt) -> dict:
+    """Every rank's share of the sharded eval forward of G and D in turn
+    on one card (``parallel/tp.py::TurnGroup``: rank r's sharded copies,
+    the conv slices and B1 on the channel slices at every site). Each
+    site's assembled B1 outputs against the plain version on the assembled
+    input (``_in_check``); the variant ``plan`` gives each slice against
+    the launches counted; every rank's outputs bitwise equal."""
+    group = TurnGroup(m)
+    ranks = []
+    for r in range(m):
+        shard = ModelShard(r, m, group.member(r))
+        g, d = copy.deepcopy(G), copy.deepcopy(D)
+        shard_module_(g, shard)
+        shard_module_(d, shard)
+        ranks.append((g, d))
+
+    def share(g, d):
+        def run():
+            with torch.no_grad():
+                return g(x.to(dt)), d(post.to(dt))
+        return run
+
+    torch.cuda.synchronize()
+    before = _b1_by_card()
+    with _B1Calls() as tap:
+        outs = group.run([share(g, d) for g, d in ranks])
+    torch.cuda.synchronize()
+    launched = _b1_delta(before, _b1_by_card())
+    d_sites = len(D.intermediate) + 1  # 2
+    sites = 5 + 2 * len(G.resnet_blocks) + d_sites  # 21
+    if len(tap.calls) != sites * m:
+        raise AssertionError(f"model {m}: {len(tap.calls)} B1 calls, "
+                             f"expected {sites} sites x {m} ranks")
+    worst, planned, shapes, slices, keys = 0.0, {}, [], {}, []
+    for s in range(sites):
+        part = tap.calls[s * m:(s + 1) * m]
+        x0 = part[0][0].permute(0, 2, 3, 1)
+        keys.append((tuple(x0.shape), part[0][1], x0.dtype))
+        slices.setdefault(keys[-1], x0)
+        y = torch.cat([c[0] for c in part], dim=1)
+        got = torch.cat([c[2] for c in part], dim=1)
+        with torch.no_grad():
+            want = instance_norm.instance_norm_act_plain(
+                y.permute(0, 2, 3, 1).contiguous(), part[0][1])
+        worst = max(worst, _in_check(got.permute(0, 2, 3, 1), want, dt))
+        for c in part:
+            v = instance_norm.plan_for(c[0].permute(0, 2, 3, 1)).variant
+            planned[v] = planned.get(v, 0) + 1
+        lead = part[0][0]
+        shapes.append(f"{tuple(lead.shape[1:])}:" + instance_norm.plan_for(
+            lead.permute(0, 2, 3, 1)).variant)
+    counted = {k: sum(v.values()) for k, v in launched.items()}
+    if counted != planned:
+        raise AssertionError(f"model {m}: B1 launches {launched}, plan "
+                             f"gives {planned}")
+    for g, d in outs[1:]:
+        if not (torch.equal(g, outs[0][0]) and torch.equal(d, outs[0][1])):
+            raise AssertionError(f"model {m}: the ranks' outputs differ")
+    return {"g": outs[0][0], "d": outs[0][1], "b1_max_abs": worst,
+            "launches": launched, "site_variants": shapes, "slices": slices,
+            # a rank's B1 sites of one training step: G's, then D's in
+            # each of its 3 calls
+            "step_keys": keys[:-d_sites] + keys[-d_sites:] * 3}
+
+
+def _tp_slice_kernels(slices: dict, steps: dict, card: str) -> dict:
+    """B1's forward and backward at each (slice shape, activation, dtype)
+    that tensor parallelism's sites give it (``_tp_turns``: rank 0's
+    recorded input there) with a seeded dy: the variant ``plan_for`` and
+    ``plan_backward_for`` pick, against the plain version with the
+    tolerances of ``phase_instance_norm`` and
+    ``phase_instance_norm_backward``; then each timed by ``queued_ms`` over
+    copies of its inputs that together exceed twice the L2 cache (every
+    call reads them from HBM), beside its bound, the plain version and the
+    library's. The per-step numbers sum a rank's 25 sites of one training
+    step (``steps``: their keys by model size and dtype) by the variant
+    picked. The
+    one-card path runs the backward on no slice (``TurnGroup`` runs
+    forward passes only), so this is where the backward variants meet
+    these shapes on one card."""
+    per = {}
+    for (shape, act, dtype), x in slices.items():
+        gen = torch.Generator(device=x.device).manual_seed(7)
+        dy = torch.randn(shape, device=x.device, generator=gen).to(dtype)
+        fv = instance_norm.plan_for(x).variant
+        bv = instance_norm.plan_backward_for(x, dy).variant
+        fwd, bwd = B1_WRAPPERS[fv], B1_BWD[bv]
+        y, mean, rstd = fwd(x, act, stats=True)
+        _, pmean, prstd = instance_norm._plain_forward(x, act, 0.2, 1e-5)
+        serr = max(float((mean - pmean).abs().max()),
+                   float(((rstd - prstd) / prstd).abs().max()))
+        if serr > 1e-5:
+            raise AssertionError(f"{shape} {dtype}: statistics {serr}")
+        r = {"forward_variant": fv, "backward_variant": bv,
+             "forward_max_abs_err": _in_check(
+                 y, instance_norm.instance_norm_act_plain(x, act), dtype),
+             "backward_max_abs_err": _bwd_check(
+                 bwd(x, dy, mean, rstd, act),
+                 instance_norm.instance_norm_act_backward_plain(
+                     x, dy, mean, rstd, act), dtype)}
+        del y
+        n_copies = max(1, -(-int(2 * L2_BYTES) // (3 * x.nbytes)))
+        copies = [(x, dy)] + [(x.clone(), dy.clone())
+                              for _ in range(n_copies - 1)]
+        # the plain and library versions launch many kernels a call: at
+        # most 16 calls stay within the launch queue behind the spin
+        reps, slow = max(10, 2 * n_copies), min(16, max(3, n_copies))
+
+        def timed(make, n):
+            return queued_ms([make(xc, dc) for xc, dc in copies], n)
+
+        elems = x.numel()
+        fb, fo = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3, \
+            8 * elems / FP32_FLOPS * 1e3
+        bb, bo = 3 * x.nbytes / HBM_BYTES_PER_S * 1e3, \
+            12 * elems / FP32_FLOPS * 1e3
+        r.update(
+            forward_ms=timed(lambda xc, dc: lambda: fwd(xc, act), reps),
+            backward_ms=timed(lambda xc, dc: lambda: bwd(
+                xc, dc, mean, rstd, act), reps),
+            forward_plain_ms=timed(lambda xc, dc: lambda: instance_norm.
+                                   instance_norm_act_plain(xc, act), slow),
+            backward_plain_ms=timed(
+                lambda xc, dc: lambda: instance_norm.
+                instance_norm_act_backward_plain(xc, dc, mean, rstd, act),
+                slow),
+            forward_library_ms=timed(
+                lambda xc, dc: lambda: _library_in(xc, act), slow),
+            backward_library_ms=timed(
+                lambda xc, dc: _library_in_bwd(xc, dc, act), slow),
+            forward_bound_ms=max(fb, fo), backward_bound_ms=max(bb, bo))
+        del copies, dy
+        per[(shape, act, dtype)] = r
+        say("tensor_parallel", form="B1 on a channel slice against its "
+            "plain version", dtype=str(dtype).split(".")[1],
+            shape="x".join(map(str, shape)), act=act,
+            forward_variant=fv, backward_variant=bv,
+            forward_ms=f"{r['forward_ms']:.4f}",
+            forward_bound_ms=f"{r['forward_bound_ms']:.4f}",
+            forward_plain_ms=f"{r['forward_plain_ms']:.4f}",
+            forward_library_ms=f"{r['forward_library_ms']:.4f}",
+            backward_ms=f"{r['backward_ms']:.4f}",
+            backward_bound_ms=f"{r['backward_bound_ms']:.4f}",
+            backward_plain_ms=f"{r['backward_plain_ms']:.4f}",
+            backward_library_ms=f"{r['backward_library_ms']:.4f}",
+            forward_max_abs_err=f"{r['forward_max_abs_err']:.3g}",
+            backward_max_abs_err=f"{r['backward_max_abs_err']:.3g}",
+            stats_err=f"{serr:.3g}")
+    out = {}
+    for tag, step_keys in steps.items():
+        rows = [per[k] for k in step_keys]
+        tot = {}
+        for d in ("forward", "backward"):
+            for v in sorted({r[f"{d}_variant"] for r in rows}):
+                mine = [r for r in rows if r[f"{d}_variant"] == v]
+                tot[f"{d}_{v}"] = {
+                    k: sum(r[f"{d}_{k}"] for r in mine)
+                    for k in ("ms", "bound_ms", "plain_ms",
+                              "library_ms")}
+                tot[f"{d}_{v}"].update(
+                    sites=len(mine), max_abs_err=max(
+                        r[f"{d}_max_abs_err"] for r in mine))
+        out[tag] = tot
+        say("tensor_parallel", form="B1 on a rank's slices of one "
+            f"training step ({len(rows)} sites) by variant", step=tag,
+            **{f"{k}_{q}": (f"{v[q]:.4f}" if q.endswith("ms")
+                            else v[q])
+               for k, v in tot.items()
+               for q in ("sites", "ms", "bound_ms", "plain_ms",
+                         "library_ms")}, card=f"'{card}'")
+    return {"per_step": out, "shapes": len(per)}
+
+
+def phase_tensor_parallel(dev, card: str, tmp: Path, plain_fit: dict) -> dict:
+    """Tensor parallelism (``parallel/tp.py``) on one card: each rank's
+    share of the sharded forward in turn, at model 2 and 4, bf16 and 32,
+    held to the one-card forward (B1's slices within ``_in_check``'s
+    tolerance, the generator within 1 count at 32); ``fit`` at
+    ``training.devices=1 parallel.mesh.model=2`` bitwise the plain ``fit``
+    (JAX builds no mesh at one device). The NCCL forms need 2+ cards
+    (``phase_tensor_parallel_multi``)."""
+    x, post = _tp_batch(dev)
+    rec = {"forward": {}, "fit_devices1_model2": {}}
+    launches, slices, steps = {}, {}, {}
+    for prec in ("bf16", "32"):
+        (G, D), dt = _tp_nets(prec, dev)
+        with training_backends(dt):
+            with torch.no_grad():
+                one_g, one_d = G(x.to(dt)), D(post.to(dt))
+            for m in TP_SIZES:
+                r = _tp_turns(G, D, x, post, m, dt)
+                for k, v in r.pop("slices").items():
+                    slices.setdefault(k, v)
+                steps[f"{prec}_m{m}"] = r.pop("step_keys")
+                counts = int((_u8(r["g"]) - _u8(one_g)).abs().max())
+                g_abs = float((r["g"].float() - one_g.float()).abs().max())
+                d_abs = float((r["d"].float() - one_d.float()).abs().max())
+                for k, cards in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + sum(cards.values())
+                rec["forward"][f"{prec}_m{m}"] = {
+                    "b1_max_abs_vs_plain": r["b1_max_abs"],
+                    "g_vs_one_card_counts": counts,
+                    "g_vs_one_card_max_abs": g_abs,
+                    "d_vs_one_card_max_abs": d_abs,
+                    "launches_by_card": r["launches"],
+                    "site_variants": r["site_variants"]}
+                say("tensor_parallel", form="each rank's share in turn on "
+                    "one card", precision=prec, model=m, batch=BT,
+                    b1_sites=len(r["site_variants"]),
+                    b1_max_abs_vs_plain=f"{r['b1_max_abs']:.3g}",
+                    launches_by_card=json.dumps(r["launches"]).replace(
+                        " ", ""),
+                    site_variants=",".join(r["site_variants"]).replace(
+                        " ", ""),
+                    g_vs_one_card_counts=counts,
+                    g_vs_one_card_max_abs=f"{g_abs:.3g}",
+                    d_vs_one_card_max_abs=f"{d_abs:.3g}", card=f"'{card}'")
+                if prec == "32" and counts > 1:
+                    raise AssertionError(f"model {m} at 32: the generator "
+                                         f"{counts} counts from one card")
+        del G, D
+    rec["slice_kernels"] = _tp_slice_kernels(slices, steps, card)
+    del slices
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=dev)
+    fit_launches = {"forward": 0, "backward": 0}
+    for prec in ("32", "bf16"):
+        model = _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS,
+                             model=2)
+        win = _Window(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+        state = fit(model, data, str(tmp / f"tp_devices1_{prec}"), seed=0,
+                    progress=False, on_step=win)
+        got = _net_tensors(state)
+        differ = [k for k in got if not torch.equal(got[k],
+                                                    plain_fit[prec][k])]
+        fwd, st, bwd, bst = win.counts
+        fit_launches["forward"] += fwd
+        fit_launches["backward"] += bwd
+        rec["fit_devices1_model2"][prec] = {
+            "differing_tensors": len(differ),
+            "ms_per_step": 1e3 * win.seconds / TRAIN_STEPS}
+        say("tensor_parallel", form="fit at training.devices=1 "
+            "parallel.mesh.model=2 (no mesh, as in JAX)", precision=prec,
+            steps=TRAIN_WARMUP + TRAIN_STEPS, tensors=len(got),
+            vs_plain_fit_differing_tensors=len(differ),
+            forward_cluster=fwd, backward_cluster=bwd)
+        if differ or st or bst:
+            raise AssertionError(f"fit at devices 1, model 2, {prec}: "
+                                 f"differs from the plain fit in "
+                                 f"{differ[:5]}, streaming launches {st} "
+                                 f"{bst}")
+    if torch.cuda.device_count() < 2:
+        say("tensor_parallel", skipped="the NCCL forms (the sharded forward "
+            "over 2 and 4 ranks, fit at data 1 x model 2, data 2 x model 2 "
+            "and data 1 x model 4, the collectives against the link, the "
+            "trained checkpoint served) did not run: this machine has "
+            f"{torch.cuda.device_count()} card; python3 chip_smoke.py "
+            "--multi-gpu runs them on 2 or 4")
+    return {"rec": rec, "launches": launches, "fit_launches": fit_launches}
+
+
+class _TPWindow(_Window):
+    """``_Window`` that also reads B1's launches by variant and card (and
+    the dy copies) over the window."""
+
+    def __call__(self, step: int, metrics) -> None:
+        super().__call__(step, metrics)
+        if step == self.start:
+            self.b1 = _b1_by_card()
+        elif step == self.stop:
+            self.b1 = _b1_delta(self.b1, _b1_by_card())
+
+
+class _CommLog:
+    """A model group's collectives (``parallel.tp.DistGroup``) that, while
+    ``on``, records each call's kind, shape and type."""
+
+    def __init__(self, inner):
+        self.inner, self.size, self.on, self.calls = inner, inner.size, \
+            False, []
+
+    def all_gather(self, x):
+        if self.on:
+            self.calls.append(("gather", tuple(x.shape), x.dtype))
+        return self.inner.all_gather(x)
+
+    def all_reduce_(self, x):
+        if self.on:
+            self.calls.append(("reduce", tuple(x.shape), x.dtype))
+        self.inner.all_reduce_(x)
+
+
+def _replay_ms(fns, reps: int = 5) -> float:
+    """Device ms of one pass over ``fns`` (every rank calls the same ones:
+    collectives), the ranks lined up at a barrier first."""
+    if not fns:
+        return 0.0
+    for fn in fns:
+        fn()
+    parallel.barrier()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        for fn in fns:
+            fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _tp_comm(device, data, m: int, prec: str, out: Path) -> dict:
+    """One step of ``fit`` at data x model m with the model group's
+    collectives recorded (the 3rd step), then that step's collectives
+    replayed on their own, timed with CUDA events, the ranks in step: the
+    activation gathers whole (``parallel.tp.gather_from_model``: the
+    collective and the interleave copy), the collectives alone, the
+    interleave copies alone, the input-gradient all-reduces, the small
+    ones (BatchNorm statistics, the clip's norm) and, over the data group,
+    the gradients' all-reduce."""
+    logs = []
+    real = loop_module.model_shard
+
+    def logged(lay):
+        shard = real(lay)
+        shard.comm = _CommLog(shard.comm)
+        logs.append(shard.comm)
+        return shard
+
+    def window(step, metrics):
+        logs[0].on = step == TRAIN_WARMUP
+
+    model = _train_model(prec, max_steps=TRAIN_WARMUP + 1, model=m)
+    with _patched(loop_module, "model_shard", logged):
+        state = fit(model, data, str(out / f"run_m{m}_{prec}_comm"), seed=0,
+                    on_step=window, progress=False)
+    lay = parallel.set_layout(m)  # built by fit: no collective
+    shard = model_shard(lay)
+    calls = logs[0].calls
+    acts = [(shape, dt) for kind, shape, dt in calls
+            if kind == "gather" and len(shape) == 4]
+    reds = [(shape, dt) for kind, shape, dt in calls
+            if kind == "reduce" and len(shape) == 4]
+    small = [(kind, shape, dt) for kind, shape, dt in calls
+             if len(shape) != 4]
+    ys = [torch.randn(shape, device=device).to(dt).permute(0, 3, 1, 2)
+          for shape, dt in acts]
+    locs = [y.permute(0, 2, 3, 1).contiguous() for y in ys]
+    bufs = [torch.randn((m * sh[0],) + sh[1:], device=device).to(dt)
+            for sh, dt in acts]
+    gs = [torch.randn(shape, device=device).to(dt) for shape, dt in reds]
+    ts = [(kind, torch.randn(shape, device=device).to(dt))
+          for kind, shape, dt in small]
+    grads = [torch.randn_like(p) for net in (state.generator,
+                                             state.discriminator)
+             for p in net.parameters()]
+
+    def interleave(b, y):
+        n, c, h, w = y.shape
+        return b.view(m, n, h, w, c).permute(1, 2, 3, 0, 4).reshape(
+            n, h, w, m * c)
+
+    rec = {
+        "gathers": len(acts), "all_reduces": len(reds),
+        "small_collectives": len(small),
+        "gather_ms": _replay_ms([lambda y=y: gather_from_model(y, shard)
+                                 for y in ys]),
+        "gather_collective_ms": _replay_ms(
+            [lambda x=x: shard.comm.all_gather(x) for x in locs]),
+        "interleave_ms": _replay_ms([lambda b=b, y=y: interleave(b, y)
+                                     for b, y in zip(bufs, ys)]),
+        "all_reduce_ms": _replay_ms([lambda g=g: shard.comm.all_reduce_(g)
+                                     for g in gs]),
+        "small_ms": _replay_ms([
+            (lambda t=t: shard.comm.all_gather(t)) if kind == "gather"
+            else (lambda t=t: shard.comm.all_reduce_(t))
+            for kind, t in ts]),
+        "data_grad_ms": _replay_ms([lambda: comm.all_reduce_mean_(
+            grads, lay.data_group)]) if lay.data > 1 else 0.0,
+        "gathered_bytes": sum(m * math.prod(sh) * dt.itemsize
+                              for sh, dt in acts),
+        "reduced_bytes": sum(math.prod(sh) * dt.itemsize
+                             for sh, dt in reds),
+        "data_grad_bytes": 4 * sum(g.numel() for g in grads)}
+    del state
+    return rec
+
+
+def _tp_step_parity(device, m: int) -> dict:
+    """One small-width step (batch ``MG_PARITY_BATCH``) at data x model
+    m: each rank records its branches on its rows and channels; rank 0
+    assembles the whole masks (the channel slices of the sharded sites in
+    rank order, then the data indices' rows) and holds the gathered whole
+    state to the fp64 one-device step that takes those branches
+    (``train/parity.py``, 5e-5)."""
+    lay = parallel.set_layout(m)
+    model = _train_model("32", small=True, batch=MG_PARITY_BATCH)
+    rng = np.random.default_rng(1)
+    b, ps = MG_PARITY_BATCH, 32
+    batch = {"pre": rng.standard_normal((b, ps, ps, 3)),
+             "channels": rng.standard_normal((b, ps, ps, 3)),
+             "post": rng.random((b, ps, ps, 3)) * 2 - 1}
+    rows = parallel.shard_rows(b, lay.data_index, lay.data)
+    summary = None
+    with training_backends(torch.float32):
+        start = model.init_state(0, "cpu")
+        kinks = Kinks()
+        st, _ = run_step(model, start, {k: v[rows] for k, v in
+                                        batch.items()}, device, kinks,
+                         shard=model_shard(lay))
+        whole = whole_state(st)
+        masks = [None] * parallel.world()
+        torch.distributed.all_gather_object(masks, (kinks.masks,
+                                                    kinks.sites))
+        if parallel.rank() == 0:
+            with _patched(comm, "rank", lambda: 0), \
+                    _patched(comm, "world", lambda: 1):
+                shapes = Kinks()
+                run_step(model, start, batch, "cpu", shapes)
+                replay = []
+                for i, want in enumerate(shapes.masks):
+                    dim = 3 if shapes.sites[i].startswith("instance_norm") \
+                        else 1
+                    data_parts = []
+                    for j in range(lay.data):
+                        part = [masks[j * m + r][0][i] for r in range(m)]
+                        if part[0].shape[dim] != want.shape[dim]:
+                            part = [torch.cat(part, dim=dim)]
+                        data_parts.append(part[0])
+                    replay.append(torch.cat(data_parts))
+                ref, _ = run_step(model, start, batch, "cpu",
+                                  Kinks(replay=replay), torch.float64)
+            got = copy.deepcopy(start)
+            sd = whole["state_dict"]
+            for pre, net in (("generator.", got.generator),
+                             ("discriminator.", got.discriminator)):
+                net.load_state_dict({k[len(pre):]: v for k, v in sd.items()
+                                     if k.startswith(pre)})
+            got.g_opt = optim.from_config(got.generator.parameters(),
+                                          model.optimizer_config["generator"],
+                                          model.clip)
+            got.d_opt = optim.from_config(
+                got.discriminator.parameters(),
+                model.optimizer_config["discriminator"], model.clip)
+            for opt, osd in zip((got.g_opt, got.d_opt),
+                                whole["optimizer_states"]):
+                for dst, src in zip(opt.mu, osd["mu"]):
+                    dst.copy_(src)
+            summary = first_step_agreement(state_pairs(ref, got))
+            assert_first_step_close(summary, 5e-5, f"data {lay.data} x "
+                                    f"model {m} against fp64")
+        parallel.barrier()
+    return summary
+
+
+def _tp_rank(device, out: str, jobs: list, flags: tuple) -> None:
+    """One rank of the NCCL forms (``parallel.spawn``, the launcher
+    ``train_cli`` uses), ``jobs`` in order, each (kind, model, precision,
+    repeat): ``forward`` (the sharded eval forward of G and D on the
+    batch, every rank's outputs saved), ``fit`` (``fit`` 12 steps, batch
+    80, at data x model; steps 3-12 timed with B1's launches by variant
+    and card; every rank's whole parameters saved, gathered over the model
+    group), ``fit1`` (``fit`` one step at batch 80, precision 32, its
+    checkpoint kept: at model 1 the data-parallel yardstick),
+    ``comm`` (``_tp_comm``), ``parity`` (``_tp_step_parity``).
+    ``flags`` as ``_mg_fit_rank``'s. Writes tp_rank<r>_w<n>.json."""
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     precision) = flags
+    torch.set_float32_matmul_precision(precision)
+    rank, world = parallel.rank(), parallel.world()
+    out = Path(out)
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=device)
+    rec = {"rank": rank, "world": world, "device": str(device),
+           "name": torch.cuda.get_device_name(device), "jobs": []}
+    for kind, m, prec, rep in jobs:
+        job = {"kind": kind, "model": m, "precision": prec, "repeat": rep}
+        if kind == "forward":
+            shard = model_shard(parallel.set_layout(m))
+            (G, D), dt = _tp_nets(prec, device)
+            shard_module_(G, shard)
+            shard_module_(D, shard)
+            x, post = _tp_batch(device)
+            with training_backends(dt), torch.no_grad():
+                g, d = G(x.to(dt)), D(post.to(dt))
+            torch.save({"g": g.float().cpu(), "d": d.float().cpu()},
+                       out / f"fwd_m{m}_{prec}_rank{rank}.pt")
+        elif kind == "fit":
+            model = _train_model(prec, max_steps=TRAIN_WARMUP + TRAIN_STEPS,
+                                 model=m)
+            win = _TPWindow(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS)
+            state = fit(model, data, str(out / f"run_m{m}_{prec}_{rep}"),
+                        seed=0, on_step=win, progress=False)
+            job.update(ms_per_step=1e3 * win.seconds / TRAIN_STEPS,
+                       b1=win.b1,
+                       g_total_loss=float(win.metrics["g_total_loss"]))
+            sd = whole_state(state)["state_dict"]
+            torch.save({("G." + k[len("generator."):]) if k.startswith(
+                "generator.") else "D." + k[len("discriminator."):]:
+                v.float() for k, v in sd.items()},
+                out / f"m{m}_{prec}_{rep}_rank{rank}.pt")
+            del state
+        elif kind == "fit1":
+            fit(_train_model(prec, max_steps=1, model=m), data,
+                str(out / f"run1_m{m}_{prec}"), seed=0, progress=False)
+        elif kind == "comm":
+            job["comm"] = _tp_comm(device, data, m, prec, out)
+        elif kind == "parity":
+            job["parity"] = _tp_step_parity(device, m)
+        rec["jobs"].append(job)
+    (out / f"tp_rank{rank}_w{world}.json").write_text(json.dumps(rec))
+
+
+def _served_32(path: Path):
+    """A trained checkpoint served on card 0 at precision 32: the first
+    keyframe through ``stylize_group`` with its eroded mask."""
+    frames, pres, posts, masks, guides = _keyframes()
+    eng = StyleTransferInference(inference_config(
+        paths={"checkpoint": str(path)}, inference={"precision": "32"}))
+    return eng.stylize_group(frames[0][None],
+                             [erode_full_support_np(masks[0])])
+
+
+def phase_tensor_parallel_multi(tmp: Path) -> dict:
+    """The NCCL forms of tensor parallelism on 2+ cards (see the module's
+    docstring), after ``_mg_train`` in the same ``tmp`` (its
+    data-parallel runs are the yardsticks)."""
+    count = torch.cuda.device_count()
+    layouts = [(d, m) for d, m in TP_LAYOUTS if d * m <= count]
+    if not layouts:
+        return {"skipped": f"{count} card"}
+    link_bps, link = _link_bps()
+    top = max(layouts, key=lambda lay: lay[0] * lay[1])
+    dev0 = parallel.local_devices(1)[0]
+    x, post = _tp_batch(dev0)
+    one = {}
+    for prec in ("32", "bf16"):
+        (G, D), dt = _tp_nets(prec, dev0)
+        with training_backends(dt), torch.no_grad():
+            one[prec] = (G(x.to(dt)).float().cpu(),
+                         D(post.to(dt)).float().cpu())
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    rec = {"link": link, "link_bytes_per_s": link_bps, "layouts": {}}
+    launches = {}
+    served_dp = {n: _served_32(tmp / f"mg_train_w{n}" / f"run_w{n}_32_0_{BT}"
+                               / "checkpoints" / "last.ckpt")
+                 for n in (1, 2, 4) if n <= count}
+    # one step of data parallelism at each layout's d, the served yardstick
+    # of one TP step (one card in this process, else d NCCL ranks)
+    served_dp1 = {}
+    for d in sorted({d for d, _ in layouts}):
+        out = tmp / f"tp_dp{d}"
+        out.mkdir(parents=True, exist_ok=True)
+        if d == 1:
+            data = StyleTransferDataset(*_keyframes()[1:], [3],
+                                        patch_size=PS, device=dev0)
+            fit(_train_model("32", max_steps=1), data,
+                str(out / "run1_m1_32"), seed=0, progress=False)
+        else:
+            parallel.spawn(_tp_rank, (str(out), [("fit1", 1, "32", 0)],
+                                      flags), parallel.local_devices(d))
+        served_dp1[d] = _served_32(out / "run1_m1_32" / "checkpoints"
+                                   / "last.ckpt")
+    for n in sorted({d * m for d, m in layouts}):
+        out = tmp / f"tp_w{n}"
+        out.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for d, m in [lay for lay in layouts if lay[0] * lay[1] == n]:
+            jobs += [("forward", m, p, 0) for p in ("32", "bf16")]
+            jobs += [("fit", m, p, r) for p in ("32", "bf16")
+                     for r in ((0, 1) if (d, m) == top else (0,))]
+            jobs += [("comm", m, p, 0) for p in ("bf16", "32")]
+            jobs += [("parity", m, "32", 0), ("fit1", m, "32", 0)]
+        t0 = time.perf_counter()
+        parallel.spawn(_tp_rank, (str(out), jobs, flags),
+                       parallel.local_devices(n))
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((out / f"tp_rank{r}_w{n}.json").read_text())
+                 for r in range(n)]
+        for d, m in [lay for lay in layouts if lay[0] * lay[1] == n]:
+            rec["layouts"][f"d{d}_m{m}"] = _tp_layout_checks(
+                tmp, out, ranks, d, m, top, one, served_dp, served_dp1[d],
+                link_bps, link, wall, launches)
+    return {"rec": rec, "launches": launches}
+
+
+def _tp_layout_checks(tmp, out, ranks, d, m, top, one, served_dp,
+                      served_dp1, link_bps, link, wall, launches) -> dict:
+    """The checks and numbers of one layout's NCCL runs (see
+    ``phase_tensor_parallel_multi``)."""
+    n = d * m
+    w = {"ranks": n, "spawn_s": wall, "cards": sorted({r["name"]
+                                                        for r in ranks})}
+    for prec in ("32", "bf16"):  # the forward against one card
+        outs = [torch.load(out / f"fwd_m{m}_{prec}_rank{r}.pt",
+                           weights_only=True) for r in range(n)]
+        for j in range(d):
+            group = outs[j * m:(j + 1) * m]
+            if any(not torch.equal(o["g"], group[0]["g"])
+                   or not torch.equal(o["d"], group[0]["d"]) for o in group):
+                raise AssertionError(f"d{d} m{m} {prec}: the ranks of a "
+                                     "model group differ")
+        counts = max(int((_u8(o["g"]) - _u8(one[prec][0])).abs().max())
+                     for o in outs)
+        d_abs = max(float((o["d"] - one[prec][1]).abs().max())
+                    for o in outs)
+        w[f"forward_{prec}"] = {"g_vs_one_card_counts": counts,
+                                "d_vs_one_card_max_abs": d_abs}
+        say("tensor_parallel", form="NCCL forward", data=d, model=m,
+            precision=prec, g_vs_one_card_counts=counts,
+            d_vs_one_card_max_abs=f"{d_abs:.3g}")
+        if prec == "32" and counts > 1:
+            raise AssertionError(f"d{d} m{m}: the sharded forward {counts} "
+                                 "counts from one card")
+    for prec in ("32", "bf16"):
+        fits = [next(j for j in r["jobs"] if j["kind"] == "fit"
+                     and j["model"] == m and j["precision"] == prec
+                     and j["repeat"] == 0) for r in ranks]
+        comm_job = next(j for j in ranks[0]["jobs"] if j["kind"] == "comm"
+                        and j["model"] == m and j["precision"] == prec)
+        tensors = [torch.load(out / f"m{m}_{prec}_0_rank{r}.pt",
+                              weights_only=True) for r in range(n)]
+        differ = [f"rank{r}/{k}" for r in range(1, n) for k in tensors[0]
+                  if not torch.equal(tensors[r][k], tensors[0][k])]
+        rep = None
+        if (d, m) == top:
+            again = torch.load(out / f"m{m}_{prec}_1_rank0.pt",
+                               weights_only=True)
+            rep = [k for k in again if not torch.equal(again[k],
+                                                       tensors[0][k])]
+        dp = torch.load(tmp / f"mg_train_w{d}" / f"w{d}_{prec}_0_rank0.pt",
+                        weights_only=True)
+        start = _net_tensors(_train_model(prec).init_state(0, "cpu"))
+        num = sum(float(torch.sum((tensors[0][k] - dp[k]) ** 2))
+                  for k in dp if k in start)
+        den = sum(float(torch.sum((dp[k] - start[k]) ** 2))
+                  for k in dp if k in start)
+        rel = (num / den) ** 0.5 if den else 0.0
+        dp_ms = {r: next(x["ms_per_step"] for x in json.loads(
+            (tmp / f"mg_train_w{r}" / f"rank0_w{r}.json").read_text())
+            ["runs"] if x["precision"] == prec and x["repeat"] == 0
+            and x["batch"] == BT) for r in sorted({1, n})}
+        ms = max(f["ms_per_step"] for f in fits)
+        by_card = {}
+        for f in fits:
+            for k, cards in f["b1"].items():
+                for c, v in cards.items():
+                    by_card.setdefault(k, {})[c] = \
+                        by_card.get(k, {}).get(c, 0) + v
+        for k, cards in by_card.items():
+            launches[k] = launches.get(k, 0) + sum(cards.values())
+        cm = next(j["comm"] for j in ranks[0]["jobs"] if j["kind"] ==
+                  "comm" and j["model"] == m and j["precision"] == prec)
+        gathered, reduced, grads = (cm["gathered_bytes"],
+                                    cm["reduced_bytes"],
+                                    cm["data_grad_bytes"])
+        # ring collectives over the link: an all-gather brings (m-1)/m of
+        # the whole tensor into each rank, an all-reduce moves twice that
+        bound = ((m - 1) / m * gathered + 2 * (m - 1) / m * reduced
+                 + 2 * (d - 1) / d * grads) / link_bps * 1e3
+        comm_ms = cm["gather_ms"] + cm["all_reduce_ms"] + cm["small_ms"] \
+            + cm["data_grad_ms"]
+        limit = 1e-1 if prec == "32" else 5e-1
+        w[prec] = {"ms_per_step": ms, "dp_ms_per_step_same_cards": dp_ms[n],
+                   "one_card_ms_per_step": dp_ms[1],
+                   "rank_differing_tensors": len(differ),
+                   "repeat_differing_tensors": None if rep is None
+                   else len(rep), "update_rel_l2_vs_dp": rel,
+                   "b1_by_card": by_card, "comm": cm, "comm_ms_per_step": comm_ms,
+                   "comm_bound_ms": bound}
+        say("tensor_parallel", form="fit", data=d, model=m, precision=prec,
+            steps=TRAIN_WARMUP + TRAIN_STEPS, ms_per_step=f"{ms:.2f}",
+            dp_ms_per_step_same_cards=f"{dp_ms[n]:.2f}",
+            one_card_ms_per_step=f"{dp_ms[1]:.2f}",
+            rank_differing_tensors=len(differ),
+            repeat_differing_tensors=None if rep is None else len(rep),
+            update_rel_l2_vs_dp=f"{rel:.3g}", limit=limit,
+            b1_by_card=json.dumps(by_card).replace(" ", ""))
+        say("tensor_parallel", form="a step's collectives replayed", data=d,
+            model=m, precision=prec, gathers=cm["gathers"],
+            all_reduces=cm["all_reduces"], small=cm["small_collectives"],
+            gathered_mb=f"{gathered / 1e6:.1f}",
+            reduced_mb=f"{reduced / 1e6:.1f}",
+            data_grad_mb=f"{grads / 1e6:.2f}",
+            gather_ms=f"{cm['gather_ms']:.3f}",
+            of_which_collective_ms=f"{cm['gather_collective_ms']:.3f}",
+            interleave_alone_ms=f"{cm['interleave_ms']:.3f}",
+            all_reduce_ms=f"{cm['all_reduce_ms']:.3f}",
+            small_ms=f"{cm['small_ms']:.3f}",
+            data_grad_ms=f"{cm['data_grad_ms']:.3f}",
+            total_ms=f"{comm_ms:.3f}", ring_bound_ms=f"{bound:.3f}",
+            link=link)
+        if differ or rep or rel > limit:
+            raise AssertionError(f"d{d} m{m} {prec}: ranks differ in "
+                                 f"{differ[:5]}, repeats in "
+                                 f"{(rep or [])[:5]}, update {rel} from "
+                                 f"data parallelism (limit {limit})")
+    parity = next(j["parity"] for j in ranks[0]["jobs"]
+                  if j["kind"] == "parity" and j["model"] == m)
+    w["parity"] = parity
+    got = _served_32(out / f"run1_m{m}_32" / "checkpoints" / "last.ckpt")
+    served1 = int(np.abs(got.astype(int) - served_dp1.astype(int)).max())
+    # after 12 steps (printed only): Adam's steps amplify roundoff, as
+    # data parallelism's own n-rank checkpoints against its one-rank one
+    # show, served the same way
+    got12 = _served_32(out / f"run_m{m}_32_0" / "checkpoints" / "last.ckpt")
+    served12 = int(np.abs(got12.astype(int)
+                          - served_dp[d].astype(int)).max())
+    spread = max(int(np.abs(v.astype(int) - served_dp[1].astype(int)).max())
+                 for k, v in served_dp.items() if k > 1)
+    w.update(served_1_step_vs_dp_counts=served1,
+             served_12_steps_vs_dp_counts=served12,
+             dp_12_steps_served_spread_counts=spread)
+    say("tensor_parallel", form="checkpoint served", data=d, model=m,
+        parity_grad_rel_l2=f"{parity['grad_rel_l2']:.3g}",
+        one_step_vs_dp_checkpoint_counts=served1,
+        one_step_differing_pixels=int((got != served_dp1).any(-1).sum()),
+        limit=1, twelve_steps_vs_dp_checkpoint_counts=served12,
+        dp_12_steps_n_ranks_vs_one_rank_counts=spread)
+    if served1 > 1:
+        raise AssertionError(f"d{d} m{m}: the one-step checkpoint served "
+                             f"{served1} counts from data parallelism's")
+    return w
+
+
 def main_multi_gpu(t0: float, card: str) -> int:
-    """``--multi-gpu``: the build and the multi_gpu phase alone."""
+    """``--multi-gpu``: the build, the multi_gpu phase and the NCCL forms
+    of tensor_parallel alone."""
     with tempfile.TemporaryDirectory() as tmp:
         rec = phase_multi_gpu(Path(tmp))
+        tp = phase_tensor_parallel_multi(Path(tmp))
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
-    print(json.dumps({"multi_gpu": rec}), flush=True)
+    print(json.dumps({"multi_gpu": rec, "tensor_parallel": tp}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4749,8 +5625,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
         rest = phase_train_rest(dev, card, Path(tmp))
+        tp = phase_tensor_parallel(dev, card, Path(tmp), train["final"])
     with tempfile.TemporaryDirectory() as tmp:
         mgpu = phase_multi_gpu(Path(tmp), train.pop("final"))
+        tp_multi = phase_tensor_parallel_multi(Path(tmp)) \
+            if torch.cuda.device_count() > 1 else {"launches": {}}
     with tempfile.TemporaryDirectory() as tmp:
         guides = phase_guides(dev, card, Path(tmp))
     # no phase but int8 (and multi_gpu's 2-card int8) launches them
@@ -4789,6 +5668,15 @@ def main() -> int:
               "int8_serve_directory": int8["launches"]["tiled"]["blend"],
               "transport": transport["launches"]["blend"]}
     # launches of B1's resident and split variants by full-frame path
+    # B1 on tensor parallelism's channel slices: the one-card forms, fit at
+    # devices 1 x model 2, and the NCCL forms where there are 2+ cards
+    tp_fwd = {v: tp["launches"].get(v, 0) + tp_multi["launches"].get(v, 0)
+              for v in B1_WRAPPERS}
+    tp_fwd["cluster"] += tp["fit_launches"]["forward"]
+    tp_bwd = {v: tp_multi["launches"].get(f"backward_{v}", 0)
+              for v in B1_BWD}
+    tp_bwd["cluster"] += tp["fit_launches"]["backward"]
+    cluster["tensor_parallel"] = tp_fwd["cluster"]
     full_frame = {v: {"fullframe": full["launches"][v],
                       "temporal_fullframe": chain["launches"][v],
                       "temporal_device_fullframe": dflow["launches"][v],
@@ -4798,14 +5686,24 @@ def main() -> int:
                       "multistream": multi["launches"][v],
                       "multi_gpu_serve": mgpu["launches"][v],
                       "int8_fullframe": int8["launches"]["fullframe"][v],
-                      "transport": transport["launches"][v]}
+                      "transport": transport["launches"][v],
+                      "tensor_parallel": tp_fwd[v]}
                   for v in ("resident", "split")}
     ff_frame = {k: v for k, v in rec_ff.items()
                 if k not in ("resident", "split")}
     rec_in["variants"]["cluster"]["launches"] = sum(cluster.values())
     rec_in["variants"]["streaming"]["launches"] = launches[
         "instance_norm_act_streaming"] + served["launches"][
-        "instance_norm_act_streaming"] + rest["launches"]["forward_streaming"]
+        "instance_norm_act_streaming"] + rest["launches"][
+        "forward_streaming"] + tp_fwd["streaming"]
+    rec_in["variants"]["streaming"]["launches_by_path"] = {
+        "tensor_parallel": tp_fwd["streaming"]}
+    # B1 on tensor parallelism's channel slices, timed by variant over a
+    # rank's 25 sites of one training step (forward; backward below)
+    tp_steps = tp["rec"]["slice_kernels"]["per_step"]
+    rec_in["variants"]["streaming"]["tensor_parallel_slices"] = {
+        k: v["forward_streaming"] for k, v in tp_steps.items()
+        if "forward_streaming" in v}
     train_fwd = {"train": train["launches"]["forward"]
                  - train["launches"]["forward_32_fast"]
                  + rest["launches"]["forward"],
@@ -4851,7 +5749,7 @@ def main() -> int:
                     "differentiates patch_toon_tpu/models/layers.py:29-40)",
                launches=train["launches"][key] + rest_bwd[v]
                + (mgpu["launches"]["train_backward"] if v == "cluster"
-                  else 0), dtype="bf16",
+                  else 0) + tp_bwd[v], dtype="bf16",
                variant=v,
                launches_by_path={
                    "train": train["launches"][key] + rest_bwd[v]
@@ -4860,8 +5758,12 @@ def main() -> int:
                    "32_fast_train": train["launches"]["backward_32_fast"]
                    if v == "cluster" else 0,
                    "multi_gpu_train": mgpu["launches"]["train_backward"]
-                   if v == "cluster" else 0},
+                   if v == "cluster" else 0,
+                   "tensor_parallel": tp_bwd[v]},
                picked_by_plan_backward=v == "cluster",
+               tensor_parallel_slices={
+                   k: t[f"backward_{v}"] for k, t in tp_steps.items()
+                   if f"backward_{v}" in t},
                per="the 25 sites of one training step at batch 80",
                **rec_bw[v])
           for v, key in (("cluster", "backward"),
@@ -4943,7 +5845,9 @@ def main() -> int:
                       "multistream": multi["rec"], "int8": int8["rec"],
                       "transport": transport["rec"],
                       "train_rest": rest["rec"], "guides": guides["rec"],
-                      "multi_gpu": mgpu}),
+                      "multi_gpu": mgpu, "tensor_parallel": {
+                          "one_card": tp["rec"],
+                          "nccl": tp_multi.get("rec")}}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

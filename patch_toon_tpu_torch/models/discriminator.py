@@ -13,7 +13,10 @@ Module names are the reference's (``initial.0``, ``intermediate.{i}.0``,
 ``pre_output.0``, ``output.0``), so its state dict reads through JAX
 ``utils/torch_compat.py::discriminator_params_from_torch``. The interface
 is NHWC like the JAX module: (N, H, W, C) in [-1, 1] -> the (N, H', W', 1)
-logit map, in the input's type.
+logit map, in the input's type. With ``tp`` set (tensor parallelism,
+``parallel/tp.py``) each sharded conv computes this rank's channels and its
+LeakyReLU and InstanceNorm run on them before the gather
+(``layers.site``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,12 @@ from typing import Any, Optional, Tuple
 import torch
 from torch import nn
 
-from patch_toon_tpu_torch.models.layers import conv, leaky_relu, norm_act
+from patch_toon_tpu_torch.models.layers import (
+    conv,
+    leaky_relu,
+    norm_act,
+    site,
+)
 
 
 class DiscriminatorN_IN(nn.Module):
@@ -37,6 +45,7 @@ class DiscriminatorN_IN(nn.Module):
         generator's (JAX ``models/discriminator.py:39``)."""
         super().__init__()
         self.norm = norm_layer == "instance_norm"
+        self.tp = None  # a parallel.tp.ModelShard under tensor parallelism
         self.use_noise = bool(use_noise)
         self.noise_sigma = float(noise_sigma)
         nf = int(num_filters)
@@ -78,8 +87,11 @@ class DiscriminatorN_IN(nn.Module):
             x = x + noise[r * x.shape[0]:(r + 1) * x.shape[0]] \
                 * self.noise_sigma
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        out = leaky_relu(self.initial[0](x))
+        tp, nm = self.tp, self.norm
+        out = site(tp, self.initial[0], x, leaky_relu)
         for block in self.intermediate:
-            out = norm_act(block[0](out), "leaky_relu", self.norm)
-        out = norm_act(self.pre_output[0](out), "leaky_relu", self.norm)
-        return self.output[0](out).permute(0, 2, 3, 1)
+            out = site(tp, block[0], out,
+                       lambda t: norm_act(t, "leaky_relu", nm))
+        out = site(tp, self.pre_output[0], out,
+                   lambda t: norm_act(t, "leaky_relu", nm))
+        return site(tp, self.output[0], out, lambda t: t).permute(0, 2, 3, 1)

@@ -26,6 +26,14 @@ convs cast their fp32 weights to it). ``train()`` mode is the JAX module's
 ``train=True``: the smoother BatchNorm normalizes with fp32 batch
 statistics and advances its running statistics once
 (``layers.batch_norm_train_fp32``).
+
+Every conv goes through ``layers.site`` with its per-channel ops. With
+``tp`` set (tensor parallelism, ``parallel/tp.py::shard_module_``) a
+sharded conv computes this rank's output channels from the whole input,
+B1, ReLU and the smoothers' BatchNorm run on them, and the whole tensor is
+gathered before the next conv, concat or residual add; so the two
+upsamples run on gathered quarter- and half-resolution tensors. ``tp``
+None is the one-device forward.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from patch_toon_tpu_torch.models.layers import (
     check_norm_layer,
     conv,
     norm_act,
+    site,
     upsample2x,
 )
 
@@ -58,6 +67,7 @@ class ResNetBlock(nn.Module):
         super().__init__()
         cp = conv_precision
         self.norm = norm
+        self.tp = None  # a parallel.tp.ModelShard under tensor parallelism
         n = [nn.Identity()] if norm else []
         self.block = nn.Sequential(
             nn.ReLU(), conv(channels, channels, 3, 1, 1, use_bias, cp, True),
@@ -69,9 +79,10 @@ class ResNetBlock(nn.Module):
         return self.block[4 if self.norm else 3]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.block[1](F.relu(x))
-        y = norm_act(y, "relu", self.norm)  # IN, then the second ReLU
-        y = norm_act(self.conv2(y), None, self.norm)
+        nm = self.norm
+        y = site(self.tp, self.block[1], F.relu(x),
+                 lambda t: norm_act(t, "relu", nm))  # IN, the second ReLU
+        y = site(self.tp, self.conv2, y, lambda t: norm_act(t, None, nm))
         return x + y
 
 
@@ -90,6 +101,7 @@ class GeneratorJ(nn.Module):
         super().__init__()
         check_norm_layer(norm_layer)
         self.norm = norm_layer == "instance_norm"
+        self.tp = None  # a parallel.tp.ModelShard under tensor parallelism
         f = list(filters)
         c = int(input_channels)
         cp = conv_precision
@@ -150,25 +162,35 @@ class GeneratorJ(nn.Module):
         for layer in self.quant_layers().values():
             layer.quant_mode = mode
 
+    def _smoother_bn(self, y: torch.Tensor) -> torch.Tensor:
+        bn = self.smoothers[2]
+        return batch_norm_train_fp32(y, bn, tp=self.tp) if self.training \
+            else batch_norm_eval_fp32(y, bn, self.tp)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        nm = self.norm
-        conv0 = norm_act(self.initial_conv[0](x), "leaky_relu", nm)
-        conv1 = norm_act(self.downsample1[0](conv0), "leaky_relu", nm)
-        conv2 = norm_act(self.downsample2[0](conv1), "leaky_relu", nm)
-        out = self.resnet_blocks(conv2)
-        out = norm_act(self.upsample2[1](upsample2x(
-            torch.cat([out, conv2], dim=1))), "relu", nm)
-        out = norm_act(self.upsample1[1](upsample2x(
-            torch.cat([out, conv1], dim=1))), "relu", nm)
-        out = F.relu(self.conv11[0](torch.cat([out, conv0, x], dim=1)))
+        nm, tp = self.norm, self.tp
+
+        def ina(act):
+            return lambda t: norm_act(t, act, nm)
+
+        conv0 = site(tp, self.initial_conv[0], x, ina("leaky_relu"))
+        conv1 = site(tp, self.downsample1[0], conv0, ina("leaky_relu"))
+        conv2 = site(tp, self.downsample2[0], conv1, ina("leaky_relu"))
+        out = conv2
+        for block in self.resnet_blocks:
+            out = block(out)
+        out = site(tp, self.upsample2[1], upsample2x(
+            torch.cat([out, conv2], dim=1)), ina("relu"))
+        out = site(tp, self.upsample1[1], upsample2x(
+            torch.cat([out, conv1], dim=1)), ina("relu"))
+        out = site(tp, self.conv11[0], torch.cat([out, conv0, x], dim=1),
+                   F.relu)
         if self.smoothers is not None:
-            out = F.relu(self.smoothers[0](out))
-            bn = self.smoothers[2]
-            out = batch_norm_train_fp32(out, bn) if self.training \
-                else batch_norm_eval_fp32(out, bn)
-            out = F.relu(self.smoothers[3](out))
-        out = self.output[0](out)
+            out = site(tp, self.smoothers[0], out,
+                       lambda t: self._smoother_bn(F.relu(t)))
+            out = site(tp, self.smoothers[3], out, F.relu)
+        out = site(tp, self.output[0], out, lambda t: t)
         if self.tanh:
             out = torch.tanh(out)
         return out.permute(0, 2, 3, 1)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import contextlib
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -315,17 +315,48 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return y.view(n, 2 * h, 2 * w, c).permute(0, 3, 1, 2)
 
 
-def batch_norm_eval_fp32(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+def site(tp: Any, conv: nn.Module, x: torch.Tensor,
+         post: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """A conv and the per-channel ops after it, ``post(conv(x))``. Under
+    tensor parallelism (``tp`` a ``parallel.tp.ModelShard``) a conv whose
+    output channels are sharded (``tp_sharded``) takes the whole input,
+    computes this rank's channels with its weight slice, runs ``post`` on
+    them and gathers the whole output (``ModelShard.site``); a replicated
+    conv runs whole on every rank."""
+    if tp is None or not getattr(conv, "tp_sharded", False):
+        return post(conv(x))
+    return tp.site(conv, x, post)
+
+
+def _bn_sharded(bn: nn.BatchNorm2d) -> bool:
+    """Whether ``bn``'s parameters are a tensor-parallel slice of its
+    (whole, replicated) running statistics' channels."""
+    return bn.weight.shape[0] != bn.running_mean.shape[0]
+
+
+def _bn_slice(bn: nn.BatchNorm2d, tp: Any) -> slice:
+    """The channels of ``bn``'s running statistics that its parameters
+    hold: all of them, or this rank's slice when they are sharded."""
+    c = bn.running_mean.shape[0]
+    return tp.channels(c) if _bn_sharded(bn) else slice(0, c)
+
+
+def batch_norm_eval_fp32(x: torch.Tensor, bn: nn.BatchNorm2d,
+                         tp: Any = None) -> torch.Tensor:
     """Eval-mode BatchNorm computed in fp32 whatever the compute type, as
-    the JAX generator's smoother does; the result returns to x's type."""
-    y = F.batch_norm(x.float(), bn.running_mean.float(),
-                     bn.running_var.float(), bn.weight.float(),
+    the JAX generator's smoother does; the result returns to x's type.
+    Under tensor parallelism (``tp``) a sharded BatchNorm normalizes its
+    channel slice with its slice of the running statistics."""
+    sl = _bn_slice(bn, tp)
+    y = F.batch_norm(x.float(), bn.running_mean[sl].float(),
+                     bn.running_var[sl].float(), bn.weight.float(),
                      bn.bias.float(), False, 0.0, bn.eps)
     return y.to(x.dtype)
 
 
 def batch_norm_train_fp32(x: torch.Tensor, bn: nn.BatchNorm2d,
-                          momentum: float = 0.9) -> torch.Tensor:
+                          momentum: float = 0.9,
+                          tp: Any = None) -> torch.Tensor:
     """Train-mode BatchNorm as flax computes it (``nn.BatchNorm`` with
     ``use_fast_variance``): fp32 batch mean and BIASED variance
     ``max(0, E[x^2] - E[x]^2)`` over N, H, W, ``(x - mean) * (rsqrt(var +
@@ -333,20 +364,25 @@ def batch_norm_train_fp32(x: torch.Tensor, bn: nn.BatchNorm2d,
     as ``momentum * running + (1 - momentum) * batch`` with that biased
     variance (torch's own BatchNorm uses the unbiased one there).
 
-    In a process group of several ranks (data-parallel training) the
+    Over several data ranks (``parallel.comm.data_layout(tp)``) the
     statistics are those of the global batch, as GSPMD takes them over
     every shard: each rank's per-channel fp32 sums of x and x^2 and its
-    element count go through the differentiable all-reduce
-    (``parallel.all_reduce_sum``), so each rank's gradient carries the
-    cross-rank terms, and every rank advances the running statistics
-    alike. At world size 1 the function is the one-device arithmetic
+    element count go through the differentiable all-reduce over the data
+    group (``parallel.all_reduce_sum``), so each rank's gradient carries
+    the cross-rank terms, and every rank advances the running statistics
+    alike. Under tensor parallelism (``tp``) a sharded BatchNorm takes x's
+    channel slice with its parameter slices, and the batch statistics of
+    every slice are gathered over the model group (no gradient) to
+    advance the whole running statistics, which stay replicated as JAX's
+    ``batch_stats``. On one rank the function is the one-device arithmetic
     (``mean`` over N, H, W), bitwise."""
     x32 = x.float()
-    if comm.world() > 1:
+    data, _, group = comm.data_layout(tp)
+    if data > 1:
         c = x32.shape[1]
         sums = comm.all_reduce_sum(torch.cat([
             x32.sum(dim=(0, 2, 3)), torch.square(x32).sum(dim=(0, 2, 3)),
-            x32.new_full((1,), float(x32.numel() // c))]))
+            x32.new_full((1,), float(x32.numel() // c))]), group)
         mean = sums[:c] / sums[2 * c]
         var = torch.clamp_min(sums[c:2 * c] / sums[2 * c]
                               - torch.square(mean), 0.0)
@@ -355,10 +391,15 @@ def batch_norm_train_fp32(x: torch.Tensor, bn: nn.BatchNorm2d,
         var = torch.clamp_min(torch.square(x32).mean(dim=(0, 2, 3))
                               - torch.square(mean), 0.0)
     with torch.no_grad():
+        new_mean, new_var = mean, var
+        if _bn_sharded(bn):
+            parts = tp.comm.all_gather(torch.stack([mean, var])[None])
+            new_mean = parts[:, 0].reshape(-1)
+            new_var = parts[:, 1].reshape(-1)
         bn.running_mean.copy_(momentum * bn.running_mean
-                              + (1 - momentum) * mean)
+                              + (1 - momentum) * new_mean)
         bn.running_var.copy_(momentum * bn.running_var
-                             + (1 - momentum) * var)
+                             + (1 - momentum) * new_var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (x32 - mean[None, :, None, None]) * mul[None, :, None, None] \
         + bn.bias.float()[None, :, None, None]

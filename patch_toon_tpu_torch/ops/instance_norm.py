@@ -613,7 +613,12 @@ class InstanceNormAct(torch.autograd.Function):
     """B1 under autograd. Forward: the variant :func:`plan` picks, writing
     the fp32 mean and rstd as well (CPU: the plain version). Backward:
     :func:`instance_norm_act_backward`, the variant :func:`plan_backward`
-    picks (CPU: its plain version)."""
+    picks (CPU: its plain version), on dy made NHWC-contiguous in x's type
+    first; ``dy_copies`` counts the backward passes whose dy needed that
+    copy (under tensor parallelism the gather's backward hands B1 a
+    strided channel slice of the gathered gradient)."""
+
+    dy_copies = 0
 
     @staticmethod
     def forward(ctx, x, act, slope, eps):
@@ -628,6 +633,8 @@ class InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, mean, rstd = ctx.saved_tensors
+        if dy.dtype != x.dtype or not dy.is_contiguous():
+            InstanceNormAct.dy_copies += 1
         dx = instance_norm_act_backward(x, dy.to(x.dtype).contiguous(), mean,
                                         rstd, ctx.act, ctx.slope)
         return dx, None, None, None

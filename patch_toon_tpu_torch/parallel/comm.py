@@ -1,6 +1,6 @@
-"""The process group, the devices a process owns, and the collectives of
-data-parallel training (counterpart of ``patch_toon_tpu/parallel/mesh.py``
-and ``dcn.py``).
+"""The process group, the devices a process owns, the data x model layout
+of its ranks, and the collectives of training (counterpart of
+``patch_toon_tpu/parallel/mesh.py`` and ``dcn.py``).
 
 JAX runs one SPMD program over a mesh and lets GSPMD insert the gradient
 reduction. Here each card is one rank of a ``torch.distributed`` process
@@ -14,6 +14,15 @@ of the global batch, and the step reduces explicitly:
   the gradient, so a statistic summed over every rank's rows (BatchNorm's)
   carries the cross-rank terms into each rank's gradient.
 
+Each collective takes a ``group`` (None: the world). A world of
+``data x model`` ranks (JAX's ``('data', 'model')`` mesh, ``parallel.mesh.
+model``) is laid out by :func:`set_layout`: global rank r is data index
+``r // model`` and model index ``r % model``, so the ``model`` ranks of one
+data index (a model group: one replica's channel shards,
+``parallel/tp.py``) are consecutive and stay inside a process or node; the
+ranks of one model index form a data group, over which gradients,
+BatchNorm's statistics and metrics are reduced.
+
 Without a process group, or at world size 1, every collective here is the
 identity; without one :func:`rank` and :func:`world` are 0 and 1.
 """
@@ -21,8 +30,9 @@ identity; without one :func:`rank` and :func:`world` are 0 and 1.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -145,65 +155,164 @@ def shard_rows(global_batch: int, rank_: int, world_: int) -> slice:
     return slice(rank_ * per, (rank_ + 1) * per)
 
 
-def check_mesh(parallel: Optional[Dict[str, Any]]) -> None:
-    """Tensor parallelism (``parallel.mesh.model != 1``) is not ported."""
+def mesh_model(parallel: Optional[Dict[str, Any]]) -> int:
+    """``parallel.mesh.model``, the ranks of a model group (1 when
+    absent); a value below 1 raises ``ValueError``."""
     model = int(((parallel or {}).get("mesh") or {}).get("model", 1) or 1)
-    if model != 1:
-        raise NotImplementedError(
-            f"parallel.mesh.model={model}: tensor parallelism "
-            "(patch_toon_tpu/parallel/tp.py) is not ported; the port shards "
-            "the batch (data parallel) only")
+    if model < 1:
+        raise ValueError(f"parallel.mesh.model={model}: expected a positive "
+                         "count")
+    return model
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average each tensor over the ranks, in place: one all-reduce over
-    the concatenation of all of them (one per dtype), in the list's order.
-    Every rank ends with the same bits. The identity without a process
-    group or at world size 1."""
-    n = world()
+def check_mesh(devices: int, model: int, owned: int) -> Tuple[int, int]:
+    """The (data, model) layout of ``training.devices`` = ``devices`` and
+    ``parallel.mesh.model`` = ``model`` over ``owned`` devices, as JAX's
+    ``train.py:123-141`` and ``mesh.py::make_mesh`` resolve it:
+    ``devices=1`` builds no mesh and ignores ``model`` (one device);
+    ``devices=d`` takes d x model devices; -1 takes ``owned // model``.
+    A ``model`` that does not divide ``owned`` (at -1), or a layout larger
+    than ``owned``, raises ``ValueError`` in JAX's words."""
+    if devices == 1:
+        return 1, 1
+    if devices == -1:
+        if owned % model:
+            raise ValueError(f"{owned} devices not divisible by "
+                             f"model={model}")
+        data = owned // model
+    else:
+        data = devices
+    use = data * model
+    if use > owned:
+        raise ValueError(f"mesh {data}x{model} needs {use} devices, have "
+                         f"{owned}")
+    return data, model
+
+
+@dataclass(frozen=True)
+class Layout:
+    """This rank's place in a world of ``data x model`` ranks (see the
+    module's docstring). ``data_group``: the ranks of this model index
+    (None: the world, at model 1); ``model_group``: the ranks of this data
+    index (None at model 1)."""
+    data: int = 1
+    model: int = 1
+    data_index: int = 0
+    model_index: int = 0
+    data_group: Any = None
+    model_group: Any = None
+
+
+# the layouts set_layout built (by model size) for the process group
+# ``world``: dist.new_group is collective, so each is built once
+_LAYOUTS: Dict[str, Any] = {"world": None, "built": {}}
+
+
+def data_layout(tp: Any = None) -> Tuple[int, int, Any]:
+    """(data ranks, data index, data group) of this rank: under tensor
+    parallelism those of ``tp`` (a ``parallel.tp.ModelShard``, the
+    networks' ``tp``), else every rank of the world a data index (group
+    None: the world)."""
+    if tp is not None:
+        return tp.data, tp.data_index, tp.data_group
+    return world(), rank(), None
+
+
+def set_layout(model: int) -> Layout:
+    """Lay the world out as ``world // model`` data x ``model`` ranks; ->
+    this rank's :class:`Layout` (``parallel.tp.model_shard`` carries it to
+    the networks). Collective at model >
+    1 (every rank builds every subgroup with ``dist.new_group``, in the
+    same order; built once per model size and process group). A world
+    that ``model`` does not divide raises ``ValueError``."""
+    n, r, model = world(), rank(), int(model)
+    if model < 1 or n % model:
+        raise ValueError(f"parallel.mesh.model={model} does not divide the "
+                         f"world of {n} rank(s)")
+    if not dist.is_initialized():
+        return Layout()
+    if _LAYOUTS["world"] is not dist.group.WORLD:
+        _LAYOUTS.update(world=dist.group.WORLD, built={})
+    built = _LAYOUTS["built"]
+    if model not in built:
+        data = n // model
+        if model == 1:
+            built[model] = Layout(data=n, data_index=r)
+        else:
+            model_groups = [dist.new_group([j * model + i
+                                            for i in range(model)])
+                            for j in range(data)]
+            data_groups = [dist.new_group([j * model + i
+                                           for j in range(data)])
+                           for i in range(model)]
+            built[model] = Layout(data, model, r // model, r % model,
+                                  data_groups[r % model],
+                                  model_groups[r // model])
+    return built[model]
+
+
+def group_size(group: Any = None) -> int:
+    """The ranks of ``group`` (None: the world, :func:`world`); 1 without
+    a process group."""
+    if group is None:
+        return world()
+    return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor],
+                     group: Any = None) -> None:
+    """Average each tensor over the ranks of ``group`` (None: the world),
+    in place: one all-reduce over the concatenation of all of them (one per
+    dtype), in the list's order. Every rank ends with the same bits. The
+    identity without a process group or over one rank."""
+    n = group_size(group)
     if n == 1 or not tensors:
         return
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, group=group)
         flat.div_(n)
         offset = 0
-        for t in group:
+        for t in same:
             t.copy_(flat[offset:offset + t.numel()].view(t.shape))
             offset += t.numel()
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group: Any) -> torch.Tensor:
+        ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         g = grad.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks, differentiable: the gradient that
-    reaches each rank's ``x`` is the sum of every rank's gradient of the
-    result. Every rank must call it in the same order."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (None: the world),
+    differentiable: the gradient that reaches each rank's ``x`` is the sum
+    of every rank's gradient of the result. Every rank must call it in the
+    same order."""
+    return _AllReduceSum.apply(x, group)
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (equal shapes) concatenated on the first axis in
-    rank order, on every rank; ``x`` itself without a process group."""
-    if not dist.is_initialized() or world() == 1:
+def gather_rows(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) of ``group`` (None: the world)
+    concatenated on the first axis in rank order, on every rank; ``x``
+    itself without a process group or over one rank."""
+    n = group_size(group)
+    if n == 1:
         return x
-    parts = [torch.empty_like(x) for _ in range(world())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts)
 
 

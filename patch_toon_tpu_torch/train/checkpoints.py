@@ -21,6 +21,13 @@ run resumed in the middle of an accumulation goes on exactly as Orbax's
 ``g_opt`` lets the JAX package go on. The JAX package's Orbax directories
 are refused with the command that exports them
 (``tools/export_checkpoint.py``).
+
+Under tensor parallelism a rank holds slices of the sharded parameters
+and of their Adam moments: :func:`whole_state` gathers them over the
+model group (``parallel/tp.py::gather_whole``, a collective every rank
+calls), so the file is the whole reference-layout checkpoint that one
+device writes, and a resume loads it whole before ``fit`` shards it
+again.
 """
 
 from __future__ import annotations
@@ -31,14 +38,51 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from patch_toon_tpu_torch.parallel.tp import gather_whole
 from patch_toon_tpu_torch.train.state import GANTrainState
 
 _SKIP = ("state_dict", "optimizer_states")
 
 
 def _cpu_state(module: torch.nn.Module, prefix: str) -> Dict[str, Any]:
+    sd = module.state_dict()
+    if getattr(module, "tp", None) is not None:
+        sd = gather_whole(sd, module.tp_sharding, module.tp)
     return {f"{prefix}{k}": v.detach().to("cpu", copy=True)
-            for k, v in module.state_dict().items()}
+            for k, v in sd.items()}
+
+
+def _optimizer_state(opt, net: torch.nn.Module) -> Dict[str, Any]:
+    """``opt.state_dict()``, its moments (and accumulated gradient) whole
+    under tensor parallelism."""
+    sd = opt.state_dict()
+    if getattr(net, "tp", None) is None:
+        return sd
+    names = [n for n, _ in net.named_parameters()]
+
+    def whole(tensors):
+        got = gather_whole(dict(zip(names, tensors)), net.tp_sharding, net.tp)
+        return [got[n].to("cpu", copy=True) for n in names]
+
+    inner = getattr(opt, "inner", opt)
+    inner_sd = {"count": inner.count, "mu": whole(inner.mu),
+                "nu": whole(inner.nu)}
+    if inner is opt:
+        return inner_sd
+    return {**sd, "inner": inner_sd, "acc": whole(opt.acc)}
+
+
+def whole_state(state: GANTrainState) -> Dict[str, Any]:
+    """The networks' state dicts (``generator.*``, ``discriminator.*``)
+    and the optimizer states of ``state``, whole and on the CPU: under
+    tensor parallelism gathered over the model group (every rank of it
+    calls this, in the same order)."""
+    sd = _cpu_state(state.generator, "generator.")
+    opts = [_optimizer_state(state.g_opt, state.generator)]
+    if state.discriminator is not None:
+        sd.update(_cpu_state(state.discriminator, "discriminator."))
+        opts.append(_optimizer_state(state.d_opt, state.discriminator))
+    return {"state_dict": sd, "optimizer_states": opts}
 
 
 class CheckpointManager:
@@ -54,28 +98,25 @@ class CheckpointManager:
             if "g_total_loss" in meta:
                 self._scores[path.name] = float(meta["g_total_loss"])
 
-    def _write(self, name: str, state: GANTrainState,
+    def _write(self, name: str, whole: Dict[str, Any],
                extra: Dict[str, Any]) -> Path:
-        sd = _cpu_state(state.generator, "generator.")
-        opts = [state.g_opt.state_dict()]
-        if state.discriminator is not None:
-            sd.update(_cpu_state(state.discriminator, "discriminator."))
-            opts.append(state.d_opt.state_dict())
         path = self.directory / name
         tmp = path.with_name(f".{name}.{os.getpid()}.tmp")
-        torch.save({"state_dict": sd, "optimizer_states": opts,
-                    "global_step": int(state.step),
-                    "hyper_parameters": self.meta, **extra}, tmp)
+        torch.save({**whole, "hyper_parameters": self.meta, **extra}, tmp)
         os.replace(tmp, path)
         return path
 
-    def save(self, state: GANTrainState, epoch: int, score: float) -> None:
-        """``last.ckpt`` and ``epoch_<epoch>.ckpt``, then drop the worst
-        epoch files beyond the top k."""
-        extra = {"epoch": int(epoch), "g_total_loss": float(score)}
-        self._write("last.ckpt", state, extra)
+    def save(self, state: GANTrainState, epoch: int, score: float,
+             whole: Dict[str, Any]) -> None:
+        """``last.ckpt`` and ``epoch_<epoch>.ckpt`` of ``whole``, the
+        :func:`whole_state` of ``state`` (under tensor parallelism every
+        rank of the model group computes it, so the caller passes it in),
+        then drop the worst epoch files beyond the top k."""
+        extra = {"epoch": int(epoch), "g_total_loss": float(score),
+                 "global_step": int(state.step)}
+        self._write("last.ckpt", whole, extra)
         name = f"epoch_{epoch:04d}.ckpt"
-        self._write(name, state, extra)
+        self._write(name, whole, extra)
         self._scores[name] = float(score)
         while len(self._scores) > self.keep_top_k:
             worst = max(self._scores, key=self._scores.get)

@@ -20,13 +20,20 @@ BatchNorm statistics untouched. ``training.profile_dir`` traces epoch 0
 with ``torch.profiler`` (CPU and, on a card, CUDA activity) and writes it
 there as a Chrome trace (JAX ``loop.py:144-148, 243-247``).
 
-In a process group (``parallel/``, one rank a card) every rank runs this
-loop on its rows of the global ``batch_size`` (the step reduces the
-gradients and metrics): the ranks draw the same global batches from the
-same seeded generator, so they train on the one-device batches. Rank 0
-alone writes the checkpoints, the TensorBoard events and the grid (built
-from the first rows of the global batch, gathered) and prints; the other
-ranks wait for each checkpoint at a barrier. A resume loads on every rank.
+In a process group (``parallel/``, one rank a card) the ranks are laid
+out as data x model (``parallel.comm.set_layout`` with the model's
+``parallel.mesh.model``; JAX's ``('data', 'model')`` mesh): every rank
+runs this loop on its data index's rows of the global ``batch_size`` (the
+step reduces the gradients and metrics over the data group): the ranks
+draw the same global batches from the same seeded generator, so they
+train on the one-device batches. Under tensor parallelism (model m > 1)
+the state is built whole, a resume loaded whole, and then cut to the
+rank's shards (``train/state.py::shard_state_``); the m ranks of a data
+index take the same rows. Rank 0 alone writes the checkpoints (whole:
+gathered over the model group, ``checkpoints.whole_state``), the
+TensorBoard events and the grid (built from the first rows of the global
+batch, gathered over the data group) and prints; the other ranks wait for
+each checkpoint at a barrier. A resume loads on every rank.
 """
 
 from __future__ import annotations
@@ -39,13 +46,17 @@ import numpy as np
 import torch
 
 from patch_toon_tpu_torch.parallel import comm
-from patch_toon_tpu_torch.train.checkpoints import CheckpointManager
+from patch_toon_tpu_torch.parallel.tp import model_shard
+from patch_toon_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    whole_state,
+)
 from patch_toon_tpu_torch.train.logging import (
     MetricsLogger,
     build_comparison_grid,
 )
 from patch_toon_tpu_torch.train.model import training_backends
-from patch_toon_tpu_torch.train.state import GANTrainState
+from patch_toon_tpu_torch.train.state import GANTrainState, shard_state_
 from patch_toon_tpu_torch.train.step import make_train_step
 
 
@@ -62,8 +73,10 @@ def comparison_grid(model, state: GANTrainState, dataset,
     finally:
         gen_net.train()
 
+    group = comm.data_layout(gen_net.tp)[2]
+
     def host(t: torch.Tensor) -> np.ndarray:  # the global batch's rows
-        return comm.gather_rows(t.float()).cpu().numpy()
+        return comm.gather_rows(t.float(), group).cpu().numpy()
 
     return build_comparison_grid(
         host(batch["pre"]), host(generated), host(batch["post"]),
@@ -109,10 +122,12 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
         raise ValueError(f"training.checkpoint_score={score_mode!r}: "
                          "expected last_step, epoch_mean or epoch_min")
 
-    rank, world = comm.rank(), comm.world()
-    rows = comm.shard_rows(batch_size, rank, world)
-    primary = rank == 0
+    world = comm.world()
+    lay = comm.set_layout(model.model_parallel if world > 1 else 1)
+    rows = comm.shard_rows(batch_size, lay.data_index, lay.data)
+    primary = comm.rank() == 0
     progress = progress and primary
+    shard = model_shard(lay)
 
     with training_backends(model.dtype):
         state = model.init_state(seed, dev)
@@ -125,6 +140,8 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                            else state.step // steps_per_epoch)
             if primary:
                 print(f"Resumed from {resume_from} at step {state.step}")
+        if shard is not None:
+            shard_state_(state, shard)
         step_fn = make_train_step(model, bool(tc.get("two_forward", False)))
         sample = dataset.make_sampler(batch_size, rows)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -138,7 +155,8 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
         if primary:
             print(f"Training: {max_epochs} epochs x {steps_per_epoch} "
                   f"steps, batch {batch_size}"
-                  + (f" over {world} ranks" if world > 1 else "")
+                  + (f" over {world} ranks (data {lay.data} x model "
+                     f"{lay.model})" if world > 1 else "")
                   + f", {dataset.num_images} keyframes, {len(dataset)} "
                   f"patch centers, on {dev}")
 
@@ -195,8 +213,10 @@ def fit(model, dataset, run_dir: str, seed: int = 0,
                           f"({dt:.1f}s, {pps:,.0f} patches/s)")
                 logger.log_scalars({"epoch_g_total_loss": mean_loss,
                                     "patches_per_sec": pps}, global_step)
+                if ckpt is not None or shard is not None:
+                    whole = whole_state(state)  # collective under TP
                 if ckpt is not None:
-                    ckpt.save(state, epoch, score)
+                    ckpt.save(state, epoch, score, whole)
                 comm.barrier()
                 if max_steps and global_step >= max_steps:
                     if primary:

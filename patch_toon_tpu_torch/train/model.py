@@ -20,8 +20,9 @@ step validates it.
 ``training.accumulate_grad_batches = k > 1`` wraps both optimizers in
 ``optim.MultiSteps`` (JAX ``train/model.py:155-165``). Several devices
 (``training.devices``, ``parallel.dcn``) are the launcher's business
-(``train_cli.py``, ``parallel/``); tensor parallelism
-(``parallel.mesh.model != 1``) is refused by name.
+(``train_cli.py``, ``parallel/``); ``parallel.mesh.model`` (tensor
+parallelism, ``parallel/tp.py``) is kept as ``model_parallel`` for
+``train/loop.py::fit``, which lays its ranks out as data x model.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from patch_toon_tpu_torch.models.layers import (
     resolve_conv_precision,
 )
 from patch_toon_tpu_torch.models.perception import PerceptualVGG19
-from patch_toon_tpu_torch.parallel.comm import check_mesh
+from patch_toon_tpu_torch.parallel.comm import mesh_model
 from patch_toon_tpu_torch.train import optim
 from patch_toon_tpu_torch.train.losses import get_criterion
 from patch_toon_tpu_torch.train.state import GANTrainState
@@ -76,16 +77,12 @@ def resolve_dtype(precision: Any) -> torch.dtype:
                      "32_fast or bf16")
 
 
-def check_unported_training_knobs(training: Dict[str, Any],
-                                  parallel: Optional[Dict[str, Any]] = None
-                                  ) -> None:
-    """Raise NotImplementedError naming each training knob that asks for
-    what this port does not do (tensor parallelism); ValueError for a
-    precision or an ``xla_options`` value the JAX step refuses."""
+def check_training_knobs(training: Dict[str, Any]) -> None:
+    """Raise ValueError for a precision or an ``xla_options`` value that
+    the JAX step refuses."""
     resolve_dtype(training.get("precision", 32))
     check_xla_options(training.get("xla_options", "auto"),
                       "training.xla_options")
-    check_mesh(parallel)
 
 
 @contextlib.contextmanager
@@ -132,8 +129,9 @@ class StyleTransferModel:
         self.data_config = to_container(data_config)
         perception_loss_config = to_container(perception_loss_config) \
             if perception_loss_config else None
-        check_unported_training_knobs(self.training_config,
-                                      to_container(parallel_config or {}))
+        check_training_knobs(self.training_config)
+        # ranks of a model group when fit runs over several ranks
+        self.model_parallel = mesh_model(to_container(parallel_config or {}))
 
         self.additional_channels = \
             self.data_config.get("additional_channels") or {}

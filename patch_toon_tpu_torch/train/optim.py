@@ -24,6 +24,12 @@ with no host synchronisation, and each stage is one multi-tensor
 ``torch._foreach_*`` call over all of a network's tensors (a handful of
 launches a step instead of about nine per tensor).
 
+Under tensor parallelism (``parallel/tp.py``) each rank holds slices of the
+sharded parameters: the global norm sums the squared norms of the sharded
+gradients over the model group and counts the replicated ones once
+(:meth:`Adam.shard_`), so every model rank clips by the whole network's
+norm; the rest of the chain is elementwise.
+
 Gradient accumulation (``training.accumulate_grad_batches = k > 1``) wraps
 the chain in :class:`MultiSteps`, the counterpart of ``optax.MultiSteps``
 (JAX ``train/optim.py:37-39``): the running mean of the micro-steps'
@@ -57,14 +63,33 @@ class Adam:
                    for p in self.params]
         self.nu = [torch.zeros_like(p, memory_format=torch.preserve_format)
                    for p in self.params]
+        self.sharded: Optional[torch.Tensor] = None  # see shard_
+        self.shard = None
+
+    def shard_(self, sharded: Sequence[bool], shard) -> None:
+        """Tensor parallelism: ``sharded[i]`` says whether parameter i is
+        a slice of a sharded one, ``shard`` (a ``parallel.tp.ModelShard``)
+        sums the clip's squared norms of those over the model group."""
+        dev = self.params[0].device if self.params else "cpu"
+        self.sharded = torch.tensor(list(sharded), dtype=torch.bool,
+                                    device=dev)
+        self.shard = shard
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.shard is None:
+            return torch.linalg.vector_norm(norms)
+        sq = torch.square(norms)
+        split = torch.where(self.sharded, sq, 0.0).sum().reshape(1)
+        self.shard.comm.all_reduce_(split)
+        return torch.sqrt(split[0] + torch.where(self.sharded, 0.0, sq).sum())
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         """One update of every parameter from its gradient (fp32)."""
         grads = [g.float() for g in grads]
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads)))
+            norm = self._global_norm(grads)
             keep = norm < self.clip_norm
             one = torch.ones_like(norm)
             # (g / norm) * max_norm where the norm reaches the limit

@@ -41,6 +41,7 @@ from patch_toon_tpu_torch.models import discriminator as _disc
 from patch_toon_tpu_torch.models import layers as _layers
 from patch_toon_tpu_torch.train import optim
 from patch_toon_tpu_torch.train.model import training_backends
+from patch_toon_tpu_torch.train.state import shard_state_
 from patch_toon_tpu_torch.train.step import make_train_step
 
 TINY = 1e-7  # |first-step gradient| below which Adam's update is roundoff
@@ -185,13 +186,16 @@ class Kinks:
 
 
 def run_step(model, start, batch_np: Dict[str, np.ndarray], device,
-             kinks: Optional[Kinks] = None, dtype: Optional[torch.dtype] = None):
+             kinks: Optional[Kinks] = None,
+             dtype: Optional[torch.dtype] = None, shard=None):
     """One step of ``model`` from a copy of ``start`` (a CPU
     ``GANTrainState``, left as it was) on ``device``, with fresh optimizers
     and the batch from ``batch_np``. ``dtype`` float64 makes a reference:
     the networks, the batch and the step in fp64 on the CPU (losses,
     BatchNorm statistics and Adam keep their fp32 casts; replay the kinks
-    of another run so InstanceNorm runs in fp64 too). -> (state, metrics)."""
+    of another run so InstanceNorm runs in fp64 too). ``shard`` (a
+    ``parallel.tp.ModelShard``): the copy cut to that rank's shards first
+    (``train/state.py::shard_state_``). -> (state, metrics)."""
     dev = torch.device("cpu") if dtype == torch.float64 else torch.device(
         device)
     st = copy.deepcopy(start)
@@ -205,6 +209,8 @@ def run_step(model, start, batch_np: Dict[str, np.ndarray], device,
         st.d_opt = optim.from_config(st.discriminator.parameters(),
                                      model.optimizer_config["discriminator"],
                                      model.clip)
+    if shard is not None:
+        shard_state_(st, shard)
     batch = {k: torch.from_numpy(v.astype(np.float32)).to(dev, dtype or
                                                            torch.float32)
              for k, v in batch_np.items()}

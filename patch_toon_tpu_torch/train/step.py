@@ -28,17 +28,23 @@ Under bf16 the networks run in bf16; statistics, losses and the optimizer
 stay fp32. InstanceNorm runs through kernel B1 and its backward kernel on
 a card (``ops/instance_norm.InstanceNormAct``).
 
-In a process group (data-parallel training, ``parallel/``) each rank runs
-the step on its rows of the global batch, JAX's GSPMD step: the guide
-dropout mask and the discriminator's noise are drawn for the global batch
-and cut to the rank's rows; the smoother BatchNorm takes global statistics
+In a process group (``parallel/``) each data index runs the step on its
+rows of the global batch, JAX's GSPMD step: the guide dropout mask and the
+discriminator's noise are drawn for the global batch and cut to the data
+index's rows; the smoother BatchNorm takes global statistics
 (``models/layers.py::batch_norm_train_fp32``); each network's gradients
-are averaged over the ranks in one coalesced all-reduce
+are averaged over the data group in one coalesced all-reduce
 (``parallel.all_reduce_mean_``) before the optimizer clips them, so the
 clip sees the global norm and every rank applies the same update; the
 metrics are averaged too. The gradients come from
 ``torch.autograd.grad``, which no ``DistributedDataParallel`` hook sees,
-hence the explicit reduction.
+hence the explicit reduction. Under tensor parallelism
+(``parallel.mesh.model = m > 1``, ``parallel/tp.py``) the m ranks of a
+model group take the same rows and draws and hold slices of the sharded
+parameters; the networks' forward gathers over the model group, so a
+rank's gradients are those of its slices, reduced over the data group
+only, and the clip sums the sharded norms over the model group
+(``train/optim.py``).
 """
 
 from __future__ import annotations
@@ -68,8 +74,9 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
     on that device. ``guide_drop``: an optional (B,) bool mask that
     replaces the guide-dropout draw. The state is updated in place and its
     ``step`` bumped; the metrics are 0-d fp32 tensors on the device. In a
-    process group ``batch`` is this rank's rows and ``guide_drop``, when
-    given, the global batch's mask."""
+    process group ``batch`` is this data index's rows and ``guide_drop``,
+    when given, the global batch's mask; the data x model layout is the
+    generator's ``tp`` (``parallel.comm.data_layout``)."""
     tc = model.training_config
     rec_crit = get_criterion(tc["reconstruction_criterion"])
     adv_crit = get_criterion(tc["adversarial_criterion"])
@@ -80,17 +87,18 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
     gd_depth = int(tc.get("guide_dropout_depth", 3) or 3)
     pw = model.perception_weight
     dt = model.dtype
-    shard = (comm.rank(), comm.world())
-
-    def grads_of(loss, params):
-        grads = list(torch.autograd.grad(loss, params))
-        comm.all_reduce_mean_(grads)
-        return grads
-
     def step(state: GANTrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator,
              guide_drop: Optional[torch.Tensor] = None) -> Metrics:
         G, D, P = state.generator, state.discriminator, state.perception
+        data, index, group = comm.data_layout(G.tp)
+        shard = (index, data)
+
+        def grads_of(loss, params):
+            grads = list(torch.autograd.grad(loss, params))
+            comm.all_reduce_mean_(grads, group)
+            return grads
+
         forward_twice = two_forward and D is not None
         x = batch["pre"]
         if "channels" in batch:
@@ -152,7 +160,7 @@ def make_train_step(model, two_forward: bool = False) -> Callable[..., Metrics]:
         metrics["g_total_loss"] = g_total.detach()
         if shard[1] > 1:  # global means
             vals = torch.stack(list(metrics.values()))
-            comm.all_reduce_mean_([vals])
+            comm.all_reduce_mean_([vals], group)
             metrics = dict(zip(metrics, vals.unbind()))
         state.step += 1
         return metrics

@@ -28,8 +28,18 @@ training on its rows of the global ``training.batch_size``
   this process as one rank (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
   ``MASTER_PORT``; its card ``cuda:LOCAL_RANK``).
 
+``parallel.mesh.model=m`` (tensor parallelism, ``parallel/tp.py``) lays the
+ranks out as data x model, as JAX's ``train.py:123-141`` builds its mesh
+(``parallel.comm.check_mesh``): ``training.devices=1`` ignores it (one
+device); ``training.devices=d`` spawns d x m ranks; -1 takes every card
+this process owns, ``owned // m`` data ranks, and raises ``ValueError``
+when m does not divide them; too few cards raise ``ValueError``. A model
+group never spans processes: under ``parallel.dcn`` the ranks a process
+spawns (under torchrun the ranks of a node, ``LOCAL_WORLD_SIZE``) must
+divide by m.
+
 The first process prints and snapshots the config and makes the sample
-scene (the others wait for it); a global batch the world size does not
+scene (the others wait for it); a global batch the data ranks do not
 divide is refused before any rank starts.
 """
 
@@ -126,6 +136,7 @@ def train(cfg: Any) -> None:
             "training asked for a CUDA device and none is available "
             "(training.accelerator=cpu trains on the CPU)")
     n = int(tc.get("devices", 1) or 1)
+    m = parallel.mesh_model(cfg.get("parallel"))
     dcn = (cfg.get("parallel") or {}).get("dcn") or {}
     where = [dcn.get(k) for k in ("coordinator_address", "num_processes",
                                   "process_id")]
@@ -136,6 +147,12 @@ def train(cfg: Any) -> None:
             raise ValueError(
                 f"training.devices={n} under torchrun: each process is one "
                 "rank on its own card (start more with --nproc-per-node)")
+        node = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        if node % m:
+            raise ValueError(
+                f"parallel.mesh.model={m} does not divide the {node} "
+                "rank(s) of this node (LOCAL_WORLD_SIZE): a model group "
+                "never spans nodes")
         devices = parallel.local_devices(1, cpu)
         processes, pid = int(os.environ.get("WORLD_SIZE", "0")), int(
             os.environ.get("RANK", "0"))
@@ -144,13 +161,26 @@ def train(cfg: Any) -> None:
             raise ValueError(
                 "parallel.dcn: give coordinator_address, num_processes and "
                 f"process_id together (got {where})")
-        devices = parallel.local_devices(n, cpu)
+        local = n
+        if m > 1:  # JAX dcn.py:88-94: model inside each process
+            local = n * m if n not in (1, -1) else len(
+                parallel.local_devices(-1, cpu))
+            if local % m:
+                raise ValueError(
+                    f"parallel.mesh.model={m} does not divide the {local} "
+                    f"card(s) of process {where[2]} (training.devices={n} "
+                    "under parallel.dcn): a model group never spans "
+                    "processes")
+        devices = parallel.local_devices(local, cpu)
         processes, pid = int(where[1]), int(where[2])
     else:
-        devices = parallel.local_devices(n, cpu)
+        owned = n * m if cpu and n != -1 else len(
+            parallel.local_devices(-1, cpu))
+        data, m = parallel.check_mesh(n, m, owned)
+        devices = parallel.local_devices(data * m, cpu)
         processes, pid = 1, 0
     world = processes * len(devices)
-    parallel.shard_rows(int(tc["batch_size"]), 0, world)
+    parallel.shard_rows(int(tc["batch_size"]), 0, world // m)
 
     run_dir = Path(cfg.get("run", {}).get("dir")
                    or tc.get("output_dir", "outputs"))
@@ -162,7 +192,7 @@ def train(cfg: Any) -> None:
         save(cfg, run_dir / "config.yaml")
     ensure_sample_data(cfg, primary)
     args = (to_container(cfg), str(run_dir))
-    if n == 1 or torchrun:  # this process is the rank
+    if torchrun or (n == 1 and len(devices) == 1):  # this process: the rank
         if dcn.get("enabled", False):
             if not cpu:
                 torch.cuda.set_device(devices[0])
@@ -171,8 +201,8 @@ def train(cfg: Any) -> None:
                 device=devices[0])
         train_rank(devices[0], *args)
     else:
-        print(f"Training on {world} ranks: {len(devices)} here "
-              f"({', '.join(map(str, devices))})")
+        print(f"Training on {world} ranks: data {world // m} x model {m}, "
+              f"{len(devices)} here ({', '.join(map(str, devices))})")
         parallel.spawn(train_rank, args, devices,
                        address=str(where[0]) if dcn.get("enabled", False)
                        else None, offset=pid * len(devices),

@@ -10,6 +10,11 @@ other than "instance_norm" has each residual block's second conv at
 ``np.asarray`` of a tensor aliases its storage, and converted weights must
 never share memory with their source.
 
+Given ``shard=(rank, size)``, the converters return that rank's state dict
+of a model group of ``size`` (``parallel/tp.py::shard_params_tp``: JAX's
+sharding rule, copies of the rank's slices), so a tensor-parallel rank is
+fed the numbers a JAX ``shard_params_tp`` tree holds.
+
 ``load_generator_state`` reads the two torch layouts that exist: the
 reference Lightning ``.ckpt`` (``state_dict`` with a ``generator.`` prefix)
 and the ``{"gen": ...}`` layout of the repo's trained checkpoints
@@ -22,10 +27,14 @@ the command that exports it to a ``.ckpt``.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from patch_toon_tpu_torch.parallel.tp import shard_params_tp
+
+Shard = Optional[Tuple[int, int]]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -52,8 +61,10 @@ def generator_state_from_jax(params: Mapping[str, Any],
                              resnet_blocks: int = 7,
                              append_smoothers: bool = True,
                              norm_layer: Any = "instance_norm",
+                             shard: Shard = None,
                              ) -> Dict[str, torch.Tensor]:
-    """flax GeneratorJ (params, batch_stats) as numpy -> torch state dict."""
+    """flax GeneratorJ (params, batch_stats) as numpy -> torch state dict
+    (with ``shard``, that rank's)."""
     out: Dict[str, torch.Tensor] = {}
     c2 = _conv2_index(norm_layer)
     _conv(out, "initial_conv.0", params["initial_conv"]["conv"])
@@ -75,7 +86,7 @@ def generator_state_from_jax(params: Mapping[str, Any],
         out["smoothers.2.num_batches_tracked"] = torch.tensor(0)
         _conv(out, "smoothers.3", params["smoother_conv2"])
     _conv(out, "output.0", params["output"])
-    return out
+    return out if shard is None else shard_params_tp(out, *shard)
 
 
 def _kernel(sd: Mapping[str, Any], name: str) -> Dict[str, np.ndarray]:
@@ -159,16 +170,17 @@ def load_quant_scales(generator, scales: Mapping[str, torch.Tensor]) -> None:
 
 
 def discriminator_state_from_jax(params: Mapping[str, Any],
-                                 n_layers: int = 3
+                                 n_layers: int = 3, shard: Shard = None
                                  ) -> Dict[str, torch.Tensor]:
-    """flax DiscriminatorN_IN params as numpy -> torch state dict."""
+    """flax DiscriminatorN_IN params as numpy -> torch state dict (with
+    ``shard``, that rank's)."""
     out: Dict[str, torch.Tensor] = {}
     _conv(out, "initial.0", params["initial"]["conv"])
     for i in range(n_layers - 1):
         _conv(out, f"intermediate.{i}.0", params[f"intermediate_{i}"]["conv"])
     _conv(out, "pre_output.0", params["pre_output"]["conv"])
     _conv(out, "output.0", params["output"])
-    return out
+    return out if shard is None else shard_params_tp(out, *shard)
 
 
 def vgg_state_from_jax(params: Mapping[str, Any]

@@ -10,11 +10,15 @@ InstanceNorm fp32 1e-5 absolute and relative (sums in other orders); bf16
 one bf16 ulp of the value plus 1e-5, as two fp32 results that differ in the
 last bits may round to neighbouring bf16 values; the blend and the splat
 bit for bit; the int8 kernels (activation quantization, the w8a8
-convolution's accumulator and output) bit for bit. Three tests need two
-cards (they skip with one): every kernel
-entry keeps the caller's current device, and the engine names its cards
+convolution's accumulator and output) bit for bit. The tests of the last
+section need two cards (they skip with one): every kernel
+entry keeps the caller's current device, the engine names its cards
 (replicas, copy streams, a sharded group's outputs bitwise the one-card
-dispatch, the flow graph on its frame's card).
+dispatch, the flow graph on its frame's card), and tensor parallelism's
+site kernels: each card launches B1 on its channel slices (rank r of a
+model group of 2 on card r, ``parallel/tp.py::TurnGroup``), and the
+gathered outputs hold to the one-card forward (fp32 1e-4, bf16 1/32
+absolute, on the tanh output and D's logits).
 """
 
 import pathlib
@@ -1568,3 +1572,62 @@ def test_engine_names_its_cards(two_cards):
         assert torch.equal(flow, eager_flow) and torch.equal(gray, eager_gray)
     finally:
         torch.cuda.set_device(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_parallel_site_kernels_on_two_cards(two_cards, dtype):
+    """The shipped G and D (6 input channels, 7 blocks; 12 filters) at
+    batch 4 of 80x80, eval mode: a model group of 2, rank r on card r,
+    each sharded site's B1 launched on that card on its C/2 channels (at
+    bf16 D's 24-channel site is 12 channels, 24 bytes a pixel: the
+    streaming variant), the gathered outputs against the one-card
+    forward."""
+    import copy
+
+    from patch_toon_tpu_torch.models.discriminator import DiscriminatorN_IN
+    from patch_toon_tpu_torch.models.generator import GeneratorJ
+    from patch_toon_tpu_torch.parallel.tp import (
+        ModelShard,
+        TurnGroup,
+        shard_module_,
+    )
+    from patch_toon_tpu_torch.train.model import training_backends
+
+    torch.manual_seed(0)
+    nets = {"G": (GeneratorJ(input_channels=6, use_bias=True), 6),
+            "D": (DiscriminatorN_IN(input_channels=3, num_filters=12,
+                                    n_layers=2), 3)}
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -5
+    for tag, (whole, cin) in nets.items():
+        x = _randn((4, 80, 80, cin), torch.float32, "cpu", seed=3).clamp(
+            -1, 1).to(two_cards[0], dtype)
+        whole = whole.to(two_cards[0], dtype,
+                         memory_format=torch.channels_last).eval()
+        with torch.no_grad(), training_backends(dtype):
+            want = whole(x).float().cpu()
+        group = TurnGroup(2)
+        ranks = []
+        for r, card in enumerate(two_cards):
+            net = copy.deepcopy(whole).to(card)
+            shard_module_(net, ModelShard(r, 2, group.member(r)))
+            ranks.append((net, x.to(card)))
+        for fn in VARIANTS.values():
+            fn.by_device = {}
+
+        def forward(net, xr):
+            def run():
+                with torch.no_grad():
+                    return net(xr).float().cpu()
+            return run
+
+        with training_backends(dtype):  # fp32 without TF32
+            outs = group.run([forward(n, xr) for n, xr in ranks])
+        sites = 19 if tag == "G" else 2
+        launched = {i: sum(fn.by_device.get(i, 0) for fn in VARIANTS.values())
+                    for i in (0, 1)}
+        assert launched == {0: sites, 1: sites}, (tag, launched)
+        if tag == "D" and dtype == torch.bfloat16:
+            assert instance_norm_act_streaming.by_device == {0: 1, 1: 1}
+        for out in outs:
+            assert float((out - want).abs().max()) <= tol, tag

@@ -299,11 +299,32 @@ def test_fit_on_two_ranks_through_train_torch(scene, tmp_path):
 
 
 def test_refusals_by_name(scene, tmp_path):
+    """The launcher's refusals, before any rank starts; the data x model
+    layout of ``parallel.mesh.model`` as JAX's ``train.py`` and
+    ``mesh.py::make_mesh`` resolve it (``devices=1`` ignores it; JAX's
+    wording for a model size that does not divide the cards and for too
+    few cards)."""
     base = _scene_overrides(scene) + SMALL_ARCH + [
         "training.accelerator=cpu", f"run.dir={tmp_path}"]
-    cfg = compose(REPO / "config", "config",
-                  overrides=base + ["parallel.mesh.model=2"])
-    with pytest.raises(NotImplementedError, match="parallel/tp.py"):
+    cfg = compose(REPO / "config", "config", overrides=base + [
+        "training.devices=-1", "parallel.mesh.model=2"])
+    with pytest.raises(ValueError, match="1 devices not divisible by "
+                       "model=2"):
+        train_cli.train(cfg)
+    assert parallel.check_mesh(1, 2, 1) == (1, 1)
+    assert parallel.check_mesh(-1, 2, 4) == (2, 2)
+    assert parallel.check_mesh(2, 2, 4) == (2, 2)
+    with pytest.raises(ValueError, match="mesh 2x2 needs 4 devices, have 3"):
+        parallel.check_mesh(2, 2, 3)
+    with pytest.raises(ValueError, match="3 devices not divisible by "
+                       "model=2"):
+        parallel.check_mesh(-1, 2, 3)
+    cfg = compose(REPO / "config", "config", overrides=base + [
+        "parallel.mesh.model=2", "parallel.dcn.enabled=true",
+        "parallel.dcn.coordinator_address=localhost:1",
+        "parallel.dcn.num_processes=2", "parallel.dcn.process_id=0"])
+    with pytest.raises(ValueError, match="model=2 does not divide the 1 "
+                       "card.*process 0.*never spans processes"):
         train_cli.train(cfg)
     cfg = compose(REPO / "config", "config", overrides=base + [
         "training.devices=3", "training.batch_size=4"])

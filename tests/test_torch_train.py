@@ -710,20 +710,33 @@ def test_training_defaults_equal_composed_yaml():
     ("training.devices=2", "devices"),
     ("parallel.dcn.enabled=true", "parallel.dcn"),
 ])
-def test_unported_training_knobs_are_refused(scene, tmp_path, override, knob):
-    """Several devices and the cluster are ported (tests/
-    test_torch_parallel*.py); beside each, tensor parallelism is still
-    refused by name, before any rank starts or the cluster is joined."""
-    from patch_toon_tpu_torch import train_cli
+def test_unported_training_knobs_are_refused(scene, tmp_path, monkeypatch,
+                                             override, knob):
+    """Tensor parallelism beside several devices and the cluster:
+    ``training.devices=2 parallel.mesh.model=2`` spawns 2 x 2 ranks (the
+    global batch checked against the 2 data ranks, not the 4 ranks); under
+    torchrun's ``parallel.dcn`` form a model group may not span the
+    node's processes, refused before the cluster is joined."""
+    from patch_toon_tpu_torch import parallel, train_cli
 
     cfg = compose(REPO / "config", "config", overrides=_scene_overrides(
         scene) + ["training.accelerator=cpu", f"run.dir={tmp_path}",
-                  override, "parallel.mesh.model=2"])
+                  "training.batch_size=6", override, "parallel.mesh.model=2"])
     assert cfg.get("training", {}).get("devices") == 2 or \
         cfg["parallel"]["dcn"]["enabled"], knob
-    with pytest.raises(NotImplementedError, match="parallel.mesh.model"):
+    spawned = []
+    monkeypatch.setattr(parallel, "spawn", lambda fn, args, devices, **kw:
+                        spawned.append((devices, kw["world_size"])))
+    if knob == "devices":
         train_cli.train(cfg)
-    assert not (tmp_path / "config.yaml").exists()
+        assert spawned == [([torch.device("cpu")] * 4, 4)]
+        assert (tmp_path / "config.yaml").exists()
+    else:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+        with pytest.raises(ValueError, match="parallel.mesh.model=2 does not "
+                           "divide the 1 rank.*model group never spans"):
+            train_cli.train(cfg)
+        assert not spawned and not (tmp_path / "config.yaml").exists()
 
 
 @pytest.fixture

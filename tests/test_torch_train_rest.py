@@ -39,7 +39,10 @@ from patch_toon_tpu.utils.torch_compat import (
 
 from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
 from patch_toon_tpu_torch.train import loop
-from patch_toon_tpu_torch.train.checkpoints import CheckpointManager
+from patch_toon_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    whole_state,
+)
 from patch_toon_tpu_torch.train.logging import build_comparison_grid
 from patch_toon_tpu_torch.train.model import StyleTransferModel
 from patch_toon_tpu_torch.train.optim import Adam, MultiSteps
@@ -326,7 +329,7 @@ def test_resume_in_the_middle_of_an_accumulation(tmp_path):
     part = run(model.init_state(0, "cpu"), batches[:3])
     assert part.g_opt.mini_step == 1 and part.g_opt.gradient_step == 1
     ckpt = CheckpointManager(tmp_path, keep_top_k=3)
-    ckpt.save(part, 0, 1.0)
+    ckpt.save(part, 0, 1.0, whole_state(part))
     whole = run(part, batches[3:])
     raw = torch.load(tmp_path / "last.ckpt", weights_only=True)
     assert raw["optimizer_states"][0]["mini_step"] == 1
