@@ -12,14 +12,19 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
 1. ``build``: the nvcc build of ``patch_toon_tpu_torch/csrc/*.cu`` (seconds,
    and each kernel's registers, shared memory and spills as ptxas reports
    them).
-2. ``instance_norm``: both variants of kernel B1 (cluster and streaming)
+2. ``instance_norm``: kernel B1's cluster and streaming variants, and the
+   sample variant forced where a sample fits 8 CTAs (18 of the 19 sites),
    against its plain PyTorch version at the five main-path shapes of a
    512-tile generator call, fp32 and bf16, each activation. Tolerance: fp32
    |d| <= 1e-5 + 1e-5 |ref|; bf16 one bf16 ulp of the value (2^-7
-   relative) + 1e-5. The two variants timed in turns by CUDA events
-   (streaming, cluster, cluster, streaming), the plain version and the
-   library call (``F.instance_norm`` + activation), the bound and the
-   share of it; per-call totals over the 19 sites.
+   relative) + 1e-5. The variants timed in turns by CUDA events
+   (streaming, cluster, sample, sample, cluster, streaming), the plain
+   version and the library call (``F.instance_norm`` + activation), the
+   bound and the share of it; per-call totals over the 19 sites, the
+   sample variant's beside the cluster variant's at its 18. Then the tile
+   call at odd C (each site's C - 1 channels, as ``plan`` gives them: the
+   sample variant at 18 sites, the streaming one at 80x80x127), each site
+   against the plain version and timed.
    ``instance_norm_fullframe``: B1 at the 19 sites of one full-frame pass
    over a 512x910 frame (512x912 after padding), bf16 and fp32: the
    variant ``plan`` picks (the resident variant where the plane's chunks
@@ -94,16 +99,17 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    with the eager flow step timed beside it and (d) ``flow_batch`` 3
    bitwise equal to 1; (e) the first 4 frames of a 200x320 crop, card
    against the CPU at precision 32 (limit 1 count).
-7. ``instance_norm_backward``: both variants of B1's backward kernel
-   (cluster and streaming) against its plain version at every
-   InstanceNorm site of a training step (batch 80, the generator's 19
-   sites and the discriminator's 2 at its 3 calls), fp32 and bf16, each
-   bitwise equal to a second call of itself, with the forward pass's
-   statistics checked too. Tolerance: fp32 |d| <= 2e-5 + 2e-5 |ref|; bf16
+7. ``instance_norm_backward``: B1's backward kernel, the cluster and
+   streaming variants and the sample variant forced where a sample's x
+   and dy fit 8 CTAs, against its plain version at every InstanceNorm site
+   of a training step (batch 80, the generator's 19 sites and the
+   discriminator's 2 at its 3 calls), fp32 and bf16, each bitwise equal to
+   a second call of itself, with the forward pass's statistics checked
+   too. Tolerance: fp32 |d| <= 2e-5 + 2e-5 |ref|; bf16
    one bf16 ulp + 1e-5. Timed as device time (CUDA events around calls
    queued behind a spin kernel, over copies of the inputs that exceed the
-   L2 cache): the two variants in turns (cluster, streaming, streaming,
-   cluster, cluster, streaming; the median of three each), against the
+   L2 cache): the variants in turns (cluster, sample, streaming, three
+   times; the median of three each), against the
    bound (one read of x and dy, one write of dx), the plain version and
    the library (autograd through ``F.instance_norm`` + activation: its
    backward alone on a kept graph, and forward with backward beside the
@@ -245,17 +251,25 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    (``TurnGroup``), at model 2 and 4: every site's conv slice and B1 on
    its channel slice, the assembled B1 outputs within ``_in_check``'s
    tolerance of the plain version on the assembled input, the launches by
-   variant and card as ``plan`` gives each slice (the streaming variant
+   variant and card as ``plan`` gives each slice (the sample variant
    where C/m x the item size is not a multiple of 16 bytes), the
    generator within 1 count of the one-card forward at 32 (bf16's
    distance printed); ``fit`` at ``training.devices=1
    parallel.mesh.model=2`` bitwise the train phase's plain ``fit`` (JAX
    builds no mesh at one device). One line says what did not run for want
    of cards. Then B1's forward and backward at each (slice shape,
-   activation, dtype) those forwards gave a rank, the variant ``plan_for``
-   and ``plan_backward_for`` pick against the plain version (the
+   activation, dtype) those forwards gave a rank, dy a rank's channel slice
+   of the gathered gradient: the variant ``plan_for`` and
+   ``plan_backward_for`` pick (the sample variant at D's 6- and 12-channel
+   slices, reading dy through its stride) against the plain version (the
    tolerances of instance_norm and instance_norm_backward), each timed
-   beside its bound, the plain version and the library's. With 2+ cards (``--multi-gpu``, after the multi_gpu phase,
+   beside its bound, the plain version and the library's; at the sample
+   variant's sites also the streaming kernels that took them before, dy's
+   copy, and the sample variant at twice the CTAs a sample; per-step sums
+   by variant. Then B1 under autograd (``InstanceNormAct``) at a rank's 25
+   sites of one step: dy copies a step a rank against the plans' count
+   (the strided dy slices the sample variant does not take), launches by
+   variant, and the sample sites' dx bitwise the copied dy's. With 2+ cards (``--multi-gpu``, after the multi_gpu phase,
    whose data-parallel runs are the yardsticks), NCCL ranks that
    ``parallel.spawn`` starts: the sharded forward at model 2 (and 4 with
    4 cards) against the one-card forward as above, the ranks of a model
@@ -265,7 +279,8 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    over the model group) bitwise equal, two runs of data 2 x model 2
    bitwise equal, the update after 12 steps within 1e-1 (32) / 5e-1 (bf16)
    in relative L2 of the d-rank data-parallel run's, B1's launches by
-   variant and card and the dy copies; one step's collectives (recorded
+   variant and card and the dy copies a step a rank; one step's
+   collectives (recorded
    in ``fit``, then replayed alone with the ranks in step, CUDA events):
    the activation gathers with and without their interleave copy, the
    input-gradient all-reduces, the small ones, the data group's gradient
@@ -492,6 +507,13 @@ def phase_build() -> None:
             instance_norm.RESIDENT_CTA_BYTES:
         raise AssertionError("csrc/b1_common.cuh and ops/instance_norm.py "
                              "disagree on a resident CTA's chunk budget")
+    for ppc, c, item, bwd in ((400, 12, 2, 0), (361, 6, 4, 1), (2, 301, 2, 1),
+                              (1950, 13, 4, 0)):
+        if lib.ptt_instance_norm_sample_smem(ppc, c, item, bwd) != \
+                instance_norm.sample_smem(ppc, c, item, bool(bwd)):
+            raise AssertionError("csrc/instance_norm_sample.cu and "
+                                 "ops/instance_norm.py disagree on a sample "
+                                 "CTA's shared memory")
 
 
 def _library_in(x: torch.Tensor, act):
@@ -518,10 +540,15 @@ def _in_check(got, want, dtype) -> float:
 
 
 def phase_instance_norm(dev) -> dict:
-    """Both variants against the plain version at every (shape, activation,
-    dtype) of the main path, then timed in turns in this one process
-    (streaming, cluster, cluster, streaming); the per-call numbers sum the
-    19 sites of one 512-tile generator call."""
+    """The cluster and streaming variants, and the sample variant forced
+    where a sample fits 8 CTAs (18 of the 19 sites), against the plain
+    version at every (shape, activation, dtype) of the main path, then
+    timed in turns in this one process (streaming, cluster, sample,
+    sample, cluster, streaming); the per-call numbers sum the 19 sites of
+    one 512-tile generator call. Then the same call at odd C (C - 1
+    channels a site, as ``plan`` gives them: the sample variant, the
+    streaming one at 80x80x127), each site against the plain version and
+    timed beside the cluster variant at the even C."""
     gen = torch.Generator(device=dev).manual_seed(1)
     variants = {"cluster": instance_norm.instance_norm_act_cluster,
                 "streaming": instance_norm.instance_norm_act_streaming}
@@ -533,15 +560,22 @@ def phase_instance_norm(dev) -> dict:
             p = instance_norm.plan_for(x)
             if p.variant != "cluster":
                 raise AssertionError(f"{shape} {dtype}: plan {p}")
+            sp = instance_norm.sample_plan(B, *shape, dtype)
+            fns = dict(variants)
+            if sp is not None:
+                fns["sample"] = lambda xc, act: instance_norm. \
+                    instance_norm_act_sample(xc, act, p=sp)
             bound = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3
             for act in (None, "relu", "leaky_relu"):
                 want = instance_norm.instance_norm_act_plain(x, act)
                 r = {f"err_{v}": _in_check(fn(x, act), want, dtype)
-                     for v, fn in variants.items()}
+                     for v, fn in fns.items()}
                 del want
-                ms = {v: [] for v in variants}
-                for v in ("streaming", "cluster", "cluster", "streaming"):
-                    ms[v].append(time_ms(lambda: variants[v](x, act), 10))
+                ms = {v: [] for v in fns}
+                for v in ("streaming", "cluster", "sample", "sample",
+                          "cluster", "streaming"):
+                    if v in fns:
+                        ms[v].append(time_ms(lambda: fns[v](x, act), 10))
                 r.update({f"ms_{v}": sum(t) / len(t) for v, t in ms.items()})
                 r["plain_ms"] = time_ms(
                     lambda: instance_norm.instance_norm_act_plain(x, act), 3)
@@ -550,21 +584,20 @@ def phase_instance_norm(dev) -> dict:
                 say("instance_norm", dtype=str(dtype).split(".")[1],
                     shape=f"{B}x{shape[0]}x{shape[1]}x{shape[2]}", act=act,
                     k=p.k, G=p.group, cta_kb=f"{p.cta_bytes / 1024:.1f}",
-                    cluster_ms=f"{r['ms_cluster']:.4f}",
-                    cluster_runs="/".join(f"{t:.4f}" for t in ms["cluster"]),
-                    streaming_ms=f"{r['ms_streaming']:.4f}",
-                    streaming_runs="/".join(
-                        f"{t:.4f}" for t in ms["streaming"]),
+                    sample_k=sp.k if sp else None,
+                    **{f"{v}_ms": f"{r[f'ms_{v}']:.4f}" for v in ms},
+                    **{f"{v}_runs": "/".join(f"{t:.4f}" for t in ms[v])
+                       for v in ms},
                     bound_ms=f"{bound:.4f}",
-                    cluster_share_of_bound=f"{bound / r['ms_cluster']:.3f}",
-                    streaming_share_of_bound=
-                    f"{bound / r['ms_streaming']:.3f}",
+                    **{f"{v}_share_of_bound": f"{bound / r[f'ms_{v}']:.3f}"
+                       for v in ms},
                     plain_ms=f"{r['plain_ms']:.4f}",
                     library_ms=f"{r['library_ms']:.4f}",
-                    max_abs_err_cluster=f"{r['err_cluster']:.3g}",
-                    max_abs_err_streaming=f"{r['err_streaming']:.3g}")
+                    **{f"max_abs_err_{v}": f"{r[f'err_{v}']:.3g}"
+                       for v in fns})
             del x
-    rec = {"variants": {v: {} for v in variants}}
+    rec = {"variants": {v: {} for v in variants}, "sample_tile_call": {},
+           "odd_c_tile_call": {}}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
         item = 2 if dtype == torch.bfloat16 else 4
         elems = sum(B * s[0] * s[1] * s[2] for s, _ in SITES)
@@ -576,6 +609,14 @@ def phase_instance_norm(dev) -> dict:
             rec["variants"][v][f"ms{tag}"] = sum(r[f"ms_{v}"] for r in rows)
             rec["variants"][v][f"max_abs_err{tag}"] = max(
                 per[k][f"err_{v}"] for k in keys)
+        # the sample variant forced at the sites a sample fits 8 CTAs,
+        # beside the cluster variant at the same sites
+        fit = [r for r in rows if "ms_sample" in r]
+        rec["sample_tile_call"].update({
+            f"sites{tag}": len(fit),
+            f"ms{tag}": sum(r["ms_sample"] for r in fit),
+            f"cluster_ms{tag}": sum(r["ms_cluster"] for r in fit),
+            f"max_abs_err{tag}": max(r["err_sample"] for r in fit)})
         rec.update({
             f"max_abs_err{tag}": rec["variants"]["cluster"][
                 f"max_abs_err{tag}"],
@@ -592,7 +633,46 @@ def phase_instance_norm(dev) -> dict:
             cluster_share_of_bound=
             f"{rec['bound_ms' + tag] / rec['ms' + tag]:.3f}",
             plain_ms=f"{rec['plain_ms' + tag]:.4f}",
-            library_ms=f"{rec['library_ms' + tag]:.4f}")
+            library_ms=f"{rec['library_ms' + tag]:.4f}",
+            sample_sites=rec["sample_tile_call"]["sites" + tag],
+            sample_forced_ms=f"{rec['sample_tile_call']['ms' + tag]:.4f}",
+            cluster_at_those_sites_ms=
+            f"{rec['sample_tile_call']['cluster_ms' + tag]:.4f}")
+    # the tile call at odd C: each site's C - 1 channels, the plan's
+    # variant (sample, or streaming where a sample exceeds 8 CTAs)
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+        odd = {}
+        for (h, w, c), act in sorted(set(SITES), key=str):
+            x = (torch.randn((B, h, w, c - 1), device=dev, generator=gen)
+                 * 2.0 + 0.5).to(dtype)
+            v = instance_norm.plan_for(x).variant
+            if v not in ("sample", "streaming"):
+                raise AssertionError(f"{x.shape} {dtype}: plan {v}")
+            fn = B1_WRAPPERS[v]
+            err = _in_check(fn(x, act), instance_norm.instance_norm_act_plain(
+                x, act), dtype)
+            odd[((h, w, c), act)] = (v, time_ms(lambda: fn(x, act), 10), err)
+            del x
+        sites = [odd[k] for k in SITES]
+        rec["odd_c_tile_call"].update({
+            f"ms{tag}": sum(t for _, t, _ in sites),
+            f"sample_sites{tag}": sum(v == "sample" for v, _, _ in sites),
+            f"sample_ms{tag}": sum(t for v, t, _ in sites if v == "sample"),
+            f"streaming_ms{tag}": sum(t for v, t, _ in sites
+                                      if v == "streaming"),
+            f"max_abs_err{tag}": max(e for _, _, e in sites)})
+        say("instance_norm", per_call_at_odd_c=str(dtype).split(".")[1],
+            sites=len(sites),
+            variants=",".join(f"{h}x{w}x{c - 1}:{act}:{v}:{t:.4f}"
+                              for ((h, w, c), act), (v, t, _)
+                              in sorted(odd.items(), key=str)),
+            ms=f"{rec['odd_c_tile_call']['ms' + tag]:.4f}",
+            sample_sites=rec["odd_c_tile_call"]["sample_sites" + tag],
+            sample_ms=f"{rec['odd_c_tile_call']['sample_ms' + tag]:.4f}",
+            streaming_ms=
+            f"{rec['odd_c_tile_call']['streaming_ms' + tag]:.4f}",
+            cluster_at_even_c_ms=f"{rec['ms' + tag]:.4f}",
+            max_abs_err=f"{rec['odd_c_tile_call']['max_abs_err' + tag]:.3g}")
     return rec
 
 
@@ -1131,6 +1211,7 @@ def _without_pil():
 B1_WRAPPERS = {"cluster": instance_norm.instance_norm_act_cluster,
                "resident": instance_norm.instance_norm_act_resident,
                "split": instance_norm.instance_norm_act_split,
+               "sample": instance_norm.instance_norm_act_sample,
                "streaming": instance_norm.instance_norm_act_streaming}
 
 
@@ -1166,12 +1247,12 @@ def _want_counts(frames: int, tiled: bool, prec: str,
     """19 B1 launches a generator call, in the cluster variant and with one
     B2 launch a call when tiled (one call a frame in these phases), in the
     resident and split variants as ``_ff_launches`` gives them and no B2
-    launch in full-frame mode; never streaming."""
+    launch in full-frame mode; never sample or streaming."""
     ff = dict.fromkeys(("resident", "split"), 0) if tiled \
         else _ff_launches(prec, *hw)
     return {"cluster": 19 * frames if tiled else 0,
-            **{k: n * frames for k, n in ff.items()}, "streaming": 0,
-            "blend": frames if tiled else 0}
+            **{k: n * frames for k, n in ff.items()}, "sample": 0,
+            "streaming": 0, "blend": frames if tiled else 0}
 
 
 def _check_counts(what: str, got: dict, frames: int, tiled: bool,
@@ -3296,7 +3377,9 @@ def phase_instance_norm_backward(dev) -> dict:
     variants in turns in this one process (cluster, streaming, streaming,
     cluster, cluster, streaming: the median of three each). Beside them,
     each variant once by ``time_ms`` on one copy (back to back, the host's
-    dispatch cost included). The per-step numbers sum the 25 sites; the
+    dispatch cost included). The sample variant, forced where a sample's
+    x and dy fit 8 CTAs, is checked and timed beside them (cluster, sample,
+    streaming in turns). The per-step numbers sum the 25 sites; the
     picked variant is the one ``plan_backward`` names."""
     gen = torch.Generator(device=dev).manual_seed(3)
     per = {}
@@ -3318,8 +3401,13 @@ def phase_instance_norm_backward(dev) -> dict:
                 raise AssertionError(f"{shape} {dtype}: statistics {serr}")
             want = instance_norm.instance_norm_act_backward_plain(
                 x, dy, mean, rstd, act)
+            sp = instance_norm.sample_plan(BT, *shape, dtype, backward=True)
+            fns = dict(BWD_VARIANTS)
+            if sp is not None:
+                fns["sample"] = lambda *a: instance_norm. \
+                    instance_norm_act_backward_sample(*a, p=sp)
             r = {}
-            for v, fn in BWD_VARIANTS.items():
+            for v, fn in fns.items():
                 got = fn(x, dy, mean, rstd, act)
                 r[f"err_{v}"] = _bwd_check(got, want, dtype)
                 if not torch.equal(got, fn(x, dy, mean, rstd, act)):
@@ -3335,17 +3423,18 @@ def phase_instance_norm_backward(dev) -> dict:
             def calls(make):
                 return [make(xc, dc) for xc, dc in copies]
 
-            ms = {v: [] for v in BWD_VARIANTS}
-            for v in ("cluster", "streaming", "streaming", "cluster",
-                      "cluster", "streaming"):
-                fn = BWD_VARIANTS[v]
+            ms = {v: [] for v in fns}
+            for v in ("cluster", "sample", "streaming") * 3:
+                if v not in fns:
+                    continue
+                fn = fns[v]
                 ms[v].append(queued_ms(calls(
                     lambda xc, dc: lambda: fn(xc, dc, mean, rstd, act)),
                     reps))
             r.update({f"ms_{v}": sorted(t)[1] for v, t in ms.items()})
             r.update({f"b2b_ms_{v}": time_ms(
                 lambda: fn(x, dy, mean, rstd, act), 10)
-                for v, fn in BWD_VARIANTS.items()})
+                for v, fn in fns.items()})
             r.update({
                 "bound_ms": bound,
                 "fwd_stats_ms": queued_ms(calls(
@@ -3371,6 +3460,11 @@ def phase_instance_norm_backward(dev) -> dict:
                 cluster_runs="/".join(f"{t:.4f}" for t in ms["cluster"]),
                 streaming_ms=f"{r['ms_streaming']:.4f}",
                 streaming_runs="/".join(f"{t:.4f}" for t in ms["streaming"]),
+                sample_k=sp.k if sp else None,
+                sample_ms=f"{r['ms_sample']:.4f}" if sp else None,
+                sample_runs="/".join(f"{t:.4f}" for t in ms["sample"])
+                if sp else None,
+                max_abs_err_sample=f"{r['err_sample']:.3g}" if sp else None,
                 bound_ms=f"{bound:.4f}",
                 cluster_share_of_bound=f"{bound / r['ms_cluster']:.3f}",
                 streaming_share_of_bound=f"{bound / r['ms_streaming']:.3f}",
@@ -3386,6 +3480,7 @@ def phase_instance_norm_backward(dev) -> dict:
                 stats_err=f"{serr:.3g}")
             del x, dy, mean, rstd
     rec = {v: {} for v in BWD_VARIANTS}
+    rec["sample_train_sites"] = {}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
         item = dtype.itemsize
         elems = sum(BT * s[0] * s[1] * s[2] for s, _ in TRAIN_SITES)
@@ -3409,6 +3504,14 @@ def phase_instance_norm_backward(dev) -> dict:
                 r[f"err_{v}"] for k, r in per.items() if k[0] == dtype)
         picked, bound = rec["cluster"][f"ms{tag}"], shared[f"bound_ms{tag}"]
         worst = max(r["ms_cluster"] - r["ms_streaming"] for r in rows)
+        # the sample variant forced at the sites whose x and dy fit 8 CTAs,
+        # beside the cluster variant at the same sites
+        fit = [r for r in rows if "ms_sample" in r]
+        rec["sample_train_sites"].update({
+            f"sites{tag}": len(fit),
+            f"ms{tag}": sum(r["ms_sample"] for r in fit),
+            f"cluster_ms{tag}": sum(r["ms_cluster"] for r in fit),
+            f"max_abs_err{tag}": max(r["err_sample"] for r in fit)})
         say("instance_norm_backward", per_step=str(dtype).split(".")[1],
             sites=len(TRAIN_SITES), picked="cluster",
             picked_ms=f"{picked:.4f}", bound_ms=f"{bound:.4f}",
@@ -3420,6 +3523,10 @@ def phase_instance_norm_backward(dev) -> dict:
             f"{rec['cluster']['back_to_back_ms' + tag]:.4f}",
             back_to_back_streaming_ms=
             f"{rec['streaming']['back_to_back_ms' + tag]:.4f}",
+            sample_forced_sites=rec["sample_train_sites"]["sites" + tag],
+            sample_forced_ms=f"{rec['sample_train_sites']['ms' + tag]:.4f}",
+            cluster_at_those_sites_ms=
+            f"{rec['sample_train_sites']['cluster_ms' + tag]:.4f}",
             fwd_stats_plus_bwd_ms=
             f"{shared['fwd_stats_ms' + tag] + picked:.4f}",
             plain_ms=f"{shared['plain_ms' + tag]:.4f}",
@@ -4763,6 +4870,7 @@ TP_SIZES = (2, 4)  # model groups of the one-card forms
 # is the one run twice
 TP_LAYOUTS = ((1, 2), (2, 2), (1, 4))
 B1_BWD = {"cluster": instance_norm.instance_norm_act_backward_cluster,
+          "sample": instance_norm.instance_norm_act_backward_sample,
           "streaming": instance_norm.instance_norm_act_backward_streaming}
 
 
@@ -4908,27 +5016,53 @@ def _tp_turns(G, D, x, post, m: int, dt) -> dict:
             "step_keys": keys[:-d_sites] + keys[-d_sites:] * 3}
 
 
+def _sample_k2(x: torch.Tensor, backward: bool = False):
+    """The sample variant's plan at twice the CTAs a sample that the plan
+    gives ``x`` (a cluster of 2 for one CTA), if that many fit a cluster:
+    the alternative the plan's least k is timed against."""
+    n, h, w, c = x.shape
+    p = instance_norm.sample_plan(n, h, w, c, x.dtype, backward)
+    if p is None or 2 * p.k > 8:
+        return None
+    k = 2 * p.k
+    ppc = -(-h * w // k)
+    return instance_norm.Plan("sample", 0, k, instance_norm.sample_smem(
+        ppc, c, x.dtype.itemsize, backward), k, ppc)
+
+
 def _tp_slice_kernels(slices: dict, steps: dict, card: str) -> dict:
     """B1's forward and backward at each (slice shape, activation, dtype)
     that tensor parallelism's sites give it (``_tp_turns``: rank 0's
-    recorded input there) with a seeded dy: the variant ``plan_for`` and
-    ``plan_backward_for`` pick, against the plain version with the
-    tolerances of ``phase_instance_norm`` and
-    ``phase_instance_norm_backward``; then each timed by ``queued_ms`` over
-    copies of its inputs that together exceed twice the L2 cache (every
-    call reads them from HBM), beside its bound, the plain version and the
-    library's. The per-step numbers sum a rank's 25 sites of one training
+    recorded input there) with a seeded dy that is rank 1's channel slice
+    of a two-rank gathered gradient, as the gather's backward hands it to
+    B1: the variant ``plan_for`` and ``plan_backward_for`` pick (the
+    backward reads the strided dy where the sample variant takes it, else
+    a contiguous copy, as ``InstanceNormAct`` does), against the plain
+    version with the tolerances of ``phase_instance_norm`` and
+    ``phase_instance_norm_backward``; at the sample variant's sites also
+    its plan at twice the CTAs a sample. Then each timed by ``queued_ms``
+    over copies of its inputs that together exceed twice the L2 cache
+    (every call reads them from HBM), beside its bound, the plain version
+    and the library's; at the sample variant's sites also the streaming
+    kernels that took them before (the old path: dy copied, then the
+    streaming backward), the copy alone, and the sample variant at twice
+    the CTAs. The per-step numbers sum a rank's 25 sites of one training
     step (``steps``: their keys by model size and dtype) by the variant
-    picked. The
-    one-card path runs the backward on no slice (``TurnGroup`` runs
-    forward passes only), so this is where the backward variants meet
-    these shapes on one card."""
+    picked. The one-card path runs the backward on no slice
+    (``TurnGroup`` runs forward passes only), so this and
+    ``_tp_autograd_steps`` are where the backward variants meet these
+    shapes on one card."""
     per = {}
     for (shape, act, dtype), x in slices.items():
         gen = torch.Generator(device=x.device).manual_seed(7)
-        dy = torch.randn(shape, device=x.device, generator=gen).to(dtype)
+        c = shape[3]
+        wide = torch.randn(shape[:3] + (2 * c,), device=x.device,
+                           generator=gen).to(dtype)
+        dy = wide[..., c:].contiguous()
         fv = instance_norm.plan_for(x).variant
-        bv = instance_norm.plan_backward_for(x, dy).variant
+        strided = instance_norm._reads_strided(x, wide[..., c:])
+        bv = "sample" if strided else \
+            instance_norm.plan_backward_for(x, dy).variant
         fwd, bwd = B1_WRAPPERS[fv], B1_BWD[bv]
         y, mean, rstd = fwd(x, act, stats=True)
         _, pmean, prstd = instance_norm._plain_forward(x, act, 0.2, 1e-5)
@@ -4936,23 +5070,38 @@ def _tp_slice_kernels(slices: dict, steps: dict, card: str) -> dict:
                    float(((rstd - prstd) / prstd).abs().max()))
         if serr > 1e-5:
             raise AssertionError(f"{shape} {dtype}: statistics {serr}")
+        want_y = instance_norm.instance_norm_act_plain(x, act)
+        want_dx = instance_norm.instance_norm_act_backward_plain(
+            x, dy, mean, rstd, act)
         r = {"forward_variant": fv, "backward_variant": bv,
-             "forward_max_abs_err": _in_check(
-                 y, instance_norm.instance_norm_act_plain(x, act), dtype),
+             "forward_max_abs_err": _in_check(y, want_y, dtype),
              "backward_max_abs_err": _bwd_check(
-                 bwd(x, dy, mean, rstd, act),
-                 instance_norm.instance_norm_act_backward_plain(
-                     x, dy, mean, rstd, act), dtype)}
-        del y
-        n_copies = max(1, -(-int(2 * L2_BYTES) // (3 * x.nbytes)))
-        copies = [(x, dy)] + [(x.clone(), dy.clone())
-                              for _ in range(n_copies - 1)]
+                 bwd(x, wide[..., c:] if strided else dy, mean, rstd, act),
+                 want_dx, dtype)}
+        k2, k2b = (_sample_k2(x), _sample_k2(x, True)) if fv == "sample" \
+            else (None, None)
+        if k2 is not None:
+            r["forward_max_abs_err"] = max(r["forward_max_abs_err"], _in_check(
+                instance_norm.instance_norm_act_sample(x, act, p=k2), want_y,
+                dtype))
+        if k2b is not None and strided:
+            r["backward_max_abs_err"] = max(
+                r["backward_max_abs_err"], _bwd_check(
+                    instance_norm.instance_norm_act_backward_sample(
+                        x, wide[..., c:], mean, rstd, act, p=k2b), want_dx,
+                    dtype))
+        del y, want_y, want_dx
+        n_copies = max(1, -(-int(2 * L2_BYTES) // (4 * x.nbytes)))
+        copies = [(x, wide)] + [(x.clone(), wide.clone())
+                                for _ in range(n_copies - 1)]
         # the plain and library versions launch many kernels a call: at
         # most 16 calls stay within the launch queue behind the spin
         reps, slow = max(10, 2 * n_copies), min(16, max(3, n_copies))
 
         def timed(make, n):
-            return queued_ms([make(xc, dc) for xc, dc in copies], n)
+            return queued_ms([make(xc, wc[..., c:] if strided else
+                                   wc[..., c:].contiguous())
+                              for xc, wc in copies], n)
 
         elems = x.numel()
         fb, fo = 2 * x.nbytes / HBM_BYTES_PER_S * 1e3, \
@@ -4974,24 +5123,43 @@ def _tp_slice_kernels(slices: dict, steps: dict, card: str) -> dict:
             backward_library_ms=timed(
                 lambda xc, dc: _library_in_bwd(xc, dc, act), slow),
             forward_bound_ms=max(fb, fo), backward_bound_ms=max(bb, bo))
-        del copies, dy
+        if fv == "sample":
+            # the path before the sample variant: the streaming kernels,
+            # the backward's on dy copied first (the copy timed alone too)
+            old = [(xc, wc[..., c:]) for xc, wc in copies]
+            r.update(
+                forward_old_ms=queued_ms(
+                    [lambda xc=xc: instance_norm.instance_norm_act_streaming(
+                        xc, act) for xc, _ in old], reps),
+                backward_old_ms=queued_ms(
+                    [lambda xc=xc, dc=dc: instance_norm.
+                     instance_norm_act_backward_streaming(
+                         xc, dc.contiguous(), mean, rstd, act)
+                     for xc, dc in old], reps),
+                dy_copy_ms=queued_ms([lambda dc=dc: dc.contiguous()
+                                      for _, dc in old], reps))
+            if k2 is not None:
+                r["forward_k2_ms"] = timed(
+                    lambda xc, dc: lambda: instance_norm.
+                    instance_norm_act_sample(xc, act, p=k2), reps)
+            if k2b is not None and strided:
+                r["backward_k2_ms"] = timed(
+                    lambda xc, dc: lambda: instance_norm.
+                    instance_norm_act_backward_sample(xc, dc, mean, rstd,
+                                                      act, p=k2b), reps)
+        del copies, dy, wide
         per[(shape, act, dtype)] = r
         say("tensor_parallel", form="B1 on a channel slice against its "
             "plain version", dtype=str(dtype).split(".")[1],
             shape="x".join(map(str, shape)), act=act,
             forward_variant=fv, backward_variant=bv,
-            forward_ms=f"{r['forward_ms']:.4f}",
-            forward_bound_ms=f"{r['forward_bound_ms']:.4f}",
-            forward_plain_ms=f"{r['forward_plain_ms']:.4f}",
-            forward_library_ms=f"{r['forward_library_ms']:.4f}",
-            backward_ms=f"{r['backward_ms']:.4f}",
-            backward_bound_ms=f"{r['backward_bound_ms']:.4f}",
-            backward_plain_ms=f"{r['backward_plain_ms']:.4f}",
-            backward_library_ms=f"{r['backward_library_ms']:.4f}",
+            backward_dy="strided" if strided else "contiguous copy",
+            **{k: f"{v:.4f}" for k, v in r.items() if k.endswith("_ms")},
             forward_max_abs_err=f"{r['forward_max_abs_err']:.3g}",
             backward_max_abs_err=f"{r['backward_max_abs_err']:.3g}",
             stats_err=f"{serr:.3g}")
     out = {}
+    extra = ("old_ms", "k2_ms", "dy_copy_ms")
     for tag, step_keys in steps.items():
         rows = [per[k] for k in step_keys]
         tot = {}
@@ -5005,6 +5173,12 @@ def _tp_slice_kernels(slices: dict, steps: dict, card: str) -> dict:
                 tot[f"{d}_{v}"].update(
                     sites=len(mine), max_abs_err=max(
                         r[f"{d}_max_abs_err"] for r in mine))
+                for q in extra:
+                    key = "dy_copy_ms" if q == "dy_copy_ms" else f"{d}_{q}"
+                    if d == "forward" and q == "dy_copy_ms":
+                        continue
+                    if all(key in r for r in mine):
+                        tot[f"{d}_{v}"][q] = sum(r[key] for r in mine)
         out[tag] = tot
         say("tensor_parallel", form="B1 on a rank's slices of one "
             f"training step ({len(rows)} sites) by variant", step=tag,
@@ -5012,8 +5186,79 @@ def _tp_slice_kernels(slices: dict, steps: dict, card: str) -> dict:
                             else v[q])
                for k, v in tot.items()
                for q in ("sites", "ms", "bound_ms", "plain_ms",
-                         "library_ms")}, card=f"'{card}'")
-    return {"per_step": out, "shapes": len(per)}
+                         "library_ms") + extra if q in v}, card=f"'{card}'")
+    # the fixed cost of a launch at D's slices: each kernel on 80 one-pixel
+    # samples of 6 channels (bf16), where its work is next to nothing
+    dev = next(iter(slices.values())).device
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tiny = [torch.randn((80, 1, 1, 6), device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(16)]
+    _, tm, tr = instance_norm.instance_norm_act_sample(tiny[0], None,
+                                                       stats=True)
+    floor = {
+        "sample_forward_ms": queued_ms(
+            [lambda t=t: instance_norm.instance_norm_act_sample(t, None)
+             for t in tiny], 32),
+        "sample_backward_ms": queued_ms(
+            [lambda t=t: instance_norm.instance_norm_act_backward_sample(
+                t, t, tm, tr, None) for t in tiny], 32),
+        "streaming_forward_ms": queued_ms(
+            [lambda t=t: instance_norm.instance_norm_act_streaming(t, None)
+             for t in tiny], 32)}
+    say("tensor_parallel", form="B1's launch floor: each kernel on 80 "
+        "one-pixel samples of 6 channels, bf16",
+        **{k: f"{v:.4f}" for k, v in floor.items()}, card=f"'{card}'")
+    return {"per_step": out, "shapes": len(per), "launch_floor": floor}
+
+
+def _tp_autograd_steps(slices: dict, steps: dict) -> dict:
+    """B1 under autograd (``InstanceNormAct``, what ``fit``'s steps call)
+    at a rank's 25 sites of one training step for each (dtype, model m),
+    dy at each site rank 1's channel slice of the m-rank gathered
+    gradient, as the gather's backward hands it over: the dy copies a
+    step a rank (the slices the sample variant does not take, whose dy is
+    made contiguous first) against the count the plans give, with B1's
+    launches read over these steps alone. Then, at each site the sample
+    variant takes, dx bitwise the dx of the same dy made contiguous. ->
+    copies by step, the launches by variant and card."""
+    def step(x, act, dy):
+        xg = x.clone().requires_grad_(True)
+        y = instance_norm.InstanceNormAct.apply(xg, act, 0.2, 1e-5)
+        return torch.autograd.grad(y, xg, dy)[0]
+
+    out, strided_sites = {}, {}
+    torch.cuda.synchronize()
+    before = _b1_by_card()
+    for tag, keys in steps.items():
+        m = int(tag.split("_m")[1])
+        copies0 = instance_norm.InstanceNormAct.dy_copies
+        want = 0
+        for i, key in enumerate(keys):
+            x = slices[key].detach()
+            gen = torch.Generator(device=x.device).manual_seed(100 + i)
+            c = key[0][3]
+            wide = torch.randn(key[0][:3] + (m * c,), device=x.device,
+                               generator=gen).to(key[2])
+            dy = wide[..., c:2 * c]
+            if instance_norm._reads_strided(x, dy):
+                strided_sites.setdefault(key, (dy, step(x, key[1], dy)))
+            else:
+                want += 1
+                step(x, key[1], dy)
+        got = instance_norm.InstanceNormAct.dy_copies - copies0
+        if got != want:
+            raise AssertionError(f"{tag}: {got} dy copies a step a rank, "
+                                 f"the plans give {want}")
+        out[tag] = got
+    torch.cuda.synchronize()
+    launches = _b1_delta(before, _b1_by_card())
+    for (shape, act, dtype), (dy, dx) in strided_sites.items():
+        if not torch.equal(dx, step(slices[(shape, act, dtype)].detach(),
+                                    act, dy.contiguous())):
+            raise AssertionError(f"{shape} {dtype}: dx from the strided dy "
+                                 "differs from the contiguous one's")
+    return {"dy_copies_per_step_per_rank": out, "launches": launches,
+            "strided_sites": len(strided_sites)}
 
 
 def phase_tensor_parallel(dev, card: str, tmp: Path, plain_fit: dict) -> dict:
@@ -5065,6 +5310,17 @@ def phase_tensor_parallel(dev, card: str, tmp: Path, plain_fit: dict) -> dict:
                                          f"{counts} counts from one card")
         del G, D
     rec["slice_kernels"] = _tp_slice_kernels(slices, steps, card)
+    ag = _tp_autograd_steps(slices, steps)
+    rec["autograd_steps"] = {
+        "dy_copies_per_step_per_rank": ag["dy_copies_per_step_per_rank"],
+        "launches_by_card": ag["launches"]}
+    say("tensor_parallel", form="B1 under autograd (InstanceNormAct) at a "
+        "rank's 25 sites of one step, dy a rank's strided channel slice",
+        dy_copies_per_step_per_rank=json.dumps(
+            ag["dy_copies_per_step_per_rank"]).replace(" ", ""),
+        sample_sites_bitwise_the_copied_dy=ag["strided_sites"],
+        launches_by_card=json.dumps(ag["launches"]).replace(" ", ""),
+        card=f"'{card}'")
     del slices
     frames, pres, posts, masks, guides = _keyframes()
     data = StyleTransferDataset(pres, posts, masks, guides, [3],
@@ -5102,7 +5358,9 @@ def phase_tensor_parallel(dev, card: str, tmp: Path, plain_fit: dict) -> dict:
             "trained checkpoint served) did not run: this machine has "
             f"{torch.cuda.device_count()} card; python3 chip_smoke.py "
             "--multi-gpu runs them on 2 or 4")
-    return {"rec": rec, "launches": launches, "fit_launches": fit_launches}
+    return {"rec": rec, "launches": launches, "fit_launches": fit_launches,
+            "autograd_launches": {k: sum(v.values())
+                                  for k, v in ag["launches"].items()}}
 
 
 class _TPWindow(_Window):
@@ -5511,8 +5769,13 @@ def _tp_layout_checks(tmp, out, ranks, d, m, top, one, served_dp,
         comm_ms = cm["gather_ms"] + cm["all_reduce_ms"] + cm["small_ms"] \
             + cm["data_grad_ms"]
         limit = 1e-1 if prec == "32" else 5e-1
+        # B1's dy copies a step a rank (the strided dy slices the sample
+        # variant does not take)
+        copies = sum(by_card.get("dy_copies", {}).values()) / (
+            n * TRAIN_STEPS)
         w[prec] = {"ms_per_step": ms, "dp_ms_per_step_same_cards": dp_ms[n],
                    "one_card_ms_per_step": dp_ms[1],
+                   "dy_copies_per_step_per_rank": copies,
                    "rank_differing_tensors": len(differ),
                    "repeat_differing_tensors": None if rep is None
                    else len(rep), "update_rel_l2_vs_dp": rel,
@@ -5525,6 +5788,7 @@ def _tp_layout_checks(tmp, out, ranks, d, m, top, one, served_dp,
             rank_differing_tensors=len(differ),
             repeat_differing_tensors=None if rep is None else len(rep),
             update_rel_l2_vs_dp=f"{rel:.3g}", limit=limit,
+            dy_copies_per_step_per_rank=f"{copies:g}",
             b1_by_card=json.dumps(by_card).replace(" ", ""))
         say("tensor_parallel", form="a step's collectives replayed", data=d,
             model=m, precision=prec, gathers=cm["gathers"],
@@ -5671,9 +5935,10 @@ def main() -> int:
     # B1 on tensor parallelism's channel slices: the one-card forms, fit at
     # devices 1 x model 2, and the NCCL forms where there are 2+ cards
     tp_fwd = {v: tp["launches"].get(v, 0) + tp_multi["launches"].get(v, 0)
-              for v in B1_WRAPPERS}
+              + tp["autograd_launches"].get(v, 0) for v in B1_WRAPPERS}
     tp_fwd["cluster"] += tp["fit_launches"]["forward"]
     tp_bwd = {v: tp_multi["launches"].get(f"backward_{v}", 0)
+              + tp["autograd_launches"].get(f"backward_{v}", 0)
               for v in B1_BWD}
     tp_bwd["cluster"] += tp["fit_launches"]["backward"]
     cluster["tensor_parallel"] = tp_fwd["cluster"]
@@ -5699,11 +5964,28 @@ def main() -> int:
     rec_in["variants"]["streaming"]["launches_by_path"] = {
         "tensor_parallel": tp_fwd["streaming"]}
     # B1 on tensor parallelism's channel slices, timed by variant over a
-    # rank's 25 sites of one training step (forward; backward below)
+    # rank's 25 sites of one training step (forward; backward below); the
+    # streaming kernels at the sample variant's sites, which they took
+    # before it
     tp_steps = tp["rec"]["slice_kernels"]["per_step"]
     rec_in["variants"]["streaming"]["tensor_parallel_slices"] = {
-        k: v["forward_streaming"] for k, v in tp_steps.items()
-        if "forward_streaming" in v}
+        k: {"sites": v["forward_sample"]["sites"],
+            "ms": v["forward_sample"]["old_ms"]}
+        for k, v in tp_steps.items() if "forward_sample" in v}
+    tile_sample = rec_in.pop("sample_tile_call")
+    odd_c = rec_in.pop("odd_c_tile_call")
+    sample_steps = {d: {k: t[f"{d}_sample"] for k, t in tp_steps.items()
+                        if f"{d}_sample" in t}
+                    for d in ("forward", "backward")}
+    # the sample variant's headline: a rank's 3 D sites of a bf16 step at
+    # model 2; launches by path: the sharded forwards in turn (and the
+    # NCCL forms' fits), and B1 under autograd at a rank's sites of a step
+    sample_paths = {
+        d: {"tensor_parallel": tp["launches"].get(v, 0)
+            + tp_multi["launches"].get(v, 0),
+            "tensor_parallel_autograd_step": tp["autograd_launches"].get(
+                v, 0)}
+        for d, v in (("forward", "sample"), ("backward", "backward_sample"))}
     train_fwd = {"train": train["launches"]["forward"]
                  - train["launches"]["forward_32_fast"]
                  + rest["launches"]["forward"],
@@ -5763,11 +6045,48 @@ def main() -> int:
                picked_by_plan_backward=v == "cluster",
                tensor_parallel_slices={
                    k: t[f"backward_{v}"] for k, t in tp_steps.items()
-                   if f"backward_{v}" in t},
+                   if f"backward_{v}" in t} if v == "cluster" else {
+                   k: {"sites": t["backward_sample"]["sites"],
+                       "ms": t["backward_sample"]["old_ms"],
+                       "dy_copy_ms": t["backward_sample"]["dy_copy_ms"]}
+                   for k, t in tp_steps.items() if "backward_sample" in t},
                per="the 25 sites of one training step at batch 80",
                **rec_bw[v])
           for v, key in (("cluster", "backward"),
                          ("streaming", "backward_streaming"))],
+        *[dict(name=name, route="cuda",
+               source="patch_toon_tpu_torch/csrc/instance_norm_sample.cu",
+               replaces="patch_toon_tpu/ops/pallas_norm.py:52",
+               note=note,
+               launches=sum(sample_paths[d].values()),
+               launches_by_path=sample_paths[d],
+               max_abs_err=max([t["max_abs_err"]
+                                for t in sample_steps[d].values()]
+                               + [forced["max_abs_err"],
+                                  forced["max_abs_err_fp32"]]),
+               ms=sample_steps[d]["bf16_m2"]["ms"],
+               plain_ms=sample_steps[d]["bf16_m2"]["plain_ms"],
+               bound_ms=sample_steps[d]["bf16_m2"]["bound_ms"],
+               bound_by="bytes",
+               library_ms=sample_steps[d]["bf16_m2"]["library_ms"],
+               dtype="bf16", variant="sample",
+               per="a rank's 3 sample-variant sites (D's 12-channel "
+                   "slices) of one bf16 training step at model 2",
+               tensor_parallel_slices=sample_steps[d],
+               **{forced_key: forced}, **more)
+          for d, name, note, forced_key, forced, more in (
+              ("forward", "instance_norm_act_sample",
+               "a whole sample in shared memory at any C; "
+               "tensor_parallel_slices[*].old_ms: the streaming kernel at "
+               "the same sites, k2_ms: twice the CTAs a sample",
+               "tile_call_forced", tile_sample,
+               {"odd_c_tile_call": odd_c}),
+              ("backward", "instance_norm_act_backward_sample",
+               "backward pass of B1 (JAX differentiates "
+               "patch_toon_tpu/models/layers.py:29-40), dy read through its "
+               "pixel stride; tensor_parallel_slices[*].old_ms: the "
+               "streaming backward at the same sites after dy_copy_ms",
+               "train_sites_forced", rec_bw["sample_train_sites"], {}))],
         dict(name="blend_tiles", route="cuda",
              source="patch_toon_tpu_torch/csrc/blend.cu",
              replaces="patch_toon_tpu/ops/pallas_blend.py:116",

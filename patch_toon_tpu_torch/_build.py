@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 600
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry point: a pointer or the stream must be c_void_p,
 # or ctypes passes it as a 32-bit int and cuts it
 SIGNATURES = {
@@ -64,6 +65,17 @@ SIGNATURES = {
     # chunk), chunks, dtype, act, slope, eps, device, stream
     "ptt_instance_norm_act_resident": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _I, _I, _I, _F, _F, _I, _P],
+    # x, y, mean, rstd (null, or (n, c) fp32 outputs), n, hw, c, k (CTAs a
+    # sample), dtype, act, slope, eps, device, stream
+    "ptt_instance_norm_act_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _F, _I, _P],
+    # x, dy, mean, rstd, dx, n, hw, c, dy's pixel and sample strides (in
+    # elements), k, dtype, act, slope, device, stream
+    "ptt_instance_norm_act_backward_sample": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                              _L, _L, _I, _I, _I, _F, _I,
+                                              _P],
+    # ppc, c, item, backward: the sample variant's shared memory a CTA
+    "ptt_instance_norm_sample_smem": [_I, _I, _I, _I],
     # the cluster variant's shared-memory budget a CTA, in bytes
     "ptt_instance_norm_slice_bytes": [],
     # the resident variant's shared-memory budget a CTA, in bytes

@@ -1,6 +1,7 @@
 // What the kernels of B1 share (the forward variants of instance_norm.cu,
 // instance_norm_split.cu and instance_norm_resident.cu, the backward ones of
-// instance_norm_bwd.cu): type conversions, the activation, 16-byte vectors,
+// instance_norm_bwd.cu, both of instance_norm_sample.cu): type conversions,
+// the activation and its derivative, 16-byte vectors,
 // cp.async, the cluster barrier's halves, the fixed-order sums over a block
 // and over a cluster, the fixed-order combine of a unit's chunk statistics,
 // and the checked launches of a cluster kernel and of a cooperative one.
@@ -51,6 +52,16 @@ __device__ __forceinline__ float activate(float v, float slope) {
   if (kAct == 1) return v >= 0.f ? v : 0.f;
   if (kAct == 2) return v >= 0.f ? v : v * slope;
   return v;
+}
+
+// dy times the activation's derivative at x^, for the backward kernels
+// (JAX's rules at exactly 0: jnp.where(x >= 0, ...) passes 1, nn.relu
+// passes 0).
+template <int kAct>
+__device__ __forceinline__ float act_grad(float dy, float xh, float slope) {
+  if (kAct == 1) return xh > 0.f ? dy : 0.f;
+  if (kAct == 2) return xh >= 0.f ? dy : dy * slope;
+  return dy;
 }
 
 // A 16-byte vector: 4 fp32 or 8 bf16 values.
@@ -256,21 +267,23 @@ __device__ __forceinline__ bool combine_unit(const float* part_mean,
   return true;
 }
 
-// A launch of a cluster kernel on a 1-D grid of `grid` CTAs in clusters of
-// k, with `smem` bytes of dynamic shared memory. Once per (device, kernel)
-// the kernel is allowed the whole slice budget; once per (device, kernel,
-// k, bytes) the occupancy query checks that at least one cluster fits, as
-// a launch that cannot fit fails only later, at the next synchronisation.
+// A launch of a cluster kernel on a 1-D grid of `grid` CTAs of `threads`
+// in clusters of k, with `smem` bytes of dynamic shared memory. Once per
+// (device, kernel) the kernel is allowed the whole slice budget; once per
+// (device, kernel, k, bytes) the occupancy query checks that at least one
+// cluster fits, as a launch that cannot fit fails only later, at the next
+// synchronisation.
 template <typename... Params, typename... Args>
-cudaError_t launch_cluster_kernel(void (*kernel)(Params...), long long grid,
-                                  int k, size_t smem, int device,
-                                  cudaStream_t stream, Args... args) {
+cudaError_t launch_cluster_kernel_of(int threads, void (*kernel)(Params...),
+                                     long long grid, int k, size_t smem,
+                                     int device, cudaStream_t stream,
+                                     Args... args) {
   if (smem > static_cast<size_t>(kSliceBytes) || grid <= 0 ||
       grid > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -306,6 +319,15 @@ cudaError_t launch_cluster_kernel(void (*kernel)(Params...), long long grid,
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// launch_cluster_kernel_of with CTAs of kThreads.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster_kernel(void (*kernel)(Params...), long long grid,
+                                  int k, size_t smem, int device,
+                                  cudaStream_t stream, Args... args) {
+  return launch_cluster_kernel_of(kThreads, kernel, grid, k, smem, device,
+                                  stream, args...);
 }
 
 // A cooperative launch of `grid` CTAs of kThreads with `smem` bytes of

@@ -48,15 +48,6 @@ namespace {
 
 using namespace b1;
 
-// dy times the activation's derivative at x^ (JAX's rules at exactly 0:
-// jnp.where(x >= 0, ...) passes 1, nn.relu passes 0).
-template <int kAct>
-__device__ __forceinline__ float act_grad(float dy, float xh, float slope) {
-  if (kAct == 1) return xh > 0.f ? dy : 0.f;
-  if (kAct == 2) return xh >= 0.f ? dy : dy * slope;
-  return dy;
-}
-
 // ---------------------------------------------------------------- cluster
 
 template <typename T, int kAct>

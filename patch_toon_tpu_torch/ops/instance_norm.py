@@ -1,10 +1,11 @@
 """Fused InstanceNorm + activation over NHWC (kernel B1).
 
 Replaces ``patch_toon_tpu/ops/pallas_norm.py::instance_norm_act``. On a CUDA
-tensor :func:`instance_norm_act` launches one of four variants (the head
-notes of ``csrc/instance_norm.cu``, ``csrc/instance_norm_resident.cu`` and
-``csrc/instance_norm_split.cu`` say what bounds them and how they are laid
-out), as :func:`plan` picks from the shape, type and alignment:
+tensor :func:`instance_norm_act` launches one of five variants (the head
+notes of ``csrc/instance_norm.cu``, ``csrc/instance_norm_resident.cu``,
+``csrc/instance_norm_split.cu`` and ``csrc/instance_norm_sample.cu`` say
+what bounds them and how they are laid out), as :func:`plan` picks from the
+shape, type and alignment:
 
 - the cluster variant (:func:`instance_norm_act_cluster`): one (sample,
   group of G channels) a thread-block cluster of k CTAs, each element read
@@ -17,9 +18,12 @@ out), as :func:`plan` picks from the shape, type and alignment:
 - the split variant (:func:`instance_norm_act_split`): the reduction split
   across the CTAs of two launches, for the planes the resident variant
   cannot hold (upsample1's at a full frame); two reads and one write;
+- the sample variant (:func:`instance_norm_act_sample`): a whole sample in
+  the shared memory of one CTA or a cluster of up to 8, at any C and any
+  element-aligned pointer (C times the item size not a multiple of 16
+  bytes, or a pointer not 16-byte aligned); one read and one write;
 - the streaming variant (:func:`instance_norm_act_streaming`): three reads,
-  for what neither takes (C times the item size not a multiple of 16
-  bytes, or a pointer not 16-byte aligned).
+  for what none of them takes (such rows in a sample beyond 8 CTAs).
 
 This is the counterpart of the Pallas wrapper's ``fits_vmem`` shape
 dispatch, between two hand-written kernels. On a CPU tensor every wrapper
@@ -29,12 +33,17 @@ nothing falls back.
 Under autograd, :class:`InstanceNormAct` runs the same forward variants,
 which then also write the fp32 mean and rstd, and its backward pass
 (:func:`instance_norm_act_backward`) launches one of the two variants of
-``csrc/instance_norm_bwd.cu``, as :func:`plan_backward` picks:
+``csrc/instance_norm_bwd.cu`` or ``csrc/instance_norm_sample.cu``, as
+:func:`plan_backward` picks:
 
 - the cluster variant (:func:`instance_norm_act_backward_cluster`): x and
   dy read from HBM once, dx written once;
+- the sample variant (:func:`instance_norm_act_backward_sample`): x and dy
+  of a whole sample held, dy read through its pixel stride (a channel
+  slice of a wider gradient needs no copy), for what the cluster variant
+  does not take and a sample fits 8 CTAs;
 - the streaming variant (:func:`instance_norm_act_backward_streaming`): x
-  and dy read twice, for what the cluster variant does not take.
+  and dy read twice, for the rest.
 
 The JAX package has no such kernel: its Pallas kernel serves inference only
 and JAX training differentiates the plain ops.
@@ -67,14 +76,18 @@ SPLIT_CTAS = 2 * SMS
 # the resident variant's chunk a CTA, one CTA an SM: the 227 KB a block may
 # use less 2 KB of static shared memory (csrc/b1_common.cuh kResidentBytes)
 RESIDENT_CTA_BYTES = 225 * 1024
+# warps of a sample variant's CTA (csrc/b1_common.cuh kWarpsC)
+SAMPLE_WARPS = 8
 
 
 class Plan(NamedTuple):
     """What runs an (N, H, W, C) tensor: the variant; for the cluster
     variant G (channels a unit), k (CTAs a cluster) and a CTA's bytes; for
     the split and resident variants G, a CTA's bytes (its chunk), the
-    chunks a unit (CTAs a unit in a launch) and the pixels a chunk."""
-    variant: str  # "cluster", "resident", "split" or "streaming"
+    chunks a unit (CTAs a unit in a launch) and the pixels a chunk; for the
+    sample variant k (CTAs a sample, a cluster), a CTA's shared memory,
+    chunks = k and the pixels a CTA."""
+    variant: str  # "cluster", "resident", "split", "sample", "streaming"
     group: int = 0
     k: int = 0
     cta_bytes: int = 0
@@ -144,6 +157,43 @@ def resident_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     return Plan("resident", group, 0, ppc * group * item, -(-hw // ppc), ppc)
 
 
+def _subs(c: int) -> int:
+    """Sub-stripes a warp of the sample variant holds: 32 // C groups of C
+    lanes for C <= 32, else one (csrc/instance_norm_sample.cu subs_of)."""
+    return 32 // c if c <= 32 else 1
+
+
+def sample_smem(ppc: int, c: int, item: int, backward: bool = False) -> int:
+    """A sample variant CTA's shared memory for ``ppc`` pixels of C
+    channels of ``item`` bytes (csrc/instance_norm_sample.cu forward_smem,
+    backward_smem): the run of x (and of dy) with 16 bytes to align it,
+    then fp32 per-warp partials and per-channel sums."""
+    def r16(b):
+        return -(-b // 16) * 16
+    run = r16(ppc * c * item) + 16
+    if backward:
+        return r16(2 * run + 4 * (2 * SAMPLE_WARPS * c + 6 * c))
+    return r16(run + 4 * (SAMPLE_WARPS * c + 4 * c))
+
+
+def sample_plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
+                backward: bool = False) -> Optional[Plan]:
+    """The sample variant: a whole sample in the shared memory of the least
+    k of ``CLUSTER_SIZES`` CTAs (a cluster) whose ``ceil(H*W / k)`` pixels
+    of x (the backward pass: of x and dy) fit ``CTA_BYTES`` each; or None.
+    It takes any C and any element-aligned pointer."""
+    item = dtype.itemsize
+    hw = h * w
+    if hw == 0 or c == 0:
+        return None
+    for k in CLUSTER_SIZES:
+        ppc = -(-hw // k)
+        smem = sample_smem(ppc, c, item, backward)
+        if smem <= CTA_BYTES and n * k <= _MAX_GRID:
+            return Plan("sample", 0, k, smem, k, ppc)
+    return None
+
+
 def plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
          aligned: bool, sms: int = SMS) -> Plan:
     """C times the item size a multiple of 16 bytes and an aligned data
@@ -156,8 +206,9 @@ def plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     smaller G is tried for the cluster variant: at the quarter-resolution
     planes of a full frame, where one fits (G 8 at bf16, 4 at fp32, half of
     each 32-byte sector read), the resident variant is the faster
-    (``chip_smoke.py`` times both; ``PERF.md``). Otherwise the streaming
-    variant."""
+    (``chip_smoke.py`` times both; ``PERF.md``). Otherwise the sample
+    variant where a sample fits 8 CTAs (:func:`sample_plan`), else the
+    streaming variant."""
     if dtype not in _DTYPES:
         raise TypeError(f"instance_norm_act: dtype {dtype} not supported "
                         "(float32 or bfloat16)")
@@ -168,7 +219,7 @@ def plan(n: int, h: int, w: int, c: int, dtype: torch.dtype,
             or split_plan(n, h, w, c, dtype)
         if p is not None:
             return p
-    return Plan("streaming")
+    return sample_plan(n, h, w, c, dtype) or Plan("streaming")
 
 
 def _sms_of(x: torch.Tensor) -> int:
@@ -194,9 +245,10 @@ def plan_backward(n: int, h: int, w: int, c: int, dtype: torch.dtype,
     ``GROUPS`` that takes C in whole 16-byte vectors and lets the unit fit
     8 CTAs, then the least k of ``CLUSTER_SIZES``; so the 80x80 sites of a
     training step take G = 32 at bf16 and G = 16 at fp32, both k = 8. Else
-    the streaming variant: C times the item size not a multiple of 16
-    bytes, a pointer of x or dy not 16-byte aligned (``aligned`` False), or
-    a unit of even the least G larger than 8 CTAs' slices."""
+    (C times the item size not a multiple of 16 bytes, a pointer of x or dy
+    not 16-byte aligned (``aligned`` False), or a unit of even the least G
+    larger than 8 CTAs' slices) the sample variant where a sample's x and
+    dy fit 8 CTAs (:func:`sample_plan`), else the streaming variant."""
     if dtype not in _DTYPES:
         raise TypeError(f"instance_norm_act_backward: dtype {dtype} not "
                         "supported (float32 or bfloat16)")
@@ -210,7 +262,8 @@ def plan_backward(n: int, h: int, w: int, c: int, dtype: torch.dtype,
                 if cta_bytes <= CTA_BYTES and \
                         n * (c // group) * k <= _MAX_GRID:
                     return Plan("cluster", group, k, cta_bytes)
-    return Plan("streaming")
+    return sample_plan(n, h, w, c, dtype, backward=True) or \
+        Plan("streaming")
 
 
 def plan_backward_for(x: torch.Tensor, dy: torch.Tensor) -> Plan:
@@ -298,7 +351,8 @@ def _forward_kernel(x: torch.Tensor, act: Optional[str], slope: float,
     variant = plan_for(x).variant if x.numel() else "streaming"
     fn = {"cluster": instance_norm_act_cluster,
           "resident": instance_norm_act_resident,
-          "split": instance_norm_act_split}.get(
+          "split": instance_norm_act_split,
+          "sample": instance_norm_act_sample}.get(
               variant, instance_norm_act_streaming)
     return fn(x, act, slope, eps, stats)
 
@@ -374,6 +428,92 @@ def instance_norm_act_streaming(x: torch.Tensor, act: Optional[str] = None,
         ACTS[act], slope, eps, x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_streaming")
     _build.count_launch(instance_norm_act_streaming, x)
+    return (y, *st) if stats else y
+
+
+def _stripe_sums(v: torch.Tensor, p: Plan) -> torch.Tensor:
+    """Per (sample, channel) sums of v (N, H*W, C) fp32 in the sample
+    variant's order: each CTA's ``p.ppc`` pixels cut into S = 8 warps x
+    ``_subs(C)`` stripes (stripe s = warp * subs + sub: pixels s, s + S,
+    ...), each stripe summed, a warp's sub-stripes added in order, then the
+    8 warps in order, then the CTAs' sums in rank order. -> (N, C)."""
+    n, hw, c = v.shape
+    k, ppc, subs = p.k, p.ppc, _subs(c)
+    stripes = SAMPLE_WARPS * subs
+    rows = -(-ppc // stripes)
+    buf = v.new_zeros((n, k, rows * stripes, c))
+    for r in range(k):
+        lo = min(hw, r * ppc)
+        hi = min(hw, lo + ppc)
+        buf[:, r, :hi - lo] = v[:, lo:hi]
+    part = buf.view(n, k, rows, SAMPLE_WARPS, subs, c).sum(dim=2)
+    warps = part[:, :, :, 0]                 # (n, k, warps, c)
+    for j in range(1, subs):
+        warps = warps + part[:, :, :, j]
+    ctas = warps[:, :, 0]                    # (n, k, c)
+    for w in range(1, SAMPLE_WARPS):
+        ctas = ctas + warps[:, :, w]
+    tot = ctas[:, 0]
+    for r in range(1, k):
+        tot = tot + ctas[:, r]
+    return tot
+
+
+def _sample_forward_plain(x: torch.Tensor, act: Optional[str], slope: float,
+                          eps: float, p: Plan):
+    """The sample variant's arithmetic in plain PyTorch: the fp32 mean and
+    sum of squared deviations by :func:`_stripe_sums` at the plan's
+    CTAs, rstd = 1 / sqrt(var + eps) -> (y, mean, rstd) as
+    :func:`_plain_forward`."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    n, h, w, c = x.shape
+    hw = h * w
+    x32 = x.float().reshape(n, hw, c)
+    mean = _stripe_sums(x32, p) / hw
+    var = _stripe_sums(torch.square(x32 - mean[:, None]), p) / hw
+    rstd = 1.0 / torch.sqrt(var + eps)
+    y = _activate((x32 - mean[:, None]) * rstd[:, None], act, slope)
+    return y.reshape(x.shape).to(x.dtype), mean, rstd
+
+
+def _cpu_sample_plan(x: torch.Tensor, p: Optional[Plan],
+                     backward: bool = False) -> Plan:
+    """The plan a CPU tensor's sample wrapper repeats: ``p``, else
+    :func:`sample_plan`'s, else one CTA a sample."""
+    n, h, w, c = x.shape
+    return p or sample_plan(n, h, w, c, x.dtype, backward) \
+        or Plan("sample", k=1, chunks=1, ppc=max(1, h * w))
+
+
+def instance_norm_act_sample(x: torch.Tensor, act: Optional[str] = None,
+                             slope: float = 0.2, eps: float = 1e-5,
+                             stats: bool = False, p: Optional[Plan] = None):
+    """The sample variant (counted in ``.launches``), at the plan ``p``
+    (:func:`sample_plan`) or :func:`plan`'s; raises for a CUDA tensor that
+    :func:`plan` gives to another variant, and (from the kernel's entry)
+    for a plan whose CTAs cannot hold their pixels. CPU: its arithmetic in
+    plain PyTorch (:func:`_sample_forward_plain`). With ``stats`` -> (y,
+    mean, rstd), else y."""
+    if not _cuda_input(x, act):
+        out = _sample_forward_plain(x, act, slope, eps,
+                                    _cpu_sample_plan(x, p))
+        return out if stats else out[0]
+    y = torch.empty_like(x)
+    st, mp, rp = _stats_out(x, stats)
+    if x.numel() == 0:
+        return (y, *st) if stats else y
+    p = plan_for(x) if p is None else p
+    if p.variant != "sample":
+        raise ValueError(f"instance_norm_act_sample does not take "
+                         f"{tuple(x.shape)} {x.dtype} (plan {p})")
+    n, h, w, c = x.shape
+    rc = _build.library().ptt_instance_norm_act_sample(
+        x.data_ptr(), y.data_ptr(), mp, rp, n, h * w, c, p.k,
+        _DTYPES[x.dtype], ACTS[act], slope, eps, x.device.index,
+        _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_sample")
+    _build.count_launch(instance_norm_act_sample, x)
     return (y, *st) if stats else y
 
 
@@ -508,18 +648,40 @@ def instance_norm_act_split(x: torch.Tensor, act: Optional[str] = None,
     return (y, mean, rstd) if stats else y
 
 
+def pixel_strides(t: torch.Tensor) -> Optional[Tuple[int, int]]:
+    """(pixel stride, sample stride) in elements of an (N, H, W, C) tensor
+    whose pixels are rows of C contiguous elements at one pixel stride, as
+    NHWC-contiguous memory or a channel slice of a wider NHWC tensor (the
+    gather's gradient under tensor parallelism) has them; else None."""
+    n, h, w, c = t.shape
+    sn, sh, sw, sc = t.stride()
+    if c > 1 and sc != 1:
+        return None
+    ps = sw if w > 1 else (sh if h > 1 else c)
+    if ps < c or (h > 1 and sh != w * ps):
+        return None
+    return ps, (sn if n > 1 else h * w * ps)
+
+
 def _backward_input(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
-                    rstd: torch.Tensor, act: Optional[str]) -> bool:
+                    rstd: torch.Tensor, act: Optional[str],
+                    strided: bool = False) -> bool:
     """:func:`_cuda_input` for the backward pass, which also checks dy
-    and the statistics of a CUDA x."""
+    (NHWC-contiguous, or with ``strided`` rows of C elements at a pixel
+    stride: :func:`pixel_strides`) and the statistics of a CUDA x."""
     if not _cuda_input(x, act):
         return False
     n, h, w, c = x.shape
+    layout = pixel_strides(dy) is not None if strided and dy.dim() == 4 \
+        else dy.is_contiguous()
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
-            or not dy.is_contiguous():
+            or not layout:
         raise ValueError(f"instance_norm_act_backward: dy {tuple(dy.shape)} "
                          f"{dy.dtype} must match x {tuple(x.shape)} "
-                         f"{x.dtype}, NHWC-contiguous on {x.device}")
+                         f"{x.dtype}, "
+                         + ("rows of C elements at a pixel stride"
+                            if strided else "NHWC-contiguous")
+                         + f" on {x.device}")
     for t in (mean, rstd):
         if t.shape != (n, c) or t.dtype != torch.float32 \
                 or t.device != x.device or not t.is_contiguous():
@@ -535,13 +697,16 @@ def instance_norm_act_backward(x: torch.Tensor, dy: torch.Tensor,
     """dx of InstanceNorm(+activation) from the forward pass's input, the
     output gradient and the (N, C) fp32 statistics. CUDA: one launch of the
     variant that :func:`plan_backward` picks; dx in x's type,
-    NHWC-contiguous. CPU: the plain version."""
-    if not _backward_input(x, dy, mean, rstd, act):
+    NHWC-contiguous; dy NHWC-contiguous, or read through its pixel stride
+    where the plan gives the sample variant (the others raise for it). CPU:
+    the plain version."""
+    if not _backward_input(x, dy, mean, rstd, act, strided=True):
         return instance_norm_act_backward_plain(x, dy, mean, rstd, act, slope)
-    if x.numel() and plan_backward_for(x, dy).variant == "cluster":
-        return instance_norm_act_backward_cluster(x, dy, mean, rstd, act,
-                                                  slope)
-    return instance_norm_act_backward_streaming(x, dy, mean, rstd, act, slope)
+    variant = plan_backward_for(x, dy).variant if x.numel() else "streaming"
+    fn = {"cluster": instance_norm_act_backward_cluster,
+          "sample": instance_norm_act_backward_sample}.get(
+              variant, instance_norm_act_backward_streaming)
+    return fn(x, dy, mean, rstd, act, slope)
 
 
 def instance_norm_act_backward_cluster(x: torch.Tensor, dy: torch.Tensor,
@@ -570,6 +735,65 @@ def instance_norm_act_backward_cluster(x: torch.Tensor, dy: torch.Tensor,
         ACTS[act], slope, x.device.index, _build.stream_of(x))
     _build.check(rc, "instance_norm_act_backward_cluster")
     _build.count_launch(instance_norm_act_backward_cluster, x)
+    return dx
+
+
+def _sample_backward_plain(x: torch.Tensor, dy: torch.Tensor,
+                           mean: torch.Tensor, rstd: torch.Tensor,
+                           act: Optional[str], slope: float,
+                           p: Plan) -> torch.Tensor:
+    """The backward sample variant's arithmetic in plain PyTorch: the sums
+    of g and g * x^ by :func:`_stripe_sums` at the plan's CTAs, then dx
+    as :func:`instance_norm_act_backward_plain`."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    n, h, w, c = x.shape
+    hw = h * w
+    m, r = mean[:, None, :], rstd[:, None, :]
+    xh = (x.float().reshape(n, hw, c) - m) * r
+    g = dy.float().reshape(n, hw, c)
+    if act == "leaky_relu":
+        g = torch.where(xh >= 0, g, g * slope)
+    elif act == "relu":
+        g = torch.where(xh > 0, g, torch.zeros_like(g))
+    mg = _stripe_sums(g, p) / hw
+    mgx = _stripe_sums(g * xh, p) / hw
+    dx = r * (g - mg[:, None] - xh * mgx[:, None])
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+def instance_norm_act_backward_sample(x: torch.Tensor, dy: torch.Tensor,
+                                      mean: torch.Tensor, rstd: torch.Tensor,
+                                      act: Optional[str] = None,
+                                      slope: float = 0.2,
+                                      p: Optional[Plan] = None
+                                      ) -> torch.Tensor:
+    """The backward sample variant (counted in ``.launches``), at the plan
+    ``p`` (:func:`sample_plan` with ``backward``) or
+    :func:`plan_backward`'s; dy NHWC-contiguous or rows of C elements at a
+    pixel stride (:func:`pixel_strides`), read as they lie. Raises for a
+    CUDA tensor that :func:`plan_backward` gives to another variant, and
+    (from the kernel's entry) for a plan whose CTAs cannot hold their
+    pixels. CPU: its arithmetic in plain PyTorch
+    (:func:`_sample_backward_plain`)."""
+    if not _backward_input(x, dy, mean, rstd, act, strided=True):
+        return _sample_backward_plain(x, dy, mean, rstd, act, slope,
+                                      _cpu_sample_plan(x, p, True))
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    p = plan_backward_for(x, dy) if p is None else p
+    if p.variant != "sample":
+        raise ValueError(f"instance_norm_act_backward_sample does not take "
+                         f"{tuple(x.shape)} {x.dtype} (plan {p})")
+    n, h, w, c = x.shape
+    ps, ns = pixel_strides(dy)
+    rc = _build.library().ptt_instance_norm_act_backward_sample(
+        x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        dx.data_ptr(), n, h * w, c, ps, ns, p.k, _DTYPES[x.dtype], ACTS[act],
+        slope, x.device.index, _build.stream_of(x))
+    _build.check(rc, "instance_norm_act_backward_sample")
+    _build.count_launch(instance_norm_act_backward_sample, x)
     return dx
 
 
@@ -603,20 +827,26 @@ instance_norm_act_resident.launches = 0
 instance_norm_act_resident.by_device = {}
 instance_norm_act_streaming.launches = 0
 instance_norm_act_streaming.by_device = {}
+instance_norm_act_sample.launches = 0
+instance_norm_act_sample.by_device = {}
 instance_norm_act_backward_cluster.launches = 0
 instance_norm_act_backward_cluster.by_device = {}
 instance_norm_act_backward_streaming.launches = 0
 instance_norm_act_backward_streaming.by_device = {}
+instance_norm_act_backward_sample.launches = 0
+instance_norm_act_backward_sample.by_device = {}
 
 
 class InstanceNormAct(torch.autograd.Function):
     """B1 under autograd. Forward: the variant :func:`plan` picks, writing
     the fp32 mean and rstd as well (CPU: the plain version). Backward:
     :func:`instance_norm_act_backward`, the variant :func:`plan_backward`
-    picks (CPU: its plain version), on dy made NHWC-contiguous in x's type
-    first; ``dy_copies`` counts the backward passes whose dy needed that
-    copy (under tensor parallelism the gather's backward hands B1 a
-    strided channel slice of the gathered gradient)."""
+    picks (CPU: its plain version). Under tensor parallelism the gather's
+    backward hands B1 a strided channel slice of the gathered gradient:
+    where the plan gives it to the sample variant, which reads dy through
+    its pixel stride, dy goes as it is; otherwise dy is made
+    NHWC-contiguous in x's type first, and ``dy_copies`` counts the
+    backward passes that needed that copy."""
 
     dy_copies = 0
 
@@ -633,11 +863,21 @@ class InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, mean, rstd = ctx.saved_tensors
-        if dy.dtype != x.dtype or not dy.is_contiguous():
+        if dy.dtype != x.dtype or not (dy.is_contiguous()
+                                       or _reads_strided(x, dy)):
             InstanceNormAct.dy_copies += 1
-        dx = instance_norm_act_backward(x, dy.to(x.dtype).contiguous(), mean,
-                                        rstd, ctx.act, ctx.slope)
+            dy = dy.to(x.dtype).contiguous()
+        dx = instance_norm_act_backward(x, dy, mean, rstd, ctx.act,
+                                        ctx.slope)
         return dx, None, None, None
+
+
+def _reads_strided(x: torch.Tensor, dy: torch.Tensor) -> bool:
+    """True where the backward pass takes this strided dy as it lies: rows
+    of C elements at a pixel stride that :func:`plan_backward` gives to the
+    sample variant."""
+    return x.numel() > 0 and pixel_strides(dy) is not None and \
+        plan_backward_for(x, dy).variant == "sample"
 
 
 def instance_norm_act_autograd(x: torch.Tensor, act: Optional[str] = None,

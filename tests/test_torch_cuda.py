@@ -37,20 +37,27 @@ from patch_toon_tpu_torch import _build  # noqa: E402
 from patch_toon_tpu_torch.ops.instance_norm import (  # noqa: E402
     CTA_BYTES,
     RESIDENT_CTA_BYTES,
+    InstanceNormAct,
     Plan,
+    _sample_backward_plain,
+    _sample_forward_plain,
     instance_norm_act,
     instance_norm_act_backward,
     instance_norm_act_backward_cluster,
     instance_norm_act_backward_plain,
+    instance_norm_act_backward_sample,
     instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
     instance_norm_act_resident,
+    instance_norm_act_sample,
     instance_norm_act_split,
     instance_norm_act_streaming,
     plan_backward_for,
     plan_for,
     resident_plan,
+    sample_plan,
+    sample_smem,
     split_plan,
 )
 
@@ -173,8 +180,9 @@ def test_instance_norm_cluster_variant_at_odd_sizes(cuda, dtype, shape, k):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_instance_norm_streaming_dispatch(cuda, dtype):
     """What the cluster variant does not take goes to the split variant (a
-    full frame's plane) or, unaligned, to the streaming one; the cluster
-    wrapper refuses both."""
+    full frame's plane), to the sample variant (unaligned, or C = 12 at
+    bf16, where a sample fits 8 CTAs) or to the streaming one (unaligned
+    beyond 8 CTAs); the cluster wrapper refuses them all."""
     full = _randn((1, 540, 960, 128), dtype, cuda, seed=3)  # a full frame
     assert plan_for(full).variant == "split"
     before = instance_norm_act_split.launches
@@ -187,13 +195,18 @@ def test_instance_norm_streaming_dispatch(cuda, dtype):
     base = _randn((2 * 20 * 20 * 32 + 1,), dtype, cuda, seed=4)
     misaligned = base[1:].view(2, 20, 20, 32)
     odd = _randn((2, 20, 20, 12), dtype, cuda, seed=5)  # C = 12
-    cases = [misaligned] + ([odd] if dtype == torch.bfloat16 else [])
-    for x in cases:
-        assert plan_for(x).variant == "streaming", tuple(x.shape)
-        before = instance_norm_act_streaming.launches
+    big = _randn((540 * 960 * 128 + 1,), dtype, cuda, seed=6)[1:].view(
+        1, 540, 960, 128)
+    cases = [(misaligned, "sample"), (big, "streaming")] + (
+        [(odd, "sample")] if dtype == torch.bfloat16 else [])
+    for x, variant in cases:
+        assert plan_for(x).variant == variant, tuple(x.shape)
+        fn = {"sample": instance_norm_act_sample,
+              "streaming": instance_norm_act_streaming}[variant]
+        before = fn.launches
         got = instance_norm_act(x, "relu")
         torch.cuda.synchronize()
-        assert instance_norm_act_streaming.launches == before + 1
+        assert fn.launches == before + 1
         _assert_in_close(got, instance_norm_act_plain(x, "relu"), dtype)
         with pytest.raises(ValueError):
             instance_norm_act_cluster(x, "relu")
@@ -512,7 +525,8 @@ def _stats(x):
 
 
 BACKWARD = {"cluster": instance_norm_act_backward_cluster,
-            "streaming": instance_norm_act_backward_streaming}
+            "streaming": instance_norm_act_backward_streaming,
+            "sample": instance_norm_act_backward_sample}
 
 
 def _check_backward(x, dy, act, variant):
@@ -578,22 +592,23 @@ def test_instance_norm_backward_cluster_sizes_one_to_eight(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_instance_norm_backward_streaming_dispatch(cuda, dtype):
-    """What the backward cluster variant does not take (a full-frame plane,
-    a misaligned x or dy, C = 12 at bf16) goes to the streaming variant,
-    and the cluster wrapper refuses it."""
+    """What the backward cluster variant does not take goes to the sample
+    variant where a sample's x and dy fit 8 CTAs (a misaligned x or dy,
+    C = 12 at bf16) and to the streaming variant where not (a full-frame
+    plane); the cluster wrapper refuses both."""
     full = (1, 540, 960, 128)
     base = _randn((2 * 20 * 20 * 32 + 1,), dtype, cuda, seed=11)
     aligned = _randn((2, 20, 20, 32), dtype, cuda, seed=12)
     misaligned = base[1:].view(2, 20, 20, 32)
     cases = [(_randn(full, dtype, cuda, seed=13),
-              _randn(full, dtype, cuda, seed=14)),
-             (misaligned, aligned), (aligned, misaligned)]
+              _randn(full, dtype, cuda, seed=14), "streaming"),
+             (misaligned, aligned, "sample"), (aligned, misaligned, "sample")]
     if dtype == torch.bfloat16:
         odd = (2, 20, 20, 12)
         cases.append((_randn(odd, dtype, cuda, seed=15),
-                      _randn(odd, dtype, cuda, seed=16)))
-    for x, dy in cases:
-        assert plan_backward_for(x, dy).variant == "streaming", x.shape
+                      _randn(odd, dtype, cuda, seed=16), "sample"))
+    for x, dy, variant in cases:
+        assert plan_backward_for(x, dy).variant == variant, x.shape
         _check_backward(x, dy, "relu", None)
         mean, rstd = _stats(x)
         with pytest.raises(ValueError):
@@ -658,10 +673,222 @@ def test_instance_norm_function_launches_both_kernels(cuda):
     torch.cuda.synchronize()
     assert instance_norm_act_cluster.launches == f0 + 1
     assert {k: f.launches for k, f in BACKWARD.items()} == {
-        "cluster": b0["cluster"] + 1, "streaming": b0["streaming"]}
+        **b0, "cluster": b0["cluster"] + 1}
     mean, rstd = _stats(x)
     torch.testing.assert_close(dx, instance_norm_act_backward_plain(
         x, dy, mean, rstd, "leaky_relu"), rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------ B1's sample variant
+
+# the discriminator's B1 slices under tensor parallelism whose rows are not
+# whole 16-byte vectors (tests/test_torch_kernels.py D_SLICES)
+D_SLICES = [(torch.bfloat16, (80, 20, 20, 12)),
+            (torch.bfloat16, (80, 20, 20, 6)),
+            (torch.bfloat16, (80, 19, 19, 12)),
+            (torch.float32, (80, 20, 20, 6))]
+
+
+def _check_sample(x, act, p=None):
+    """One launch of the sample variant (through the dispatching wrapper
+    when ``p`` is None) with its statistics, counted once, against the
+    plain version (the kernels' tolerance) and its own plain arithmetic at
+    the same plan, statistics within 1e-5, two calls bitwise equal."""
+    fn = instance_norm_act if p is None else instance_norm_act_sample
+    kw = {} if p is None else {"p": p}
+    q = p or plan_for(x)
+    assert q.variant == "sample"
+    before = instance_norm_act_sample.launches
+    if p is None:
+        y = fn(x, act)
+        _, mean, rstd = instance_norm_act_sample(x, act, stats=True)
+        count = 2
+    else:
+        y, mean, rstd = fn(x, act, stats=True, **kw)
+        count = 1
+    torch.cuda.synchronize()
+    assert instance_norm_act_sample.launches == before + count
+    _assert_in_close(y, instance_norm_act_plain(x, act), x.dtype)
+    want, pmean, prstd = _sample_forward_plain(x, act, 0.2, 1e-5, q)
+    _assert_in_close(y, want, x.dtype)
+    torch.testing.assert_close(mean, pmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, prstd, rtol=1e-5, atol=1e-5)
+    assert torch.equal(y, fn(x, act, **kw))
+
+
+def _check_sample_backward(x, dy, act, p=None):
+    """One launch of the backward sample variant (through the dispatching
+    wrapper when ``p`` is None), counted once, against the plain backward
+    and its own plain arithmetic (fp32 2e-5, bf16 one ulp), bitwise
+    repeatable; dy may be a channel slice of a wider gradient."""
+    mean, rstd = _stats(x)
+    fn = instance_norm_act_backward if p is None else \
+        instance_norm_act_backward_sample
+    kw = {} if p is None else {"p": p}
+    q = p or plan_backward_for(x, dy)
+    assert q.variant == "sample"
+    before = {k: f.launches for k, f in BACKWARD.items()}
+    got = fn(x, dy, mean, rstd, act, **kw)
+    torch.cuda.synchronize()
+    after = {k: f.launches for k, f in BACKWARD.items()}
+    assert after == {**before, "sample": before["sample"] + 1}
+    assert got.dtype == x.dtype and got.is_contiguous()
+    for want in (instance_norm_act_backward_plain(x, dy, mean, rstd, act),
+                 _sample_backward_plain(x, dy, mean, rstd, act, 0.2, q)):
+        if x.dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        else:
+            _assert_bf16_close(got.float().cpu().numpy(),
+                               want.float().cpu().numpy())
+    assert torch.equal(got, fn(x, dy, mean, rstd, act, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype,shape", D_SLICES)
+def test_instance_norm_sample_variant_at_every_d_slice(cuda, act, dtype,
+                                                       shape):
+    """Forward and backward at every slice shape of D's sites that the
+    plan gives the sample variant, dy a rank's channel slice of the
+    gathered gradient (rank 1 of 2: offset C, pixel stride 2C)."""
+    x = _randn(shape, dtype, cuda, seed=30)
+    _check_sample(x, act)
+    wide = _randn(shape[:3] + (2 * shape[3],), dtype, cuda, seed=31)
+    dy = wide[..., shape[3]:]
+    _check_sample_backward(x, dy, act)
+    _check_sample_backward(x, dy.contiguous(), act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 17, 7), (3, 19, 19, 1),
+                                   (1, 5, 3, 3), (2, 11, 19, 301),
+                                   (1, 120, 130, 13)])
+def test_instance_norm_sample_variant_at_odd_sizes_and_cluster_sizes(
+        cuda, dtype, shape):
+    """Odd C (1 to 301: more channels than threads), ragged planes, at the
+    plan's k (the last shape needs 4 CTAs a sample at bf16, 8 at fp32) and
+    forced to clusters of 1, 2, 4 and 8 CTAs where they hold the sample
+    (more CTAs than pixels at the third shape), forward and backward; the
+    last shape's x and dy at fp32 fit no 8 CTAs, so its backward goes to
+    the streaming variant."""
+    n, h, w, c = shape
+    x = _randn(shape, dtype, cuda, seed=32)
+    dy = _randn(shape, dtype, cuda, seed=33)
+    own, ownb = plan_for(x), plan_backward_for(x, dy)
+    if shape == (1, 120, 130, 13):
+        assert own.k == (4 if dtype == torch.bfloat16 else 8)
+    ks = set()
+    for k in (1, 2, 4, 8):
+        ppc = -(-h * w // k)
+        item = dtype.itemsize
+        if sample_smem(ppc, c, item) <= CTA_BYTES:
+            _check_sample(x, "leaky_relu", Plan("sample", 0, k, 0, k, ppc))
+            ks.add(k)
+        if sample_smem(ppc, c, item, True) <= CTA_BYTES:
+            _check_sample_backward(x, dy, "relu",
+                                   Plan("sample", 0, k, 0, k, ppc))
+    assert own.k in ks
+    _check_sample(x, None)
+    if ownb.variant == "sample":
+        _check_sample_backward(x, dy, "leaky_relu")
+    else:
+        assert ownb.variant == "streaming" and shape[1] == 120
+        assert sample_plan(*shape, dtype, backward=True) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset_bytes", [2, 4, 8])
+def test_instance_norm_sample_variant_at_unaligned_pointers(
+        cuda, dtype, offset_bytes):
+    """x, dy and a strided dy that start 2 (bf16 only), 4 or 8 bytes past
+    a 16-byte boundary: the run's ends are copied element by element, its
+    inside by 16-byte copies; dy's rows at the widest copy their address
+    and strides allow."""
+    item = dtype.itemsize
+    if offset_bytes < item:
+        pytest.skip("an fp32 tensor is 4-byte aligned")
+    off = offset_bytes // item
+    for shape in ((3, 20, 20, 6), (2, 19, 19, 12), (2, 9, 7, 32)):
+        n, h, w, c = shape
+        size = n * h * w * c
+        x = _randn((size + off,), dtype, cuda, seed=34)[off:].view(shape)
+        assert x.data_ptr() % 16 == offset_bytes
+        dy = _randn((size + off,), dtype, cuda, seed=35)[off:].view(shape)
+        _check_sample(x, "relu")
+        _check_sample_backward(x, dy, "leaky_relu")
+        wide = _randn((n * h * w * 3 * c + off,), dtype, cuda, seed=36)[
+            off:].view(n, h, w, 3 * c)
+        _check_sample_backward(x, wide[..., c:2 * c], None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_norm_function_reads_a_strided_dy_on_the_card(cuda, dtype):
+    """``InstanceNormAct`` on a D slice: one sample launch forward, one
+    backward on the strided dy as it lies (no copy counted), dx bitwise
+    the one from the same dy made contiguous; a G slice (16 channels) still
+    copies dy for the cluster variant."""
+    for shape, sample in (((8, 20, 20, 6), True), ((8, 20, 20, 16), False)):
+        x = _randn(shape, dtype, cuda, seed=37)
+        wide = _randn(shape[:3] + (4 * shape[3],), dtype, cuda, seed=38)
+        dy = wide[..., shape[3]:2 * shape[3]]
+        dxs = []
+        for g in (dy, dy.contiguous()):
+            xg = x.clone().requires_grad_(True)
+            f0 = {k: f.launches for k, f in
+                  (("sample", instance_norm_act_sample),
+                   ("cluster", instance_norm_act_cluster))}
+            b0 = {k: f.launches for k, f in BACKWARD.items()}
+            copies = InstanceNormAct.dy_copies
+            y = InstanceNormAct.apply(xg, "leaky_relu", 0.2, 1e-5)
+            (dx,) = torch.autograd.grad(y, xg, g)
+            torch.cuda.synchronize()
+            v = "sample" if sample else "cluster"
+            fn = instance_norm_act_sample if sample else \
+                instance_norm_act_cluster
+            assert fn.launches == f0[v] + 1
+            assert {k: f.launches for k, f in BACKWARD.items()} == {
+                **b0, v: b0[v] + 1}
+            assert InstanceNormAct.dy_copies - copies == (
+                g is dy and not sample)
+            dxs.append(dx)
+        assert torch.equal(dxs[0], dxs[1])
+
+
+@pytest.mark.cuda
+def test_instance_norm_sample_variant_refuses_what_it_cannot_hold(cuda):
+    """A plan whose CTAs cannot hold their share of the sample (one CTA for
+    a sample that needs 4), a cluster size the kernel does not take, and a
+    shape the plan gives another variant: the entry returns an error code
+    and nothing launches."""
+    x = _randn((1, 120, 130, 13), torch.bfloat16, cuda, seed=39)
+    dy = _randn(x.shape, torch.bfloat16, cuda, seed=40)
+    mean, rstd = _stats(x)
+    f0 = instance_norm_act_sample.launches
+    b0 = instance_norm_act_backward_sample.launches
+    for k in (1, 3):
+        p = Plan("sample", 0, k, 0, k, -(-120 * 130 // k))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            instance_norm_act_sample(x, None, p=p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            instance_norm_act_backward_sample(x, dy, mean, rstd, None, p=p)
+    assert instance_norm_act_sample.launches == f0
+    assert instance_norm_act_backward_sample.launches == b0
+    aligned = _randn((2, 20, 20, 32), torch.float32, cuda, seed=41)
+    m2, r2 = _stats(aligned)
+    with pytest.raises(ValueError):  # the plan gives it the cluster variant
+        instance_norm_act_sample(aligned, None)
+    with pytest.raises(ValueError):
+        instance_norm_act_backward_sample(aligned, aligned, m2, r2, None)
+    full = _randn((1, 540, 960, 6), torch.float32, cuda, seed=42)
+    assert plan_for(full).variant == "streaming"
+    assert sample_plan(1, 540, 960, 6, torch.float32) is None
+    with pytest.raises(ValueError):
+        instance_norm_act_sample(full, None)
+    assert _build.library().ptt_instance_norm_sample_smem(
+        400, 12, 2, 1) == sample_smem(400, 12, 2, True)
 
 
 @pytest.mark.cuda
@@ -713,7 +940,7 @@ def test_generator_backward_on_cuda_matches_the_cpu(cuda):
         # stem, 2 downsamples, 2 blocks x 2, 2 upsamples: 9 sites, all in
         # the cluster variant
         assert {k: f.launches for k, f in BACKWARD.items()} == {
-            "cluster": b0["cluster"] + 9, "streaming": b0["streaming"]}
+            **b0, "cluster": b0["cluster"] + 9}
         ref = {tag: grads(copy.deepcopy(cpu).double(), "cpu",
                           Kinks(replay=k.masks), torch.float64)
                for tag, k in kinks.items()}

@@ -41,22 +41,30 @@ from patch_toon_tpu_torch.ops.instance_norm import (
     SMS,
     SPLIT_CTAS,
     Plan,
+    InstanceNormAct,
     _plain_forward,
     _resident_forward_plain,
+    _sample_backward_plain,
+    _sample_forward_plain,
     _split_forward_plain,
     instance_norm_act,
     instance_norm_act_backward,
     instance_norm_act_backward_cluster,
     instance_norm_act_backward_plain,
+    instance_norm_act_backward_sample,
     instance_norm_act_backward_streaming,
     instance_norm_act_cluster,
     instance_norm_act_plain,
     instance_norm_act_resident,
+    instance_norm_act_sample,
     instance_norm_act_split,
     instance_norm_act_streaming,
+    pixel_strides,
     plan,
     plan_backward,
     resident_plan,
+    sample_plan,
+    sample_smem,
     split_plan,
 )
 
@@ -164,21 +172,39 @@ def test_instance_norm_plan_gives_the_streaming_variant_what_clusters_cannot_tak
         dtype):
     # a full-frame plane (A8): 540x960 pixels of a 32-channel unit need more
     # than 8 CTAs' slices, and at 16 channels too; it goes to the split
-    # variant since it was added, and the streaming variant keeps only what
-    # neither takes
+    # variant since it was added
     assert plan(1, 540, 960, 128, dtype, True).variant == "split"
-    # a pointer that is not 16-byte aligned
-    assert plan(2, 20, 20, 128, dtype, False).variant == "streaming"
+    # a pointer that is not 16-byte aligned: a whole sample in one CTA
+    # (100 KB of bf16), two at fp32
+    item = dtype.itemsize
+    k = 1 if item == 2 else 2
+    assert plan(2, 20, 20, 128, dtype, False) == Plan(
+        "sample", 0, k, sample_smem(400 // k, 128, item), k, 400 // k)
     # C = 12: 24 bytes a pixel in bf16, not whole 16-byte vectors; in fp32
     # 48 bytes, taken in units of G = 4 channels
     p = plan(2, 20, 20, 12, dtype, True)
     if dtype == torch.bfloat16:
-        assert p.variant == "streaming"
+        assert p == Plan("sample", 0, 1, sample_smem(400, 12, 2), 1, 400)
     else:
         assert p == Plan("cluster", 4, 1, 400 * 16)
-    assert plan(2, 20, 20, 7, dtype, True).variant == "streaming"
+    assert plan(2, 20, 20, 7, dtype, True).variant == "sample"
+    # the streaming variant keeps such rows in a sample beyond 8 CTAs
+    assert plan(1, 540, 960, 6, dtype, True).variant == "streaming"
+    assert plan(1, 540, 960, 128, dtype, False).variant == "streaming"
     with pytest.raises(TypeError):
         plan(2, 20, 20, 32, torch.float16, True)
+
+
+def _assert_least_sample_k(p, h, w, c, item, backward):
+    """A sample plan: the least k of ``CLUSTER_SIZES`` whose CTAs, each
+    with ceil(H*W / k) pixels, fit ``CTA_BYTES``."""
+    hw = h * w
+    assert p.k in CLUSTER_SIZES and p.chunks == p.k
+    assert p.ppc == -(-hw // p.k) and (p.k - 1) * p.ppc < hw or hw < p.k
+    assert p.cta_bytes == sample_smem(p.ppc, c, item, backward) <= CTA_BYTES
+    if p.k > 1:  # half as many CTAs would not hold the sample
+        assert sample_smem(-(-hw // (p.k // 2)), c, item,
+                           backward) > CTA_BYTES
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -187,8 +213,9 @@ def test_instance_norm_plan_stays_within_its_limits(dtype):
     the budget, G is the largest that takes C in whole 16-byte vectors; the
     resident variant takes a unit that no such cluster fits where its
     chunks fit the SMs' shared memory, the split variant the rest, both in
-    whole chunks; the streaming variant gets only what takes no whole
-    16-byte vectors."""
+    whole chunks; what takes no whole 16-byte vectors goes to the sample
+    variant (the least k whose CTAs hold the sample) where a sample fits 8
+    CTAs, else to the streaming variant."""
     item = dtype.itemsize
     for c in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
         whole = [g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0]
@@ -209,8 +236,12 @@ def test_instance_norm_plan_stays_within_its_limits(dtype):
                     assert 3 * (c // p.group) * p.chunks <= SMS
                 else:
                     assert resident_plan(3, h, w, c, dtype) is None
+            elif p.variant == "sample":
+                _assert_least_sample_k(p, h, w, c, item, False)
+                assert not whole
             else:
                 assert p == Plan("streaming") and not whole
+                assert sample_smem(-(-h * w // 8), c, item) > CTA_BYTES
 
 
 # the 19 InstanceNorm sites of a full-frame pass over a 512x910 frame
@@ -450,18 +481,23 @@ def test_instance_norm_plan_backward_takes_every_training_site_to_the_cluster(
 def test_instance_norm_plan_backward_gives_the_streaming_variant_what_clusters_cannot_take(
         dtype):
     # a full-frame plane (A8): even a unit of the least G needs more than 8
-    # CTAs' slices of x and dy
+    # CTAs' slices of x and dy, and the sample more than 8 CTAs
     assert plan_backward(1, 540, 960, 128, dtype, True) == Plan("streaming")
-    # a pointer of x or dy that is not 16-byte aligned
-    assert plan_backward(2, 20, 20, 128, dtype, False) == Plan("streaming")
+    # a pointer of x or dy that is not 16-byte aligned: the sample variant,
+    # x and dy of a sample in four CTAs (eight at fp32)
+    item = dtype.itemsize
+    p = plan_backward(2, 20, 20, 128, dtype, False)
+    assert p.variant == "sample" and p.k == (4 if item == 2 else 8)
+    _assert_least_sample_k(p, 20, 20, 128, item, True)
     # C = 12: 24 bytes a pixel in bf16, not whole 16-byte vectors; in fp32
     # 48 bytes, taken in units of G = 4 channels
     p = plan_backward(2, 20, 20, 12, dtype, True)
     if dtype == torch.bfloat16:
-        assert p == Plan("streaming")
+        assert p == Plan("sample", 0, 1, sample_smem(400, 12, 2, True), 1,
+                         400)
     else:
         assert p == Plan("cluster", 4, 1, 400 * 16 * 2)
-    assert plan_backward(2, 20, 20, 7, dtype, True) == Plan("streaming")
+    assert plan_backward(2, 20, 20, 7, dtype, True).variant == "sample"
     with pytest.raises(TypeError):
         plan_backward(2, 20, 20, 32, torch.float16, True)
 
@@ -469,8 +505,9 @@ def test_instance_norm_plan_backward_gives_the_streaming_variant_what_clusters_c
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_instance_norm_plan_backward_stays_within_its_limits(dtype):
     """k is a portable cluster size of at most 8, a CTA's slice of x and dy
-    stays within the budget, and the streaming variant gets a shape only
-    where no G that takes C in whole 16-byte vectors fits 8 CTAs."""
+    stays within the budget; where no G that takes C in whole 16-byte
+    vectors fits 8 CTAs, the sample variant takes what fits 8 CTAs and the
+    streaming variant the rest."""
     item = dtype.itemsize
     for c in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
         whole = [g for g in GROUPS if c % g == 0 and (g * item) % 16 == 0]
@@ -482,9 +519,14 @@ def test_instance_norm_plan_backward_stays_within_its_limits(dtype):
                 assert 0 < p.cta_bytes <= CTA_BYTES
                 assert p.group in whole
             else:
-                assert p == Plan("streaming")
                 assert not whole or \
                     -(-h * w // 8) * min(whole) * item * 2 > CTA_BYTES
+                if p.variant == "sample":
+                    _assert_least_sample_k(p, h, w, c, item, True)
+                else:
+                    assert p == Plan("streaming")
+                    assert sample_smem(-(-h * w // 8), c, item,
+                                       True) > CTA_BYTES
 
 
 @pytest.mark.parametrize("act", ACTS)
@@ -504,6 +546,197 @@ def test_instance_norm_backward_wrappers_use_plain_on_cpu(act):
         with pytest.raises(ValueError):
             wrapper(x, dy, mean, rstd, "gelu")
     assert [f.launches for f in counters] == before  # no launch on the CPU
+
+
+# ------------------------------------------------ B1's sample variant
+
+# the discriminator's B1 sites cut by tensor parallelism (batch 80; its
+# 20x20x24 and 19x19x48 sites at model 2 and 4) whose rows are not whole
+# 16-byte vectors: bf16 12 channels (m = 2), 6 and 12 (m = 4), fp32 6 (m = 4)
+D_SLICES = [(torch.bfloat16, (80, 20, 20, 12)),
+            (torch.bfloat16, (80, 20, 20, 6)),
+            (torch.bfloat16, (80, 19, 19, 12)),
+            (torch.float32, (80, 20, 20, 6))]
+
+
+@pytest.mark.parametrize("dtype,shape", D_SLICES)
+def test_instance_norm_plans_take_every_d_slice_to_the_sample_variant(
+        dtype, shape):
+    """Forward and backward, aligned or not: one CTA a sample holds it
+    (x and dy of a 80x20x20x12 bf16 slice are 19 KB)."""
+    n, h, w, c = shape
+    item = dtype.itemsize
+    assert (c * item) % 16
+    for aligned in (True, False):
+        assert plan(n, h, w, c, dtype, aligned) == Plan(
+            "sample", 0, 1, sample_smem(h * w, c, item), 1, h * w)
+        assert plan_backward(n, h, w, c, dtype, aligned) == Plan(
+            "sample", 0, 1, sample_smem(h * w, c, item, True), 1, h * w)
+
+
+@pytest.mark.parametrize("dtype,m,sites", [
+    (torch.bfloat16, 2, 3), (torch.bfloat16, 4, 6),
+    (torch.float32, 2, 0), (torch.float32, 4, 3)])
+def test_the_sample_variant_takes_the_d_sites_of_a_sharded_step(dtype, m,
+                                                                 sites):
+    """Of a rank's 25 sites of a training step at model m (C / m channels
+    each), the backward sample variant takes D's that are not whole
+    16-byte vectors, 3 or 6 a step, and the cluster variant the rest: the
+    dy copies that remain a step a rank are 25 less these."""
+    picks = [plan_backward(80, h, w, c // m, dtype, True).variant
+             for h, w, c in TRAIN_SITES]
+    assert picks.count("sample") == sites
+    assert picks.count("cluster") == 25 - sites
+    assert [plan(80, h, w, c // m, dtype, True).variant
+            for h, w, c in TRAIN_SITES] == picks
+
+
+def _sample_plans(n, h, w, c, dtype, backward=False):
+    """The plan's own sample plan and clusters of 2 and 8 CTAs a sample
+    (ragged against 400 and 361 pixels at 8)."""
+    hw = h * w
+    own = sample_plan(n, h, w, c, dtype, backward)
+    return [own] + [Plan("sample", 0, k, 0, k, -(-hw // k)) for k in (2, 8)
+                    if k != own.k]
+
+
+SAMPLE_SHAPES = [(20, 20, c) for c in (1, 3, 6, 7, 12)] + \
+    [(19, 19, c) for c in (1, 3, 6, 7, 12)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hwc", SAMPLE_SHAPES)
+def test_sample_forward_plain_matches_jax(dtype, hwc):
+    """The sample variant's arithmetic (stripe sums, the pairwise tree,
+    the CTAs in rank order) at its own plan and at 2 and 8 CTAs a sample,
+    against the two-pass plain version and JAX's Pallas kernel in interpret
+    mode: fp32 within 1e-5, bf16 within one bf16 ulp; its statistics within
+    1e-5 of the plain version's. On the CPU the wrapper runs it at
+    :func:`sample_plan`'s plan and launches nothing."""
+    rng = np.random.default_rng(21)
+    x32 = (rng.standard_normal((3,) + hwc) * 2.5 + 0.7).astype(np.float32)
+    if dtype == "bfloat16":
+        x32 = _bf16_exact(x32)
+        xt = torch.from_numpy(x32).bfloat16()
+        xj = jnp.asarray(x32).astype(jnp.bfloat16)
+    else:
+        xt, xj = torch.from_numpy(x32), jnp.asarray(x32)
+    plans = _sample_plans(3, *hwc, xt.dtype)
+    before = instance_norm_act_sample.launches
+    for act in ACTS:
+        wants = [instance_norm_act_plain(xt, act).float().numpy(),
+                 np.asarray(jax_in_act(xj, act=act, interpret=True).astype(
+                     jnp.float32))]
+        _, pmean, prstd = _plain_forward(xt, act, 0.2, 1e-5)
+        for p in plans:
+            got, mean, rstd = _sample_forward_plain(xt, act, 0.2, 1e-5, p)
+            assert got.dtype == xt.dtype and got.shape == xt.shape
+            torch.testing.assert_close(mean, pmean, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(rstd, prstd, rtol=1e-5, atol=1e-5)
+            for want in wants:
+                if dtype == "float32":
+                    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                               atol=1e-5)
+                else:
+                    _assert_bf16_close(got.float().numpy(), want)
+        wrapped = instance_norm_act_sample(xt, act, stats=True)
+        for a, b in zip(wrapped, _sample_forward_plain(xt, act, 0.2, 1e-5,
+                                                       plans[0])):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        instance_norm_act_sample(xt, "gelu")
+    assert instance_norm_act_sample.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hwc", SAMPLE_SHAPES)
+def test_sample_backward_plain_matches_jax_vjp(dtype, hwc):
+    """The backward sample variant's arithmetic at its own plan and at 2
+    and 8 CTAs a sample, on a dy that is a channel slice of a wider
+    gradient, against the plain backward (fp32 within 2e-5, bf16 within one
+    bf16 ulp) and, in fp32, against ``jax.vjp`` of JAX's ``instance_norm``
+    and activation within 1e-5, as tests/test_torch_train.py holds the
+    plain backward. On the CPU its wrapper runs it and launches nothing."""
+    rng = np.random.default_rng(22)
+    shape = (3,) + hwc
+    x32 = _bf16_exact((rng.standard_normal(shape) * 2.0 + 0.5).astype(
+        np.float32))
+    wide = _bf16_exact(rng.standard_normal(shape[:3] + (3 * hwc[2],)).astype(
+        np.float32))
+    c = hwc[2]
+    xt = torch.from_numpy(x32).to(dtype)
+    dy = torch.from_numpy(wide).to(dtype)[..., c:2 * c]
+    assert pixel_strides(dy) == (3 * c, hwc[0] * hwc[1] * 3 * c)
+    _, mean, rstd = _plain_forward(xt, None, 0.2, 1e-5)
+    before = instance_norm_act_backward_sample.launches
+    for act in ACTS:
+        want = instance_norm_act_backward_plain(xt, dy, mean, rstd, act)
+        if dtype == torch.float32:
+            _, vjp = jax.vjp(lambda a: _jax_plain(a, act), jnp.asarray(x32))
+            (jwant,) = vjp(jnp.asarray(wide[..., c:2 * c]))
+        for p in _sample_plans(*shape, dtype, backward=True):
+            got = _sample_backward_plain(xt, dy, mean, rstd, act, 0.2, p)
+            assert got.dtype == dtype and got.shape == xt.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+                np.testing.assert_allclose(got.numpy(), np.asarray(jwant),
+                                           rtol=1e-5, atol=1e-5)
+            else:
+                _assert_bf16_close(got.float().numpy(),
+                                   want.float().numpy())
+        assert torch.equal(
+            instance_norm_act_backward_sample(xt, dy, mean, rstd, act),
+            _sample_backward_plain(xt, dy, mean, rstd, act, 0.2,
+                                   sample_plan(*shape, dtype, True)))
+    with pytest.raises(ValueError):
+        instance_norm_act_backward_sample(xt, dy, mean, rstd, "gelu")
+    assert instance_norm_act_backward_sample.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 20, 20, 6), (3, 19, 19, 12),
+                                   (2, 9, 7, 32)])
+def test_instance_norm_function_takes_a_strided_dy_as_it_lies(dtype, shape):
+    """``InstanceNormAct`` with dy a channel slice of a wider gradient (what
+    tensor parallelism's gather hands back) gives bitwise the dx of the
+    same dy made contiguous; where the plan gives the sample variant (6 and
+    12 channels at bf16, 6 at fp32) it makes no copy, elsewhere one."""
+    rng = np.random.default_rng(23)
+    n, h, w, c = shape
+    x = torch.from_numpy((rng.standard_normal(shape) * 1.5).astype(
+        np.float32)).to(dtype)
+    wide = torch.from_numpy(rng.standard_normal((n, h, w, 4 * c)).astype(
+        np.float32)).to(dtype)
+    dy = wide[..., 2 * c:3 * c]
+    assert not dy.is_contiguous()
+    sample = plan_backward(n, h, w, c, dtype, True).variant == "sample"
+    assert sample == ((c * dtype.itemsize) % 16 != 0)
+    dxs = []
+    for g in (dy, dy.contiguous()):
+        xg = x.clone().requires_grad_(True)
+        copies = InstanceNormAct.dy_copies
+        y = InstanceNormAct.apply(xg, "leaky_relu", 0.2, 1e-5)
+        (dx,) = torch.autograd.grad(y, xg, g)
+        dxs.append(dx)
+        assert InstanceNormAct.dy_copies - copies == (
+            g is dy and not sample)
+    assert torch.equal(dxs[0], dxs[1])
+    mean, rstd = _plain_forward(x, "leaky_relu", 0.2, 1e-5)[1:]
+    assert torch.equal(dxs[0], instance_norm_act_backward_plain(
+        x, dy.contiguous(), mean, rstd, "leaky_relu"))
+
+
+def test_pixel_strides_reads_rows_at_one_stride():
+    """NHWC memory and its channel slices have rows of C elements at one
+    pixel stride; a transposed or channel-strided view has not."""
+    t = torch.zeros(2, 5, 7, 24)
+    assert pixel_strides(t) == (24, 5 * 7 * 24)
+    assert pixel_strides(t[..., 6:12]) == (24, 5 * 7 * 24)
+    assert pixel_strides(t[:1, :, :, 6:12]) == (24, 5 * 7 * 24)
+    assert pixel_strides(t[..., ::2]) is None
+    assert pixel_strides(t.transpose(1, 2)) is None
+    assert pixel_strides(t[:, :, :3]) is None  # rows of a cropped width
+    assert pixel_strides(torch.zeros(2, 1, 1, 3)) == (3, 3)
 
 
 def _blend_case(seed, B=14, ps=16, H=70, W=90):
