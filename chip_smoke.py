@@ -170,6 +170,22 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    plain version on keyframe 11's points at each sigma, timed at sigma 15
    (device time, ``queued_ms``) against its bound; ``tools/temporal_guide_torch.py``
    over the scene, card against CPU within 1 count.
+   ``pipeline``: the guide pipeline with Pillow made unimportable, on a
+   12-frame 1080x1920 RGBA shot (``_pipeline_scene``):
+   ``tools/process_pipeline_torch.py`` at ``--resize-mode width
+   --resize-value 910`` (the port's LANCZOS resize and quality-95 JPEG
+   writer, 511x910 frames; the flow and the splats on the card, one splat
+   launch a frame and sigma); the C++ resize bitwise its numpy plain
+   version on frame 1 (L and RGB); the codec against the committed Pillow
+   fixtures (``tests/data/jpeg``: every baseline file decoded bitwise,
+   ``src.png`` encoded byte for byte); the guides within 1 count of the
+   same tool with the CPU asked for; the native JPEG decodes counted
+   against the JPEG files the steps read, no PIL decode; each step's
+   seconds a frame and the codec's ms for one 511x910 JPEG against one
+   PNG. Then ``process_directory`` serves the prepared scene (JPEG frames
+   under .png names, ``mask/*.jpg``, ``gauss_r10_s10`` as the guide) at
+   bf16, tiled: 19 B1 cluster launches and one B2 launch a group, every
+   pixel outside the masks its input within 1 count.
 
 11. ``multi_gpu``: several cards through the entry points, on whatever
    cards the machine has (each card's name and power limit printed, and
@@ -339,7 +355,16 @@ from patch_toon_tpu_torch.infer.temporal import (
     _temporal_device_flow,
 )
 from patch_toon_tpu_torch.infer.programs import gather_tiles, make_tile_plan
-from patch_toon_tpu_torch.native.frameio import decode_png, encode_png
+from patch_toon_tpu_torch.data import resample
+from patch_toon_tpu_torch.native.frameio import (
+    decode_counts,
+    decode_native,
+    decode_png,
+    encode_jpeg,
+    encode_png,
+    resize_lanczos,
+    zero_decode_counts,
+)
 from patch_toon_tpu_torch.models import discriminator as disc_module
 from patch_toon_tpu_torch.models import generator as gen_module
 from patch_toon_tpu_torch.models import layers
@@ -4302,6 +4327,229 @@ def phase_guides(dev, card: str, tmp: Path) -> dict:
     return {"rec": rec, "launches": launches}
 
 
+# -------------------------------------------------------------- pipeline
+
+PIPE_FRAMES = 12                 # frames 001-012 of a 1080p shot
+PIPE_H, PIPE_W = 1080, 1920
+PIPE_WIDTH = 910                 # --resize-value: 511x910 frames
+PIPE_FIXTURES = REPO / "tests" / "data" / "jpeg"
+
+
+def _pipeline_scene(root: Path, n: int = PIPE_FRAMES, h: int = PIPE_H,
+                    w: int = PIPE_W) -> Path:
+    """A shot as a user hands it to ``tools/process_pipeline_torch.py``:
+    ``input/%03d.png`` (1-based) RGBA frames of a textured plane (10x10
+    blocks of random colour, numpy seed 13) panning 9 px right and 4 px
+    down a frame, under an alpha ellipse that moves with it (255 inside,
+    0 outside); ``output/`` RGB companions (each frame upside down) and
+    ``tracking/`` 3-band guides (another block texture, seed 14). All
+    written by the port's PNG encoder."""
+    rng = np.random.default_rng(13)
+    big = np.repeat(np.repeat(rng.integers(
+        0, 256, ((h + 4 * n) // 10 + 2, (w + 9 * n) // 10 + 2, 3),
+        dtype=np.uint8), 10, 0), 10, 1)
+    track = np.repeat(np.repeat(np.random.default_rng(14).integers(
+        0, 256, (h // 10 + 1, w // 10 + 1, 3), dtype=np.uint8), 10, 0),
+        10, 1)[:h, :w]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for sub in ("input", "output", "tracking"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(1, n + 1):
+        y0, x0 = 4 * (n - i), 9 * (n - i)  # the view moves up-left
+        rgb = big[y0:y0 + h, x0:x0 + w]
+        r = ((yy - h * 0.5 - 4 * i) / (h * 0.38)) ** 2 \
+            + ((xx - w * 0.42 - 9 * i) / (w * 0.3)) ** 2
+        alpha = np.where(r <= 1, 255, 0).astype(np.uint8)
+        name = f"{i:03d}.png"
+        encode_png(root / "input" / name, np.dstack([rgb, alpha]),
+                   compress_level=1)
+        encode_png(root / "output" / name, rgb[::-1], compress_level=1)
+        encode_png(root / "tracking" / name, track, compress_level=1)
+    return root
+
+
+def _pipeline_fixtures() -> dict:
+    """The codec against the committed fixtures (Pillow's files, made on a
+    machine with Pillow): each baseline JPEG decoded to Pillow's pixels,
+    ``src.png`` encoded to Pillow's quality-95 bytes."""
+    jpegs = sorted(PIPE_FIXTURES.glob("*.jpg"))
+    decoded = [p.name for p in jpegs if p.stem != "src_q95"]
+    for name in decoded:
+        got = decode_native(PIPE_FIXTURES / name)
+        want = decode_png(PIPE_FIXTURES / name.replace(".jpg", ".png"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"fixture {name}: the codec's pixels are "
+                                 f"not Pillow's")
+    with tempfile.TemporaryDirectory() as t:
+        encode_jpeg(Path(t) / "o.jpg", decode_png(PIPE_FIXTURES / "src.png"),
+                    95)
+        same = (Path(t) / "o.jpg").read_bytes() == (
+            PIPE_FIXTURES / "src_q95.jpg").read_bytes()
+    if not same:
+        raise AssertionError("fixture src.png: the codec's quality-95 JPEG "
+                             "is not Pillow's bytes")
+    return {"decoded_bitwise": decoded, "encoded_bytewise": ["src_q95.jpg"]}
+
+
+def _decode_ms(path: Path, reps: int = 15) -> float:
+    """Median host ms of one native decode of ``path`` (warm cache)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        decode_native(path)
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def phase_pipeline(dev, card: str, tmp: Path) -> dict:
+    """The guide pipeline without Pillow on a 1080p shot
+    (``_pipeline_scene``): ``tools/process_pipeline_torch.py``'s
+    ``process_pipeline`` at ``--resize-mode width --resize-value 910``
+    (511x910 frames), the flow and the splats on the card. Checks: the
+    C++ resize bitwise its numpy plain version on one frame (L and RGB);
+    the codec against the committed Pillow fixtures; the guides within 1
+    count of the same tool with the CPU asked for, on the same flows; the
+    native JPEG decodes the number of JPEG files the steps read, no PIL
+    decode. Then ``process_directory`` serves the prepared scene (JPEG
+    frames under .png names, ``mask/*.jpg``, ``gauss_r10_s10`` as the
+    3-band guide) at bf16, tiled: 19 B1 cluster launches a group and one
+    B2 launch, the output outside each mask its input within 1 count."""
+    pipe = _load_tool("process_pipeline_torch")
+    src = _pipeline_scene(tmp / "shot")
+    out = tmp / "prepared"
+    rec = {}
+    with _without_pil():
+        # the C++ resize against its plain version on frame 1
+        frame = decode_png(src / "input" / "001.png")
+        oh = int(PIPE_WIDTH * PIPE_H / PIPE_W)
+        for name, arr in (("rgb", frame[..., :3]), ("l", frame[..., 3])):
+            t0 = time.perf_counter()
+            got = resize_lanczos(arr, PIPE_WIDTH, oh)
+            ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            want = resample.resize_lanczos(arr, PIPE_WIDTH, oh)
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            say("pipeline", resize=name, size=f"{PIPE_H}x{PIPE_W}->"
+                f"{oh}x{PIPE_WIDTH}", bitwise_plain=bool(
+                    np.array_equal(got, want)), ms=f"{ms:.1f}",
+                plain_ms=f"{plain_ms:.1f}")
+            if not np.array_equal(got, want):
+                raise AssertionError(f"resize {name}: the C++ resize differs "
+                                     f"from data/resample.py")
+        rec["fixtures"] = _pipeline_fixtures()
+        say("pipeline", fixtures_decoded_bitwise=len(
+            rec["fixtures"]["decoded_bitwise"]), fixture_encoded_bytewise=1)
+
+        # the pipeline, the flow and the splats on the card
+        zero_decode_counts()
+        before = ops_splat.splat_points.launches
+        t0 = time.perf_counter()
+        seconds = pipe.process_pipeline(
+            str(src), str(out), resize_mode="width", resize_value=PIPE_WIDTH,
+            device=str(dev))
+        total = time.perf_counter() - t0
+        splats = ops_splat.splat_points.launches - before
+        counts = decode_counts()
+        keys = list(range(1, PIPE_FRAMES + 1, 10)) + [PIPE_FRAMES]
+        names = [f"{i:03d}.png" for i in range(1, PIPE_FRAMES + 1)]
+        # JPEG files the steps read: the flow's frames and masks 1..n-1;
+        # a guide run's first keyframe mask, its keyframes' masks, every
+        # frame's mask
+        want_jpeg = PIPE_FRAMES + PIPE_FRAMES - 1 + 2 * (
+            1 + len(keys) + PIPE_FRAMES)
+        per = {k: v / PIPE_FRAMES for k, v in seconds.items()}
+        rec["seconds_a_frame"] = per
+        rec["decodes"] = counts
+        say("pipeline", tool="tools/process_pipeline_torch.py",
+            frames=PIPE_FRAMES, size=f"{PIPE_H}x{PIPE_W}->{oh}x{PIPE_WIDTH}",
+            seconds=f"{total:.2f}",
+            **{f"{k}_s_a_frame": f"{v:.4f}" for k, v in per.items()},
+            png_decodes=counts["png"], jpeg_decodes=counts["jpeg"],
+            pil_decodes=counts["pil"], splat_launches=splats,
+            card=f"'{card}'")
+        if counts != {"png": 3 * PIPE_FRAMES, "jpeg": want_jpeg, "pil": 0}:
+            raise AssertionError(f"decodes {counts}: expected "
+                                 f"{3 * PIPE_FRAMES} PNG, {want_jpeg} JPEG, "
+                                 f"no PIL")
+        if splats != 2 * PIPE_FRAMES:
+            raise AssertionError(f"{splats} splat launches for "
+                                 f"{PIPE_FRAMES} frames x 2 sigmas")
+        with open(out / "input" / names[0], "rb") as f:
+            if f.read(2) != b"\xff\xd8":
+                raise AssertionError("input/ does not hold JPEG bytes")
+        for sub in ("gauss_r10_s10", "gauss_r10_s15"):
+            got = sorted(p.name for p in (out / sub).glob("*.png"))
+            if got != names or decode_png(out / sub / names[0]).shape != (
+                    oh, PIPE_WIDTH, 3):
+                raise AssertionError(f"{sub}: {got[:3]}...")
+
+        # the codec's decode of one prepared frame: JPEG against PNG
+        frame = decode_native(out / "input" / names[0])
+        encode_png(tmp / "frame.png", frame)
+        jpeg_ms = _decode_ms(out / "input" / names[0])
+        png_ms = _decode_ms(tmp / "frame.png")
+        rec["decode_ms"] = {"jpeg": jpeg_ms, "png": png_ms}
+        say("pipeline", decode_one=f"{oh}x{PIPE_WIDTH}",
+            jpeg_ms=f"{jpeg_ms:.3f}", png_zlib6_ms=f"{png_ms:.3f}",
+            card=f"'{card}'")
+
+        # the same guide tool with the CPU asked for, on the same flows
+        for sigma in (10, 15):
+            cpu = tmp / f"gauss_s{sigma}_cpu"
+            pipe.GaussianFilter(
+                mask_dir=out / "mask", flow_fwd_dir=out / "flow_fwd",
+                flow_bwd_dir=out / "flow_bwd", output_dir=cpu,
+                frame_first=1, frame_last=PIPE_FRAMES, key_frames=keys,
+                radius=10.0, sigma=float(sigma), device="cpu").process()
+            worst, pixels = _png_diff(out / f"gauss_r10_s{sigma}", cpu, names)
+            rec[f"guides_s{sigma}_card_vs_cpu"] = worst
+            say("pipeline", sigma=sigma, card_vs_cpu_max_abs=worst,
+                differing_pixels=pixels, limit=1)
+            if worst > 1:
+                raise AssertionError(f"guides sigma {sigma}: card vs CPU "
+                                     f"{worst}")
+
+        # serving the prepared scene
+        served = tmp / "prepared_served"
+        eng = StyleTransferInference(inference_config(
+            paths={"checkpoint": str(CKPT), "input_dir": str(out / "input"),
+                   "mask_dir": str(out / "mask"), "output_dir": str(served),
+                   "additional_channels": {"point_vector": {
+                       "path": str(out / "gauss_r10_s10"), "depth": 3}}},
+            inference={"precision": "bf16", "mode": "tiled"}))
+        zero_decode_counts()
+        run = _transport_run(eng, PIPE_FRAMES)
+        counts = decode_counts()
+        groups, launches = len(run["groups"]), run["counts"]
+        want = {"cluster": 19 * groups, "resident": 0, "split": 0,
+                "sample": 0, "streaming": 0, "blend": groups}
+        worst = 0
+        for name in names:
+            got = decode_png(served / name)
+            inp = decode_native(out / "input" / name)
+            outside = decode_native(out / "mask" / name.replace(
+                ".png", ".jpg"))[..., 0] <= 128
+            if got.shape != (oh, PIPE_WIDTH, 3):
+                raise AssertionError(f"served {name}: {got.shape}")
+            worst = max(worst, int(np.abs(got[outside].astype(int)
+                                          - inp[outside]).max()))
+        rec["serve"] = {"groups": groups, "launches": launches,
+                        "seconds": run["seconds"], "decodes": counts}
+        say("pipeline", served=PIPE_FRAMES, groups=groups,
+            b1_cluster_launches=launches["cluster"],
+            blend_launches=launches["blend"],
+            eq_frames_per_s=f"{PIPE_FRAMES / run['seconds']:.2f}",
+            jpeg_decodes=counts["jpeg"], png_decodes=counts["png"],
+            pil_decodes=counts["pil"], outside_mask_max_abs=worst, limit=1)
+        if launches != want or counts["pil"] or worst > 1:
+            raise AssertionError(f"serving the prepared scene: launches "
+                                 f"{launches} (want {want}), PIL decodes "
+                                 f"{counts['pil']}, outside the masks "
+                                 f"{worst} counts")
+    return {"rec": rec, "splat": splats, "cluster": launches["cluster"],
+            "blend": launches["blend"]}
+
+
 # ------------------------------------------------------------ multi_gpu
 
 MG_LINK_BPS = 25e9    # NVLink 4, bytes/s a link and direction (data sheet)
@@ -5896,6 +6144,8 @@ def main() -> int:
             if torch.cuda.device_count() > 1 else {"launches": {}}
     with tempfile.TemporaryDirectory() as tmp:
         guides = phase_guides(dev, card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline = phase_pipeline(dev, card, Path(tmp))
     # no phase but int8 (and multi_gpu's 2-card int8) launches them
     want = {k: n + mgpu["launches"][f"int8_{k}"]
             + transport["int8_total"][k] for k, n in int8["after"].items()}
@@ -5919,7 +6169,8 @@ def main() -> int:
                "multistream": multi["launches"]["cluster"],
                "multi_gpu_serve": mgpu["launches"]["cluster"],
                "int8_serve_directory": int8["launches"]["tiled"]["cluster"],
-               "transport": transport["launches"]["cluster"]}
+               "transport": transport["launches"]["cluster"],
+               "pipeline": pipeline["cluster"]}
     blends = {"serve": launches["blend_tiles"],
               "serve_directory": served["launches"]["blend_tiles"],
               "temporal_tiled": chain["launches"]["blend"],
@@ -5930,7 +6181,8 @@ def main() -> int:
               "multistream": multi["launches"]["blend"],
               "multi_gpu_serve": mgpu["launches"]["blend"],
               "int8_serve_directory": int8["launches"]["tiled"]["blend"],
-              "transport": transport["launches"]["blend"]}
+              "transport": transport["launches"]["blend"],
+              "pipeline": pipeline["blend"]}
     # launches of B1's resident and split variants by full-frame path
     # B1 on tensor parallelism's channel slices: the one-card forms, fit at
     # devices 1 x model 2, and the NCCL forms where there are 2+ cards
@@ -6096,8 +6348,9 @@ def main() -> int:
              source="patch_toon_tpu_torch/csrc/splat.cu",
              replaces="patch_toon_tpu/ops/splat.py:23 (lax.scan, not a "
                       "Pallas kernel)",
-             launches=guides["launches"],
-             launches_by_path={"guides": guides["launches"]},
+             launches=guides["launches"] + pipeline["splat"],
+             launches_by_path={"guides": guides["launches"],
+                               "pipeline": pipeline["splat"]},
              per=f"one 512x910 frame, {guides['rec']['splat']['points']} "
                  "points, sigma 15",
              library_note="no single PyTorch call composites ordered "
@@ -6164,6 +6417,7 @@ def main() -> int:
                       "multistream": multi["rec"], "int8": int8["rec"],
                       "transport": transport["rec"],
                       "train_rest": rest["rec"], "guides": guides["rec"],
+                      "pipeline": pipeline["rec"],
                       "multi_gpu": mgpu, "tensor_parallel": {
                           "one_card": tp["rec"],
                           "nccl": tp_multi.get("rec")}}),

@@ -2,12 +2,15 @@
 
 Counterpart of ``patch_toon_tpu/data/io.py`` with the same value semantics:
 RGB decode as PIL's ``convert("RGB")``, masks as grayscale binarized at
-> 128 (reference dataset.py:157). PNG goes through the port's own codec
-(``native/frameio.py``), as the JAX package's does through its own
-(``patch_toon_tpu/data/io.py:52-62``, ``:106-108``); the conversions to RGB
-and to L are PIL's, bit for bit. PIL is imported only for a file the codec
-refuses by its format (JPEG, palette, 16-bit, interlaced), so importing
-this module, and reading or writing an 8-bit PNG, needs no PIL.
+> 128 (reference dataset.py:157). Every file goes to the port's own codec
+first (``native/frameio.py``), which reads 8-bit PNG, as the JAX package's
+does through its own (``patch_toon_tpu/data/io.py:52-62``, ``:106-108``),
+and baseline JPEG, as Pillow does, by the file's signature; the
+conversions to RGB and to L are PIL's, bit for bit. PIL is imported only
+for a file the codec refuses by its format (palette, 16-bit or interlaced
+PNG; progressive, arithmetic, lossless, 12-bit, CMYK or Adobe JPEG), so
+importing this module, and reading 8-bit PNG and baseline JPEG frames or
+writing PNG, needs no PIL.
 """
 
 from __future__ import annotations
@@ -18,7 +21,12 @@ from typing import List, Union
 
 import numpy as np
 
-from patch_toon_tpu_torch.native.frameio import decode_png_native, encode_png
+from patch_toon_tpu_torch.native.frameio import (
+    Refused,
+    decode_native,
+    encode_png,
+    pil_open,
+)
 
 # byte / 255 * 2 - 1 for the 256 byte values in IEEE fp32, computed by
 # numpy on the host: the JAX package's host arithmetic (its dataset,
@@ -77,16 +85,14 @@ def to_luma(arr: np.ndarray) -> np.ndarray:
 
 
 def _codec_or_pil(path: Union[str, Path], codec, pil):
-    """``codec`` of the codec's decode of a PNG it reads; ``pil`` of the
-    PIL image of any other file (the JAX package's per-file rule)."""
-    if str(path).lower().endswith(".png"):
-        arr = decode_png_native(path)
-        if arr is not None:
-            return codec(arr)
-    from PIL import Image
-
-    with Image.open(str(path)) as img:
-        return pil(img)
+    """``codec`` of the codec's decode of a file it reads; ``pil`` of the
+    PIL image of a file it refuses by its format."""
+    try:
+        arr = decode_native(path)
+    except Refused as r:
+        with pil_open(r) as img:
+            return pil(img)
+    return codec(arr)
 
 
 def decode_rgb_uint8(path: Union[str, Path]) -> np.ndarray:
@@ -109,8 +115,8 @@ def load_image_channels(path: Union[str, Path], depth: int) -> np.ndarray:
 
 def image_bands(path: Union[str, Path]) -> int:
     """Number of bands an image file holds (L = 1, LA = 2, RGB = 3,
-    RGBA = 4): the codec's channel count for a PNG it reads, PIL's bands
-    for any other file."""
+    RGBA = 4): the codec's channel count for a file it reads (1 or 3 for a
+    JPEG), PIL's bands for any other file."""
     return _codec_or_pil(path, lambda arr: arr.shape[-1],
                          lambda img: len(img.getbands()))
 

@@ -1,5 +1,7 @@
-// frameio: the port's native PNG codec, threaded in-order frame loader and
-// asynchronous frame writer.
+// frameio: the port's native image codec (PNG here, baseline JPEG in
+// jpeg.cpp), threaded in-order frame loader and asynchronous frame writer,
+// and the C interface of the library, which also holds resample.cpp's
+// LANCZOS resize.
 //
 // Counterpart of patch_toon_tpu/native/frameio.cpp (the JAX package's copy,
 // which the port does not load). Decoding and encoding run in C++ threads
@@ -7,11 +9,13 @@
 // streaming engine; every entry point is called through ctypes, which
 // releases the interpreter lock for the call.
 //
-// Scope: 8-bit non-interlaced PNG, colour types 0 (gray), 2 (RGB), 4
+// A file is decoded by its signature, whatever its name: PNG or JPEG. PNG
+// scope: 8-bit non-interlaced, colour types 0 (gray), 2 (RGB), 4
 // (gray+alpha) and 6 (RGBA), in both directions; zlib for inflate, deflate
-// and crc32. A file outside that scope is refused with its own code
-// (kNotPng, kUnsupported), on which the Python side reads it with PIL; every
-// other failure is an error that the caller reports.
+// and crc32. JPEG scope: jpeg.cpp. A file outside them is refused with its
+// own code (kNotImage, kUnsupported, the kJpeg* codes), on which the Python
+// side reads it with PIL; every other failure is an error that the caller
+// reports. The successful native decodes are counted by format.
 //
 // Differences from the JAX copy: the codes above tell a format the codec
 // does not take from a damaged file; the decoded size must match IHDR
@@ -36,30 +40,14 @@
 #include <thread>
 #include <vector>
 
+#include "codec.h"
+
 namespace {
 
-enum Code {
-  kOk = 0,
-  kReadFailed = -1,   // the file could not be read
-  kMalformed = -2,    // truncated chunk, bad IHDR, absurd size
-  kUnsupported = -3,  // palette, 16-bit, interlaced: read with PIL instead
-  kInflate = -4,      // the compressed data is damaged or the wrong size
-  kBadFilter = -5,    // a row filter type outside 0-4
-  kNotPng = -6,       // no PNG signature: read with PIL instead
-  kWriteFailed = -7,  // open, write or close of the output failed
-  kBadArgs = -8,      // channel count outside 1-4 for the encoder
-  kInternal = -9,     // out of memory or another C++ exception
-};
+using namespace frameio;  // Image and the codes
 
-// a frame of at most 2^30 bytes (e.g. 16384 x 16384 RGBA)
-constexpr uint64_t kMaxBytes = uint64_t(1) << 30;
-
-struct Image {
-  uint32_t width = 0;
-  uint32_t height = 0;
-  uint32_t channels = 0;
-  std::vector<uint8_t> pixels;  // row-major, tightly packed
-};
+// successful native decodes since the last reset, by format
+std::atomic<uint64_t> png_decodes{0}, jpeg_decodes{0};
 
 uint32_t be32(const uint8_t* p) {
   return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
@@ -79,7 +67,7 @@ const uint8_t kSignature[8] = {137, 80, 78, 71, 13, 10, 26, 10};
 // ---------------------------------------------------------------- PNG read
 
 int decode_png(const uint8_t* data, size_t size, Image* out) {
-  if (size < 8 || memcmp(data, kSignature, 8) != 0) return kNotPng;
+  if (size < 8 || memcmp(data, kSignature, 8) != 0) return kNotImage;
 
   size_t pos = 8;
   uint32_t width = 0, height = 0;
@@ -260,11 +248,48 @@ int write_file(const char* path, const std::vector<uint8_t>& data) {
   return put == data.size() && closed == 0 ? kOk : kWriteFailed;
 }
 
+bool is_jpeg(const std::vector<uint8_t>& file) {
+  return file.size() >= 3 && file[0] == 0xFF && file[1] == 0xD8 &&
+         file[2] == 0xFF;
+}
+
 int read_and_decode(const char* path, Image* img) {
   try {
     std::vector<uint8_t> file;
     int rc = read_file(path, &file);
-    return rc == kOk ? decode_png(file.data(), file.size(), img) : rc;
+    if (rc != kOk) return rc;
+    if (is_jpeg(file)) {
+      rc = decode_jpeg(file.data(), file.size(), img);
+      if (rc == kOk) jpeg_decodes.fetch_add(1);
+    } else {
+      rc = decode_png(file.data(), file.size(), img);
+      if (rc == kOk) png_decodes.fetch_add(1);
+    }
+    return rc;
+  } catch (...) {
+    return kInternal;
+  }
+}
+
+// the size and channel count in a PNG's IHDR or a JPEG's frame header
+int probe(const char* path, uint32_t* width, uint32_t* height,
+          uint32_t* channels) {
+  try {
+    std::vector<uint8_t> file;
+    int rc = read_file(path, &file);
+    if (rc != kOk) return rc;
+    if (is_jpeg(file))
+      return probe_jpeg(file.data(), file.size(), width, height, channels);
+    if (file.size() < 8 || memcmp(file.data(), kSignature, 8) != 0)
+      return kNotImage;
+    if (file.size() < 8 + 8 + 13 || memcmp(file.data() + 12, "IHDR", 4) != 0)
+      return kMalformed;
+    static const uint32_t kBands[7] = {1, 0, 3, 1, 2, 0, 4};
+    const uint8_t* ihdr = file.data() + 16;
+    *width = be32(ihdr);
+    *height = be32(ihdr + 4);
+    *channels = ihdr[9] < 7 ? kBands[ihdr[9]] : 0;
+    return *width && *height && *channels ? kOk : kMalformed;
   } catch (...) {
     return kInternal;
   }
@@ -396,6 +421,43 @@ int frameio_encode(const char* path, const uint8_t* pixels, uint32_t width,
                    uint32_t height, uint32_t channels, int compress_level) {
   return encode_and_write(path, pixels, width, height, channels,
                           compress_level);
+}
+
+// the size and channel count of a PNG or JPEG from its header
+int frameio_probe(const char* path, uint32_t* width, uint32_t* height,
+                  uint32_t* channels) {
+  return probe(path, width, height, channels);
+}
+
+// 8-bit RGB to a baseline 4:2:0 JPEG at `quality` (jpeg.cpp)
+int frameio_encode_jpeg(const char* path, const uint8_t* rgb, uint32_t width,
+                        uint32_t height, int quality) {
+  try {
+    std::vector<uint8_t> jpeg;
+    int rc = encode_jpeg(rgb, width, height, quality, &jpeg);
+    return rc == kOk ? write_file(path, jpeg) : rc;
+  } catch (...) {
+    return kInternal;
+  }
+}
+
+// Pillow's LANCZOS resize of 8-bit (height, width, 1 or 3) into dst
+int frameio_resize(const uint8_t* src, uint32_t width, uint32_t height,
+                   uint32_t channels, uint8_t* dst, uint32_t out_width,
+                   uint32_t out_height) {
+  return resize_lanczos(src, width, height, channels, out_width, out_height,
+                        dst);
+}
+
+// successful native decodes since the last reset, by format
+void frameio_decode_counts(uint64_t* png, uint64_t* jpeg) {
+  *png = png_decodes.load();
+  *jpeg = jpeg_decodes.load();
+}
+
+void frameio_zero_decode_counts() {
+  png_decodes.store(0);
+  jpeg_decodes.store(0);
 }
 
 void frameio_free(uint8_t* p) { free(p); }

@@ -1,15 +1,26 @@
-"""ctypes bindings of the port's native frame IO (``frameio.cpp``).
+"""ctypes bindings of the port's native image library.
 
-Counterpart of ``patch_toon_tpu/native/frameio.py``. The C++ source is
-compiled at first use by one ``g++ -O2 -shared -fPIC -std=c++17 ... -lz
--lpthread`` call into ``patch_toon_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and flags as the CUDA
-kernels are (``_build.py``). A build that fails raises with the compiler's
-message: PNG IO never moves to PIL in silence.
+Counterpart of ``patch_toon_tpu/native/frameio.py``, grown into the image
+IO that the JAX package takes from Pillow: ``frameio.cpp`` (PNG, the
+threaded loader and writer, the C interface), ``jpeg.cpp`` (baseline JPEG,
+decoded and encoded as Pillow does on libjpeg-turbo) and ``resample.cpp``
+(Pillow's LANCZOS resize). The sources are compiled at first use by one
+``g++ -O2 -shared -fPIC -std=c++17 -ffp-contract=off ... -lz -lpthread``
+call into ``patch_toon_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of every source and the flags, as the CUDA kernels are
+(``_build.py``). ``-ffp-contract=off`` keeps the resize's double weights
+the IEEE operations Pillow's C code does (a fused multiply-add would round
+some weights otherwise). A build that fails raises with the compiler's
+message: image IO never moves to PIL in silence.
 
-PIL is imported only for one file at a time, when the codec refuses that
-file by its format: not a PNG (a JPEG), or a PNG that is palette, 16-bit or
-interlaced. This is the JAX package's per-file rule. A damaged PNG raises.
+A file is decoded by its signature, not its name: a JPEG named ``.png`` is
+read as a JPEG. PIL is imported only for one file at a time, when the codec
+refuses that file by its format (:class:`Refused`: palette, 16-bit or
+interlaced PNG; progressive, arithmetic, lossless, 12-bit, CMYK or Adobe
+JPEG; neither signature). Without PIL that file raises an ImportError that
+names its format. A damaged PNG or JPEG raises. :func:`decode_counts`
+counts the native decodes by format and the PIL decodes, as the kernels
+count their launches.
 """
 
 from __future__ import annotations
@@ -20,39 +31,65 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "frameio.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+NATIVE_DIR = Path(__file__).resolve().parent
+SOURCES = tuple(NATIVE_DIR / n for n in ("frameio.cpp", "jpeg.cpp",
+                                         "resample.cpp"))
+HEADERS = (NATIVE_DIR / "codec.h",)
+BUILD_DIR = NATIVE_DIR.parent / "_build"
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 LINK_FLAGS = ("-lz", "-lpthread")
 BUILD_TIMEOUT_S = 300
 
-# codes of frameio.cpp
-NOT_PNG, UNSUPPORTED = -6, -3
-ERRORS = {-1: "cannot be read", -2: "is a malformed PNG",
-          -3: "is a PNG format the codec does not take",
+# codes of codec.h for a file the codec refuses by its format
+REFUSED = {-3: "a PNG that is palette, 16-bit or interlaced",
+           -6: "neither a PNG nor a JPEG",
+           -10: "a progressive JPEG",
+           -11: "an arithmetic-coded JPEG",
+           -12: "a JPEG whose samples are not 8-bit",
+           -13: "a lossless or hierarchical JPEG",
+           -14: "a JPEG that is not gray or YCbCr (CMYK, YCCK, RGB or "
+                "Adobe)",
+           -15: "a JPEG whose chroma sampling is not 4:4:4, 4:2:2, 4:4:0 "
+                "or 4:2:0"}
+ERRORS = {-1: "cannot be read", -2: "is a malformed or damaged PNG or JPEG",
           -4: "has damaged or short compressed data",
-          -5: "has a row filter outside 0-4", -6: "is not a PNG",
-          -7: "could not be written", -8: "has a channel count outside 1-4",
+          -5: "has a row filter outside 0-4",
+          -7: "could not be written",
+          -8: "is not a size or channel count the entry takes",
           -9: "failed inside the codec (out of memory?)"}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U32 = ctypes.c_uint32
+_U32P = ctypes.POINTER(_U32)
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_pil_decodes = 0
+_pil_lock = threading.Lock()
+
+
+class Refused(Exception):
+    """A file the codec does not take by its format; PIL reads it."""
+
+    def __init__(self, path: str, code: int):
+        self.path, self.code, self.kind = path, code, REFUSED[code]
+        super().__init__(f"{path} is {self.kind}")
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES + HEADERS:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"frameio_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile frameio.cpp into the hashed library unless it exists. g++
+    """Compile the sources into the hashed library unless it exists. g++
     writes a temporary name that ``os.replace`` moves into place, so a
     build that is killed leaves no half-written library."""
     out = library_path()
@@ -61,7 +98,8 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.stem}.{os.getpid()}."
                         f"{threading.get_ident()}.tmp.so")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp), *LINK_FLAGS]
+    cmd = ["g++", *CXX_FLAGS, *map(str, SOURCES), "-o", str(tmp),
+           *LINK_FLAGS]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=BUILD_TIMEOUT_S)
@@ -82,12 +120,20 @@ def library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            out = [ctypes.POINTER(_U8P), ctypes.POINTER(_U32),
-                   ctypes.POINTER(_U32), ctypes.POINTER(_U32)]
+            out = [ctypes.POINTER(_U8P), _U32P, _U32P, _U32P]
             for name, argtypes, restype in (
                     ("frameio_decode", [ctypes.c_char_p, *out], ctypes.c_int),
+                    ("frameio_probe", [ctypes.c_char_p, _U32P, _U32P, _U32P],
+                     ctypes.c_int),
                     ("frameio_encode", [ctypes.c_char_p, _U8P, _U32, _U32,
                                         _U32, ctypes.c_int], ctypes.c_int),
+                    ("frameio_encode_jpeg", [ctypes.c_char_p, _U8P, _U32,
+                                             _U32, ctypes.c_int],
+                     ctypes.c_int),
+                    ("frameio_resize", [_U8P, _U32, _U32, _U32, _U8P, _U32,
+                                        _U32], ctypes.c_int),
+                    ("frameio_decode_counts", [_U64P, _U64P], None),
+                    ("frameio_zero_decode_counts", [], None),
                     ("frameio_free", [_U8P], None),
                     ("frameio_loader_create", [
                         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
@@ -109,46 +155,73 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def _pil_decode(path: str) -> np.ndarray:
+def _error(path: str, rc: int) -> Exception:
+    if rc in REFUSED:
+        return Refused(path, rc)
+    return ValueError(f"{path} {ERRORS.get(rc, f'failed with code {rc}')}")
+
+
+def decode_counts() -> Dict[str, int]:
+    """Decodes since the last :func:`zero_decode_counts`: native PNG and
+    JPEG (any thread, the C++ loader's included) and PIL."""
+    png, jpeg = ctypes.c_uint64(), ctypes.c_uint64()
+    library().frameio_decode_counts(ctypes.byref(png), ctypes.byref(jpeg))
+    return {"png": png.value, "jpeg": jpeg.value, "pil": _pil_decodes}
+
+
+def zero_decode_counts() -> None:
+    global _pil_decodes
+    library().frameio_zero_decode_counts()
+    with _pil_lock:
+        _pil_decodes = 0
+
+
+def pil_open(refused: Refused):
+    """PIL's image of a file the codec refused (counted as a PIL decode);
+    an ImportError naming the file's format when PIL cannot be imported."""
+    global _pil_decodes
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{refused}, which the port's codec does not take, "
+                          f"and PIL cannot be imported") from e
+    with _pil_lock:
+        _pil_decodes += 1
+    return Image.open(refused.path)
+
+
+def _pil_decode(refused: Refused) -> np.ndarray:
     """(H, W, C) uint8 through PIL: L, LA, RGB and RGBA as they are, any
     other mode converted to RGB (as the JAX package does)."""
-    from PIL import Image
-
-    with Image.open(path) as img:
+    with pil_open(refused) as img:
         if img.mode not in ("L", "LA", "RGB", "RGBA"):
             img = img.convert("RGB")
         arr = np.asarray(img)
     return arr if arr.ndim == 3 else arr[..., None]
 
 
-def _take(lib, rc: int, pixels, w, h, c, path: str) -> Optional[np.ndarray]:
+def _take(lib, rc: int, pixels, w, h, c, path: str) -> np.ndarray:
     """The decoded frame of a call that returned ``rc``: the codec's
-    buffer, None for a file the codec refuses by its format, or an error
-    naming the file."""
-    if rc == 0:
-        n = h.value * w.value * c.value
-        try:
-            return np.ctypeslib.as_array(pixels, shape=(n,)).reshape(
-                h.value, w.value, c.value).copy()
-        finally:
-            lib.frameio_free(pixels)
-    if rc in (NOT_PNG, UNSUPPORTED):
-        return None
-    raise ValueError(f"{path} {ERRORS.get(rc, f'failed with code {rc}')}")
+    buffer, or :class:`Refused` / an error naming the file."""
+    if rc != 0:
+        raise _error(path, rc)
+    n = h.value * w.value * c.value
+    try:
+        return np.ctypeslib.as_array(pixels, shape=(n,)).reshape(
+            h.value, w.value, c.value).copy()
+    finally:
+        lib.frameio_free(pixels)
 
 
 def _out_args():
     return _U8P(), _U32(), _U32(), _U32()
 
 
-def _native_png(path: str) -> bool:
-    return path.lower().endswith(".png")
-
-
-def decode_png_native(path) -> Optional[np.ndarray]:
-    """uint8 (H, W, C) of a PNG the codec reads, C = 1 (L), 2 (LA), 3 (RGB)
-    or 4 (RGBA); None for a file it refuses by its format. Raises for a
-    damaged PNG or a file that cannot be read."""
+def decode_native(path) -> np.ndarray:
+    """uint8 (H, W, C) of a PNG or JPEG the codec reads, by its signature:
+    C = 1 (L), 2 (LA), 3 (RGB) or 4 (RGBA). Raises :class:`Refused` for a
+    file it does not take by its format, ValueError for a damaged file or
+    one that cannot be read."""
     p = str(path)
     lib = library()
     pixels, w, h, c = _out_args()
@@ -158,17 +231,35 @@ def decode_png_native(path) -> Optional[np.ndarray]:
 
 
 def decode_png(path) -> np.ndarray:
-    """Decode an image file to uint8 (H, W, C), C in 1-4. A ``.png`` goes
-    through the codec; a file the codec refuses by its format, or any other
-    extension, through PIL."""
+    """Decode an image file to uint8 (H, W, C), C in 1-4: through the
+    codec, or through PIL for a file the codec refuses by its format."""
+    try:
+        return decode_native(path)
+    except Refused as r:
+        return _pil_decode(r)
+
+
+def probe(path) -> Tuple[int, int, int]:
+    """(width, height, channels) of a PNG or JPEG from its header, without
+    decoding it (any kind of JPEG, refused ones included). Raises
+    :class:`Refused` for a file of neither signature, ValueError for a
+    header that does not parse."""
     p = str(path)
-    arr = decode_png_native(p) if _native_png(p) else None
-    return _pil_decode(p) if arr is None else arr
+    w, h, c = _U32(), _U32(), _U32()
+    rc = library().frameio_probe(p.encode(), ctypes.byref(w), ctypes.byref(h),
+                                 ctypes.byref(c))
+    if rc != 0:
+        raise _error(p, rc)
+    return w.value, h.value, c.value
 
 
 def _as_hwc(array: np.ndarray) -> np.ndarray:
     arr = np.ascontiguousarray(array, dtype=np.uint8)
     return arr[..., None] if arr.ndim == 2 else arr
+
+
+def _native_png(path: str) -> bool:
+    return path.lower().endswith(".png")
 
 
 def _pil_encode(path: str, arr: np.ndarray) -> None:
@@ -194,18 +285,50 @@ def encode_png(path, array: np.ndarray, compress_level: int = 6) -> None:
         raise OSError(f"{p} {ERRORS.get(rc, f'failed with code {rc}')}")
 
 
+def encode_jpeg(path, rgb: np.ndarray, quality: int = 95) -> None:
+    """Write uint8 (H, W, 3) RGB as a baseline 4:2:0 JPEG at ``quality``,
+    the bytes Pillow's ``save(path, format="JPEG", quality=quality)``
+    writes, whatever the file's name. Raises OSError when the write fails."""
+    p, arr = str(path), np.ascontiguousarray(rgb, dtype=np.uint8)
+    if arr.ndim != 3 or arr.shape[-1] != 3:
+        raise ValueError(f"encode_jpeg: {arr.shape} is not (H, W, 3)")
+    rc = library().frameio_encode_jpeg(p.encode(), arr.ctypes.data_as(_U8P),
+                                       arr.shape[1], arr.shape[0],
+                                       int(quality))
+    if rc != 0:
+        raise OSError(f"{p} {ERRORS.get(rc, f'failed with code {rc}')}")
+
+
+def resize_lanczos(array: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 (H, W) or (H, W, 1 or 3) resized to (height, width) as
+    Pillow's ``resize((width, height), Image.Resampling.LANCZOS)`` of an L
+    or RGB image, in C++ (plain version: ``data/resample.py``)."""
+    arr = np.ascontiguousarray(array, dtype=np.uint8)
+    hwc = _as_hwc(arr)
+    if hwc.ndim != 3 or hwc.shape[-1] not in (1, 3):
+        raise ValueError(f"resize_lanczos: {arr.shape} is not (H, W[, 1|3])")
+    out = np.empty((height, width) + arr.shape[2:], np.uint8)
+    rc = library().frameio_resize(hwc.ctypes.data_as(_U8P), hwc.shape[1],
+                                  hwc.shape[0], hwc.shape[-1],
+                                  out.ctypes.data_as(_U8P), width, height)
+    if rc != 0:
+        raise ValueError(f"resize_lanczos {arr.shape} -> ({height}, {width}) "
+                         f"{ERRORS.get(rc, f'failed with code {rc}')}")
+    return out
+
+
 class FrameLoader:
     """In-order threaded decoder over a list of paths: ``get(i)`` blocks
-    until frame ``i`` is decoded; at most ``window`` frames past the last
-    one taken are decoded ahead. Paths that are not all ``.png`` are read
-    one at a time by :func:`decode_png` instead."""
+    until frame ``i`` is decoded (PNG or JPEG, in C++ threads); at most
+    ``window`` frames past the last one taken are decoded ahead. A frame
+    the codec refuses by its format is read by PIL in ``get``."""
 
     def __init__(self, paths: Sequence, num_threads: int = 4,
                  window: int = 8):
         self.paths: List[str] = [str(p) for p in paths]
         self._handle = None
         self._lib = library()
-        if self.paths and all(_native_png(p) for p in self.paths):
+        if self.paths:
             arr = (ctypes.c_char_p * len(self.paths))(
                 *[p.encode() for p in self.paths])
             self._handle = self._lib.frameio_loader_create(
@@ -215,13 +338,15 @@ class FrameLoader:
 
     def get(self, index: int) -> np.ndarray:
         if self._handle is None:
-            return decode_png(self.paths[index])
+            raise IndexError(f"frame {index} of an empty FrameLoader")
         pixels, w, h, c = _out_args()
         rc = self._lib.frameio_loader_get(
             self._handle, index, ctypes.byref(pixels), ctypes.byref(w),
             ctypes.byref(h), ctypes.byref(c))
-        arr = _take(self._lib, rc, pixels, w, h, c, self.paths[index])
-        return _pil_decode(self.paths[index]) if arr is None else arr
+        try:
+            return _take(self._lib, rc, pixels, w, h, c, self.paths[index])
+        except Refused as r:
+            return _pil_decode(r)
 
     def close(self) -> None:
         if self._handle is not None:

@@ -56,7 +56,7 @@ def test_decode_equals_jax_codec_and_pil(tmp_path, mode):
         want.shape))
     assert jax_native()
     np.testing.assert_array_equal(got, jax_decode_png(str(path)))
-    assert frameio.decode_png_native(path) is not None  # the codec read it
+    assert frameio.decode_native(path) is not None  # the codec read it
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -88,26 +88,57 @@ def test_encode_roundtrips_through_pil(tmp_path, channels):
     np.testing.assert_array_equal(decode_png(path), arr)
 
 
-def test_formats_the_codec_refuses_go_to_pil(tmp_path):
-    rng = np.random.default_rng(3)
-    rgb = rng.integers(0, 256, (12, 17, 3), dtype=np.uint8)
-    Image.fromarray(rgb).convert("P").save(tmp_path / "p.png")
-    Image.fromarray((rgb[..., 0].astype(np.uint16) * 257)).save(
-        tmp_path / "i16.png")
-    Image.fromarray(rgb).save(tmp_path / "c.jpg")
-    Image.fromarray(rgb).save(tmp_path / "jpeg_named.png", format="JPEG")
-    for name in ("p.png", "i16.png", "jpeg_named.png"):
-        assert frameio.decode_png_native(tmp_path / name) is None, name
-    for name in ("p.png", "i16.png", "c.jpg", "jpeg_named.png"):
-        with Image.open(tmp_path / name) as img:
-            want_rgb = np.asarray(img.convert("RGB"))
-            want_l = np.asarray(img.convert("L"))
-        np.testing.assert_array_equal(tio.decode_rgb_uint8(tmp_path / name),
-                                      want_rgb)
-        np.testing.assert_array_equal(tio.load_mask(tmp_path / name),
-                                      (want_l > 128).astype(np.float32))
-        got = decode_png(tmp_path / name)
-        assert got.shape[:2] == (12, 17) and got.ndim == 3
+def _rgb_12x17():
+    return np.random.default_rng(3).integers(0, 256, (12, 17, 3),
+                                             dtype=np.uint8)
+
+
+# (file name, how PIL writes it, the codec reads it natively)
+FORMATS = [
+    ("c.jpg", lambda p: Image.fromarray(_rgb_12x17()).save(p), True),
+    ("jpeg_named.png", lambda p: Image.fromarray(_rgb_12x17()).save(
+        p, format="JPEG"), True),
+    ("gray.jpg", lambda p: Image.fromarray(_rgb_12x17()[..., 0]).save(p),
+     True),
+    ("p.png", lambda p: Image.fromarray(_rgb_12x17()).convert("P").save(p),
+     False),
+    ("i16.png", lambda p: Image.fromarray(
+        _rgb_12x17()[..., 0].astype(np.uint16) * 257).save(p), False),
+    ("prog.jpg", lambda p: Image.fromarray(_rgb_12x17()).save(
+        p, progressive=True), False),
+    ("cmyk.jpg", lambda p: Image.fromarray(_rgb_12x17()).convert(
+        "CMYK").save(p), False),
+]
+
+
+@pytest.mark.parametrize("name,write,native", FORMATS,
+                         ids=[f[0] for f in FORMATS])
+def test_formats_the_codec_refuses_go_to_pil(tmp_path, name, write, native):
+    """The codec decides by the file's signature: baseline JPEG (a .jpg or
+    a JPEG named .png) is read natively, bit for bit PIL's; palette and
+    16-bit PNG, progressive and CMYK JPEG are refused and read by PIL."""
+    path = tmp_path / name
+    write(path)
+    frameio.zero_decode_counts()
+    if native:
+        arr = frameio.decode_native(path)
+        assert arr.shape[:2] == (12, 17) and arr.shape[-1] in (1, 3)
+    else:
+        with pytest.raises(frameio.Refused):
+            frameio.decode_native(path)
+    with Image.open(path) as img:
+        want_rgb = np.asarray(img.convert("RGB"))
+        want_l = np.asarray(img.convert("L"))
+    np.testing.assert_array_equal(tio.decode_rgb_uint8(path), want_rgb)
+    np.testing.assert_array_equal(tio.load_mask(path),
+                                  (want_l > 128).astype(np.float32))
+    got = decode_png(path)
+    assert got.shape[:2] == (12, 17) and got.ndim == 3
+    if native:
+        np.testing.assert_array_equal(tio.to_rgb(got), want_rgb)
+    counts = frameio.decode_counts()
+    assert counts["pil"] == (0 if native else 3), counts
+    assert counts["jpeg"] == (4 if native else 0), counts
 
 
 def test_damaged_png_raises_naming_the_file(tmp_path):

@@ -280,6 +280,8 @@ def test_the_port_tools_never_import_jax_or_the_jax_package():
     anywhere = re.compile(r"^\s*(from|import)\s+(jax|flax|patch_toon_tpu"
                           r"(?!_torch)\b)", re.M)
     top = re.compile(r"^(from|import)\s+PIL\b", re.M)
-    for name in ("gaussian_filter_torch.py", "temporal_guide_torch.py"):
+    for name in ("gaussian_filter_torch.py", "temporal_guide_torch.py",
+                 "imageprocessor_torch.py", "process_pipeline_torch.py",
+                 "texture_mapper_torch.py"):
         text = (REPO / "tools" / name).read_text()
         assert not anywhere.search(text) and not top.search(text), name
