@@ -308,6 +308,23 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    checkpoints' served distance printed beside data parallelism's own 2-
    and 4-rank against 1-rank distance.
 
+15. ``orbax``: the JAX package's Orbax checkpoint
+   ``docs/quality_2000/ours_ckpt/last`` (the shipped model at full width,
+   step 2000) with jax, orbax, tensorstore, zstandard and the JAX package
+   unimportable: ``utils/orbax.py`` (the port's OCDBT reader and zstd
+   decoder, ``native/zstd.cpp``) reads every leaf, each held to the
+   committed digest ``tests/data/orbax/quality_2000_last.json`` (SHA-256
+   of JAX's restore), the read's seconds and the decoder's MB/s printed;
+   ``process_directory`` serves 6 frames of 512x910 from the directory,
+   tiled and full-frame at bf16, with the counters zeroed just before and
+   read just after (19 B1 launches a generator call, one B2 launch a
+   tiled group); precision 32 on a masked frame, card against the CPU
+   engine on the same directory (limit 1 count); ``fit`` resumed from the
+   directory for 3 steps at batch 80, bf16: Adam's moments as loaded
+   bitwise the digest-checked tree, the step and Adam's counts going on
+   from the checkpoint's, 25 forward and 25 backward B1 cluster launches a
+   step.
+
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero before the last line; nothing falls back
@@ -318,6 +335,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import logging
@@ -360,6 +378,7 @@ from patch_toon_tpu_torch.native.frameio import (
     decode_counts,
     decode_native,
     decode_png,
+    library as frameio_library,
     encode_jpeg,
     encode_png,
     resize_lanczos,
@@ -389,7 +408,10 @@ from patch_toon_tpu_torch.parallel.tp import (
     shard_module_,
 )
 from patch_toon_tpu_torch.train import optim
-from patch_toon_tpu_torch.train.checkpoints import whole_state
+from patch_toon_tpu_torch.train.checkpoints import (
+    CheckpointManager,
+    whole_state,
+)
 from patch_toon_tpu_torch.train.logging import build_comparison_grid
 from patch_toon_tpu_torch.train import loop as loop_module
 from patch_toon_tpu_torch.train.loop import fit
@@ -397,7 +419,11 @@ from patch_toon_tpu_torch.train.model import (
     StyleTransferModel,
     training_backends,
 )
-from patch_toon_tpu_torch.utils.weights import load_quant_scales
+from patch_toon_tpu_torch.utils import orbax as orbax_reader
+from patch_toon_tpu_torch.utils.weights import (
+    generator_state_from_jax,
+    load_quant_scales,
+)
 from patch_toon_tpu_torch.train.parity import (
     Kinks,
     assert_device_step_parity,
@@ -1051,9 +1077,9 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
 
 
 def _dir_engine(precision: str, scene: Path, out: Path, mode: str = "tiled",
-                device=None, **inference):
+                device=None, ckpt: Path = CKPT, **inference):
     return StyleTransferInference(inference_config(
-        paths={"checkpoint": str(CKPT), "input_dir": str(scene / "input"),
+        paths={"checkpoint": str(ckpt), "input_dir": str(scene / "input"),
                "mask_dir": str(scene / "mask"), "output_dir": str(out),
                "additional_channels": {"point_vector": {
                    "path": str(scene / "tracking"), "depth": 3}}},
@@ -1221,16 +1247,26 @@ def phase_serve_directory(dev, card: str, tmp: Path) -> dict:
 
 
 @contextlib.contextmanager
-def _without_pil():
-    """PIL made unimportable: the card's serving path needs none."""
-    saved = {k: sys.modules[k] for k in list(sys.modules)
-             if k == "PIL" or k.startswith("PIL.")}
-    sys.modules["PIL"] = None
+def _without_modules(names):
+    """``names`` and their submodules made unimportable, those already
+    imported put back afterwards."""
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k.split(".")[0] in names}
+    for n in names:
+        sys.modules[n] = None
     try:
         yield
     finally:
-        del sys.modules["PIL"]
+        for n in names:
+            del sys.modules[n]
         sys.modules.update(saved)
+
+
+@contextlib.contextmanager
+def _without_pil():
+    """PIL made unimportable: the card's serving path needs none."""
+    with _without_modules(("PIL",)):
+        yield
 
 
 B1_WRAPPERS = {"cluster": instance_norm.instance_norm_act_cluster,
@@ -6085,6 +6121,213 @@ def _tp_layout_checks(tmp, out, ranks, d, m, top, one, served_dp,
     return w
 
 
+# ---------------------------------------------------------------- orbax
+
+ORBAX_CKPT = REPO / "docs" / "quality_2000" / "ours_ckpt" / "last"
+ORBAX_DIGEST = REPO / "tests" / "data" / "orbax" / "quality_2000_last.json"
+ORBAX_BLOCKED = ("jax", "orbax", "tensorstore", "zstandard",
+                 "patch_toon_tpu")
+ORBAX_FRAMES = 6  # frames of 512x910 served from the directory a mode
+ORBAX_STEPS = 3   # fit steps resumed from it
+
+
+def _leaf_digests(tree) -> list:
+    """The digest file's records of a tree of nested dicts and lists:
+    the path as ``jax.tree_util.keystr`` writes it, shape, dtype and the
+    SHA-256 of the leaf's bytes, sorted by path."""
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], path + f"[{k!r}]")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, path + f"[{i}]")
+        elif t is not None:
+            a = np.asarray(t)
+            out.append({"path": path, "shape": list(a.shape),
+                        "dtype": str(a.dtype),
+                        "sha256": hashlib.sha256(a.tobytes()).hexdigest()})
+
+    walk(tree, "")
+    return sorted(out, key=lambda r: r["path"])
+
+
+def phase_orbax(dev, card: str, tmp: Path) -> dict:
+    """The JAX package's Orbax checkpoint ``docs/quality_2000/ours_ckpt/
+    last`` on the card, with jax, orbax, tensorstore, zstandard and the
+    JAX package unimportable. (a) ``utils/orbax.py::read_tree`` (the
+    port's OCDBT reader and zstd decoder) reads every leaf, each held to
+    the committed digest (path, shape, dtype, SHA-256 of JAX's restore);
+    the read's seconds and the decoder's MB/s, twice (the files warm in
+    the page cache both times). (b) ``process_directory`` serves
+    ``ORBAX_FRAMES`` frames of 512x910 from the directory at full width
+    (its meta.json's generator args), tiled (2 groups) and full-frame at
+    bf16, the counters zeroed just before and read just after each run
+    (19 B1 launches a generator call in the variants ``plan`` gives, one
+    B2 launch a tiled group); precision 32 on a masked frame against the CPU engine
+    on the same directory (limit 1 count). (c) ``fit`` at batch 80, bf16,
+    resumed from the directory (``resume_from``) for ``ORBAX_STEPS``
+    steps: Adam's moments as loaded bitwise the digest-checked tree
+    mapped, the step and Adam's count going on from the checkpoint's, 25
+    forward and 25 backward B1 cluster launches a step."""
+    want = json.loads(ORBAX_DIGEST.read_text())["leaves"]
+    counts = dict.fromkeys(LAUNCH_KINDS, 0)
+    rec = {"source": str(ORBAX_CKPT.relative_to(REPO))}
+    with _without_modules(ORBAX_BLOCKED):
+        frameio_library()  # the codec's build at first use, not timed
+        reads = []
+        for _ in range(2):
+            stats = orbax_reader.ReadStats()
+            t0 = time.perf_counter()
+            tree = orbax_reader.read_tree(ORBAX_CKPT, stats=stats)
+            reads.append((time.perf_counter() - t0, stats))
+        got = _leaf_digests(tree)
+        if got != want:
+            bad = [w["path"] for g, w in zip(got, want) if g != w]
+            raise AssertionError(f"orbax: {len(got)} leaves read, "
+                                 f"{len(want)} in the digest; differing "
+                                 f"{bad[:5]}")
+        for i, (sec, st) in enumerate(reads):
+            rec[f"read_{i}"] = {
+                "s": sec, "decode_s": st.decode_s, "chunks": st.chunks,
+                "compressed_mb": st.compressed_bytes / 1e6,
+                "decoded_mb": st.decoded_bytes / 1e6,
+                "decoder_mb_per_s": st.decoded_bytes / 1e6 / st.decode_s,
+                "read_mb_per_s": st.decoded_bytes / 1e6 / sec}
+            say("orbax", read=i, leaves=len(got), digest="equal",
+                seconds=f"{sec:.4f}", decode_s=f"{st.decode_s:.4f}",
+                chunks=st.chunks,
+                compressed_mb=f"{st.compressed_bytes / 1e6:.3f}",
+                decoded_mb=f"{st.decoded_bytes / 1e6:.3f}",
+                decoder_mb_per_s=f"{rec[f'read_{i}']['decoder_mb_per_s']:.1f}",
+                read_mb_per_s=f"{rec[f'read_{i}']['read_mb_per_s']:.1f}",
+                page_cache="first read" if i == 0 else "warm",
+                card=f"'{card}'")
+
+        scene, names = tmp / "orbax_scene", [f"{i:04d}.png"
+                                              for i in range(ORBAX_FRAMES)]
+        write_scene(scene, ORBAX_FRAMES, seed=4)
+        for mode in ("tiled", "fullframe"):
+            out = tmp / f"orbax_{mode}"
+            eng = _dir_engine("bf16", scene, out, mode, ckpt=ORBAX_CKPT)
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            n = eng.process_directory()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            got_counts = _read_counts()
+            calls = -(-ORBAX_FRAMES // eng._group_size(len(eng.boxes_for(
+                _full_mask(), (H, W))))) if mode == "tiled" else ORBAX_FRAMES
+            _check_counts(f"orbax {mode}", got_counts, calls,
+                          mode == "tiled", "bf16")
+            for k in LAUNCH_KINDS:
+                counts[k] += got_counts[k]
+            frame = decode_png(out / names[-1])
+            if n != ORBAX_FRAMES or frame.shape != (H, W, 3) \
+                    or frame.std() < 1.0:
+                raise AssertionError(f"orbax {mode}: {n} frames, last "
+                                     f"{frame.shape} std {frame.std()}")
+            rec[f"serve_{mode}_ms_per_frame"] = 1e3 * sec / ORBAX_FRAMES
+            say("orbax", serve=mode, precision="bf16", frames=n,
+                generator_calls=calls, ms_per_frame=f"{1e3 * sec / ORBAX_FRAMES:.2f}",
+                first_run="yes (cuDNN set-up included)",
+                launches=json.dumps(got_counts).replace(" ", ""),
+                card=f"'{card}'")
+
+        # precision 32: the card against the CPU engine, one directory
+        cfg = dict(paths={"checkpoint": str(ORBAX_CKPT)},
+                   inference={"precision": "32"})
+        mask = np.zeros((H, W), np.float32)
+        mask[200:330, 380:560] = 1
+        eroded = erode_full_support_np(mask)
+        frame = decode_png(scene / "input" / names[0])
+        guide = decode_png(scene / "tracking" / names[0])
+        x = np.concatenate([frame, guide], -1)[None]
+        torch.cuda.synchronize()
+        _zero_counts()
+        got = StyleTransferInference(inference_config(**cfg)).stylize_group(
+            x, [eroded])
+        torch.cuda.synchronize()
+        got_counts = _read_counts()
+        _check_counts("orbax 32", got_counts, 1, True, "32")
+        for k in LAUNCH_KINDS:
+            counts[k] += got_counts[k]
+        ref = StyleTransferInference(inference_config(**cfg),
+                                     device="cpu").stylize_group(x, [eroded])
+        d = np.abs(got.astype(int) - ref.astype(int))
+        inside = eroded > 0
+        changed = float((got[0][inside] != frame[inside]).mean())
+        rec["card_vs_cpu_max_abs"] = int(d.max())
+        say("orbax", card_vs_cpu="precision 32, a 130x180 masked region",
+            max_abs=int(d.max()), differing_pixels=int((d > 0).sum()),
+            changed_share_in_mask=f"{changed:.3f}")
+        if d.max() > 1 or changed < 0.5:
+            raise AssertionError(f"orbax: card vs CPU {d.max()} counts "
+                                 f"(limit 1), {changed} of the mask changed")
+
+        # resume fit
+        step0 = int(tree["step"])
+        adam = tree["g_opt"][2]
+        count0 = int(adam["count"])
+        model = _train_model("bf16", max_steps=step0 + ORBAX_STEPS)
+        loaded = model.init_state(0, dev)
+        CheckpointManager.restore(str(ORBAX_CKPT), loaded)
+        gen = loaded.generator
+        names_g = [k for k, _ in gen.named_parameters()]
+        for which in ("mu", "nu"):
+            sd = generator_state_from_jax(adam[which],
+                                          tree["g_batch_stats"])
+            mine = getattr(loaded.g_opt, which)
+            bad = [k for k, t in zip(names_g, mine)
+                   if not torch.equal(t.cpu(), sd[k])]
+            if bad or loaded.g_opt.count != count0 or loaded.step != step0:
+                raise AssertionError(f"orbax resume: {which} differs at "
+                                     f"{bad[:5]}, count "
+                                     f"{loaded.g_opt.count}, step "
+                                     f"{loaded.step}")
+        del loaded
+        frames, pres, posts, masks, guides = _keyframes()
+        data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                    patch_size=PS, device=dev)
+        torch.cuda.synchronize()
+        _set_counts((0, 0, 0, 0))
+        t0 = time.perf_counter()
+        state = fit(model, data, str(tmp / "orbax_run"), seed=0,
+                    resume_from=str(ORBAX_CKPT), progress=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        fwd, st, bwd, bst = _counts()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in _net_tensors(state).values())
+        say("orbax", resumed_fit=f"from step {step0}", steps=ORBAX_STEPS,
+            batch=BT, precision="bf16", step=state.step,
+            adam_count=f"{count0}->{state.g_opt.count}",
+            seconds_with_setup=f"{sec:.2f}", forward_launches=fwd,
+            backward_launches=bwd, streaming=st + bst, finite=finite)
+        if state.step != step0 + ORBAX_STEPS \
+                or state.g_opt.count != count0 + ORBAX_STEPS \
+                or state.d_opt.count != int(tree["d_opt"][2]["count"]) \
+                + ORBAX_STEPS or not finite \
+                or (fwd, st, bwd, bst) != (25 * ORBAX_STEPS, 0,
+                                           25 * ORBAX_STEPS, 0):
+            raise AssertionError(
+                f"orbax resume: step {state.step}, counts "
+                f"{state.g_opt.count} / {state.d_opt.count}, finite "
+                f"{finite}, launches {(fwd, st, bwd, bst)}")
+        rec["resume"] = {"step0": step0, "steps": ORBAX_STEPS,
+                         "seconds_with_setup": sec}
+        loaded_mods = sorted(k for k, v in sys.modules.items()
+                             if v is not None
+                             and k.split(".")[0] in ORBAX_BLOCKED)
+    if loaded_mods:
+        raise AssertionError(f"orbax: imported {loaded_mods}")
+    return {"rec": rec, "launches": counts,
+            "train": {"forward": fwd, "backward": bwd}}
+
+
 def main_multi_gpu(t0: float, card: str) -> int:
     """``--multi-gpu``: the build, the multi_gpu phase and the NCCL forms
     of tensor_parallel alone."""
@@ -6146,6 +6389,8 @@ def main() -> int:
         guides = phase_guides(dev, card, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         pipeline = phase_pipeline(dev, card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        ob = phase_orbax(dev, card, Path(tmp))
     # no phase but int8 (and multi_gpu's 2-card int8) launches them
     want = {k: n + mgpu["launches"][f"int8_{k}"]
             + transport["int8_total"][k] for k, n in int8["after"].items()}
@@ -6170,7 +6415,8 @@ def main() -> int:
                "multi_gpu_serve": mgpu["launches"]["cluster"],
                "int8_serve_directory": int8["launches"]["tiled"]["cluster"],
                "transport": transport["launches"]["cluster"],
-               "pipeline": pipeline["cluster"]}
+               "pipeline": pipeline["cluster"],
+               "orbax_serve": ob["launches"]["cluster"]}
     blends = {"serve": launches["blend_tiles"],
               "serve_directory": served["launches"]["blend_tiles"],
               "temporal_tiled": chain["launches"]["blend"],
@@ -6182,7 +6428,8 @@ def main() -> int:
               "multi_gpu_serve": mgpu["launches"]["blend"],
               "int8_serve_directory": int8["launches"]["tiled"]["blend"],
               "transport": transport["launches"]["blend"],
-              "pipeline": pipeline["blend"]}
+              "pipeline": pipeline["blend"],
+              "orbax_serve": ob["launches"]["blend"]}
     # launches of B1's resident and split variants by full-frame path
     # B1 on tensor parallelism's channel slices: the one-card forms, fit at
     # devices 1 x model 2, and the NCCL forms where there are 2+ cards
@@ -6204,7 +6451,8 @@ def main() -> int:
                       "multi_gpu_serve": mgpu["launches"][v],
                       "int8_fullframe": int8["launches"]["fullframe"][v],
                       "transport": transport["launches"][v],
-                      "tensor_parallel": tp_fwd[v]}
+                      "tensor_parallel": tp_fwd[v],
+                      "orbax_serve": ob["launches"][v]}
                   for v in ("resident", "split")}
     ff_frame = {k: v for k, v in rec_ff.items()
                 if k not in ("resident", "split")}
@@ -6242,7 +6490,8 @@ def main() -> int:
                  - train["launches"]["forward_32_fast"]
                  + rest["launches"]["forward"],
                  "32_fast_train": train["launches"]["forward_32_fast"],
-                 "multi_gpu_train": mgpu["launches"]["train_forward"]}
+                 "multi_gpu_train": mgpu["launches"]["train_forward"],
+                 "orbax_resume": ob["train"]["forward"]}
     rest_bwd = {"cluster": rest["launches"]["backward"],
                 "streaming": rest["launches"]["backward_streaming"]}
     kernels = [
@@ -6282,7 +6531,8 @@ def main() -> int:
                note="backward pass of B1; the Pallas kernel has none (JAX "
                     "differentiates patch_toon_tpu/models/layers.py:29-40)",
                launches=train["launches"][key] + rest_bwd[v]
-               + (mgpu["launches"]["train_backward"] if v == "cluster"
+               + (mgpu["launches"]["train_backward"]
+                  + ob["train"]["backward"] if v == "cluster"
                   else 0) + tp_bwd[v], dtype="bf16",
                variant=v,
                launches_by_path={
@@ -6292,6 +6542,8 @@ def main() -> int:
                    "32_fast_train": train["launches"]["backward_32_fast"]
                    if v == "cluster" else 0,
                    "multi_gpu_train": mgpu["launches"]["train_backward"]
+                   if v == "cluster" else 0,
+                   "orbax_resume": ob["train"]["backward"]
                    if v == "cluster" else 0,
                    "tensor_parallel": tp_bwd[v]},
                picked_by_plan_backward=v == "cluster",
@@ -6417,7 +6669,7 @@ def main() -> int:
                       "multistream": multi["rec"], "int8": int8["rec"],
                       "transport": transport["rec"],
                       "train_rest": rest["rec"], "guides": guides["rec"],
-                      "pipeline": pipeline["rec"],
+                      "pipeline": pipeline["rec"], "orbax": ob["rec"],
                       "multi_gpu": mgpu, "tensor_parallel": {
                           "one_card": tp["rec"],
                           "nccl": tp_multi.get("rec")}}),

@@ -31,6 +31,7 @@ import sys
 from pathlib import Path
 
 from patch_toon_tpu_torch.config.compose import compose, compose_without_yaml
+from patch_toon_tpu_torch.utils.logging import configure_logging
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "config"
 logger = logging.getLogger("patch_toon_tpu_torch.cli")
@@ -60,8 +61,10 @@ def _sigterm(signum, frame):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    configure_logging(logging.INFO)
     cfg = load_config(argv)
+    if bool(cfg["inference"].get("debug_mode", False)):
+        configure_logging(logging.DEBUG)
     dcn = (cfg.get("parallel") or {}).get("dcn") or {}
     if bool(dcn.get("enabled", False)):
         from patch_toon_tpu_torch.parallel import initialize_distributed

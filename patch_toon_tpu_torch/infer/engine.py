@@ -23,11 +23,13 @@ are those of :meth:`stylize_group`, the public synchronous call, run group
 by group.
 
 Semantics kept from the JAX engine: the channel count sniffed from the
-checkpoint must match the configured guide channels; masks are binarized
-(> 128), then eroded with the 7x7 full-support rule; a missing mask
-directory whose name ends in ``ignore`` means full-frame stylization; a
-fractional mask given to :meth:`stylize_group` is uploaded as fp32 and
-composites in part (JAX ``_mask_up``); ``debug_mode`` writes
+checkpoint must match the configured guide channels (an Orbax directory's
+from its ``meta.json`` or its first kernel's ``.zarray``, before any
+weight is read; its ``generator_args`` override the configured ones);
+masks are binarized (> 128), then eroded with the 7x7 full-support rule;
+a missing mask directory whose name ends in ``ignore`` means full-frame
+stylization; a fractional mask given to :meth:`stylize_group` is uploaded
+as fp32 and composites in part (JAX ``_mask_up``); ``debug_mode`` writes
 ``debug_<name>`` beside each frame with its tile boxes outlined.
 
 Precision ``32`` runs fp32 with TF32 off in cuDNN and matmuls and the
@@ -183,6 +185,7 @@ from patch_toon_tpu_torch.models.layers import (
 from patch_toon_tpu_torch.native.frameio import FrameWriter, encode_png
 from patch_toon_tpu_torch.ops.masks import erode_full_support_np
 from patch_toon_tpu_torch.parallel import comm
+from patch_toon_tpu_torch.utils import orbax
 from patch_toon_tpu_torch.utils.knobs import resolve_transport_knobs
 from patch_toon_tpu_torch.utils.weights import (
     load_generator_state,
@@ -342,6 +345,9 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
             torch.set_float32_matmul_precision("highest")
         self.patch_size = int(cfg["data"]["patch_size"])
         self.logger = logging.getLogger("patch_toon_tpu_torch.infer")
+        # JAX engine.py:263-266: DEBUG under debug_mode
+        self.logger.setLevel(logging.DEBUG if self.debug_mode
+                             else logging.INFO)
 
         self.additional_channels: Dict[str, Dict[str, Any]] = {}
         paths = cfg.get("paths", {}) or {}
@@ -375,14 +381,23 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         self._temporal_init()  # JAX engine.py:350-351, temporal.py:184
 
     def _load_model(self, ckpt_path: str) -> GeneratorJ:
-        sd = load_generator_state(ckpt_path)
-        ckpt_channels = input_channels_of(sd)
-        if ckpt_channels != self.total_channels:
-            raise ValueError(  # reference generator.py:120-129
-                f"Channel count mismatch! Checkpoint model expects "
-                f"{ckpt_channels} channels, but current configuration has "
-                f"{self.total_channels} channels.")
         args = dict(self.cfg["model"]["generator"].get("args") or {})
+        if os.path.isdir(ckpt_path):
+            # an Orbax directory describes itself (JAX engine.py:319-343):
+            # the channels from meta.json or the kernel's .zarray alone,
+            # checked before any weight is read; its generator args win
+            ckpt_channels = orbax.sniff_input_channels(ckpt_path)
+            self._check_channels(ckpt_channels)
+            args.update(orbax.read_meta(ckpt_path).get("generator_args")
+                        or {})
+            sd = load_generator_state(
+                ckpt_path, norm_layer=args.get("norm_layer",
+                                               "instance_norm"))
+        else:
+            sd = load_generator_state(ckpt_path)
+            ckpt_channels = input_channels_of(sd)
+            self._check_channels(ckpt_channels)
+        args.pop("additional_channels", None)
         args["input_channels"] = ckpt_channels
         args["conv_precision"] = self.conv_precision
         model = GeneratorJ(**args)
@@ -400,6 +415,13 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         self.logger.info(f"Model ready: {ckpt_channels} input channels from "
                          f"{ckpt_path} on {self.device}, {self.dtype}")
         return model
+
+    def _check_channels(self, ckpt_channels: int) -> None:
+        if ckpt_channels != self.total_channels:
+            raise ValueError(  # reference generator.py:120-129
+                f"Channel count mismatch! Checkpoint model expects "
+                f"{ckpt_channels} channels, but current configuration has "
+                f"{self.total_channels} channels.")
 
     def _ensure_quant(self, frame: torch.Tensor) -> None:
         """First-frame w8a8 calibration (JAX ``engine.py:390-418``), once:

@@ -50,9 +50,12 @@ int probe_jpeg(const uint8_t* data, size_t size, uint32_t* width,
 int decode_jpeg(const uint8_t* data, size_t size, Image* out);
 
 // 8-bit RGB to a baseline JFIF file as libjpeg-turbo writes it with its
-// defaults and jpeg_set_quality(quality): 4:2:0, islow DCT, Annex K tables
+// defaults and jpeg_set_quality(quality): 4:2:0, islow DCT, Annex K tables;
+// a comment of comment_size bytes (at most 65533) as a COM segment after
+// APP0, as Pillow's save writes im.info["comment"]
 int encode_jpeg(const uint8_t* rgb, uint32_t width, uint32_t height,
-                int quality, std::vector<uint8_t>* out);
+                int quality, std::vector<uint8_t>* out,
+                const uint8_t* comment = nullptr, uint32_t comment_size = 0);
 
 // Pillow's LANCZOS resize of 8-bit (h, w, channels) to (oh, ow, channels)
 int resize_lanczos(const uint8_t* src, uint32_t width, uint32_t height,

@@ -429,12 +429,15 @@ int frameio_probe(const char* path, uint32_t* width, uint32_t* height,
   return probe(path, width, height, channels);
 }
 
-// 8-bit RGB to a baseline 4:2:0 JPEG at `quality` (jpeg.cpp)
+// 8-bit RGB to a baseline 4:2:0 JPEG at `quality` (jpeg.cpp), with a COM
+// segment of comment_size bytes when that is not 0
 int frameio_encode_jpeg(const char* path, const uint8_t* rgb, uint32_t width,
-                        uint32_t height, int quality) {
+                        uint32_t height, int quality, const uint8_t* comment,
+                        uint32_t comment_size) {
   try {
     std::vector<uint8_t> jpeg;
-    int rc = encode_jpeg(rgb, width, height, quality, &jpeg);
+    int rc = encode_jpeg(rgb, width, height, quality, &jpeg, comment,
+                         comment_size);
     return rc == kOk ? write_file(path, jpeg) : rc;
   } catch (...) {
     return kInternal;

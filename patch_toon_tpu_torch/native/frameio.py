@@ -3,8 +3,10 @@
 Counterpart of ``patch_toon_tpu/native/frameio.py``, grown into the image
 IO that the JAX package takes from Pillow: ``frameio.cpp`` (PNG, the
 threaded loader and writer, the C interface), ``jpeg.cpp`` (baseline JPEG,
-decoded and encoded as Pillow does on libjpeg-turbo) and ``resample.cpp``
-(Pillow's LANCZOS resize). The sources are compiled at first use by one
+decoded and encoded as Pillow does on libjpeg-turbo), ``resample.cpp``
+(Pillow's LANCZOS resize) and ``zstd.cpp`` (zstd frames and CRC-32C, the
+codecs of Orbax checkpoints; bound in ``native/zstd.py``). The sources are
+compiled at first use by one
 ``g++ -O2 -shared -fPIC -std=c++17 -ffp-contract=off ... -lz -lpthread``
 call into ``patch_toon_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of every source and the flags, as the CUDA kernels are
@@ -30,6 +32,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import zlib
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,7 +40,7 @@ import numpy as np
 
 NATIVE_DIR = Path(__file__).resolve().parent
 SOURCES = tuple(NATIVE_DIR / n for n in ("frameio.cpp", "jpeg.cpp",
-                                         "resample.cpp"))
+                                         "resample.cpp", "zstd.cpp"))
 HEADERS = (NATIVE_DIR / "codec.h",)
 BUILD_DIR = NATIVE_DIR.parent / "_build"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
@@ -128,7 +131,8 @@ def library() -> ctypes.CDLL:
                     ("frameio_encode", [ctypes.c_char_p, _U8P, _U32, _U32,
                                         _U32, ctypes.c_int], ctypes.c_int),
                     ("frameio_encode_jpeg", [ctypes.c_char_p, _U8P, _U32,
-                                             _U32, ctypes.c_int],
+                                             _U32, ctypes.c_int,
+                                             ctypes.c_char_p, _U32],
                      ctypes.c_int),
                     ("frameio_resize", [_U8P, _U32, _U32, _U32, _U8P, _U32,
                                         _U32], ctypes.c_int),
@@ -147,7 +151,15 @@ def library() -> ctypes.CDLL:
                         ctypes.c_void_p, ctypes.c_char_p, _U8P, _U32, _U32,
                         _U32], ctypes.c_int),
                     ("frameio_writer_flush", [ctypes.c_void_p], ctypes.c_int),
-                    ("frameio_writer_destroy", [ctypes.c_void_p], None)):
+                    ("frameio_writer_destroy", [ctypes.c_void_p], None),
+                    ("zstd_decompress", [ctypes.c_char_p, ctypes.c_uint64,
+                                         ctypes.c_void_p, ctypes.c_uint64,
+                                         _U64P], ctypes.c_int),
+                    ("zstd_decompress_alloc", [
+                        ctypes.c_char_p, ctypes.c_uint64,
+                        ctypes.POINTER(_U8P), _U64P], ctypes.c_int),
+                    ("crc32c", [ctypes.c_char_p, ctypes.c_uint64, _U32],
+                     _U32)):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
@@ -285,18 +297,84 @@ def encode_png(path, array: np.ndarray, compress_level: int = 6) -> None:
         raise OSError(f"{p} {ERRORS.get(rc, f'failed with code {rc}')}")
 
 
-def encode_jpeg(path, rgb: np.ndarray, quality: int = 95) -> None:
+def encode_jpeg(path, rgb: np.ndarray, quality: int = 95,
+                comment: Optional[bytes] = None) -> None:
     """Write uint8 (H, W, 3) RGB as a baseline 4:2:0 JPEG at ``quality``,
     the bytes Pillow's ``save(path, format="JPEG", quality=quality)``
-    writes, whatever the file's name. Raises OSError when the write fails."""
+    writes, whatever the file's name; a non-empty ``comment`` goes in a COM
+    segment after APP0, as Pillow's save writes ``info["comment"]`` (see
+    :func:`read_comment`). Raises OSError when the write fails."""
     p, arr = str(path), np.ascontiguousarray(rgb, dtype=np.uint8)
     if arr.ndim != 3 or arr.shape[-1] != 3:
         raise ValueError(f"encode_jpeg: {arr.shape} is not (H, W, 3)")
+    com = bytes(comment or b"")
     rc = library().frameio_encode_jpeg(p.encode(), arr.ctypes.data_as(_U8P),
                                        arr.shape[1], arr.shape[0],
-                                       int(quality))
+                                       int(quality), com, len(com))
     if rc != 0:
         raise OSError(f"{p} {ERRORS.get(rc, f'failed with code {rc}')}")
+
+
+def read_comment(path) -> Optional[bytes]:
+    """The comment Pillow's ``Image.open(path).info["comment"]`` holds
+    once the image is loaded, as the bytes its JPEG ``save`` writes: a
+    JPEG's last COM segment before its scan, as it is; a PNG's last
+    ``tEXt``, ``zTXt`` or ``iTXt`` chunk keyed ``comment`` before IEND,
+    decoded (Latin-1, or UTF-8 for iTXt) and written as UTF-8. None without
+    one. Only segment and chunk headers and text chunks are read: the
+    pixel data is skipped."""
+    found: Optional[bytes] = None
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if head[:2] == b"\xff\xd8":
+            f.seek(2)
+            while True:
+                seg = f.read(4)
+                if len(seg) < 4 or seg[0] != 0xFF:
+                    break
+                marker = seg[1]
+                if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+                    f.seek(-2, 1)
+                    continue
+                n = int.from_bytes(seg[2:], "big")
+                if marker in (0xDA, 0xD9) or n < 2:
+                    break  # SOS, EOI: no header past here
+                if marker == 0xFE:
+                    found = f.read(n - 2)
+                else:
+                    f.seek(n - 2, 1)
+            return found
+        if head != b"\x89PNG\r\n\x1a\n":
+            return None
+        while True:
+            chunk = f.read(8)
+            if len(chunk) < 8 or chunk[4:] == b"IEND":
+                break
+            n, kind = int.from_bytes(chunk[:4], "big"), chunk[4:]
+            if kind not in (b"tEXt", b"zTXt", b"iTXt"):
+                f.seek(n + 4, 1)  # the body and its CRC
+                continue
+            body = f.read(n)
+            f.seek(4, 1)
+            if b"\0" not in body:
+                continue
+            key, rest = body.split(b"\0", 1)
+            if key != b"comment":
+                continue
+            try:
+                if kind == b"tEXt":
+                    text = rest.decode("latin-1")
+                elif kind == b"zTXt":
+                    text = zlib.decompress(rest[1:]).decode("latin-1")
+                else:
+                    flag, _method = rest[0], rest[1]
+                    _lang, _tkey, value = rest[2:].split(b"\0", 2)
+                    text = (zlib.decompress(value) if flag else value
+                            ).decode("utf-8")
+            except (ValueError, IndexError, zlib.error):
+                continue  # Pillow skips a chunk it cannot decode
+            found = text.encode("utf-8")
+    return found
 
 
 def resize_lanczos(array: np.ndarray, width: int, height: int) -> np.ndarray:

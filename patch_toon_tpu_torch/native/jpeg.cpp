@@ -929,9 +929,10 @@ int decode_jpeg(const uint8_t* data, size_t size, Image* out) {
 }
 
 int encode_jpeg(const uint8_t* rgb, uint32_t width, uint32_t height,
-                int quality, std::vector<uint8_t>* out) {
+                int quality, std::vector<uint8_t>* out, const uint8_t* comment,
+                uint32_t comment_size) {
   if (!width || !height || width > 65535 || height > 65535 || quality < 1 ||
-      quality > 100)
+      quality > 100 || comment_size > 65533)
     return kBadArgs;
   const int w = int(width), h = int(height);
   // jpeg_set_quality(quality, force_baseline = TRUE)
@@ -1004,13 +1005,20 @@ int encode_jpeg(const uint8_t* rgb, uint32_t width, uint32_t height,
       memcpy(&out_plane[size_t(oy) * cs], &out_plane[size_t(crows - 1) * cs], cs);
   }
 
-  // markers: SOI, APP0 (JFIF 1.01, no density), DQT x2, SOF0, DHT x4, SOS
+  // markers: SOI, APP0 (JFIF 1.01, no density), COM (a comment, when
+  // given), DQT x2, SOF0, DHT x4, SOS
   out->clear();
   out->reserve(npx / 2 + 1024);
   static const uint8_t kHead[] = {0xFF, 0xD8, 0xFF, 0xE0, 0x00, 0x10, 'J',
                                   'F',  'I',  'F',  0x00, 0x01, 0x01, 0x00,
                                   0x00, 0x01, 0x00, 0x01, 0x00, 0x00};
   out->insert(out->end(), kHead, kHead + sizeof(kHead));
+  if (comment_size) {  // COM, where Pillow's jpeg_write_marker puts it
+    out->push_back(0xFF);
+    out->push_back(0xFE);
+    put16(out, int(comment_size + 2));
+    out->insert(out->end(), comment, comment + comment_size);
+  }
   for (int t = 0; t < 2; ++t) {
     out->push_back(0xFF);
     out->push_back(0xDB);

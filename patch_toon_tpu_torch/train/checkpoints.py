@@ -18,9 +18,19 @@ to a temporary name and moved into place. Under gradient accumulation an
 optimizer state also carries k, the running mean of the gradients, its
 micro-step and its update count (``optim.MultiSteps.state_dict``), so a
 run resumed in the middle of an accumulation goes on exactly as Orbax's
-``g_opt`` lets the JAX package go on. The JAX package's Orbax directories
-are refused with the command that exports them
-(``tools/export_checkpoint.py``).
+``g_opt`` lets the JAX package go on.
+
+A directory is the JAX package's Orbax checkpoint, read by
+``utils/orbax.py`` (no jax): :func:`restore_orbax` loads it as JAX's
+``CheckpointManager.restore`` does (``patch_toon_tpu/train/
+checkpoints.py:116-130``): G and its BatchNorm statistics, D where both
+the checkpoint and the run have one, ``step``, and from each optax chain
+(``patch_toon_tpu/train/optim.py:31-39``: clipping, decayed weights where
+``weight_decay`` is set, ``scale_by_adam``, ``scale``) Adam's ``count``,
+``mu`` and ``nu``, the moments through the weights' HWIO -> OIHW mapping;
+under ``optax.MultiSteps`` also ``mini_step``, ``gradient_step`` and
+``acc_grads``. A tree that does not fit the run is refused, naming the
+leaf.
 
 Under tensor parallelism a rank holds slices of the sharded parameters
 and of their Adam moments: :func:`whole_state` gathers them over the
@@ -39,7 +49,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from patch_toon_tpu_torch.parallel.tp import gather_whole
+from patch_toon_tpu_torch.train.optim import MultiSteps
 from patch_toon_tpu_torch.train.state import GANTrainState
+from patch_toon_tpu_torch.utils import orbax
+from patch_toon_tpu_torch.utils.weights import (
+    discriminator_state_from_jax,
+    generator_state_from_jax,
+)
 
 _SKIP = ("state_dict", "optimizer_states")
 
@@ -126,7 +142,10 @@ class CheckpointManager:
     @staticmethod
     def read_meta(path) -> Dict[str, Any]:
         """Everything but the weights and optimizer states: epoch,
-        global_step, g_total_loss, hyper_parameters; {} for no file."""
+        global_step, g_total_loss, hyper_parameters; an Orbax directory's
+        ``meta.json``; {} for neither."""
+        if Path(path).is_dir():
+            return orbax.read_meta(path)
         if not Path(path).is_file():
             return {}
         ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
@@ -137,13 +156,7 @@ class CheckpointManager:
         """Load the networks, the optimizer states and the step count of a
         checkpoint into ``state`` (same architecture), in place."""
         if os.path.isdir(str(path)):
-            raise ValueError(
-                f"{path} is a directory, an Orbax checkpoint of the JAX "
-                "package; this port resumes from torch .ckpt files only. "
-                "Export it first with tools/export_checkpoint.py (needs "
-                f"jax): python tools/export_checkpoint.py {path} out.ckpt, "
-                "then pass training.resume_from=out.ckpt (the networks "
-                "resume; the optimizer states start anew)")
+            return restore_orbax(path, state)
         ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
         sd = ckpt["state_dict"]
         nets = [("generator.", state.generator, state.g_opt)]
@@ -156,3 +169,118 @@ class CheckpointManager:
                 opt.load_state_dict(ckpt["optimizer_states"][i])
         state.step = int(ckpt.get("global_step", 0))
         return state
+
+
+def _generator_sd(params, stats, gen) -> Dict[str, torch.Tensor]:
+    return generator_state_from_jax(
+        params, stats, resnet_blocks=len(gen.resnet_blocks),
+        append_smoothers=gen.smoothers is not None,
+        norm_layer="instance_norm" if gen.norm else "none")
+
+
+def _discriminator_sd(params, disc) -> Dict[str, torch.Tensor]:
+    return discriminator_state_from_jax(params,
+                                        n_layers=len(disc.intermediate) + 1)
+
+
+def _load_opt(path, name: str, tree: Any, opt, net, to_sd) -> None:
+    """``opt`` (an :class:`Adam` or :class:`MultiSteps`) from the optax
+    state ``tree`` of the network ``net``; ``to_sd`` maps a params-shaped
+    tree to a torch state dict."""
+    inner = opt.inner if isinstance(opt, MultiSteps) else opt
+    if isinstance(opt, MultiSteps) != (isinstance(tree, dict)
+                                       and "inner_opt_state" in tree):
+        raise ValueError(
+            f"{path}: {name} was written "
+            + ("with" if isinstance(tree, dict) else "without")
+            + " optax.MultiSteps; resume it with "
+            + ("training.accumulate_grad_batches > 1" if isinstance(
+                tree, dict) else "training.accumulate_grad_batches=1"))
+    chain = tree["inner_opt_state"] if isinstance(opt, MultiSteps) else tree
+    idx = int(inner.clip_norm is not None) + int(bool(inner.weight_decay))
+    where = name + (".inner_opt_state" if isinstance(opt, MultiSteps)
+                    else "")
+    if not isinstance(chain, list) or len(chain) != idx + 2 or any(
+            chain[i] is not None for i in range(len(chain)) if i != idx) \
+            or not isinstance(chain[idx], dict) \
+            or set(chain[idx]) != {"count", "mu", "nu"}:
+        have = (f"{len(chain)} entries" if isinstance(chain, list)
+                else type(chain).__name__)
+        raise ValueError(
+            f"{path}: {where} ({have}) does not fit this run's chain: "
+            f"scale_by_adam at index {idx} of {idx + 2} (clipping "
+            f"{'on' if inner.clip_norm is not None else 'off'}, "
+            f"weight_decay {inner.weight_decay})")
+    names = [n for n, _ in net.named_parameters()]
+
+    def tensors(sub, leaf):
+        try:
+            sd = to_sd(sub)
+        except KeyError as e:
+            raise ValueError(f"{path}: {leaf} has no {e.args[0]}: it does "
+                             "not fit this run's network") from e
+        out = []
+        for n, p in zip(names, net.parameters()):
+            t = sd[n]
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{path}: {leaf} {n} is {tuple(t.shape)}, "
+                                 f"the run's is {tuple(p.shape)}")
+            out.append(t)
+        return out
+
+    adam = chain[idx]
+    inner.load_state_dict({
+        "count": int(adam["count"]),
+        "mu": tensors(adam["mu"], f"{where}.{idx}.mu"),
+        "nu": tensors(adam["nu"], f"{where}.{idx}.nu")})
+    if isinstance(opt, MultiSteps):
+        opt.mini_step = int(tree["mini_step"])
+        opt.gradient_step = int(tree["gradient_step"])
+        for dst, src in zip(opt.acc, tensors(tree["acc_grads"],
+                                             f"{name}.acc_grads")):
+            dst.copy_(src)
+
+
+def restore_orbax(path, state: GANTrainState) -> GANTrainState:
+    """Load the JAX package's Orbax checkpoint ``path`` into ``state`` in
+    place (JAX ``CheckpointManager.restore``)."""
+    want = ["step", "g_params", "g_batch_stats", "g_opt"]
+    if state.discriminator is not None:
+        want += ["d_params", "d_opt"]
+    tree = orbax.read_tree(path, want)
+    for k in ("step", "g_params", "g_opt"):
+        if k not in tree:
+            raise ValueError(f"{path}: the checkpoint holds no {k}")
+    gen = state.generator
+    stats = tree.get("g_batch_stats") or {}
+
+    def g_sd(sub):
+        return _generator_sd(sub, stats, gen)
+
+    try:
+        sd = g_sd(tree["g_params"])
+    except KeyError as e:
+        raise ValueError(f"{path}: g_params has no {e.args[0]}: it does not "
+                         "fit this run's generator") from e
+    nets = [("g", gen, state.g_opt, sd, g_sd)]
+    if state.discriminator is not None and "d_params" in tree:
+        disc = state.discriminator
+
+        def d_sd(sub):
+            return _discriminator_sd(sub, disc)
+
+        try:
+            dsd = d_sd(tree["d_params"])
+        except KeyError as e:
+            raise ValueError(f"{path}: d_params has no {e.args[0]}: it does "
+                             "not fit this run's discriminator") from e
+        nets.append(("d", disc, state.d_opt, dsd, d_sd))
+    for pre, net, opt, sd, to_sd in nets:
+        try:
+            net.load_state_dict(sd, strict=True)
+        except RuntimeError as e:
+            raise ValueError(f"{path}: {pre}_params does not fit this run's "
+                             f"network: {e}") from e
+        _load_opt(path, f"{pre}_opt", tree[f"{pre}_opt"], opt, net, to_sd)
+    state.step = int(tree["step"])
+    return state

@@ -46,6 +46,7 @@ divide is refused before any rank starts.
 from __future__ import annotations
 
 import itertools
+import logging
 import os
 import sys
 import time
@@ -61,6 +62,7 @@ from patch_toon_tpu_torch.config.compose import (
     save,
     to_container,
 )
+from patch_toon_tpu_torch.utils.logging import configure_logging
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG_DIR = REPO / "config"
@@ -228,6 +230,7 @@ def expand_multirun(overrides: List[str]) -> Iterator[List[str]]:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    configure_logging(logging.INFO)
     multirun = "-m" in argv or "--multirun" in argv
     argv = [a for a in argv if a not in ("-m", "--multirun")]
     if not multirun:

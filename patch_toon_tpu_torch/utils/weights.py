@@ -20,8 +20,9 @@ reference Lightning ``.ckpt`` (``state_dict`` with a ``generator.`` prefix)
 and the ``{"gen": ...}`` layout of the repo's trained checkpoints
 (``docs/quality_2000/torch_train.ckpt``). Both load with
 ``weights_only=True``: no pickled code runs. A directory is the JAX
-package's Orbax checkpoint, which needs jax to read: it is refused with
-the command that exports it to a ``.ckpt``.
+package's Orbax checkpoint: ``utils/orbax.py`` reads its generator (no
+jax) and :func:`generator_state_from_jax` maps it, with the caller's
+``norm_layer``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from patch_toon_tpu_torch.parallel.tp import shard_params_tp
+from patch_toon_tpu_torch.utils import orbax
 
 Shard = Optional[Tuple[int, int]]
 
@@ -193,17 +195,23 @@ def vgg_state_from_jax(params: Mapping[str, Any]
     return out
 
 
-def load_generator_state(path) -> Dict[str, torch.Tensor]:
-    """GeneratorJ state dict from a reference ``.ckpt`` or a ``{"gen"}``
-    checkpoint; raises on any other layout, and on a directory (an Orbax
-    checkpoint of the JAX package)."""
+def load_generator_state(path, norm_layer: Any = None
+                         ) -> Dict[str, torch.Tensor]:
+    """GeneratorJ state dict from a reference ``.ckpt``, a ``{"gen"}``
+    checkpoint or an Orbax directory of the JAX package; raises on any
+    other layout. A directory needs ``norm_layer``, the generator's (it
+    places each residual block's second conv); the block count and the
+    smoothers follow the tree."""
     if os.path.isdir(str(path)):
-        raise ValueError(
-            f"{path} is a directory, an Orbax checkpoint of the JAX "
-            "package; this port reads torch .ckpt files only. Export it "
-            "first with tools/export_checkpoint.py (needs jax): python "
-            f"tools/export_checkpoint.py {path} out.ckpt, then pass "
-            "paths.checkpoint=out.ckpt")
+        if norm_layer is None:
+            raise ValueError(f"{path}: an Orbax directory needs the "
+                             "generator's norm_layer")
+        params, stats = orbax.restore_generator(path)
+        blocks = sum(1 for k in params if k.startswith("resnet_"))
+        return generator_state_from_jax(
+            params, stats, resnet_blocks=blocks,
+            append_smoothers="smoother_conv1" in params,
+            norm_layer=norm_layer)
     ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         pre = "generator."

@@ -131,6 +131,49 @@ def test_imageprocessor_scale_and_nothing_to_do(scene, tmp_path, capsys):
     assert capsys.readouterr().out.startswith("Nothing to do: no images")
 
 
+@pytest.mark.parametrize("source", ["jpeg_com", "png_comment"])
+def test_imageprocessor_carries_the_source_comment(scene, tmp_path, capsys,
+                                                   source):
+    """A source's comment (a JPEG's COM segment; a PNG's ``comment`` text
+    chunk, tEXt in Latin-1 or iTXt in UTF-8) reaches the resized file and
+    its mask in a COM segment after APP0, as Pillow's ``save`` writes
+    ``info["comment"]``: byte for byte the JAX tool's files."""
+    from PIL import PngImagePlugin
+
+    src = tmp_path / "src"
+    for sub in ("input", "output", "tracking"):
+        (src / sub).mkdir(parents=True)
+    rgba = np.asarray(Image.open(scene / "input" / "001.png"))
+    if source == "jpeg_com":
+        Image.fromarray(rgba[..., :3]).save(
+            src / "input" / "001.png", format="JPEG", quality=90,
+            comment=b"first \xff comment")
+        Image.fromarray(rgba[::-1, :, :3]).save(
+            src / "output" / "001.jpg", quality=90, comment=b"c" * 300)
+    else:
+        info = PngImagePlugin.PngInfo()
+        info.add_text("comment", "h\xe9llo, w\xf6rld")
+        Image.fromarray(rgba, "RGBA").save(src / "input" / "001.png",
+                                           pnginfo=info)
+        info = PngImagePlugin.PngInfo()
+        info.add_itxt("comment", "\u00fcnic\u00f8de \u2713", zip=True)
+        Image.fromarray(rgba[..., :3]).save(src / "output" / "001.png",
+                                            pnginfo=info)
+    for name in ("jax", "port"):
+        mod = jax_ip if name == "jax" else port_ip
+        mod.ImageProcessor(src, tmp_path / name, size_mode="width",
+                           size_value=61).process_directory()
+    capsys.readouterr()
+    subs = ("input", "output") + (("mask",) if source != "jpeg_com" else ())
+    for sub in subs:
+        want, got = _files(tmp_path / "jax" / sub), _files(
+            tmp_path / "port" / sub)
+        assert sorted(got) == sorted(want) and got, sub
+        for name, data in want.items():
+            assert data[20:22] == b"\xff\xfe", f"{sub}/{name}: no COM"
+            assert got[name] == data, f"{sub}/{name}"
+
+
 def _flow_bar(got: np.ndarray, want: np.ndarray) -> None:
     d = np.abs(got - want)
     spread = 2 * np.spacing(np.abs(want).astype(np.float32))

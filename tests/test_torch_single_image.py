@@ -1,4 +1,4 @@
-"""The port's single-image calls and Orbax refusal against the JAX engine.
+"""The port's single-image calls and Orbax directories against the JAX engine.
 
 ``process_large_image`` (a frame in memory, an optional mask, fractional
 masks compositing in part) and ``process_image`` (files in, a PNG out, the
@@ -7,10 +7,10 @@ on a ``tools/make_sample_scene.py`` scene, precision 32 on the CPU for both
 engines, one torch checkpoint: frames within 1 uint8 count, tiled and
 full-frame. (The JAX engine serves a tiled frame through its single-frame
 program, the port through the multiframe program at F = 1.) Last, an Orbax
-checkpoint directory written by the JAX package: the port refuses it with
-an error that names ``tools/export_checkpoint.py``, and the ``.ckpt`` that
-tool exports serves within 1 count of the JAX engine serving the
-directory.
+checkpoint directory written by the JAX package: the port serves it within
+1 count of the JAX engine serving it, and as the ``.ckpt`` that
+``tools/export_checkpoint.py`` exports from it; a directory that is not a
+checkpoint is refused.
 """
 
 import os
@@ -194,25 +194,30 @@ def orbax_ckpt(tmp_path_factory):
 
 def test_orbax_directory_is_refused_and_its_export_serves(scene, tmp_path,
                                                            orbax_ckpt):
-    """The port refuses an Orbax directory as ``paths.checkpoint`` with a
-    ValueError naming ``tools/export_checkpoint.py``; the ``.ckpt`` that
-    tool writes (run as a program, not edited) serves within 1 count of
-    the JAX engine serving the directory itself."""
-    with pytest.raises(ValueError, match="tools/export_checkpoint.py"):
+    """The port serves an Orbax directory as ``paths.checkpoint`` (read by
+    ``utils/orbax.py``, without jax) within 1 count of the JAX engine
+    serving it, and writes the same file from the ``.ckpt`` that
+    ``tools/export_checkpoint.py`` exports (run as a program, not edited);
+    a directory that is not an Orbax checkpoint is refused, by name."""
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="not an Orbax checkpoint"):
         StyleTransferInference(compose(REPO / "config", "inference",
-                                       overrides=_overrides(scene,
-                                                            orbax_ckpt)))
+                                       overrides=_overrides(
+                                           scene, tmp_path / "empty")))
     out = tmp_path / "exported.ckpt"
     res = subprocess.run(
         [sys.executable, str(REPO / "tools" / "export_checkpoint.py"),
          str(orbax_ckpt), str(out)], capture_output=True, text=True,
         timeout=300, env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert res.returncode == 0, res.stderr[-2000:]
-    port, jax_eng = _engines(scene, ckpt=out, jax_ckpt=orbax_ckpt)
+    port, jax_eng = _engines(scene, ckpt=orbax_ckpt, jax_ckpt=orbax_ckpt)
+    exported, _ = _engines(scene, ckpt=out, jax_ckpt=orbax_ckpt)
     src = _frame(scene)
     mask_path = scene / "scene" / "mask" / src.name
     port.process_image(src, mask_path, tmp_path / "port.png")
+    exported.process_image(src, mask_path, tmp_path / "exported.png")
     jax_eng.process_image(str(src), str(mask_path), str(tmp_path / "jax.png"))
     got = np.asarray(Image.open(tmp_path / "port.png"))
     assert got.std() > 1.0
     assert _diff(got, Image.open(tmp_path / "jax.png")) <= 1
+    assert _diff(got, Image.open(tmp_path / "exported.png")) == 0

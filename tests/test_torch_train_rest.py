@@ -1,6 +1,6 @@
 """The rest of the port's training against the JAX package, on the CPU:
 permutation sampling, gradient accumulation, the comparison grid, the
-profiler trace and the Orbax refusal.
+profiler trace and the refusal of a directory that is no Orbax checkpoint.
 
 Small widths, as tests/test_torch_train.py (2 residual blocks, filters
 8/16/32/32/32/16, a discriminator of 8 filters, 32x32 patches, batch 4),
@@ -469,8 +469,10 @@ def test_fit_writes_a_profiler_trace(tmp_path, capsys):
 
 
 def test_resume_from_an_orbax_directory_is_refused(tmp_path):
+    """A directory that is not an Orbax checkpoint (no ``_METADATA``) is
+    refused by name; Orbax checkpoints resume (tests/test_torch_orbax.py)."""
     (tmp_path / "orbax_ckpt").mkdir()
-    with pytest.raises(ValueError, match="tools/export_checkpoint.py"):
+    with pytest.raises(ValueError, match="not an Orbax checkpoint"):
         loop.fit(StyleTransferModel(**_configs(1, max_steps=1)), _fit_data(),
                  str(tmp_path / "run"), resume_from=str(tmp_path
                                                         / "orbax_ckpt"))

@@ -39,6 +39,7 @@ from patch_toon_tpu_torch.native.frameio import (  # noqa: E402
     Refused,
     decode_png,
     encode_jpeg,
+    read_comment,
     pil_open,
     probe,
     resize_lanczos,
@@ -109,18 +110,21 @@ class ResizeJob:
         """Decode, resize and encode, adding each step's host seconds to
         ``seconds``."""
         w, h = self.size
+        # carried as resize, convert and getchannel carry Pillow's info;
+        # a scan of the headers alone, outside the decode step's time
+        comment = read_comment(self.src)
         with _timed(seconds, "decode"):
             arr = decode_png(self.src)
         with _timed(seconds, "resize"):
             small = resize_lanczos(to_rgb(arr), w, h)
         with _timed(seconds, "encode"):
-            encode_jpeg(self.dst, small, JPEG_QUALITY)
+            encode_jpeg(self.dst, small, JPEG_QUALITY, comment)
         if self.mask_dst is not None and arr.shape[-1] == 4:
             with _timed(seconds, "resize"):
                 alpha = resize_lanczos(arr[..., 3], w, h)
             with _timed(seconds, "encode"):
                 encode_jpeg(self.mask_dst, to_rgb(alpha[..., None]),
-                            JPEG_QUALITY)
+                            JPEG_QUALITY, comment)
 
 
 class ImageProcessor:

@@ -2,7 +2,8 @@
 """Pairwise dense optical flow over a frame directory, with the PyTorch port.
 
     python tools/optical_flow_torch.py INPUT_DIR MASK_DIR FLOW_FWD_DIR \
-        FLOW_BWD_DIR [--format %03d] [--scale 1|2|4] [--device cuda|cpu]
+        FLOW_BWD_DIR [--format %03d] [--backend tpu] [--scale 1|2|4] \
+        [--device cuda|cpu]
 
 The counterpart of ``tools/optical_flow.py``'s default backend, with the
 same arguments, file naming and masking: the forward flow (frame i -> i+1)
@@ -12,8 +13,9 @@ i's mask; a mask is ``MASK_DIR/(format % index).jpg`` or ``.png``, tracked
 where its luma is above 127, and must exist. Each file is raw float32
 (H, W, 2) (dx, dy). The flow is ``patch_toon_tpu_torch.ops.flow.masked_flow``
 (pyramidal Lucas-Kanade, ``--scale`` 2 or 4 on a downsampled pyramid) of the
-frames' PIL luma over 255, run on ``--device`` (the card by default). The
-DIS backend (cv2's code) stays in ``tools/optical_flow.py``.
+frames' PIL luma over 255, run on ``--device`` (the card by default).
+``--backend tpu`` is that flow, as the JAX tool names it; ``--backend dis``
+(cv2's code) is refused by name and stays in ``tools/optical_flow.py``.
 """
 
 from __future__ import annotations
@@ -120,12 +122,20 @@ def main(argv=None) -> int:
     parser.add_argument("flow_fwd_dir")
     parser.add_argument("flow_bwd_dir")
     parser.add_argument("--format", default="%03d")
+    parser.add_argument("--backend", choices=["tpu", "dis"], default="tpu",
+                        help="tpu: the port's Lucas-Kanade (the JAX tool's "
+                        "default backend); dis is refused")
     parser.add_argument("--scale", type=int, choices=[1, 2, 4], default=1,
                         help="LK on a downsampled pyramid, displacements "
                         "upsampled (cheaper, sub-pixel lost)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the flow (cuda or cpu)")
     args = parser.parse_args(argv)
+    if args.backend == "dis":
+        print("Error: the dis flow backend is cv2's DIS optical flow, which "
+              "the port does not carry: run tools/optical_flow.py --backend "
+              "dis for it")
+        return 1
     try:
         OpticalFlowCalculator(args.input_dir, args.flow_fwd_dir,
                               args.flow_bwd_dir, args.mask_dir, args.format,
