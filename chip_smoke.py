@@ -52,6 +52,14 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    per generator call, its streaming variant never, and B2 once per group.
    Then a small masked frame through the card at precision 32 must agree
    within 1 uint8 count with the same engine on the CPU (plain versions).
+   Then, at bf16, 32 and ``32_fast``, a 3-frame group and a lone frame
+   through two plans built by hand, JAX's padded one (``bucket_size``
+   rows) and the real tiles alone: rows, device ms each way, outputs
+   within 1 count; the engine's own plan (``pack_rows``: the bucket at
+   precision 32, the real tiles at bf16 and ``32_fast``) within 1 count
+   and no more than 5 % slower than the padded plan; at 32 the lone
+   frame's call traced both ways. Last, the precision-32 generator alone at 100, 170, 360 and 510
+   tiles: one batch, the bucket, and power-of-two sub-batches, timed.
 6. ``serve_directory``: ``StyleTransferInference.process_directory``, the
    serving entry point, over 36 PNG frames of 512x910 written by the port's
    codec (RGB, a 3-band tracking guide, full masks), with PIL made
@@ -323,7 +331,13 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    directory for 3 steps at batch 80, bf16: Adam's moments as loaded
    bitwise the digest-checked tree, the step and Adam's counts going on
    from the checkpoint's, 25 forward and 25 backward B1 cluster launches a
-   step.
+   step; ``tools/export_checkpoint_torch.py`` exports the directory (jax
+   and the rest still unimportable) and the exported file serves the 6
+   frames tiled, bitwise the directory's.
+16. ``deep_vgg`` (after ``train_rest``): ``fit`` at batch 80, bf16, with
+   the perceptual VGG19 to features index 21 and no weights file (JAX's
+   seed-42 draw, timed where ``fit`` makes it): 1 + 3 steps, 25 forward
+   and 25 backward B1 cluster launches a step, the losses finite.
 
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
@@ -1072,8 +1086,209 @@ def phase_main_path(dev, card: str, groups: int = 4) -> dict:
     if dm.max() > 1:
         raise AssertionError(f"card vs CPU at precision 32: {dm.max()} "
                              "counts apart (limit 1)")
+    plans = [_padded_vs_real(eng, frames[:n], masks[:n], card)
+             for eng in (engines["bf16"], engines["32"], _engine("32_fast"))
+             for n in (len(frames), 1)]
     return {"instance_norm_act": n_in, "instance_norm_act_streaming": n_st,
-            "blend_tiles": n_bl}
+            "blend_tiles": n_bl, "plans": plans,
+            "fp32_rows": _fp32_row_policies(engines["32"], card)}
+
+
+def _hand_pack(eng, group_boxes, h: int, w: int, rows: int):
+    """A group's tiles packed into ``rows`` rows by hand, padding rows of
+    zero weight: ``bucket_size`` rows is JAX's padded plan (its XLA
+    bucket), the tile count the real tiles alone."""
+    fboxes, weights, _ = pack_boxes_multi(list(group_boxes), eng.patch_size,
+                                          rows)
+    return (make_tile_plan(fboxes, h, w, eng.patch_size, eng.device),
+            torch.from_numpy(weights).to(eng.device))
+
+
+PLAN_SLOWER = 1.05  # the engine's plan against the padded one: call spread
+
+
+def _padded_vs_real(eng, frames, masks, card: str, rounds: int = 2,
+                    reps: int = 3) -> dict:
+    """One group through JAX's padded plan (``bucket_size`` rows) and
+    through a plan of the real tiles alone, each built once by hand: the
+    generator's rows each way (a forward pre-hook); the tiled call's
+    device ms each way (``dispatch`` on frames already on the card, queued
+    behind a spin so the host's dispatch is not timed: ``queued_ms``,
+    ``reps`` calls, else one; where not even one call can be queued ahead,
+    the calls' elapsed ms, which the device's time then dominates:
+    ``timing``), turns A B B A after a warm-up of each (which also sets up
+    cuDNN at each batch size); one call's elapsed ms as it runs, host
+    included, each way; the outputs, within 1 count. The engine's own plan
+    must have ``pack_rows`` rows (the bucket at precision 32, the real
+    tiles at bf16 and ``32_fast``), agree within 1 count, and be no slower than the padded plan by
+    more than the call spread (``PLAN_SLOWER``). At precision 32 a lone
+    frame's call is also traced both ways (device operations, the kernels
+    of most device time)."""
+    group_boxes = [eng.boxes_for(m, (H, W)) for m in masks]
+    frames_d = torch.from_numpy(np.ascontiguousarray(frames)).to(eng.device)
+    masks_d = torch.from_numpy(np.stack(
+        [eng._mask_tensor(m, (H, W)) for m in masks])).to(eng.device)
+    n = sum(len(b) for b in group_boxes)
+    hand = {"real": _hand_pack(eng, group_boxes, H, W, n),
+            "padded": _hand_pack(eng, group_boxes, H, W, bucket_size(n))}
+    own = "padded" if eng.pack_rows(n) == bucket_size(n) else "real"
+    rows = []
+    hook = eng.model.register_forward_pre_hook(
+        lambda _m, args: rows.append(int(args[0].shape[0])))
+
+    def call(which: str):
+        if which in hand:
+            eng._pack = lambda *_: hand[which]
+        try:
+            return eng.dispatch(frames_d, masks_d, group_boxes)
+        finally:
+            eng.__dict__.pop("_pack", None)
+
+    def elapsed(which: str) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call(which)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def device_ms(which: str) -> float:
+        # fewer calls queued where the device's launch queue fills first;
+        # once neither can be, the rest are timed elapsed
+        for k in (reps, 1) if "elapsed" not in timing else ():
+            try:
+                return queued_ms([lambda: call(which)], k)
+            except AssertionError:
+                timing.add(f"not {k} queued")
+        timing.add("elapsed")
+        return sum(elapsed(which) for _ in range(reps)) / reps
+
+    timing = set()
+    traces = {}
+    try:
+        outs = {w: call(w) for w in ("real", "padded", "engine")}
+        torch.cuda.synchronize()
+        warm_rows = list(rows)
+        ms = {"real": [], "padded": []}
+        wall = {"real": [], "padded": []}
+        for _ in range(rounds):
+            for which in ("real", "padded", "padded", "real"):
+                ms[which].append(device_ms(which))
+                wall[which].append(elapsed(which))
+        if str(eng.precision) == "32" and len(frames) == 1:
+            traces = {w: _traced(lambda: call(w)) for w in ("real", "padded")}
+    finally:
+        hook.remove()
+    d = int((outs["real"].int() - outs["padded"].int()).abs().max())
+    d_own = int((outs["engine"].int() - outs["padded"].int()).abs().max())
+    mean = {w: sum(v) / len(v) for w, v in ms.items()}
+    rec = {"precision": str(eng.precision), "frames": len(frames),
+           "tiles": n,
+           "rows_real": warm_rows[0], "rows_padded": warm_rows[1],
+           "rows_engine": warm_rows[2], "engine_plan": own,
+           "max_abs": d, "max_abs_engine": d_own,
+           "ms_real": mean["real"], "ms_padded": mean["padded"],
+           "ms_real_runs": ms["real"], "ms_padded_runs": ms["padded"],
+           "call_ms_real": sum(wall["real"]) / len(wall["real"]),
+           "call_ms_padded": sum(wall["padded"]) / len(wall["padded"]),
+           "timing": ", ".join(sorted(timing)) or "queued"}
+    say("main_path", plans=f"{len(frames)} frame(s)",
+        precision=rec["precision"], tiles=n, rows_real=rec["rows_real"],
+        rows_padded=rec["rows_padded"], rows_engine=rec["rows_engine"],
+        engine_plan=own, max_abs=d, max_abs_engine=d_own,
+        device_ms_real=f"{rec['ms_real']:.4f}",
+        device_ms_padded=f"{rec['ms_padded']:.4f}",
+        ratio=f"{rec['ms_real'] / rec['ms_padded']:.4f}",
+        rows_ratio=f"{n / rec['rows_padded']:.4f}",
+        runs_real="/".join(f"{t:.3f}" for t in ms["real"]),
+        runs_padded="/".join(f"{t:.3f}" for t in ms["padded"]),
+        call_ms_real=f"{rec['call_ms_real']:.3f}",
+        call_ms_padded=f"{rec['call_ms_padded']:.3f}",
+        timing=rec["timing"], card=f"'{card}'")
+    for which, t in traces.items():
+        rec[f"trace_{which}"] = {"device_ms": t["device_ms"],
+                                 "device_ops": t["device_ops"],
+                                 "top": t["top"][:3]}
+        say("main_path", trace=which, precision=rec["precision"], tiles=n,
+            wall_ms=f"{t['wall_ms']:.2f}", device_ms=f"{t['device_ms']:.2f}",
+            device_ops=t["device_ops"], top="; ".join(
+                f"{ms_:.2f} ms {name[:60]}" for name, ms_ in t["top"][:3]))
+    if warm_rows != [n, bucket_size(n), eng.pack_rows(n)] or d > 1 \
+            or d_own > 1:
+        raise AssertionError(f"padded vs real plan: rows {warm_rows} (want "
+                             f"{[n, bucket_size(n), eng.pack_rows(n)]}), "
+                             f"{d} / {d_own} counts apart (limit 1)")
+    if mean[own] > PLAN_SLOWER * mean["padded"]:
+        raise AssertionError(
+            f"{rec['precision']}, {len(frames)} frame(s): the engine's plan "
+            f"({own}) took {mean[own]:.3f} ms against the padded plan's "
+            f"{mean['padded']:.3f} (limit x{PLAN_SLOWER})")
+    return rec
+
+
+FP32_ROWS = (100, 170, 360, 510)  # tiles: masked frames, 1, 2 and 3 frames
+
+
+def _pow2_chunks(n: int) -> list:
+    """``n`` as a sum of powers of two, largest first."""
+    return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n >> b & 1]
+
+
+def _fp32_row_policies(eng, card: str, reps: int = 2) -> dict:
+    """The precision-32 generator alone on ``n`` tiles (uniform in [-1, 1]
+    from a numpy seed, channels-last fp32 on the card), for each ``n`` of
+    ``FP32_ROWS``, three row policies: one batch of the ``n`` tiles, one
+    of ``bucket_size(n)`` rows (the engine's), and sub-batches of
+    power-of-two sizes summing to ``n``; elapsed ms by CUDA events (the
+    device dominates at fp32), turns A B C C B A after a warm-up of each;
+    each policy's tiles within 1e-4 of the one batch's."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for n in FP32_ROWS:
+        x = torch.from_numpy(rng.uniform(
+            -1, 1, (bucket_size(n), PS, PS, eng.total_channels)).astype(
+                np.float32)).to(eng.device)
+        chunks = _pow2_chunks(n)
+        starts = np.cumsum([0] + chunks[:-1])
+
+        def one():
+            return eng.model(x[:n])
+
+        def bucket():
+            return eng.model(x)[:n]
+
+        def pow2():
+            return torch.cat([eng.model(x[a:a + c])
+                              for a, c in zip(starts, chunks)])
+
+        fns = {"one": one, "bucket": bucket, "pow2": pow2}
+        with torch.no_grad():
+            ref = {k: f() for k, f in fns.items()}
+            ms = {k: [] for k in fns}
+            for _ in range(reps):
+                for k in ("one", "bucket", "pow2", "pow2", "bucket", "one"):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fns[k]()
+                    end.record()
+                    end.synchronize()
+                    ms[k].append(start.elapsed_time(end))
+        diff = max(float((ref[k] - ref["one"]).abs().max())
+                   for k in ("bucket", "pow2"))
+        rec = {k: sum(v) / len(v) for k, v in ms.items()}
+        rec.update(bucket_rows=bucket_size(n), chunks=chunks, max_abs=diff)
+        out[str(n)] = rec
+        say("main_path", fp32_rows=n, ms_one=f"{rec['one']:.2f}",
+            ms_bucket=f"{rec['bucket']:.2f}", bucket_rows=bucket_size(n),
+            ms_pow2=f"{rec['pow2']:.2f}",
+            chunks="+".join(map(str, chunks)), max_abs=f"{diff:.3g}",
+            card=f"'{card}'")
+        if diff > 1e-4:
+            raise AssertionError(f"fp32 rows {n}: the policies' tiles "
+                                 f"{diff:.3g} apart (limit 1e-4)")
+    return out
 
 
 def _dir_engine(precision: str, scene: Path, out: Path, mode: str = "tiled",
@@ -3620,15 +3835,19 @@ def _keyframes(n: int = 4, h: int = 270, w: int = 480):
 
 
 def _train_model(precision: str, small: bool = False, batch: int = BT,
-                 max_steps: int = 0, model: int = 1):
+                 max_steps: int = 0, model: int = 1, feature_layers=None):
     over = {"training": {"precision": precision, "batch_size": batch,
                          "max_steps": max_steps},
             "parallel": {"mesh": {"data": -1, "model": model}}}
-    if small:  # the CPU tests' widths (tests/test_torch_train.py)
+    if small or feature_layers:
         over["model"] = training_config()["model"]
+    if small:  # the CPU tests' widths (tests/test_torch_train.py)
         over["model"]["generator"]["args"].update(
             filters=[8, 16, 32, 32, 32, 16], resnet_blocks=2)
         over["model"]["discriminator"]["args"]["num_filters"] = 8
+    if feature_layers:  # the VGG prefix drawn as JAX's seed-42 init
+        over["model"]["perception_loss"]["perception_model"]["args"].update(
+            feature_layers=list(feature_layers), path=None)
     cfg = training_config(**over)
     return StyleTransferModel(cfg.model.generator, cfg.model.discriminator,
                               cfg.training, cfg.optimizer, cfg.data,
@@ -3989,6 +4208,71 @@ def _rest_model(precision: str, max_steps: int, **training):
     model.training_config.update(training)
     model.accumulate = int(training.get("accumulate_grad_batches", 1))
     return model
+
+
+DEEP_VGG_LAYERS = (0, 3, 5, 10, 21)  # features up to conv4_2 (index 21)
+DEEP_VGG_STEPS = 3
+
+
+def phase_deep_vgg(dev, card: str, tmp: Path) -> dict:
+    """``fit`` at batch 80, the shipped width, bf16, with the perceptual
+    VGG19 taken to features index 21 and no weights file: the prefix is
+    JAX's seed-42 draw (``models/perception.py::init_vgg_state``, numpy on
+    the host; its seconds timed alone first). One warm-up step, then
+    ``DEEP_VGG_STEPS`` timed with the B1 counters zeroed just before and
+    read just after (25 forward and 25 backward cluster launches a step:
+    the VGG has no InstanceNorm); the losses finite, the perceptual term
+    among them. The draw is timed where ``fit`` makes it (the model's
+    ``init_state``), once a run."""
+    from patch_toon_tpu_torch.models import perception
+
+    draws = []
+    draw = perception.init_vgg_state
+
+    def timed_draw(*args, **kwargs):
+        t0 = time.perf_counter()
+        state = draw(*args, **kwargs)
+        draws.append((state, time.perf_counter() - t0))
+        return state
+
+    frames, pres, posts, masks, guides = _keyframes()
+    data = StyleTransferDataset(pres, posts, masks, guides, [3],
+                                patch_size=PS, device=dev)
+    model = _train_model("bf16", max_steps=1 + DEEP_VGG_STEPS,
+                         feature_layers=DEEP_VGG_LAYERS)
+    win = _Window(1, 1 + DEEP_VGG_STEPS)
+    with _patched(perception, "init_vgg_state", timed_draw):
+        state, sec = _fit_run(model, data, tmp / "deep_vgg", seed=0,
+                              on_step=win)
+    if len(draws) != 1:
+        raise AssertionError(f"deep_vgg: the prefix drawn {len(draws)} "
+                             "times in one run (want 1)")
+    vgg, draw_s = draws[0]
+    fwd, st, bwd, bst = win.counts
+    vals = {k: float(v) for k, v in win.metrics.items()}
+    convs = len(vgg) // 2
+    say("deep_vgg", feature_layers=list(DEEP_VGG_LAYERS), convs=convs,
+        params=sum(v.numel() for v in vgg.values()),
+        draw_s=f"{draw_s:.3f}", batch=BT, precision="bf16",
+        steps=DEEP_VGG_STEPS,
+        ms_per_step=f"{1e3 * win.seconds / DEEP_VGG_STEPS:.2f}",
+        seconds_with_setup=f"{sec:.2f}", forward_launches=fwd,
+        backward_launches=bwd, streaming=st + bst,
+        g_perception_loss=f"{vals.get('g_perception_loss', float('nan')):.5f}",
+        card=f"'{card}'")
+    finite = all(np.isfinite(v) for v in vals.values()) and all(
+        bool(torch.isfinite(t).all()) for t in _net_tensors(state).values())
+    if (fwd, st, bwd, bst) != (25 * DEEP_VGG_STEPS, 0, 25 * DEEP_VGG_STEPS,
+                               0) or not finite or convs != 10 \
+            or "g_perception_loss" not in vals:
+        raise AssertionError(f"deep_vgg: launches {(fwd, st, bwd, bst)}, "
+                             f"finite {finite}, {convs} convs, metrics "
+                             f"{sorted(vals)}")
+    return {"rec": {"feature_layers": list(DEEP_VGG_LAYERS), "convs": convs,
+                    "draw_s": draw_s, "steps": DEEP_VGG_STEPS,
+                    "ms_per_step": 1e3 * win.seconds / DEEP_VGG_STEPS,
+                    "seconds_with_setup": sec, "metrics": vals},
+            "launches": {"forward": fwd, "backward": bwd}}
 
 
 def phase_train_rest(dev, card: str, tmp: Path) -> dict:
@@ -6166,10 +6450,12 @@ def phase_orbax(dev, card: str, tmp: Path) -> dict:
     (its meta.json's generator args), tiled (2 groups) and full-frame at
     bf16, the counters zeroed just before and read just after each run
     (19 B1 launches a generator call in the variants ``plan`` gives, one
-    B2 launch a tiled group); precision 32 on a masked frame against the CPU engine
-    on the same directory (limit 1 count). (c) ``fit`` at batch 80, bf16,
-    resumed from the directory (``resume_from``) for ``ORBAX_STEPS``
-    steps: Adam's moments as loaded bitwise the digest-checked tree
+    B2 launch a tiled group); then the directory's export by
+    ``tools/export_checkpoint_torch.py`` served tiled, every frame
+    bitwise the directory's; precision 32 on a masked frame against the
+    CPU engine on the same directory (limit 1 count). (c) ``fit`` at batch
+    80, bf16, resumed from the directory (``resume_from``) for
+    ``ORBAX_STEPS`` steps: Adam's moments as loaded bitwise the digest-checked tree
     mapped, the step and Adam's count going on from the checkpoint's, 25
     forward and 25 backward B1 cluster launches a step."""
     want = json.loads(ORBAX_DIGEST.read_text())["leaves"]
@@ -6236,6 +6522,38 @@ def phase_orbax(dev, card: str, tmp: Path) -> dict:
                 first_run="yes (cuDNN set-up included)",
                 launches=json.dumps(got_counts).replace(" ", ""),
                 card=f"'{card}'")
+
+        # its jax-free export (tools/export_checkpoint_torch.py), served
+        # tiled: the directory's frames, bitwise
+        export = _load_tool("export_checkpoint_torch")
+        exported = tmp / "orbax_export.ckpt"
+        t0 = time.perf_counter()
+        export.save(export.export_state(ORBAX_CKPT), exported)
+        export_s = time.perf_counter() - t0
+        out = tmp / "orbax_exported"
+        eng = _dir_engine("bf16", scene, out, "tiled", ckpt=exported)
+        torch.cuda.synchronize()
+        _zero_counts()
+        n = eng.process_directory()
+        torch.cuda.synchronize()
+        got_counts = _read_counts()
+        calls = -(-ORBAX_FRAMES // eng._group_size(len(eng.boxes_for(
+            _full_mask(), (H, W)))))
+        _check_counts("orbax exported", got_counts, calls, True, "bf16")
+        for k in LAUNCH_KINDS:
+            counts[k] += got_counts[k]
+        same = [name for name in names if np.array_equal(
+            decode_png(out / name), decode_png(tmp / "orbax_tiled" / name))]
+        rec["export"] = {"seconds": export_s, "frames": n,
+                         "bitwise_frames": len(same),
+                         "mb": exported.stat().st_size / 1e6}
+        say("orbax", export="tools/export_checkpoint_torch.py",
+            seconds=f"{export_s:.3f}", mb=f"{rec['export']['mb']:.1f}",
+            served_tiled=n, bitwise_the_directory=f"{len(same)}/{n}",
+            launches=json.dumps(got_counts).replace(" ", ""))
+        if n != ORBAX_FRAMES or len(same) != ORBAX_FRAMES:
+            raise AssertionError(f"orbax export: {n} frames served, "
+                                 f"{len(same)} bitwise the directory's")
 
         # precision 32: the card against the CPU engine, one directory
         cfg = dict(paths={"checkpoint": str(ORBAX_CKPT)},
@@ -6380,6 +6698,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train(dev, card, Path(tmp))
         rest = phase_train_rest(dev, card, Path(tmp))
+        deep = phase_deep_vgg(dev, card, Path(tmp))
         tp = phase_tensor_parallel(dev, card, Path(tmp), train["final"])
     with tempfile.TemporaryDirectory() as tmp:
         mgpu = phase_multi_gpu(Path(tmp), train.pop("final"))
@@ -6491,7 +6810,8 @@ def main() -> int:
                  + rest["launches"]["forward"],
                  "32_fast_train": train["launches"]["forward_32_fast"],
                  "multi_gpu_train": mgpu["launches"]["train_forward"],
-                 "orbax_resume": ob["train"]["forward"]}
+                 "orbax_resume": ob["train"]["forward"],
+                 "deep_vgg_train": deep["launches"]["forward"]}
     rest_bwd = {"cluster": rest["launches"]["backward"],
                 "streaming": rest["launches"]["backward_streaming"]}
     kernels = [
@@ -6532,7 +6852,8 @@ def main() -> int:
                     "differentiates patch_toon_tpu/models/layers.py:29-40)",
                launches=train["launches"][key] + rest_bwd[v]
                + (mgpu["launches"]["train_backward"]
-                  + ob["train"]["backward"] if v == "cluster"
+                  + ob["train"]["backward"]
+                  + deep["launches"]["backward"] if v == "cluster"
                   else 0) + tp_bwd[v], dtype="bf16",
                variant=v,
                launches_by_path={
@@ -6544,6 +6865,8 @@ def main() -> int:
                    "multi_gpu_train": mgpu["launches"]["train_backward"]
                    if v == "cluster" else 0,
                    "orbax_resume": ob["train"]["backward"]
+                   if v == "cluster" else 0,
+                   "deep_vgg_train": deep["launches"]["backward"]
                    if v == "cluster" else 0,
                    "tensor_parallel": tp_bwd[v]},
                picked_by_plan_backward=v == "cluster",
@@ -6670,6 +6993,8 @@ def main() -> int:
                       "transport": transport["rec"],
                       "train_rest": rest["rec"], "guides": guides["rec"],
                       "pipeline": pipeline["rec"], "orbax": ob["rec"],
+                      "deep_vgg": deep["rec"],
+                      "main_path_plans": launches["plans"],
                       "multi_gpu": mgpu, "tensor_parallel": {
                           "one_card": tp["rec"],
                           "nccl": tp_multi.get("rec")}}),

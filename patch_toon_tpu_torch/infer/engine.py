@@ -13,8 +13,8 @@ mask, place its tiles and stage it for upload six frames ahead
 (:meth:`_load_for_dispatch`); the main thread co-batches frames so one
 generator batch holds about ``inference.tile_batch`` tiles
 (``frames_per_dispatch``: three 512x910 frames of 170 tiles go in one
-bucket of 512) and dispatches each group; ``infer/pipeline.py``'s
-:class:`GroupPipeline` keeps the readbacks in flight and hands each frame
+batch, of 510 rows at bf16, 512 at fp32) and dispatches each group;
+``infer/pipeline.py``'s :class:`GroupPipeline` keeps the readbacks in flight and hands each frame
 to the native asynchronous writer. A file that fails to load is named and
 skipped, a group whose dispatch fails is dropped and each of its frames
 named (reference generator.py:700-705), and on an interrupt, an error or
@@ -60,15 +60,20 @@ frame by the one-device rule) and ``D`` in full-frame mode, and card ``k``
 runs the one-device program on the group's ``k``-th chunk of ``fpd``
 frames (one in full-frame mode) on its own streams: the counterpart of
 ``make_pod_multiframe_fn`` (``make_pod_tiled_fn`` is its ``fpd = 1``
-case) and ``make_batched_fullframe_fn``. The last group is padded by
-repeating its last frame, as JAX does, and a chunk of padding alone is
-not run; only the real frames are read back, in frame order. The host
-side scales with D: D times the prefetch and writer threads and the
-frames staged ahead, and two groups in flight (the pipeline's window at
-least ``2 x D x fpd`` frames). Each chunk
-is a one-device group at the same shapes, so the output is the
-one-device run's. A frame is staged on the card its chunk will run on
-(predicted from its position; a frame that lands elsewhere is copied).
+case) and ``make_batched_fullframe_fn``. JAX pads the last group by
+repeating its last frame; here its last chunk is short instead, so no
+card runs a repeated frame, and the frames are read back in frame order.
+JAX pads every tile batch to its XLA bucket
+(``infer/tiling.py::bucket_size``); ``_pack`` does so only where the
+generator runs cuDNN's full fp32 convolutions (precision ``32`` without
+int8), whose fast route depends on the batch size, and packs the group's
+real tiles at bf16, ``32_fast`` and int8. The host side
+scales with D: D times the prefetch and writer threads and the frames
+staged ahead, and two groups in flight (the pipeline's window at least
+``2 x D x fpd`` frames). Each chunk is a one-device group, so the output
+is the one-device run's. A frame is staged on the card its chunk will
+run on (predicted from its position; a frame that lands elsewhere is
+copied).
 The temporal chain runs on the first device whatever ``devices`` says (it
 is sequential), and multi-stream serving refuses ``devices != 1``, as in
 JAX. ``inference.file_shard: "i/N"`` serves ``files[i::N]``; in a process
@@ -462,15 +467,28 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
                device)
         hit = self._packs.get(key)
         if hit is None:
-            bucket = bucket_size(max(1, sum(len(b) for b in group_boxes)))
             fboxes, weights, _ = pack_boxes_multi(
-                list(group_boxes), self.patch_size, bucket)
+                list(group_boxes), self.patch_size,
+                self.pack_rows(sum(len(b) for b in group_boxes)))
             hit = (make_tile_plan(fboxes, h, w, self.patch_size, device),
                    torch.from_numpy(weights).to(device))
             if len(self._packs) >= _PACK_CACHE:
                 self._packs.pop(next(iter(self._packs)))
             self._packs[key] = hit
         return hit
+
+    def pack_rows(self, n: int) -> int:
+        """The generator's rows for a group of ``n`` tiles: JAX's bucket
+        (``bucket_size``) where cuDNN runs the convs in full fp32
+        (precision ``32``, int8 off), since cuDNN's fast fp32 route there
+        depends on the batch size (a lone 512x910 frame's 170 rows took
+        9-25 % longer on an H100 than its bucket of 256); the real tiles
+        at bf16, ``32_fast`` (TF32 convs: 0.67x the bucket's time there)
+        and under int8; none for no tile."""
+        if n and self.dtype == torch.float32 \
+                and self.conv_precision is None and not self.quantize:
+            return bucket_size(n)
+        return n
 
     def boxes_for(self, eroded_mask: Optional[np.ndarray],
                   hw: Tuple[int, int]) -> List[Box]:
@@ -578,12 +596,13 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
 
     def _dispatch_sharded(self, group: Sequence[Staged]
                           ) -> List[torch.Tensor]:
-        """A group over the cards (JAX ``_stylize_group_pod``): padded to
-        ``D x fpd`` frames by repeating its last one, card ``k`` runs the
-        one-device program on the ``k``-th chunk of ``fpd`` frames (one
-        in full-frame mode) on its own current stream; a chunk of padding
-        alone is not run. -> the real frames' (H, W, 3) uint8 outputs, each
-        on its card, in frame order."""
+        """A group over the cards (JAX ``_stylize_group_pod``): card ``k``
+        runs the one-device program on the ``k``-th chunk of ``fpd``
+        frames (one in full-frame mode) on its own current stream. JAX pads
+        the group to ``D x fpd`` frames by repeating its last one; here the
+        last chunk is short and no card runs a repeated frame. -> the
+        frames' (H, W, 3) uint8 outputs, each on its card, in frame
+        order."""
         per = 1 if self.mode == "fullframe" else (self._pod_fpd or 1)
         total = len(self.cards) * per
         if len(group) > total:
@@ -592,21 +611,20 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
         if self.quantize and not self._quant_ready:
             self._await_staged(group[:1])
             self._ensure_quant(group[0].frame)
-        padded = list(group) + [group[-1]] * (total - len(group))
         outs: List[torch.Tensor] = []
         for k, card in enumerate(self.cards):
             if k * per >= len(group):
-                break  # padding alone
+                break
             with _on_card(card):
                 chunk = [self._to_card(s, card)
-                         for s in padded[k * per:(k + 1) * per]]
+                         for s in group[k * per:(k + 1) * per]]
                 with self.spans("host/stack"):
                     self._await_staged(chunk)
                     frames = torch.stack([s.frame for s in chunk])
                     masks = stack_masks(chunk)
                 u8 = self._run(frames, masks, [s.boxes for s in chunk], k)[0]
             outs.extend(u8.unbind(0))
-        return outs[:len(group)]
+        return outs
 
     def dispatch_staged(self, group: Sequence[Staged]):
         """:meth:`dispatch` of frames staged by :meth:`_load_for_dispatch`:
@@ -1109,7 +1127,7 @@ class StyleTransferInference(TemporalChain, WatchMixin, MultiStreamMixin):
 
     def _group_size(self, n_boxes: int) -> int:
         """Frames a group, decided from the first frame's tile count (JAX
-        ``_decide_group_size``): co-batched so the tile bucket stays full,
+        ``_decide_group_size``): co-batched to about ``tile_batch`` tiles,
         times the devices over several (``fpd`` frames a card)."""
         if self.frames_per_dispatch != "auto":
             fpd = max(1, int(self.frames_per_dispatch))

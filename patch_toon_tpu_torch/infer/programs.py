@@ -98,6 +98,10 @@ def make_multiframe_fn(generator: Callable, patch_size: int, n_frames: int,
 
     def fn(frames: torch.Tensor, plan: TilePlan, weights: torch.Tensor,
            masks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        rgb = _to_signed_unit(frames[..., :3])
+        if plan.fboxes.shape[0] == 0:  # no tile: the blend of none is 0
+            return _composite_u8(rgb, torch.zeros_like(rgb),
+                                 mask_f32(masks, frames))
         tiles = gather_tiles(frames, plan.fboxes, ps).to(dtype)
         with torch.no_grad():
             gen = generator(tiles).float().contiguous()
@@ -107,7 +111,6 @@ def make_multiframe_fn(generator: Callable, patch_size: int, n_frames: int,
         out = canvas.view(n_frames, h + ps, w + ps, 3)[:, :h, :w]
         wsum = wcanvas.view(n_frames, h + ps, w + ps, 1)[:, :h, :w]
         out = out / torch.where(wsum > 1e-8, wsum, torch.ones_like(wsum))
-        rgb = _to_signed_unit(frames[..., :3])
         return _composite_u8(rgb, out, mask_f32(masks, frames))
 
     return fn

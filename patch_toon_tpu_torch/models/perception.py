@@ -12,14 +12,12 @@ reference's MSE over the flattened concatenation (lightning_model.py:
 Weights: an ``.npz`` in the ``tools/convert_vgg.py`` layout
 (``features.<i>.weight`` OIHW, ``features.<i>.bias``). With no path, the
 JAX package's documented deterministic fallback (``init_vgg_params`` with
-seed 42; ``tools/export_vgg_fallback.py`` wrote it once) from
-:data:`FALLBACK_NPZ`, committed beside this module: it holds features 0, 2
-and 5, so it serves any ``feature_layers`` up to index 5.
+seed 42): :func:`init_vgg_state` makes flax's draws for it at any depth
+(``utils/jax_random.py``).
 """
 
 from __future__ import annotations
 
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,9 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from patch_toon_tpu_torch.models.layers import Conv2d
-
-FALLBACK_NPZ = Path(__file__).resolve().parent / "vgg19_fallback_seed42.npz"
-FALLBACK_MAX_INDEX = 5
+from patch_toon_tpu_torch.utils import jax_random
 
 # torchvision VGG19 'E' configuration: conv widths with 'M' maxpools
 VGG19_CFG: Tuple[Any, ...] = (
@@ -56,17 +52,36 @@ def vgg19_layer_plan(max_index: int) -> List[Tuple[str, int]]:
     return plan[: max_index + 1]
 
 
+def init_vgg_state(max_index: int,
+                   seed: int = 42) -> Dict[str, torch.Tensor]:
+    """JAX's ``init_vgg_params(feature_layers, seed=seed)`` without a
+    weights file, for every conv up to ``max_index``: flax draws conv
+    ``features_<i>``'s kernel as ``normal(0.02)`` from the key
+    ``_fold_in_static(PRNGKey(seed), ["features_<i>", 1])`` (the module's
+    name, then its first ``make_rng``), which does not depend on the
+    depth; the bias is zero. Kernels come out OIHW."""
+    key = jax_random.prng_key(seed)
+    out = {}
+    cin = 3
+    for idx, (op, width) in enumerate(vgg19_layer_plan(max_index)):
+        if op != "conv":
+            continue
+        kernel = jax_random.normal(
+            jax_random.fold_in_static(key, [f"features_{idx}", 1]),
+            (3, 3, cin, width)) * np.float32(0.02)
+        out[f"features.{idx}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        out[f"features.{idx}.bias"] = torch.zeros(width, dtype=torch.float32)
+        cin = width
+    return out
+
+
 def load_vgg_state(path: Optional[str],
                    max_index: int) -> Dict[str, torch.Tensor]:
     """``features.<i>.weight/bias`` of every conv up to ``max_index`` from
-    an ``.npz`` (copies), or from the fallback when ``path`` is None."""
+    an ``.npz`` (copies), or JAX's seed-42 draw when ``path`` is None."""
     if path is None:
-        if max_index > FALLBACK_MAX_INDEX:
-            raise NotImplementedError(
-                f"perception feature layers up to {max_index}: the committed "
-                f"fallback holds layers up to {FALLBACK_MAX_INDEX}; give "
-                "perception_model.args.path (tools/convert_vgg.py)")
-        path = str(FALLBACK_NPZ)
+        return init_vgg_state(max_index)
     out = {}
     with np.load(path) as arrays:
         for idx, (op, _) in enumerate(vgg19_layer_plan(max_index)):

@@ -7,8 +7,9 @@ leave the frame, a JPEG frame, a missing pair): the overlays pixel for
 pixel (no tolerance: the same integer arithmetic, and Pillow's width-1
 lines), the same console lines and files, through the functions, the
 object and the command line's flags. ``tools/optical_flow_torch.py``
-takes the JAX tool's ``--backend tpu`` and refuses ``--backend dis`` by
-name.
+takes the JAX tool's ``--backend tpu``, and ``--backend dis`` (OpenCV's
+DIS) gives the JAX tool's files bitwise where OpenCV is installed and is
+refused by a message naming OpenCV where it is not.
 """
 
 import pathlib
@@ -132,7 +133,10 @@ def test_flags_object_and_skips(frames, tmp_path, capsys):
                                 tmp_path / "x")
 
 
-def test_optical_flow_tool_backend_flag(frames, tmp_path, capsys):
+def test_optical_flow_tool_backend_flag(frames, tmp_path, capsys,
+                                       monkeypatch):
+    """Without OpenCV ``--backend dis`` is refused by name before any
+    work; ``--scale 2`` with it is refused as the JAX tool refuses it."""
     inp = tmp_path / "in"
     inp.mkdir()
     (tmp_path / "mask").mkdir()
@@ -143,10 +147,51 @@ def test_optical_flow_tool_backend_flag(frames, tmp_path, capsys):
             tmp_path / "mask" / f"{i:03d}.png")
     base = [str(inp), str(tmp_path / "mask"), str(tmp_path / "fwd"),
             str(tmp_path / "bwd"), "--device", "cpu"]
-    assert optical_flow_torch.main(base + ["--backend", "dis"]) == 1
-    assert "tools/optical_flow.py --backend dis" in capsys.readouterr().out
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "cv2", None)
+        assert optical_flow_torch.main(base + ["--backend", "dis"]) == 1
+    assert "needs OpenCV" in capsys.readouterr().out
+    assert not (tmp_path / "fwd").exists()
+    assert optical_flow_torch.main(
+        base + ["--backend", "dis", "--scale", "2"]) == 1
+    assert "--scale requires the tpu backend" in capsys.readouterr().out
     assert not (tmp_path / "fwd").exists()
     assert optical_flow_torch.main(base + ["--backend", "tpu"]) == 0
     for d in ("fwd", "bwd"):
         files = sorted((tmp_path / d).glob("*.npy"))
         assert len(files) == 1 and np.load(files[0]).shape == (H, W, 2)
+
+
+def test_dis_backend_files_are_the_jax_tools(frames, tmp_path):
+    """``--backend dis`` against ``tools/optical_flow.py --backend dis`` on
+    five frames (one a JPEG) with masks that cut the flow: the same files,
+    bitwise."""
+    pytest.importorskip("cv2")
+    import optical_flow as jax_of
+
+    rng = np.random.default_rng(8)
+    (tmp_path / "mask").mkdir()
+    yy, xx = np.mgrid[0:H, 0:W]
+    for i in range(5):
+        m = ((yy - H / 2 - 3 * i) ** 2 + (xx - W / 2) ** 2 < 600) * 255
+        m = np.clip(m + rng.integers(-40, 40, (H, W)), 0, 255)
+        Image.fromarray(m.astype(np.uint8)).save(
+            tmp_path / "mask" / f"{i:03d}.png")
+    args = [str(frames / "in"), str(tmp_path / "mask")]
+    assert optical_flow_torch.main(
+        args + [str(tmp_path / "pf"), str(tmp_path / "pb"), "--backend",
+                "dis", "--device", "cpu"]) == 0
+    jax_of.OpticalFlowCalculator(frames / "in", tmp_path / "jf",
+                                 tmp_path / "jb", tmp_path / "mask",
+                                 backend="dis").calculate_flows()
+    for port, jax in (("pf", "jf"), ("pb", "jb")):
+        names = sorted(p.name for p in (tmp_path / jax).glob("*.npy"))
+        assert len(names) == 4
+        assert sorted(p.name for p in (tmp_path / port).glob("*.npy")) \
+            == names
+        for name in names:
+            got = np.load(tmp_path / port / name)
+            want = np.load(tmp_path / jax / name)
+            assert got.dtype == want.dtype == np.float32
+            assert np.abs(want).max() > 0 and (want == 0).any()
+            np.testing.assert_array_equal(got, want, name)

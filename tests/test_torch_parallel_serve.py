@@ -42,6 +42,7 @@ from patch_toon_tpu_torch.config.defaults import INFERENCE  # noqa: E402
 from patch_toon_tpu_torch.infer.engine import (  # noqa: E402
     StyleTransferInference,
 )
+from patch_toon_tpu_torch.infer.tiling import bucket_size  # noqa: E402
 from patch_toon_tpu_torch.models.generator import GeneratorJ  # noqa: E402
 from patch_toon_tpu_torch.parallel import comm, free_port  # noqa: E402
 
@@ -115,7 +116,7 @@ def test_frame_sharded_serving_matches_jax_and_one_device(scene, mode):
     for a, b in zip(eng.models[0].parameters(), eng.models[1].parameters()):
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
     assert eng.process_directory() == FRAMES
-    if mode == "tiled":  # 4 frames a device: one group of 8, padded
+    if mode == "tiled":  # 4 frames a device: card 1 runs the fifth alone
         assert eng._pod_fpd == 4
     one, got, want = (_read(_one_device(scene, mode)), _read(two),
                       _read(jax_out))
@@ -127,15 +128,23 @@ def test_frame_sharded_serving_matches_jax_and_one_device(scene, mode):
 
 def test_sharded_dispatch_pads_and_reads_the_real_frames(scene, tmp_path):
     """A group of 3 staged frames over 2 devices at 2 frames a device:
-    card 1 runs [frame 2, frame 2 repeated]; the outputs are the 3 real
-    frames in order, each equal to its one-device dispatch."""
+    card 1 runs frame 2 alone (JAX pads its chunk by repeating frame 2;
+    the port runs no repeated frame, so card 1's generator sees frame 2's
+    tiles only, in the rows ``pack_rows`` gives them: JAX's bucket at this
+    file's precision 32); the outputs are the 3 frames in order, each
+    equal to its one-device dispatch."""
     eng = _engine(scene, tmp_path, "inference.devices=2")
     eng._pod_fpd = 2
     files = sorted((scene / "scene" / "input").glob("*.png"))[:3]
     staged = [eng._load_for_dispatch(p, scene / "scene" / "mask",
                                      card=eng.card_of(i))
               for i, p in enumerate(files)]
+    rows = []
+    hook = eng.models[1].register_forward_pre_hook(
+        lambda _m, args: rows.append(int(args[0].shape[0])))
     outs = eng.dispatch_staged(staged)
+    hook.remove()
+    assert rows == [bucket_size(len(staged[2].boxes))]
     assert len(outs) == 3
     one = _engine(scene, tmp_path)
     want = [one.dispatch_staged(staged[:2]), one.dispatch_staged(staged[2:])]

@@ -2,7 +2,8 @@
 
 ``tools/imageprocessor_torch.py``, ``tools/process_pipeline_torch.py`` and
 ``tools/texture_mapper_torch.py`` against ``tools/imageprocessor.py``,
-``tools/process_pipeline.py`` (flow backend ``tpu``) and
+``tools/process_pipeline.py`` (flow backend ``tpu``, and the ``dis``
+backend's flows where OpenCV is installed, bitwise) and
 ``tools/texture_mapper.py`` on small RGBA scenes made from numpy seeds.
 Tolerances:
 
@@ -242,16 +243,48 @@ def test_guides_on_jax_flows_within_one_count(pipelines, tmp_path, sigma):
         assert np.abs(got[name] - want[name]).max() <= 1, name
 
 
-def test_pipeline_refusals(scene, tmp_path, capsys):
+def test_pipeline_refusals(scene, tmp_path, capsys, monkeypatch):
     args = [str(scene), str(tmp_path / "o")]
-    assert port_pp.main(args + ["--flow-backend", "dis"]) == 1
-    assert "tools/optical_flow.py" in capsys.readouterr().out
+    with monkeypatch.context() as m:  # dis without OpenCV
+        m.setitem(sys.modules, "cv2", None)
+        assert port_pp.main(args + ["--flow-backend", "dis"]) == 1
+    assert "needs OpenCV" in capsys.readouterr().out
     assert not (tmp_path / "o").exists()  # refused before any work
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_pp.process_pipeline(*args, device="cuda")
         assert port_pp.main(args) == 1  # the card by default
         assert "no CUDA device" in capsys.readouterr().out
+
+
+def test_pipeline_dis_flows_are_the_jax_tools(pipelines, tmp_path):
+    """``--flow-backend dis``: the port's pipeline writes the flow files
+    that the JAX tool's DIS writes from the same resized scene (which
+    ``test_pipeline_matches_jax`` holds byte for byte), bitwise."""
+    pytest.importorskip("cv2")
+    import optical_flow as jax_of
+
+    root, _, _ = pipelines
+    src = tmp_path / "src"
+    shutil.copytree(root / "src", src)
+    port_pp.process_pipeline(str(src), str(tmp_path / "port"),
+                             resize_mode="width", resize_value=61,
+                             flow_backend="dis", device="cpu")
+    jax = root / "jax"
+    jax_of.OpticalFlowCalculator(jax / "input", tmp_path / "jf",
+                                 tmp_path / "jb", jax / "mask",
+                                 backend="dis").calculate_flows()
+    for port, want in (("flow_fwd", "jf"), ("flow_bwd", "jb")):
+        names = sorted(p.name for p in (tmp_path / want).glob("*.npy"))
+        assert len(names) == FRAMES - 1
+        assert names == sorted(
+            p.name for p in (tmp_path / "port" / port).glob("*.npy"))
+        for name in names:
+            np.testing.assert_array_equal(
+                np.load(tmp_path / "port" / port / name),
+                np.load(tmp_path / want / name), name)
+    assert len(list((tmp_path / "port" / "gauss_r10_s15").glob("*.png"))) \
+        == FRAMES
 
 
 def test_texture_mapper_bitwise(scene, tmp_path, capsys, monkeypatch):

@@ -63,8 +63,8 @@ from patch_toon_tpu_torch.config.defaults import training_config
 from patch_toon_tpu_torch.data.dataset import StyleTransferDataset
 from patch_toon_tpu_torch.models.discriminator import DiscriminatorN_IN
 from patch_toon_tpu_torch.models.perception import (
-    FALLBACK_NPZ,
     PerceptualVGG19,
+    init_vgg_state,
     flatten_features,
     perceptual_mse,
 )
@@ -113,7 +113,8 @@ SMALL_ARCH = ["model.generator.args.filters=[8,16,32,32,32,16]",
               f"data.patch_size={PS}"]
 
 
-def _configs(two_forward=False, guide_dropout_p=0.0, precision="32"):
+def _configs(two_forward=False, guide_dropout_p=0.0, precision="32",
+             feature_layers=(0, 3, 5)):
     """The model's config dicts, one guide channel of depth 3 (so the
     generator takes 6 channels), as tests/test_train_step.py builds them."""
     return dict(
@@ -135,8 +136,17 @@ def _configs(two_forward=False, guide_dropout_p=0.0, precision="32"):
             "guide": {"path": "unused", "depth": 3}}),
         perception_loss_config={"weight": 6.0, "perception_model": {
             "type": "PerceptualVGG19", "args": {
-                "feature_layers": [0, 3, 5], "use_normalization": False,
-                "path": None}}})
+                "feature_layers": list(feature_layers),
+                "use_normalization": False, "path": None}}})
+
+
+def _mode_configs(mode, precision="32"):
+    """The configs of a step mode; ``deep_vgg`` takes the VGG prefix to
+    index 10 with no weights file (JAX's seed-42 draw past the old
+    committed fallback's depth)."""
+    return _configs(mode == "two_forward",
+                    0.5 if mode == "guide_dropout" else 0.0, precision,
+                    (0, 3, 5, 10) if mode == "deep_vgg" else (0, 3, 5))
 
 
 def _jax_act(y, act):
@@ -231,17 +241,19 @@ def test_discriminator_matches_jax(n_layers):
 
 
 def test_vgg_fallback_npz_equals_jax_init():
+    """The seed-42 fallback (once a committed npz, now drawn by
+    ``init_vgg_state``) is bitwise JAX's ``init_vgg_params``."""
     params = init_vgg_params([0, 3, 5])["params"]
-    with np.load(FALLBACK_NPZ) as arrays:
-        assert sorted(arrays) == sorted(
-            f"features.{i}.{k}" for i in (0, 2, 5) for k in ("weight", "bias"))
-        for name, p in params.items():
-            i = int(name.split("_")[1])
-            np.testing.assert_array_equal(
-                arrays[f"features.{i}.weight"],
-                np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
-            np.testing.assert_array_equal(arrays[f"features.{i}.bias"],
-                                          np.asarray(p["bias"]))
+    state = init_vgg_state(5)
+    assert sorted(state) == sorted(
+        f"features.{i}.{k}" for i in (0, 2, 5) for k in ("weight", "bias"))
+    for name, p in params.items():
+        i = int(name.split("_")[1])
+        np.testing.assert_array_equal(
+            state[f"features.{i}.weight"].numpy(),
+            np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+        np.testing.assert_array_equal(state[f"features.{i}.bias"].numpy(),
+                                      np.asarray(p["bias"]))
     port = PerceptualVGG19((0, 3, 5))
     for k, v in vgg_state_from_jax(params).items():
         torch.testing.assert_close(port.state_dict()[k], v, rtol=0, atol=0)
@@ -388,9 +400,7 @@ def jax_steps():
 
     def get(mode, precision="32"):
         if (mode, precision) not in cache:
-            jm = JaxModel(**_configs(mode == "two_forward",
-                                     0.5 if mode == "guide_dropout" else 0.0,
-                                     precision))
+            jm = JaxModel(**_mode_configs(mode, precision))
             state = jm.init_state(jax.random.PRNGKey(0), patch_size=PS)
             cache[mode, precision] = (jm, state, jax_make_train_step(
                 jm, donate=False, two_forward=mode == "two_forward"))
@@ -441,9 +451,7 @@ def _steps_from_one_start(jax_steps, mode, precision="32"):
             jax.random.fold_in(key, 0x6D), 0.5, (B, 1, 1, 1))).reshape(B))
         assert 0 < int(drop.sum()) < B
 
-    pm = StyleTransferModel(**_configs(mode == "two_forward",
-                                       0.5 if mode == "guide_dropout"
-                                       else 0.0, precision))
+    pm = StyleTransferModel(**_mode_configs(mode, precision))
     ps = pm.init_state(0, "cpu")
     params = jax.tree.map(np.asarray, (state.g_params, state.g_batch_stats,
                                        state.d_params))
@@ -483,7 +491,7 @@ def _assert_bn_close(stats_after, new):
 
 
 @pytest.mark.parametrize("mode", ["one_forward", "two_forward",
-                                  "guide_dropout"])
+                                  "guide_dropout", "deep_vgg"])
 def test_gan_step_matches_jax(jax_steps, mode):
     new, jmet, ps, met = _steps_from_one_start(jax_steps, mode)
     for k in jmet:

@@ -14,8 +14,11 @@ where its luma is above 127, and must exist. Each file is raw float32
 (H, W, 2) (dx, dy). The flow is ``patch_toon_tpu_torch.ops.flow.masked_flow``
 (pyramidal Lucas-Kanade, ``--scale`` 2 or 4 on a downsampled pyramid) of the
 frames' PIL luma over 255, run on ``--device`` (the card by default).
-``--backend tpu`` is that flow, as the JAX tool names it; ``--backend dis``
-(cv2's code) is refused by name and stays in ``tools/optical_flow.py``.
+``--backend tpu`` is that flow, as the JAX tool names it. ``--backend dis``
+is OpenCV's DIS optical flow (``cv2.DISOpticalFlow_create`` at its MEDIUM
+preset) on the uint8 luma, on the host, as the JAX tool calls it: it needs
+the ``cv2`` module and is refused by name where OpenCV is not installed,
+and it takes no ``--scale`` but 1.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ class OpticalFlowCalculator:
                  flow_fwd_dir: Union[str, Path],
                  flow_bwd_dir: Union[str, Path], mask_dir: Union[str, Path],
                  file_format: str = "%03d", scale: int = 1,
-                 device: str = "cuda"):
+                 device: str = "cuda", backend: str = "tpu"):
         self.input_dir = Path(input_dir)
         self.flow_fwd_dir = Path(flow_fwd_dir)
         self.flow_bwd_dir = Path(flow_bwd_dir)
@@ -48,7 +51,13 @@ class OpticalFlowCalculator:
         self.scale = int(scale)
         if self.scale not in (1, 2, 4):
             raise ValueError(f"scale={scale!r}: expected 1, 2 or 4")
-        self.device = torch.device(device)
+        if backend not in ("tpu", "dis"):
+            raise ValueError(f"Unknown backend {backend!r} (tpu|dis)")
+        if self.scale != 1 and backend != "tpu":
+            raise ValueError("--scale requires the tpu backend")
+        self.dis = dis_flow() if backend == "dis" else None
+        # DIS runs on the host, its masks too
+        self.device = torch.device("cpu" if self.dis is not None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda and no CUDA device is "
                                "available (pass --device cpu)")
@@ -57,12 +66,19 @@ class OpticalFlowCalculator:
         self.image_files = self._get_image_files()
         self.grays: Dict[int, torch.Tensor] = {}
         self.masks: Dict[int, torch.Tensor] = {}
+        self.lumas: Dict[int, np.ndarray] = {}
 
     def _get_image_files(self) -> List[Path]:
         files = [self.input_dir / f for f in list_images(self.input_dir)]
         if not files:
             raise ValueError(f"No images found in {self.input_dir}")
         return files
+
+    def _luma(self, index: int) -> np.ndarray:
+        """Frame ``index``'s uint8 luma (cached)."""
+        if index not in self.lumas:
+            self.lumas[index] = load_luma(self.image_files[index])
+        return self.lumas[index]
 
     def _gray(self, index: int) -> torch.Tensor:
         """Frame ``index``'s luma over 255, fp32 on the device (cached)."""
@@ -86,6 +102,17 @@ class OpticalFlowCalculator:
                 load_luma(path) > 127).to(self.device)
         return self.masks[index]
 
+    def _flow(self, src: int, dst: int, name: int) -> np.ndarray:
+        """The flow from frame ``src`` to ``dst``, zero outside frame
+        ``name``'s mask, as float32 (H, W, 2) on the host."""
+        if self.dis is not None:
+            flow = self.dis.calc(self._luma(src), self._luma(dst), None)
+            flow[~self._mask(name).numpy()] = 0
+            return flow
+        return masked_flow(self._gray(src), self._gray(dst),
+                           self._mask(name),
+                           scale=self.scale).cpu().numpy().astype(np.float32)
+
     def calculate_direction(self, is_forward: bool = True) -> None:
         n = len(self.image_files)
         if n < 2:
@@ -97,10 +124,8 @@ class OpticalFlowCalculator:
             out, pairs = self.flow_bwd_dir, [(i, i - 1, i)
                                              for i in range(n - 1, 0, -1)]
         for src, dst, name in pairs:
-            flow = masked_flow(self._gray(src), self._gray(dst),
-                               self._mask(name), scale=self.scale)
             np.save(str(out / f"{self.file_format % name}.npy"),
-                    flow.cpu().numpy().astype(np.float32))
+                    self._flow(src, dst, name))
         print(f"{'forward' if is_forward else 'backward'} flow: "
               f"{len(pairs)} files in {out}", flush=True)
 
@@ -112,6 +137,19 @@ class OpticalFlowCalculator:
         finally:
             self.grays.clear()
             self.masks.clear()
+            self.lumas.clear()
+
+
+def dis_flow():
+    """OpenCV's DIS optical flow at its MEDIUM preset, the JAX tool's
+    ``dis`` backend; refused by name without OpenCV."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("the dis flow backend is OpenCV's DIS optical "
+                           "flow and needs OpenCV (the cv2 module), which "
+                           "is not installed") from e
+    return cv2.DISOpticalFlow_create(cv2.DISOPTICAL_FLOW_PRESET_MEDIUM)
 
 
 def main(argv=None) -> int:
@@ -124,23 +162,19 @@ def main(argv=None) -> int:
     parser.add_argument("--format", default="%03d")
     parser.add_argument("--backend", choices=["tpu", "dis"], default="tpu",
                         help="tpu: the port's Lucas-Kanade (the JAX tool's "
-                        "default backend); dis is refused")
+                        "default backend); dis: OpenCV's DIS, which needs "
+                        "OpenCV")
     parser.add_argument("--scale", type=int, choices=[1, 2, 4], default=1,
                         help="LK on a downsampled pyramid, displacements "
                         "upsampled (cheaper, sub-pixel lost)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the flow (cuda or cpu)")
     args = parser.parse_args(argv)
-    if args.backend == "dis":
-        print("Error: the dis flow backend is cv2's DIS optical flow, which "
-              "the port does not carry: run tools/optical_flow.py --backend "
-              "dis for it")
-        return 1
     try:
         OpticalFlowCalculator(args.input_dir, args.flow_fwd_dir,
                               args.flow_bwd_dir, args.mask_dir, args.format,
-                              scale=args.scale,
-                              device=args.device).calculate_flows()
+                              scale=args.scale, device=args.device,
+                              backend=args.backend).calculate_flows()
         return 0
     except Exception as e:
         print(f"Error: {e}")

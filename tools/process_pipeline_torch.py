@@ -3,10 +3,10 @@
 
     python tools/process_pipeline_torch.py SCENE_SRC SCENE_OUT \
         [--resize-mode width|scale] [--resize-value 512] \
-        [--flow-backend tpu] [--file-format %03d] [--device cuda|cpu]
+        [--flow-backend tpu|dis] [--file-format %03d] [--device cuda|cpu]
 
 The counterpart of ``tools/process_pipeline.py``, with the same steps,
-directories, messages and flags, and without Pillow, cv2 or JAX: resize
+directories, messages and flags, and without Pillow or JAX: resize
 the scene and extract the masks (``tools/imageprocessor_torch.py``), the
 forward and backward flows (``tools/optical_flow_torch.py``), then the
 Gaussian-splat guides at radius 10 and sigma 10 and 15
@@ -15,8 +15,8 @@ Gaussian-splat guides at radius 10 and sigma 10 and 15
 and the splats run on ``--device`` (the card by default); ``--device
 cuda`` without a card is an error, never a move to the CPU. The flow
 backend ``tpu`` (the default; the name is the JAX tool's) is the port's
-Lucas-Kanade, ``ops/flow.py::masked_flow``; ``dis`` is cv2's code and
-stays in ``tools/optical_flow.py``.
+Lucas-Kanade, ``ops/flow.py::masked_flow``; ``dis`` is OpenCV's DIS on the
+host, which needs OpenCV (``tools/optical_flow_torch.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from gaussian_filter_torch import GaussianFilter  # noqa: E402
 from imageprocessor_torch import ImageProcessor  # noqa: E402
-from optical_flow_torch import OpticalFlowCalculator  # noqa: E402
+from optical_flow_torch import OpticalFlowCalculator, dis_flow  # noqa: E402
 
 
 def process_pipeline(
@@ -48,12 +48,10 @@ def process_pipeline(
     """Run the four steps; returns each step's host seconds: ``decode``,
     ``resize`` and ``encode`` of the resize step, ``flow``, and ``guides``
     (both sigmas), the card's queued work included."""
-    if flow_backend == "dis":
-        raise ValueError("the dis flow backend is cv2's DIS optical flow, "
-                         "which the port does not carry: run "
-                         "tools/optical_flow.py --backend dis for it")
-    if flow_backend != "tpu":
+    if flow_backend not in ("tpu", "dis"):
         raise ValueError(f"Unknown backend {flow_backend!r} (tpu|dis)")
+    if flow_backend == "dis":
+        dis_flow()  # without OpenCV, refused before any work
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda and no CUDA device is available "
@@ -87,6 +85,7 @@ def process_pipeline(
         mask_dir=str(mask_dir),
         file_format=file_format,
         device=device,
+        backend=flow_backend,
     ).calculate_flows()
     seconds["flow"] = synced() - t0
 
