@@ -338,6 +338,20 @@ it, and phase 14, ``tensor_parallel``, after ``train_rest``):
    the perceptual VGG19 to features index 21 and no weights file (JAX's
    seed-42 draw, timed where ``fit`` makes it): 1 + 3 steps, 25 forward
    and 25 backward B1 cluster launches a step, the losses finite.
+17. ``cli``: the CLIs as a user runs them, each a process of its own
+   (``CLI_SERVICE``) with PyYAML unimportable, the config read and written
+   by ``config/yamlio.py``: ``python train_torch.py`` at the shipped
+   configuration from a directory without the sample scene (the CLI makes
+   the 7-frame 270x480 scene under ``test_dataset/``),
+   ``training.max_steps=12`` at precision 32 and bf16: ms a step over steps
+   3-12, 25 forward and 25 backward B1 cluster launches a step counted in
+   the process, ``<run>/config.yaml`` read back equal to ``compose``'s
+   tree and byte for byte ``yamlio.dump``'s; then ``python
+   generator_torch.py model=default ...`` serves the scene from the
+   precision-32 ``last.ckpt`` (tiled, bf16), its B1 and B2 launches
+   counted in the process and equal to an in-process
+   ``StyleTransferInference``'s on the same checkpoint and config, every
+   frame bitwise that engine's.
 
 Then, on lines of their own: the kernels' JSON record, the card's name and
 power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``. Any
@@ -493,6 +507,16 @@ TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 # the G phase)
 TRAIN_SITES = SITES + [((20, 20, 24), "leaky_relu"),
                        ((19, 19, 48), "leaky_relu")] * 3
+
+
+PHASE_SECONDS: dict = {}  # each phase's wall seconds, printed at the end
+
+
+@contextlib.contextmanager
+def _clock(name: str):
+    t0 = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
 
 
 def say(phase: str, **kv) -> None:
@@ -1107,7 +1131,7 @@ def _hand_pack(eng, group_boxes, h: int, w: int, rows: int):
 PLAN_SLOWER = 1.05  # the engine's plan against the padded one: call spread
 
 
-def _padded_vs_real(eng, frames, masks, card: str, rounds: int = 2,
+def _padded_vs_real(eng, frames, masks, card: str, rounds: int = 1,
                     reps: int = 3) -> dict:
     """One group through JAX's padded plan (``bucket_size`` rows) and
     through a plan of the real tiles alone, each built once by hand: the
@@ -1235,7 +1259,7 @@ def _pow2_chunks(n: int) -> list:
     return [1 << b for b in range(n.bit_length() - 1, -1, -1) if n >> b & 1]
 
 
-def _fp32_row_policies(eng, card: str, reps: int = 2) -> dict:
+def _fp32_row_policies(eng, card: str, reps: int = 1) -> dict:
     """The precision-32 generator alone on ``n`` tiles (uniform in [-1, 1]
     from a numpy seed, channels-last fp32 on the card), for each ``n`` of
     ``FP32_ROWS``, three row policies: one batch of the ``n`` tiles, one
@@ -6646,6 +6670,191 @@ def phase_orbax(dev, card: str, tmp: Path) -> dict:
             "train": {"forward": fwd, "backward": bwd}}
 
 
+# ---------------------------------------------------------------- cli
+
+# the cli phase's processes: train_torch.py or generator_torch.py as
+# __main__ with PyYAML unimportable (the card's machine has none); fit's
+# steps 2 and 12 marked (synchronized) for the step time, and on the way
+# out every B1 and B2 launch count of the process
+CLI_SERVICE = r"""
+import json, runpy, sys, time
+sys.modules["yaml"] = None
+script = sys.argv[1]
+sys.argv = [script] + sys.argv[2:]
+import torch
+from patch_toon_tpu_torch.ops import blend, instance_norm as b1
+from patch_toon_tpu_torch.train import loop
+
+def counts():
+    return {"cluster": b1.instance_norm_act_cluster.launches,
+            "resident": b1.instance_norm_act_resident.launches,
+            "split": b1.instance_norm_act_split.launches,
+            "sample": b1.instance_norm_act_sample.launches,
+            "streaming": b1.instance_norm_act_streaming.launches,
+            "backward_cluster": b1.instance_norm_act_backward_cluster.launches,
+            "backward_sample": b1.instance_norm_act_backward_sample.launches,
+            "backward_streaming":
+                b1.instance_norm_act_backward_streaming.launches,
+            "blend": blend.blend_tiles.launches}
+
+marks, fit = {}, loop.fit
+
+def marked_fit(*args, **kw):
+    def on_step(step, metrics):
+        if step in (2, 12):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            marks[step] = (time.perf_counter(), counts())
+    return fit(*args, on_step=on_step, **kw)
+
+loop.fit = marked_fit
+try:
+    runpy.run_path(script, run_name="__main__")
+finally:
+    print("LAUNCHES " + json.dumps({"counts": counts(), "marks": marks}),
+          flush=True)
+"""
+CLI_STEPS = 12             # the CLI's training.max_steps; steps 3-12 timed
+CLI_SCENE = "test_dataset/PlatinumChan_x0.5_train"  # config/data/default.yaml
+CLI_TRAIN_EXTRA: list = []  # CPU rehearsals: widths and the accelerator
+CLI_SERVE_EXTRA: list = []
+
+
+def _cli_process(script: str, args: list, cwd: Path, log: Path) -> dict:
+    """``script`` run as __main__ in a process of its own (CLI_SERVICE)
+    from ``cwd``; -> its counts and fit's step marks."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", CLI_SERVICE,
+                          str(REPO / script), *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=600)
+    log.write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"{script} exited {res.returncode}: "
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("LAUNCHES ")][-1]
+    out = json.loads(line[len("LAUNCHES "):])
+    out["seconds"] = time.perf_counter() - t0
+    out["stdout"] = res.stdout
+    return out
+
+
+def phase_cli(dev, card: str, tmp: Path) -> dict:
+    """The CLIs as a user runs them, each a process of its own with PyYAML
+    unimportable: ``python train_torch.py`` at the shipped configuration
+    (batch 80 of 80x80 patches, GeneratorJ at full width, VGG [0, 3, 5]),
+    from a directory without the sample scene, so that the CLI makes the
+    7-frame 270x480 scene under ``test_dataset/`` itself;
+    ``training.max_steps=12`` at precision 32 and bf16, ms a step over
+    steps 3-12 (the process synchronizes at steps 2 and 12), 25 forward
+    and 25 backward B1 cluster launches a step counted inside the
+    process; ``<run>/config.yaml`` read back by ``config/yamlio.py`` equal
+    to the tree ``compose`` resolves for the same overrides, its bytes
+    ``yamlio.dump``'s. Then ``python generator_torch.py model=default
+    ...`` serves the scene from the precision-32 run's ``last.ckpt`` at the
+    inference defaults (tiled, bf16), its B1 and B2 launches counted
+    inside the process, every frame bitwise an in-process
+    ``StyleTransferInference`` on the same checkpoint and config, whose
+    launches, counted here, are the same."""
+    from patch_toon_tpu_torch import cli
+    from patch_toon_tpu_torch.config import yamlio
+    from patch_toon_tpu_torch.config.compose import compose, to_container
+
+    work = tmp / "cli"
+    work.mkdir()
+    scene = work / CLI_SCENE
+    rec, launches = {}, {"train": dict.fromkeys(("forward", "backward"), 0)}
+    for prec in ("32", "bf16"):
+        run = work / f"run_{prec}"
+        args = [f"training.precision={prec}",
+                f"training.max_steps={CLI_STEPS}", f"run.dir={run}",
+                *CLI_TRAIN_EXTRA]
+        fresh = not scene.exists()
+        got = _cli_process("train_torch.py", args, work,
+                           tmp / f"cli_train_{prec}.log")
+        (t2, c2), (t12, c12) = (got["marks"][str(k)] for k in (2, 12))
+        steps = CLI_STEPS - 2
+        fwd = c12["cluster"] - c2["cluster"]
+        bwd = c12["backward_cluster"] - c2["backward_cluster"]
+        others = {k: c12[k] - c2[k] for k in c12
+                  if k not in ("cluster", "backward_cluster")}
+        ms = 1e3 * (t12 - t2) / steps
+        made = sorted(p.name for p in (scene / "input").glob("*.png"))
+        tree = to_container(compose(REPO / "config", "config",
+                                    overrides=args))
+        text = (run / "config.yaml").read_text()
+        ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.ckpt"))
+        say("cli", entry="train_torch.py", precision=prec,
+            scene_generated=fresh, scene_frames=len(made),
+            scene_size="x".join(map(str, decode_png(
+                scene / "input" / made[0]).shape[:2])),
+            steps=CLI_STEPS, timed_steps=steps, ms_per_step=f"{ms:.2f}",
+            patches_per_s=f"{BT / ms * 1e3:.1f}",
+            forward_launches_per_step=fwd / steps,
+            backward_launches_per_step=bwd / steps,
+            other_b1_launches=sum(others.values()),
+            process_seconds=f"{got['seconds']:.1f}",
+            config_snapshot_equal=yamlio.load(text) == tree,
+            config_bytes_equal=text == yamlio.dump(tree),
+            checkpoints=",".join(ckpts), card=f"'{card}'")
+        on_card = "on cuda" in got["stdout"] or bool(CLI_TRAIN_EXTRA)
+        if fresh != (prec == "32") or len(made) != 7 or not on_card:
+            raise AssertionError(f"train_torch.py {prec}: scene generated "
+                                 f"{fresh}, {len(made)} frames, on the "
+                                 f"card {on_card}")
+        if fwd != 25 * steps or bwd != 25 * steps or any(others.values()):
+            raise AssertionError(f"train_torch.py {prec}: B1 launches "
+                                 f"{fwd} forward, {bwd} backward cluster, "
+                                 f"{others} others in {steps} steps")
+        if yamlio.load(text) != tree or text != yamlio.dump(tree) \
+                or "last.ckpt" not in ckpts:
+            raise AssertionError(f"train_torch.py {prec}: the run directory "
+                                 "does not hold the resolved config and "
+                                 "last.ckpt")
+        launches["train"]["forward"] += got["counts"]["cluster"]
+        launches["train"]["backward"] += got["counts"]["backward_cluster"]
+        rec[f"train_{prec}"] = {"ms_per_step": ms,
+                                "patches_per_s": BT / ms * 1e3,
+                                "process_seconds": got["seconds"]}
+
+    ckpt = work / "run_32" / "checkpoints" / "last.ckpt"
+    args = ["model=default", f"paths.checkpoint={ckpt}",
+            f"paths.input_dir={scene / 'input'}",
+            f"paths.mask_dir={scene / 'mask'}",
+            f"paths.output_dir={work / 'served'}",
+            "paths.additional_channels.point_vector.path="
+            f"{scene / 'tracking'}", *CLI_SERVE_EXTRA]
+    got = _cli_process("generator_torch.py", args, work,
+                       tmp / "cli_serve.log")
+    cfg = cli.load_config(args[:4] + [f"paths.output_dir={work / 'inline'}"]
+                          + args[5:])
+    _zero_counts()
+    n = StyleTransferInference(cfg).process_directory()
+    torch.cuda.synchronize()
+    inline = _read_counts()
+    names = sorted(p.name for p in (scene / "input").glob("*.png"))
+    worst, differ = _compare_dirs(work / "served", work / "inline", names)
+    served = {k: got["counts"][k] for k in inline}
+    say("cli", entry="generator_torch.py", config_group="model=default",
+        precision=cfg["inference"]["precision"],
+        mode=cfg["inference"]["mode"], frames=n,
+        process_seconds=f"{got['seconds']:.1f}",
+        b1_launches=json.dumps(served).replace(" ", ""),
+        inline_launches=json.dumps(inline).replace(" ", ""),
+        vs_inline_max_abs=worst, differing_pixels=differ, card=f"'{card}'")
+    if (n != 7 or worst or differ or served != inline
+            or not served["cluster"] or served["cluster"] % 19
+            or not served["blend"]):
+        raise AssertionError(f"generator_torch.py: {n} frames, {worst} "
+                             f"counts off the in-process engine, launches "
+                             f"{served} against {inline}")
+    launches["serve"] = {"cluster": served["cluster"],
+                         "blend": served["blend"]}
+    rec["serve"] = {"frames": n, "process_seconds": got["seconds"]}
+    return {"rec": rec, "launches": launches}
+
+
 def main_multi_gpu(t0: float, card: str) -> int:
     """``--multi-gpu``: the build, the multi_gpu phase and the NCCL forms
     of tensor_parallel alone."""
@@ -6675,41 +6884,70 @@ def main() -> int:
     say("device", name=f"'{torch.cuda.get_device_name(0)}'",
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, card=f"'{card}'")
-    phase_build()
+    with _clock("build"):
+        phase_build()
     if multi_only:
         return main_multi_gpu(t0, card)
-    rec_in = phase_instance_norm(dev)
-    rec_ff = phase_instance_norm_fullframe(dev)
-    rec_bl = phase_blend(dev)
-    phase_signed_unit(dev)
-    launches = phase_main_path(dev, card)
+    with _clock("instance_norm"):
+        rec_in = phase_instance_norm(dev)
+    with _clock("instance_norm_fullframe"):
+        rec_ff = phase_instance_norm_fullframe(dev)
+    with _clock("blend"):
+        rec_bl = phase_blend(dev)
+    with _clock("signed_unit"):
+        phase_signed_unit(dev)
+    with _clock("main_path"):
+        launches = phase_main_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
-        served = phase_serve_directory(dev, card, Path(tmp))
-        full = phase_fullframe(dev, card, Path(tmp), served["rec"])
-        fast = phase_precision_32_fast(dev, card, Path(tmp))
-        chain = phase_temporal(dev, card, Path(tmp))
-        dflow = phase_temporal_device(dev, card, Path(tmp))
-        single = phase_single_image(dev, card, Path(tmp))
-        watch = phase_watch(dev, card, Path(tmp))
-        multi = phase_multistream(dev, card, Path(tmp))
-        int8 = phase_int8(dev, card, Path(tmp), served["rec"], full["rec"])
-        transport = phase_transport(dev, card, Path(tmp))
-    rec_bw = phase_instance_norm_backward(dev)
+        with _clock("serve_directory"):
+            served = phase_serve_directory(dev, card, Path(tmp))
+        with _clock("fullframe"):
+            full = phase_fullframe(dev, card, Path(tmp), served["rec"])
+        with _clock("precision_32_fast"):
+            fast = phase_precision_32_fast(dev, card, Path(tmp))
+        with _clock("temporal"):
+            chain = phase_temporal(dev, card, Path(tmp))
+        with _clock("temporal_device"):
+            dflow = phase_temporal_device(dev, card, Path(tmp))
+        with _clock("single_image"):
+            single = phase_single_image(dev, card, Path(tmp))
+        with _clock("watch"):
+            watch = phase_watch(dev, card, Path(tmp))
+        with _clock("multistream"):
+            multi = phase_multistream(dev, card, Path(tmp))
+        with _clock("int8"):
+            int8 = phase_int8(dev, card, Path(tmp), served["rec"], full["rec"])
+        with _clock("transport"):
+            transport = phase_transport(dev, card, Path(tmp))
+    with _clock("instance_norm_backward"):
+        rec_bw = phase_instance_norm_backward(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        train = phase_train(dev, card, Path(tmp))
-        rest = phase_train_rest(dev, card, Path(tmp))
-        deep = phase_deep_vgg(dev, card, Path(tmp))
-        tp = phase_tensor_parallel(dev, card, Path(tmp), train["final"])
+        with _clock("train"):
+            train = phase_train(dev, card, Path(tmp))
+        with _clock("train_rest"):
+            rest = phase_train_rest(dev, card, Path(tmp))
+        with _clock("deep_vgg"):
+            deep = phase_deep_vgg(dev, card, Path(tmp))
+        with _clock("tensor_parallel"):
+            tp = phase_tensor_parallel(dev, card, Path(tmp), train["final"])
     with tempfile.TemporaryDirectory() as tmp:
-        mgpu = phase_multi_gpu(Path(tmp), train.pop("final"))
-        tp_multi = phase_tensor_parallel_multi(Path(tmp)) \
-            if torch.cuda.device_count() > 1 else {"launches": {}}
+        with _clock("multi_gpu"):
+            mgpu = phase_multi_gpu(Path(tmp), train.pop("final"))
+        with _clock("tensor_parallel_multi"):
+            tp_multi = phase_tensor_parallel_multi(Path(tmp)) \
+                if torch.cuda.device_count() > 1 else {"launches": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        guides = phase_guides(dev, card, Path(tmp))
+        with _clock("guides"):
+            guides = phase_guides(dev, card, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        pipeline = phase_pipeline(dev, card, Path(tmp))
+        with _clock("pipeline"):
+            pipeline = phase_pipeline(dev, card, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        ob = phase_orbax(dev, card, Path(tmp))
+        with _clock("orbax"):
+            ob = phase_orbax(dev, card, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        with _clock("cli"):
+            clip = phase_cli(dev, card, Path(tmp))
     # no phase but int8 (and multi_gpu's 2-card int8) launches them
     want = {k: n + mgpu["launches"][f"int8_{k}"]
             + transport["int8_total"][k] for k, n in int8["after"].items()}
@@ -6735,7 +6973,8 @@ def main() -> int:
                "int8_serve_directory": int8["launches"]["tiled"]["cluster"],
                "transport": transport["launches"]["cluster"],
                "pipeline": pipeline["cluster"],
-               "orbax_serve": ob["launches"]["cluster"]}
+               "orbax_serve": ob["launches"]["cluster"],
+               "cli_serve": clip["launches"]["serve"]["cluster"]}
     blends = {"serve": launches["blend_tiles"],
               "serve_directory": served["launches"]["blend_tiles"],
               "temporal_tiled": chain["launches"]["blend"],
@@ -6748,7 +6987,8 @@ def main() -> int:
               "int8_serve_directory": int8["launches"]["tiled"]["blend"],
               "transport": transport["launches"]["blend"],
               "pipeline": pipeline["blend"],
-              "orbax_serve": ob["launches"]["blend"]}
+              "orbax_serve": ob["launches"]["blend"],
+              "cli_serve": clip["launches"]["serve"]["blend"]}
     # launches of B1's resident and split variants by full-frame path
     # B1 on tensor parallelism's channel slices: the one-card forms, fit at
     # devices 1 x model 2, and the NCCL forms where there are 2+ cards
@@ -6811,7 +7051,8 @@ def main() -> int:
                  "32_fast_train": train["launches"]["forward_32_fast"],
                  "multi_gpu_train": mgpu["launches"]["train_forward"],
                  "orbax_resume": ob["train"]["forward"],
-                 "deep_vgg_train": deep["launches"]["forward"]}
+                 "deep_vgg_train": deep["launches"]["forward"],
+                 "cli_train": clip["launches"]["train"]["forward"]}
     rest_bwd = {"cluster": rest["launches"]["backward"],
                 "streaming": rest["launches"]["backward_streaming"]}
     kernels = [
@@ -6853,7 +7094,8 @@ def main() -> int:
                launches=train["launches"][key] + rest_bwd[v]
                + (mgpu["launches"]["train_backward"]
                   + ob["train"]["backward"]
-                  + deep["launches"]["backward"] if v == "cluster"
+                  + deep["launches"]["backward"]
+                  + clip["launches"]["train"]["backward"] if v == "cluster"
                   else 0) + tp_bwd[v], dtype="bf16",
                variant=v,
                launches_by_path={
@@ -6867,6 +7109,8 @@ def main() -> int:
                    "orbax_resume": ob["train"]["backward"]
                    if v == "cluster" else 0,
                    "deep_vgg_train": deep["launches"]["backward"]
+                   if v == "cluster" else 0,
+                   "cli_train": clip["launches"]["train"]["backward"]
                    if v == "cluster" else 0,
                    "tensor_parallel": tp_bwd[v]},
                picked_by_plan_backward=v == "cluster",
@@ -6982,7 +7226,8 @@ def main() -> int:
              dtype="bf16", per="the 22 sites of one 512-tile generator "
                                "call"),
     ]
-    say("done", seconds=f"{time.perf_counter() - t0:.1f}")
+    say("done", seconds=f"{time.perf_counter() - t0:.1f}",
+        phase_seconds=json.dumps(PHASE_SECONDS).replace(" ", ""))
     print(json.dumps({"kernels": kernels, "train": train["rec"],
                       "serve_directory": served["rec"],
                       "fullframe": full["rec"], "temporal": chain["rec"],
@@ -6994,6 +7239,7 @@ def main() -> int:
                       "train_rest": rest["rec"], "guides": guides["rec"],
                       "pipeline": pipeline["rec"], "orbax": ob["rec"],
                       "deep_vgg": deep["rec"],
+                      "cli": clip["rec"],
                       "main_path_plans": launches["plans"],
                       "multi_gpu": mgpu, "tensor_parallel": {
                           "one_card": tp["rec"],

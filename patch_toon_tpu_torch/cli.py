@@ -5,10 +5,10 @@ video), once or as a watched service.
     python generator_torch.py paths.checkpoint=... paths.input_dir=... \
         paths.mask_dir=... paths.output_dir=... [key=value ...]
 
-The same ``paths.*`` / ``inference.*`` dotlist overrides as the JAX
-package's ``generator.py``, composed over ``config/inference.yaml``; where
-PyYAML is not installed, over the same defaults kept as Python
-(``config/defaults.py``), which is said in one log line. With
+The same ``paths.*`` / ``inference.*`` dotlist overrides and config-group
+choices (``model=name``) as the JAX package's ``generator.py``, composed
+over ``config/inference.yaml`` by the port's own YAML reader
+(``config/yamlio.py``), so PyYAML is not needed. With
 ``inference.watch.enabled`` the CLI serves the input directory until its
 idle timeout or an interrupt, and SIGTERM takes Ctrl-C's path, so every
 dispatched frame reaches disk (JAX ``generator.py:56-72``).
@@ -30,7 +30,7 @@ import signal
 import sys
 from pathlib import Path
 
-from patch_toon_tpu_torch.config.compose import compose, compose_without_yaml
+from patch_toon_tpu_torch.config.compose import compose
 from patch_toon_tpu_torch.utils.logging import configure_logging
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "config"
@@ -39,19 +39,7 @@ logger = logging.getLogger("patch_toon_tpu_torch.cli")
 
 def load_config(argv):
     """The inference config: ``config/inference.yaml`` composed with the
-    overrides, or without PyYAML the composed defaults of
-    ``config/defaults.py`` with the same overrides."""
-    try:
-        import yaml  # noqa: F401
-    except ImportError:
-        from patch_toon_tpu_torch.config.defaults import (
-            INFERENCE,
-            INFERENCE_LINKS,
-        )
-
-        logger.info("PyYAML is not installed: composing the inference "
-                    "defaults of config/defaults.py with the overrides")
-        return compose_without_yaml(INFERENCE, list(argv), INFERENCE_LINKS)
+    overrides."""
     return compose(CONFIG_DIR, "inference", overrides=list(argv))
 
 

@@ -4,10 +4,11 @@ Copy of ``patch_toon_tpu/config/compose.py``: a root YAML with a
 ``defaults:`` list of group configs and ``_self_`` positioning,
 ``${a.b.c}`` interpolation with the ``now:`` and ``oc.env:`` resolvers,
 CLI dotlist overrides (``a.b=v``, ``+a.b=v``, ``~a.b``, ``group=name``) and
-attribute access through :class:`ConfigNode`. ``yaml`` is imported inside
-the functions that parse YAML text, so importing this module needs none;
-``defaults.INFERENCE`` holds the composed inference defaults as a plain
-dict for machines without PyYAML, which :func:`compose_without_yaml`
+attribute access through :class:`ConfigNode`. The YAML files, the override
+values and the run directory's snapshot are read and written by the port's
+own :mod:`yamlio` (what PyYAML's ``safe_load`` and ``safe_dump`` give), so
+nothing here needs PyYAML. ``defaults.INFERENCE`` holds the composed
+inference defaults as a plain dict, which :func:`compose_without_yaml`
 overrides as :func:`compose` does.
 """
 
@@ -18,6 +19,8 @@ import datetime
 import re
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
+
+from patch_toon_tpu_torch.config import yamlio
 
 _INTERP_RE = re.compile(r"\$\{([^{}]+)\}")
 
@@ -63,20 +66,13 @@ def to_container(obj: Any, resolve: bool = True) -> Any:  # noqa: ARG001
 
 
 def load_yaml(path: Union[str, Path]) -> ConfigNode:
-    import yaml
-
-    with open(path, "r") as f:
-        data = yaml.safe_load(f)
-    return _wrap(data or {})
+    return _wrap(yamlio.load(Path(path).read_text()) or {})
 
 
 def save(cfg: ConfigNode, path: Union[str, Path]) -> None:
     """Write the resolved config as YAML (the run directory's snapshot)."""
-    import yaml
-
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "w") as f:
-        yaml.safe_dump(to_container(cfg), f, sort_keys=False)
+    Path(path).write_text(yamlio.dump(to_container(cfg)))
 
 
 def merge(base: ConfigNode, other: ConfigNode) -> ConfigNode:
@@ -146,82 +142,15 @@ def resolve(cfg: ConfigNode) -> ConfigNode:
 
 
 def _parse_override_value(text: str) -> Any:
-    import yaml
-
     if text == "":
         return None
-    return yaml.safe_load(text)
+    return yamlio.load(text)
 
 
-# PyYAML's (YAML 1.1) implicit scalars, for the overrides of a machine
-# without it
-_NULLS = ("~", "null", "Null", "NULL", "")
-_BOOLS = {v: b for b, vs in (
-    (True, "yes Yes YES true True TRUE on On ON"),
-    (False, "no No NO false False FALSE off Off OFF")) for v in vs.split()}
-_INT_RE = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
-_FLOAT_RE = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?"
-                       r"|\.[0-9_]+([eE][-+][0-9]+)?")
-
-
-def _split_flow(body: str) -> List[str]:
-    """The items of a flow sequence's or mapping's body, split at the
-    commas outside brackets and quotes."""
-    items, depth, quote, cur = [], 0, None, ""
-    for ch in body:
-        if quote:
-            quote = None if ch == quote else quote
-        elif ch in "'\"":
-            quote = ch
-        elif ch in "[{":
-            depth += 1
-        elif ch in "]}":
-            depth -= 1
-        elif ch == "," and depth == 0:
-            items.append(cur)
-            cur = ""
-            continue
-        cur += ch
-    if cur.strip():
-        items.append(cur)
-    return [i.strip() for i in items]
-
-
-def parse_scalar(text: str) -> Any:
-    """An override's value as ``yaml.safe_load`` reads the forms a dotlist
-    uses (null, bools, decimal ints, floats, quoted strings, flow
-    sequences and mappings; anything else a string), without PyYAML."""
-    t = text.strip()
-    if t in _NULLS:
-        return None
-    if t in _BOOLS:
-        return _BOOLS[t]
-    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
-        return t[1:-1]
-    if t.startswith("[") and t.endswith("]"):
-        return [parse_scalar(i) for i in _split_flow(t[1:-1])]
-    if t.startswith("{") and t.endswith("}"):
-        out = {}
-        for item in _split_flow(t[1:-1]):
-            key, _, value = item.partition(":")
-            out[parse_scalar(key)] = parse_scalar(value)
-        return out
-    if _INT_RE.fullmatch(t):
-        return int(t.replace("_", ""))
-    if _FLOAT_RE.fullmatch(t):
-        return float(t.replace("_", ""))
-    if t.lower() in (".inf", "+.inf", "-.inf"):
-        return float(t.lower().replace(".", ""))
-    if t.lower() == ".nan":
-        return float("nan")
-    return t
-
-
-def apply_overrides(cfg: ConfigNode, overrides: List[str],
-                    parse=_parse_override_value) -> ConfigNode:
+def apply_overrides(cfg: ConfigNode, overrides: List[str]) -> ConfigNode:
     """Apply dotlist overrides (``a.b=v``, ``+a.b=v``, ``~a.b``) to
-    ``cfg`` in place, each value read by ``parse``; -> the resolved
-    tree."""
+    ``cfg`` in place, each value read as ``yaml.safe_load`` reads it; ->
+    the resolved tree."""
     for ov in overrides:
         if ov.startswith("~"):
             _delete_dotted(cfg, ov[1:].split("=", 1)[0])
@@ -231,7 +160,7 @@ def apply_overrides(cfg: ConfigNode, overrides: List[str],
         if "=" not in body:
             raise ValueError(f"Malformed override (need key=value): {ov!r}")
         key, text = body.split("=", 1)
-        _set_dotted(cfg, key, None if text == "" else parse(text),
+        _set_dotted(cfg, key, _parse_override_value(text),
                     allow_new=allow_new or True)
     return resolve(cfg)
 
@@ -346,8 +275,7 @@ def compose_without_yaml(defaults: Dict[str, Any],
                          links: Optional[Dict[str, str]] = None
                          ) -> ConfigNode:
     """A composed tree kept as Python (``config/defaults.py``) with the
-    same dotlist overrides as :func:`compose`, their values read by
-    :func:`parse_scalar`: for a machine without PyYAML. ``links``
+    same dotlist overrides as :func:`compose`. ``links``
     (dotted key -> ``${...}``) puts the YAML's interpolations back first,
     so an override of their source carries through. A config-group choice
     (``group=name``) needs the YAML files and raises."""
@@ -358,6 +286,6 @@ def compose_without_yaml(defaults: Dict[str, Any],
         if not ov.startswith(("+", "~")) and "=" in ov \
                 and "." not in ov.split("=", 1)[0]:
             raise ValueError(f"{ov!r} chooses a config group, which needs "
-                             "the YAML files and PyYAML")
-    return apply_overrides(cfg, list(overrides or []), parse=parse_scalar)
+                             "the YAML files (compose)")
+    return apply_overrides(cfg, list(overrides or []))
 

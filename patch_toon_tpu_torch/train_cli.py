@@ -8,9 +8,10 @@ over comma-separated values, the run directory
 (``${training.output_dir}/<date>/<time>`` unless ``run.dir`` is given) with
 the resolved config snapshotted into it, and a synthetic sample scene made
 on first use when the configured scene lies under ``test_dataset/``
-(``tools/make_sample_scene.py``). ``training.accelerator=cpu`` trains on
-the CPU; otherwise on the CUDA card, and a missing card raises. Needs
-PyYAML for the config.
+(``data/sample_scene.py``). ``training.accelerator=cpu`` trains on
+the CPU; otherwise on the CUDA card, and a missing card raises. The config
+is read and written by the port's own YAML code (``config/yamlio.py``):
+neither PyYAML nor Pillow is needed.
 
 Several devices (JAX ``train.py:77-144``), one rank a device, each
 training on its rows of the global ``training.batch_size``
@@ -56,12 +57,14 @@ from typing import Any, Iterator, List
 import torch
 
 from patch_toon_tpu_torch import parallel
+from patch_toon_tpu_torch.config import yamlio
 from patch_toon_tpu_torch.config.compose import (
     _wrap,
     compose,
     save,
     to_container,
 )
+from patch_toon_tpu_torch.data.sample_scene import make_scene
 from patch_toon_tpu_torch.utils.logging import configure_logging
 
 REPO = Path(__file__).resolve().parents[1]
@@ -89,10 +92,7 @@ def ensure_sample_data(cfg: Any, primary: bool = True) -> None:
             time.sleep(0.1)
         raise TimeoutError(f"waited for process 0 to generate {scene}")
     print(f"Sample scene {scene} not found — generating a synthetic one "
-          f"(tools/make_sample_scene.py)")
-    sys.path.insert(0, str(REPO / "tools"))
-    from make_sample_scene import make_scene
-
+          f"(data/sample_scene.py)")
     make_scene(str(scene), frames=7)
     sentinel.touch()
 
@@ -128,8 +128,6 @@ def train_rank(device: torch.device, cfg: Any, run_dir: str) -> None:
 
 
 def train(cfg: Any) -> None:
-    import yaml
-
     _model(cfg)  # the knobs are checked before any process starts
     tc = cfg.training
     cpu = str(tc.get("accelerator", "auto")) == "cpu"
@@ -190,7 +188,7 @@ def train(cfg: Any) -> None:
     if primary:
         run_dir.mkdir(parents=True, exist_ok=True)
         print("=== Resolved config ===")
-        print(yaml.safe_dump(to_container(cfg), sort_keys=False))
+        print(yamlio.dump(to_container(cfg)))
         save(cfg, run_dir / "config.yaml")
     ensure_sample_data(cfg, primary)
     args = (to_container(cfg), str(run_dir))
